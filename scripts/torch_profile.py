@@ -1,0 +1,94 @@
+"""Where the time goes in the PyTorch port's exact fast path, on one GPU.
+
+    python3 scripts/torch_profile.py [--n 16777216]
+
+Builds the benchmark-scale census (benchmarks/common.py SCALE) and its
+covering at max_level 9, then for each path (``fast``, ``fast`` with
+``fused=True``, ``fast_onepass``) runs one warm batch of ``--n`` points
+under ``torch.profiler`` and prints the wall time of the batch, the
+device time summed over its kernels (busy share = device / wall), and
+the operators with the most device time.  Needs a CUDA device.
+"""
+import argparse
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCALE = dict(seed=0, n_states=16, counties_per_state=8, blocks_per_county=24)
+TOP = 10
+
+
+def device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1 << 24)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.core.cells import build_cell_covering
+    from repro_torch.core.engine import EngineConfig, GeoEngine
+    from repro_torch.core.synth import build_synth_census
+
+    sc = build_synth_census(**SCALE)
+    cov = build_cell_covering(sc.census, max_level=9)
+    cfg = EngineConfig(mode="exact", cap_boundary=0.5)
+    engines = {
+        "fast": GeoEngine.build(sc.census, "fast", cfg, covering=cov),
+        "fast_fused": GeoEngine.build(
+            sc.census, "fast", dataclasses.replace(cfg, fused=True),
+            covering=cov),
+        "fast_onepass": GeoEngine.build(sc.census, "fast_onepass", cfg,
+                                        covering=cov),
+    }
+    xy, *_ = sc.sample_points(np.random.default_rng(0), args.n)
+    pts = torch.from_numpy(xy).cuda()
+    for name, eng in engines.items():
+        eng.assign(pts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.assign(pts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                         key=device_us, reverse=True)
+        ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
+                     key=device_us, reverse=True)
+        busy = sum(device_us(e) for e in kernels) / 1e3
+        print(f"== {name}: wall {wall * 1e3:.3f} ms, device {busy:.3f} ms "
+              f"(busy {busy / (wall * 1e3):.1%}), {args.n} points")
+        for title, rows in (("operators", ops), ("kernels", kernels)):
+            print(f"  top {title} by device time:")
+            for e in rows[:TOP]:
+                us = device_us(e)
+                if us <= 0:
+                    break
+                print(f"  {us / 1e3:9.3f} ms  {us / 1e3 / busy:6.1%}  "
+                      f"x{e.count:<4d} {e.key[:80]}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

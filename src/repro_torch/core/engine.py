@@ -1,0 +1,217 @@
+"""GeoEngine: plan-and-execute facade over registered mapping strategies
+(port of src/repro/core/engine.py; DESIGN.md §3, §11).
+
+    eng = GeoEngine.build(census, strategy="fast")      # index on cuda
+    res = eng.assign(points)          # AssignResult of [N] i32 tensors
+    res.block                         # block ids (-1 = off-map)
+    eng.explain()                     # {"strategy": ..., "reasons": [...]}
+
+The index and every assigned batch live on ``device`` — "cuda" unless
+the caller passes ``device="cpu"`` (the tests do), and there is no
+fallback to the CPU when no card is found.  On the card the exact fast
+path runs the hand-written CUDA kernels: ``fused=False`` the gathered
+PIP kernel, ``fused=True`` the candidate PIP kernel over the edge pool,
+``fused="onepass"`` (the ``fast_onepass`` strategy) the one-pass
+cascade.  Results are identical in all three.  Capability gaps surface
+as ValueError at construction, never at the first assign.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import fast as fast_mod
+from repro_torch.core import plan as plan_mod
+from repro_torch.core import strategies as _strategies  # noqa: F401  (registers
+#                                                         the plugins)
+from repro_torch.core.artifact import GeoIndexSet
+from repro_torch.core.fast import FastConfig
+from repro_torch.core.geometry import CensusMap
+from repro_torch.core.registry import available_strategies, get_strategy
+from repro_torch.core.resolve import AssignResult
+from repro_torch.kernels import ops
+
+# Names an explicit ``GeoEngine.build(strategy=...)`` accepts ("auto"
+# additionally asks the planner).
+STRATEGIES = ("fast", "fast_onepass")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine knobs (the fast path's subset of the JAX package's;
+    the cascade's caps come with the simple-cascade slice)."""
+
+    backend: str | None = None   # kernel backend override
+    mode: str = "exact"          # fast boundary handling: exact | approx
+    cap_boundary: float = 0.25   # boundary compaction fraction
+    max_level: int = 9           # covering depth
+    gbits: int = 4               # top-grid bits
+    max_cand: int = 8            # boundary candidate list width
+    fused: bool | str = False    # False | True | "onepass" (see module doc)
+
+    def fast_cfg(self) -> FastConfig:
+        return FastConfig(mode=self.mode, cap_boundary=self.cap_boundary,
+                          backend=self.backend, fused=self.fused)
+
+
+class GeoEngine:
+    """Facade: plan once, build once, assign many (see module docstring)."""
+
+    def __init__(self, strategy: str, cfg: Optional[EngineConfig] = None, *,
+                 indices: GeoIndexSet,
+                 plan: Optional[plan_mod.GeoPlan] = None):
+        """Wrap already-built indices.  Capability validation happens
+        HERE: a misconfigured engine never constructs."""
+        self.cfg = cfg or EngineConfig()
+        self._impl = get_strategy(strategy)
+        self.strategy = strategy
+        self.indices = indices
+        self._impl.validate(indices, self.cfg)
+        self.plan = plan if plan is not None else plan_mod.explicit_plan(
+            strategy, self.cfg, plan_mod.device_kind_of(indices.device))
+
+    @classmethod
+    def build(cls, census: CensusMap, strategy: str = "fast",
+              cfg: Optional[EngineConfig] = None, covering=None, *,
+              device="cuda") -> "GeoEngine":
+        """Build the indices ``strategy`` needs from a host census, on
+        ``device``.  ``strategy="auto"`` builds the covering, asks the
+        planner, and builds to its plan."""
+        cfg = cfg or EngineConfig()
+        indices = GeoIndexSet(census=census, covering=covering,
+                              max_level=cfg.max_level, gbits=cfg.gbits,
+                              max_cand=cfg.max_cand, device=device)
+        plan = None
+        if strategy == "auto":
+            indices.ensure("covering")
+            plan = plan_mod.plan_for(
+                cfg, covering=indices.covering, tuning=indices.tuning,
+                device_kind=plan_mod.device_kind_of(device))
+            cfg = plan.apply(cfg)
+            strategy = plan.strategy
+        return cls._ensured(strategy, cfg, indices, plan)
+
+    @classmethod
+    def from_index_set(cls, indices: GeoIndexSet, strategy: str = "auto",
+                       cfg: Optional[EngineConfig] = None) -> "GeoEngine":
+        """Build over an existing artifact; its build parameters
+        (max_level / gbits / max_cand) override the config's."""
+        cfg = dataclasses.replace(cfg or EngineConfig(),
+                                  max_level=indices.max_level,
+                                  gbits=indices.gbits,
+                                  max_cand=indices.max_cand)
+        plan = None
+        if strategy == "auto":
+            if indices.census is not None:
+                indices.ensure("covering")
+            plan = plan_mod.plan_for(
+                cfg, covering=indices.covering,
+                capabilities=indices.capabilities(), tuning=indices.tuning,
+                device_kind=plan_mod.device_kind_of(indices.device))
+            cfg = plan.apply(cfg)
+            strategy = plan.strategy
+        if indices.census is None:
+            return cls(strategy, cfg, indices=indices, plan=plan)
+        return cls._ensured(strategy, cfg, indices, plan)
+
+    @classmethod
+    def _ensured(cls, strategy, cfg, indices, plan) -> "GeoEngine":
+        impl = get_strategy(strategy)
+        for comp in impl.required_components(cfg):
+            indices.ensure(comp)
+        for comp in impl.pool_components(cfg):
+            indices.ensure(comp, pool=True)
+        return cls(strategy, cfg, indices=indices, plan=plan)
+
+    # -- index views ---------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(self.indices.device)
+
+    @property
+    def fast_index(self):
+        return self.indices.fast
+
+    @property
+    def covering(self):
+        return self.indices.covering
+
+    # -- planning introspection ---------------------------------------------
+
+    def explain(self, n_points: Optional[int] = None) -> dict:
+        """The engine's plan as a JSON-ready dict; with a batch-size hint,
+        what the planner would choose for that batch against this
+        engine's built capabilities."""
+        if n_points is None:
+            return self.plan.as_dict()
+        return plan_mod.plan_for(
+            self.cfg, covering=self.indices.covering,
+            capabilities=self.indices.capabilities(), n_points=n_points,
+            tuning=self.indices.tuning,
+            device_kind=plan_mod.device_kind_of(self.device)).as_dict()
+
+    # -- assign ---------------------------------------------------------------
+
+    def _points(self, points) -> torch.Tensor:
+        return torch.as_tensor(points, dtype=torch.float32,
+                               device=self.device)
+
+    def assign(self, points) -> AssignResult:
+        """Map [N, 2] (lon, lat) points (array or tensor; moved to the
+        engine's device) -> AssignResult of [N] i32 id tensors (-1 = not
+        on the map) and a GeoStats."""
+        return self._impl.assign(self.indices, self._points(points),
+                                 self.cfg)
+
+    def assign_padded(self, points, n_valid) -> AssignResult:
+        """Shape-stable assign over a padded batch: rows >= ``n_valid``
+        are rewritten to ``ops.FAR`` (outside every extent, bbox and
+        polygon), so they enter no need mask, compaction or PIP call,
+        the GeoStats counters equal an unpadded assign of the valid
+        prefix, and pad rows come back -1 in all three id tensors."""
+        if not self._impl.caps.supports_padded:
+            raise ValueError(f"strategy {self.strategy!r} does not "
+                             f"support padded batches")
+        pts = self._points(points)
+        valid = torch.arange(pts.shape[0], device=self.device) < n_valid
+        masked = torch.where(valid[:, None], pts, ops.FAR)
+        res = self.assign(masked)
+        return AssignResult(torch.where(valid, res.state, -1),
+                            torch.where(valid, res.county, -1),
+                            torch.where(valid, res.block, -1), res.stats)
+
+    # -- index / extent handles ---------------------------------------------
+
+    def extent_quant(self) -> tuple[np.ndarray, int]:
+        """(quant [4] f32 = (x0, y0, sx, sy), max_level) of the fast index
+        (every ported strategy reads one)."""
+        return (self.fast_index.quant.cpu().numpy(),
+                self.fast_index.max_level)
+
+    def extent_contains(self, points) -> np.ndarray:
+        """[N] bool (host numpy) — True where the point lies inside this
+        engine's map extent (``fast.np_extent_mask``)."""
+        quant, max_level = self.extent_quant()
+        return fast_mod.np_extent_mask(quant, max_level, points)
+
+    def host_parents(self) -> tuple[np.ndarray, np.ndarray]:
+        """(block_parent [Nb], county_parent [Nc]) as host arrays."""
+        index = self.fast_index
+        return (index.block_parent.cpu().numpy(),
+                index.county_parent.cpu().numpy())
+
+    def assign_sharded(self, points, mesh) -> AssignResult:
+        """Not ported yet: the sharded lookup comes with the distributed
+        slice (ROADMAP queue 1, item 11)."""
+        raise NotImplementedError(
+            "GeoEngine.assign_sharded is not ported to repro_torch yet; "
+            "it comes with the distributed slice (ROADMAP queue 1, "
+            "item 11)")
+
+
+__all__ = ["EngineConfig", "GeoEngine", "GeoIndexSet", "STRATEGIES",
+           "available_strategies"]

@@ -1,0 +1,134 @@
+"""Public kernel API: natural layouts, empty-table normalization, backend
+dispatch (port of src/repro/kernels/ops.py, exact fast path only).
+
+Backend selection (``REPRO_TORCH_KERNELS`` env var or explicit
+``backend=``):
+  * ``cuda`` — the hand-written CUDA kernels (``csrc/``);
+  * ``ref``  — the plain PyTorch twins in ref.py;
+  * ``auto`` — ``cuda`` for tensors on a CUDA device, ``ref`` for CPU
+               tensors (default).
+Asking for ``cuda`` with CPU tensors raises, and so does asking for
+``ref`` with CUDA tensors: no tensor on the card ever reaches a twin.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import cascade as cascade_kernels
+from repro_torch.kernels import gather_pip as gather_pip_kernels
+from repro_torch.kernels import pip as pip_kernels
+from repro_torch.kernels import ref
+# re-export: ops is the one import surface strategy code uses.
+# geolint: ignore[unused-import] -- re-export through ops.*
+from repro_torch.kernels.gather_pip import (DEF_BE, EdgePool,  # noqa: F401
+                                            build_edge_pool)
+
+# A padding point guaranteed outside every bbox / polygon we generate.
+FAR = 1.0e30
+
+BACKENDS = ("cuda", "ref")
+
+
+def resolve_backend(backend: str | None, device) -> str:
+    """The backend that runs tensors on ``device`` (see module doc)."""
+    b = backend or os.environ.get("REPRO_TORCH_KERNELS", "auto")
+    on_cuda = torch.device(device).type == "cuda"
+    if b == "auto":
+        b = "cuda" if on_cuda else "ref"
+    if b not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {b!r}; expected one of "
+                         f"{BACKENDS} or 'auto'")
+    if (b == "cuda") != on_cuda:
+        raise ValueError(f"kernel backend {b!r} cannot run tensors on "
+                         f"{device}")
+    return b
+
+
+def pip_gathered(points: torch.Tensor, edges: torch.Tensor,
+                 backend: str | None = None) -> torch.Tensor:
+    """Inside mask where each point brings its own [E, 4] edges: [N, E, 4]."""
+    b = resolve_backend(backend, points.device)
+    if b == "ref":
+        return ref.pip_gathered(points, edges)
+    cross = pip_kernels.crossings_gathered(
+        points.float().contiguous(), edges.float().contiguous())
+    return (cross & 1).bool()
+
+
+def pip_candidates(points: torch.Tensor, pids: torch.Tensor, pool: EdgePool,
+                   backend: str | None = None) -> torch.Tensor:
+    """Inside mask of [N, 2] points vs their own candidate polygon ids [N]
+    (id < 0 = no candidate, never inside), read straight out of the
+    blocked-CSR ``pool`` — no gathered [N, E, 4] edge table."""
+    b = resolve_backend(backend, points.device)
+    if pool.n_poly == 0:               # empty polygon table: nothing matches
+        return torch.zeros(points.shape[0], dtype=torch.bool,
+                           device=points.device)
+    valid = pids >= 0
+    safe = pids.clamp(0, max(pool.n_poly - 1, 0))
+    first = torch.where(valid, pool.first[safe], 0).int()
+    nblk = torch.where(valid, pool.count[safe], 0).int()
+    if b == "ref":
+        cross = ref.crossings_candidates(points, first, nblk, pool.blocks,
+                                         pool.max_blocks)
+    else:
+        cross = gather_pip_kernels.crossings_candidates(
+            first, nblk, points.float().contiguous(), pool.blocks,
+            max_blocks=pool.max_blocks)
+    return (cross & 1).bool() & valid
+
+
+def assign_cascade(points: torch.Tensor, quant: torch.Tensor,
+                   cell_lo: torch.Tensor, cell_hi: torch.Tensor,
+                   cell_val: torch.Tensor, top_start: torch.Tensor,
+                   cand: torch.Tensor, bbox: torch.Tensor, pool: EdgePool,
+                   *, max_level: int, gbits: int, search_iters: int,
+                   backend: str | None = None):
+    """One-pass fused cascade: [N, 2] points -> (bid, flags, nrest,
+    nskip), each [N] i32 (kernels/cascade.py has the encoding).
+
+    ``bbox`` is the [P, 4] (xmin, xmax, ymin, ymax) table aligned with
+    the pool's polygon ids.  Empty cell / candidate / polygon tables are
+    normalized here so both backends see the same never-matching
+    sentinels.
+    """
+    dev = points.device
+    b = resolve_backend(backend, dev)
+    i32 = torch.int32
+    if cand.shape[0] == 0 or cand.shape[1] == 0:
+        cand = torch.full((1, max(cand.shape[1], 1)), -1, dtype=i32,
+                          device=dev)
+    if cell_lo.shape[0] == 0:
+        # One unreachable row (lo > hi never brackets a code).
+        cell_lo = torch.ones(1, dtype=i32, device=dev)
+        cell_hi = torch.zeros(1, dtype=i32, device=dev)
+        cell_val = torch.zeros(1, dtype=i32, device=dev)
+    first, count, blocks = pool.first, pool.count, pool.blocks
+    if pool.n_poly == 0:
+        first = torch.zeros(1, dtype=i32, device=dev)
+        count = torch.zeros(1, dtype=i32, device=dev)
+        bbox = torch.tensor([[1.0, 0.0, 1.0, 0.0]], device=dev)  # empty box
+    elif bbox.shape[0] != pool.n_poly:
+        raise ValueError(f"bbox rows {bbox.shape[0]} != pool polygons "
+                         f"{pool.n_poly}")
+    iters = cascade_kernels.effective_iters(cell_lo.shape[0], gbits,
+                                            search_iters)
+    if b == "ref":
+        return ref.assign_cascade(
+            points, quant, cell_lo, cell_hi, cell_val, top_start, cand,
+            bbox, first, count, blocks, max_level=max_level, gbits=gbits,
+            search_iters=iters, max_blocks=pool.max_blocks)
+    return cascade_kernels.assign_cascade(
+        points.float().contiguous(), quant, cell_lo, cell_hi, cell_val,
+        top_start, cand, bbox, first, count, blocks, max_level=max_level,
+        gbits=gbits, search_iters=iters)
+
+
+def edges_from_soup_np(verts: np.ndarray) -> np.ndarray:
+    """[P, max_v+1, 2] padded rings -> [P, max_v, 4] edge tables (host)."""
+    a = verts[:, :-1, :]
+    c = verts[:, 1:, :]
+    return np.concatenate([a, c], axis=-1)

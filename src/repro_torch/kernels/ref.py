@@ -1,0 +1,163 @@
+"""Plain PyTorch twins of the hand-written kernels.
+
+Each function here is written op for op as its counterpart in
+src/repro/kernels/ref.py, so on the same inputs it gives bit-equal
+results.  The twins are the CPU backend (``ops`` picks them for CPU
+tensors), what the CPU tests hold against the JAX reference, and what
+chip_smoke.py holds each CUDA kernel against on the card.
+
+Crossing-number test (paper §III-A): a point is inside a polygon iff a
+ray in +x crosses the boundary an odd number of times.  Edge
+(x1,y1)-(x2,y2) is crossed iff it straddles the point's y (half-open
+rule ``(y1 > py) != (y2 > py)``) and the intersection lies right of the
+point, tested without division as
+
+    (px - x1) * (y2 - y1)  <  (py - y1) * (x2 - x1)      [sign-adjusted]
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.cascade import OUTSIDE, morton
+
+
+def _cross(px, py, x1, y1, x2, y2):
+    straddle = (y1 > py) != (y2 > py)
+    lhs = (px - x1) * (y2 - y1)
+    rhs = (py - y1) * (x2 - x1)
+    return straddle & ((lhs < rhs) == (y2 > y1))
+
+
+def crossings_gathered(points: torch.Tensor,
+                       edges: torch.Tensor) -> torch.Tensor:
+    """Crossing counts where each point has its own edge table.
+
+    points [N, 2] float, edges [N, E, 4] float -> [N] int32.
+    """
+    px = points[:, 0:1]
+    py = points[:, 1:2]
+    cross = _cross(px, py, edges[..., 0], edges[..., 1], edges[..., 2],
+                   edges[..., 3])
+    return cross.sum(dim=1, dtype=torch.int32)
+
+
+def pip_gathered(points: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    return (crossings_gathered(points, edges) & 1).bool()
+
+
+def crossings_candidates(points: torch.Tensor, first: torch.Tensor,
+                         count: torch.Tensor, blocks: torch.Tensor,
+                         max_blocks: int) -> torch.Tensor:
+    """Twin of the candidate-PIP kernel (kernels/gather_pip.py).
+
+    points [N, 2] float; first/count [N] i32 — each point's pool block
+    range (count 0 = no candidate); blocks [NB, 4, BE] float with block 0
+    all-zero (the masked-gather target); max_blocks the max of ``count``
+    over the pool.  Returns [N] int32.
+    """
+    b = torch.arange(max_blocks, dtype=torch.int32,
+                     device=points.device)[None, :]
+    ix = torch.where(b < count[:, None], first[:, None] + b, 0)
+    g = blocks[ix.clamp(0, blocks.shape[0] - 1)]        # [N, MAXB, 4, BE]
+    px = points[:, 0][:, None, None]
+    py = points[:, 1][:, None, None]
+    cross = _cross(px, py, g[:, :, 0], g[:, :, 1], g[:, :, 2], g[:, :, 3])
+    return cross.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def pip_candidates(points: torch.Tensor, first: torch.Tensor,
+                   count: torch.Tensor, blocks: torch.Tensor,
+                   max_blocks: int) -> torch.Tensor:
+    return (crossings_candidates(points, first, count, blocks, max_blocks)
+            & 1).bool()
+
+
+def grid_coord(f: torch.Tensor, nmax: int) -> torch.Tensor:
+    """Float grid coordinate -> int32 in [0, nmax], clamped BEFORE the
+    cast (NaN -> 0).  An off-extent, FAR or NaN coordinate would
+    otherwise cast to an arbitrary integer and index the tables out of
+    bounds; such points are masked by the extent test, so only the read
+    has to stay in bounds.  In-extent values are the same as the JAX
+    reference's cast-then-clip; the CUDA kernel clamps the same way."""
+    return torch.nan_to_num(f, nan=0.0).clamp(0, nmax).to(torch.int32)
+
+
+def assign_cascade(points: torch.Tensor, quant: torch.Tensor,
+                   cell_lo: torch.Tensor, cell_hi: torch.Tensor,
+                   cell_val: torch.Tensor, top_start: torch.Tensor,
+                   cand: torch.Tensor, bbox: torch.Tensor,
+                   first: torch.Tensor, count: torch.Tensor,
+                   blocks: torch.Tensor, *, max_level: int, gbits: int,
+                   search_iters: int, max_blocks: int):
+    """Twin of the one-pass cascade kernel (kernels/cascade.py): the
+    kernel's per-point schedule vectorized — same quantize arithmetic,
+    same fixed-iteration cell search, same slot-ordered bbox-gated
+    candidate walk.
+
+    Inputs must be normalized as ``ops.assign_cascade`` does (``cand``
+    [B>=1, K>=1], ``search_iters`` already ``effective_iters``-adjusted).
+    Returns (bid, flags, nrest, nskip), each [N] i32.
+    """
+    n_cells = cell_lo.shape[0]
+    pts = points.float()
+    px, py = pts[:, 0], pts[:, 1]
+    span = float(1 << max_level)
+    fx = (px - quant[0]) * quant[2]
+    fy = (py - quant[1]) * quant[3]
+    in_ext = (fx >= 0.0) & (fx < span) & (fy >= 0.0) & (fy < span)
+    nmax = (1 << max_level) - 1
+    code = morton(grid_coord(fx, nmax), grid_coord(fy, nmax))
+
+    if gbits > 0:
+        shift = 2 * (max_level - gbits)
+        bucket = code >> shift
+        l = (top_start[bucket] - 1).clamp(min=0)
+        h = top_start[bucket + 1]
+    else:
+        l = torch.zeros_like(code)
+        h = torch.full_like(code, n_cells)
+    for _ in range(search_iters):
+        active = l < h
+        mid = (l + h) // 2
+        go_right = cell_lo[mid.clamp(0, n_cells - 1)] <= code
+        nl = torch.where(active & go_right, mid + 1, l)
+        nh = torch.where(active & ~go_right, mid, h)
+        l, h = nl, nh
+    cidx = (l - 1).clamp(0, n_cells - 1)
+    in_cell = (cell_lo[cidx] <= code) & (code <= cell_hi[cidx]) & in_ext
+    v = torch.where(in_cell, cell_val[cidx], OUTSIDE)
+
+    boundary = (v < 0) & (v > OUTSIDE)
+    brow = (-(v + 1)).clamp(0, cand.shape[0] - 1)
+    n_poly = first.shape[0]
+    n = points.shape[0]
+    best = torch.full((n,), -1, dtype=torch.int32, device=points.device)
+    slot0_hit = torch.zeros(n, dtype=torch.bool, device=points.device)
+    nrest = torch.zeros(n, dtype=torch.int32, device=points.device)
+    nskip = torch.zeros(n, dtype=torch.int32, device=points.device)
+    for s in range(cand.shape[1]):
+        pid = cand[brow, s]
+        valid = boundary & (pid >= 0)
+        if s > 0:
+            nrest = nrest + valid.int()
+        attempt = valid & (best < 0)
+        safe = pid.clamp(0, n_poly - 1)
+        bb = bbox[safe]
+        inb = ((px > bb[:, 0]) & (px < bb[:, 1])
+               & (py > bb[:, 2]) & (py < bb[:, 3]))
+        do = attempt & inb
+        nskip = nskip + (attempt & ~inb).int()
+        nblk = torch.where(do, count[safe], 0)
+        cross = crossings_candidates(pts, first[safe], nblk, blocks,
+                                     max_blocks)
+        inside = do & ((cross & 1) == 1)
+        best = torch.where(inside, pid, best)
+        if s == 0:
+            slot0_hit = inside
+
+    fb0 = cand[brow, 0]
+    fallback = torch.where(fb0 >= 0, fb0, -1)
+    resolved = torch.where(best >= 0, best, fallback)
+    bid = torch.where(boundary, resolved, torch.where(v >= 0, v, -1))
+    flags = boundary.int() | (slot0_hit.int() << 1)
+    return bid.int(), flags, nrest, nskip

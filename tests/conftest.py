@@ -64,6 +64,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): fail the test if its body runs "
                    "longer than this (thread-based, no pytest-timeout)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one "
+                   "(chip_smoke.py checks the kernels on the card)")
 
 
 def pytest_collection_modifyitems(config, items):

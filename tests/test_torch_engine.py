@@ -1,0 +1,218 @@
+"""The port's engine (``repro_torch.core.engine.GeoEngine`` on the CPU)
+against the JAX package's with ``backend="ref"``: the same census,
+covering and points give equal state / county / block ids and equal
+``GeoStats`` counters for ``fast`` (approx, exact, exact+fused, and an
+exact config whose caps overflow) and ``fast_onepass``, through
+``assign``, ``assign_padded`` and the extent handles.  Tolerance: exact
+equality.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.artifact import GeoIndexSet as JIndexSet
+from repro.core.cells import build_cell_covering
+from repro.core.compact import capacity_for
+from repro.core.engine import EngineConfig as JConfig
+from repro.core.engine import GeoEngine as JEngine
+from repro.core.fast import cell_values as j_cell_values
+from repro.core.resolve import resolve_candidates as j_resolve
+from repro_torch.core import plan as t_plan
+from repro_torch.core.artifact import GeoIndexSet
+from repro_torch.core.cells import CellCovering
+from repro_torch.core.engine import EngineConfig, GeoEngine
+from repro_torch.core.registry import get_strategy
+from repro_torch.core.resolve import resolve_candidates as t_resolve
+
+CASES = {
+    "approx": ("fast", dict(mode="approx")),
+    "exact": ("fast", dict()),
+    "exact_fused": ("fast", dict(fused=True)),
+    "exact_capped": ("fast", dict(cap_boundary=0.01)),
+    "exact_fused_capped": ("fast", dict(cap_boundary=0.01, fused=True)),
+    "onepass": ("fast_onepass", dict()),
+    "onepass_cfg": ("fast", dict(fused="onepass")),
+}
+
+
+@pytest.fixture(scope="module")
+def covering(synth_small):
+    """One covering BFS (max_level 8), handed to both packages."""
+    return build_cell_covering(synth_small.census, max_level=8)
+
+
+@pytest.fixture(scope="module")
+def engines(synth_small, covering):
+    census = synth_small.census
+    t_cov = CellCovering(**dataclasses.asdict(covering))
+    out = {}
+    for name, (strategy, kw) in CASES.items():
+        out[name] = (
+            JEngine.build(census, strategy,
+                          JConfig(backend="ref", max_level=8, **kw),
+                          covering=covering),
+            GeoEngine.build(census, strategy,
+                            EngineConfig(max_level=8, **kw),
+                            covering=t_cov, device="cpu"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def points(synth_small, points_small):
+    """points_small plus off-extent, FAR and NaN rows."""
+    x0, x1, y0, y1 = synth_small.census.extent
+    extra = np.array([[x0 - 5.0, y0], [1e30, 1e30], [x1 + 1.0, y1],
+                      [0.0, 1e30], [np.nan, y0], [1e30, y0]], np.float32)
+    return np.concatenate([points_small[0], extra]).astype(np.float32)
+
+
+def _ids(res):
+    return [np.asarray(a) if not isinstance(a, torch.Tensor)
+            else a.numpy() for a in (res.state, res.county, res.block)]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_assign_matches_reference(engines, points, points_small, case):
+    j, t = engines[case]
+    rj, rt = j.assign(jnp.asarray(points)), t.assign(points)
+    for a, b in zip(_ids(rj), _ids(rt)):
+        np.testing.assert_array_equal(a, b)
+    assert rj.stats.as_dict() == rt.stats.as_dict()
+    block = _ids(rt)[2]
+    assert (block[-6:] == -1).all()
+    if case.startswith("exact") and "capped" not in case \
+            or case.startswith("onepass"):
+        np.testing.assert_array_equal(block[:len(points_small[1])],
+                                      points_small[1])
+    if "capped" in case:
+        assert rt.stats.as_dict()["overflow"] > 0
+
+
+@pytest.mark.parametrize("case", ["exact", "exact_fused", "onepass"])
+def test_assign_padded_matches_reference(engines, points, case):
+    j, t = engines[case]
+    padded = np.zeros((1024, 2), np.float32)
+    padded[:1000] = points[:1000]
+    rj = j.assign_padded(jnp.asarray(padded), 1000)
+    rt = t.assign_padded(padded, 1000)
+    for a, b in zip(_ids(rj), _ids(rt)):
+        np.testing.assert_array_equal(a, b)
+        assert (b[1000:] == -1).all()
+    assert rj.stats.as_dict() == rt.stats.as_dict()
+    assert rt.stats.as_dict() == t.assign(points[:1000]).stats.as_dict()
+
+
+def test_extent_and_parent_handles_match(engines, points):
+    j, t = engines["exact"]
+    np.testing.assert_array_equal(j.extent_contains(points),
+                                  t.extent_contains(points))
+    jq, jl = j.extent_quant()
+    tq, tl = t.extent_quant()
+    np.testing.assert_array_equal(jq, tq)
+    assert jl == tl
+    for a, b in zip(j.host_parents(), t.host_parents()):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["exact", "exact_fused", "onepass"])
+def test_explain_and_footprint_match(engines, case):
+    j, t = engines[case]
+    assert j.explain() == t.explain()
+    assert j.indices.memory_footprint() == t.indices.memory_footprint()
+    assert j.indices.capabilities() == t.indices.capabilities()
+
+
+def test_auto_plan_matches_reference(synth_small, covering):
+    """strategy="auto" lands on the same plan (the reasons' wording for
+    the device rule differs; the choice does not)."""
+    census = synth_small.census
+    j = JEngine.build(census, "auto", JConfig(backend="ref", max_level=8),
+                      covering=covering)
+    t = GeoEngine.build(census, "auto", EngineConfig(max_level=8),
+                        covering=CellCovering(**dataclasses.asdict(covering)),
+                        device="cpu")
+    keys = ("strategy", "mode", "fused", "sharded", "device_kind",
+            "boundary_fraction", "auto")
+    assert {k: j.explain()[k] for k in keys} == \
+        {k: t.explain()[k] for k in keys}
+    assert t.strategy == "fast"
+
+
+def test_from_index_set_matches_reference(synth_small, covering, points):
+    """An engine over an existing artifact (the planner reading its
+    capabilities) plans and assigns as the reference's does."""
+    census = synth_small.census
+    j = JEngine.from_index_set(
+        JIndexSet(census=census, covering=covering, max_level=8), "auto",
+        JConfig(backend="ref"))
+    t = GeoEngine.from_index_set(
+        GeoIndexSet(census=census,
+                    covering=CellCovering(**dataclasses.asdict(covering)),
+                    max_level=8, device="cpu"), "auto")
+    assert (j.strategy, j.cfg.fused, j.cfg.max_level) == \
+        (t.strategy, t.cfg.fused, t.cfg.max_level)
+    rj, rt = j.assign(jnp.asarray(points)), t.assign(points)
+    for a, b in zip(_ids(rj), _ids(rt)):
+        np.testing.assert_array_equal(a, b)
+    assert rj.stats.as_dict() == rt.stats.as_dict()
+
+
+@pytest.mark.parametrize("two_phase", [True, False])
+@pytest.mark.parametrize("fallback", ["first", "prior"])
+@pytest.mark.parametrize("pool, frac", [(False, 1.0), (True, 0.02)])
+def test_resolve_candidates_matches_reference(engines, points, two_phase,
+                                              fallback, pool, frac):
+    """Both schedules, both fallbacks, both PIP data paths, with roomy
+    and overflowing caps: equal assignments and counters."""
+    j, t = engines["onepass"]
+    jidx, tidx = j.fast_index, t.fast_index
+    jp = jnp.asarray(points)
+    val = np.asarray(j_cell_values(jidx, jp))
+    need = (val < 0) & (val > -2**30)
+    table = np.asarray(jidx.cand)
+    cand = table[np.clip(-(val + 1), 0, len(table) - 1)]
+    prior = np.where(val >= 0, val, -1).astype(np.int32)
+    cap = capacity_for(len(points), frac)
+    aj, sj = j_resolve(
+        jp, jnp.asarray(cand), jidx.block_edges, jnp.asarray(need),
+        cap=cap, backend="ref", prior=jnp.asarray(prior),
+        fallback=fallback, two_phase=two_phase,
+        edge_pool=jidx.edge_pool if pool else None)
+    at, st = t_resolve(
+        torch.from_numpy(points), torch.from_numpy(cand),
+        tidx.block_edges, torch.from_numpy(need), cap=cap,
+        prior=torch.from_numpy(prior), fallback=fallback,
+        two_phase=two_phase, edge_pool=tidx.edge_pool if pool else None)
+    np.testing.assert_array_equal(np.asarray(aj), at.numpy())
+    for f in ("n_need", "n_pip", "overflow", "phase2_miss"):
+        assert int(getattr(sj, f)) == int(getattr(st, f)), f
+    if frac < 1.0:
+        assert int(st.overflow) > 0
+
+
+def test_unported_choices_raise(engines, covering):
+    """A plan or call that needs a strategy not ported yet raises
+    NotImplementedError naming its slice — never a quiet substitute."""
+    heavy = dataclasses.replace(covering, val=-np.ones_like(covering.val))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        t_plan.plan_for(EngineConfig(), covering=heavy, device_kind="cpu")
+    with pytest.raises(NotImplementedError, match="simple"):
+        t_plan.plan_for(EngineConfig(), capabilities={}, device_kind="cpu")
+    for name in ("simple", "hybrid", "sharded"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            get_strategy(name)
+    with pytest.raises(NotImplementedError, match="distributed"):
+        engines["exact"][1].assign_sharded(np.zeros((4, 2), np.float32),
+                                           mesh=None)
+
+
+def test_fused_over_poolless_index_fails_at_build(engines):
+    _, t = engines["approx"]
+    with pytest.raises(ValueError, match="with_pool"):
+        GeoEngine("fast", EngineConfig(max_level=8, fused=True),
+                  indices=dataclasses.replace(
+                      t.indices, fast=dataclasses.replace(
+                          t.fast_index, edge_pool=None)))

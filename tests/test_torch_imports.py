@@ -1,0 +1,74 @@
+"""The port stands alone: no file under src/repro_torch, and not
+chip_smoke.py, imports ``jax`` or the JAX package ``repro`` (an AST scan
+of every import statement), importing the port's engine loads neither,
+and chip_smoke.py refuses to run without a CUDA device.
+"""
+import ast
+import glob
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "src", "repro_torch", "**",
+                                    "*.py"), recursive=True)
+) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:                 # relative: stays in the package
+                continue
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_files_found():
+    assert len(PORT_FILES) >= 17
+    assert "src/repro_torch/core/engine.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_jax_or_repro_import(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _run(args, cwd, env=None):
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_engine_import_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = _run(["-c", "import sys, repro_torch.core.engine, "
+              "repro_torch.kernels.ops; "
+              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro')); print(bad); "
+              "sys.exit(1 if bad else 0)"], cwd=REPO, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card the smoke exits non-zero and prints no result,
+    from the repo and from a directory that holds only the script."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for cwd in (REPO, str(tmp_path)):
+        r = _run(["chip_smoke.py"], cwd=cwd)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout

@@ -1,0 +1,291 @@
+"""The port's kernel layer (src/repro_torch/kernels) against the JAX
+package's: each plain PyTorch twin against ``repro.kernels.ref`` on the
+same numpy inputs, the edge-pool packing, the empty-table normalization
+and the backend dispatch.  Tolerance: exact equality throughout (crossing
+counts, ids, flags and the packed pool are integers or copied floats).
+
+The CUDA kernels themselves run only on a card: the cases marked
+``cuda`` hold each kernel against its twin there and skip elsewhere;
+chip_smoke.py checks the same on the main path's inputs.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.cells import build_cell_covering
+from repro.core.fast import FastIndex as JFastIndex
+from repro.kernels import cascade as j_cascade
+from repro.kernels import ops as j_ops
+from repro.kernels import ref as j_ref
+from repro_torch.core.fast import INDEX_FIELDS, FastIndex
+from repro_torch.kernels import cascade, gather_pip, ops, pip, ref
+
+NEEDS_CUDA = "needs a CUDA device; chip_smoke.py checks it"
+
+
+@pytest.fixture(scope="module")
+def indices(synth_small):
+    """The JAX package's index (gbits 4 and 0) over one covering, and the
+    port's index carried across from its arrays."""
+    census = synth_small.census
+    cov = build_cell_covering(census, max_level=8)
+    out = {}
+    for gbits in (4, 0):
+        j = JFastIndex.from_covering(cov, census, gbits=gbits,
+                                     with_pool=True)
+        out[gbits] = (j, _port_index(j))
+    return out
+
+
+def _port_index(j):
+    arrays = {f: np.asarray(getattr(j, f)) for f in INDEX_FIELDS}
+    arrays.update({f"edge_pool_{f}": np.asarray(getattr(j.edge_pool, f))
+                   for f in ("blocks", "first", "count")})
+    return FastIndex.from_numpy(arrays, max_level=j.max_level,
+                                gbits=j.gbits,
+                                search_iters=j.search_iters, device="cpu")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CUDA)
+    return torch.device("cuda")
+
+
+def _eq(a, b):
+    np.testing.assert_array_equal(np.asarray(a), b.cpu().numpy())
+
+
+def _edge_points(synth_small, points_small, n=252):
+    """Real points plus off-extent, FAR, mixed and NaN rows."""
+    xy = points_small[0][:n]
+    x0, _, y0, _ = synth_small.census.extent
+    extra = [[x0 - 5.0, y0], [1e30, 1e30], [x0 - 1.0, y0 - 1.0],
+             [0.0, 1e30], [np.nan, y0], [-1e30, np.inf]]
+    return np.concatenate([xy, extra]).astype(np.float32)
+
+
+def _random_edges(rng, n, e):
+    edges = rng.uniform(-1.0, 1.0, (n, e, 4)).astype(np.float32)
+    dead = rng.random((n, e)) < 0.3          # zero-length padding edges
+    edges[dead, 2:] = edges[dead, :2]
+    return edges
+
+
+# --------------------------------------------------------- scalar helpers
+def test_morton_and_effective_iters_match():
+    rng = np.random.default_rng(0)
+    ix = rng.integers(0, 1 << 15, 1000).astype(np.int32)
+    iy = rng.integers(0, 1 << 15, 1000).astype(np.int32)
+    _eq(j_cascade.morton(jnp.asarray(ix), jnp.asarray(iy)),
+        cascade.morton(torch.from_numpy(ix), torch.from_numpy(iy)))
+    assert cascade.OUTSIDE == j_cascade.OUTSIDE
+    for n_cells, gbits, iters in ((1, 0, 5), (1000, 0, 3), (31058, 0, 1),
+                                  (31058, 4, 7), (10, 2, 0)):
+        assert (cascade.effective_iters(n_cells, gbits, iters)
+                == j_cascade.effective_iters(n_cells, gbits, iters))
+
+
+# ----------------------------------------------------------- edge pool
+@pytest.mark.parametrize("be", [128, 256])
+@pytest.mark.parametrize("table", ["census", "random", "empty"])
+def test_build_edge_pool_array_equal(synth_small, table, be):
+    if table == "census":
+        edges = j_ops.edges_from_soup_np(synth_small.census.blocks.verts)
+        np.testing.assert_array_equal(
+            edges, ops.edges_from_soup_np(synth_small.census.blocks.verts))
+    elif table == "random":
+        edges = _random_edges(np.random.default_rng(1), 40, 300)
+    else:
+        edges = np.zeros((0, 12, 4), np.float32)
+    j = j_ops.build_edge_pool(edges, be=be)
+    t = ops.build_edge_pool(edges, be=be, device="cpu")
+    for f in ("blocks", "first", "count"):
+        _eq(getattr(j, f), getattr(t, f))
+    assert (t.max_blocks, t.be, t.n_poly) == (j.max_blocks, j.be, j.n_poly)
+    assert t.nbytes() == j.nbytes()
+
+
+# ------------------------------------------------------ crossing twins
+@pytest.mark.parametrize("source", ["random", "census"])
+def test_crossings_gathered_twin(synth_small, points_small, source):
+    rng = np.random.default_rng(2)
+    if source == "random":
+        pts = rng.uniform(-1.0, 1.0, (500, 2)).astype(np.float32)
+        edges = _random_edges(rng, 500, 37)
+    else:
+        pts = _edge_points(synth_small, points_small)
+        table = ops.edges_from_soup_np(synth_small.census.blocks.verts)
+        edges = table[rng.integers(0, len(table), len(pts))]
+    want = j_ref.crossings_gathered(jnp.asarray(pts), jnp.asarray(edges))
+    got = ref.crossings_gathered(torch.from_numpy(pts),
+                                 torch.from_numpy(edges))
+    _eq(want, got)
+    # The wrapper takes the twin for CPU tensors.
+    _eq(want, pip.crossings_gathered(torch.from_numpy(pts),
+                                     torch.from_numpy(edges)))
+    assert np.asarray(want).sum() > 0
+
+
+def test_crossings_candidates_twin(indices, synth_small, points_small):
+    j, t = indices[4]
+    pts = _edge_points(synth_small, points_small)
+    rng = np.random.default_rng(3)
+    pids = rng.integers(-1, t.edge_pool.n_poly, len(pts)).astype(np.int32)
+    pool = t.edge_pool
+    safe = np.clip(pids, 0, None)
+    first = np.where(pids >= 0, pool.first.numpy()[safe], 0).astype(np.int32)
+    nblk = np.where(pids >= 0, pool.count.numpy()[safe], 0).astype(np.int32)
+    want = j_ref.crossings_candidates(
+        jnp.asarray(pts), jnp.asarray(first), jnp.asarray(nblk),
+        j.edge_pool.blocks, j.edge_pool.max_blocks)
+    got = ref.crossings_candidates(
+        torch.from_numpy(pts), torch.from_numpy(first),
+        torch.from_numpy(nblk), pool.blocks, pool.max_blocks)
+    _eq(want, got)
+    _eq(want, gather_pip.crossings_candidates(
+        torch.from_numpy(first), torch.from_numpy(nblk),
+        torch.from_numpy(pts), pool.blocks, pool.max_blocks))
+
+
+def test_ops_pip_masks_match(indices, synth_small, points_small):
+    """ops.pip_candidates / ops.pip_gathered (id < 0 never inside)."""
+    j, t = indices[4]
+    pts = _edge_points(synth_small, points_small)
+    rng = np.random.default_rng(4)
+    pids = rng.integers(-1, t.edge_pool.n_poly, len(pts)).astype(np.int32)
+    _eq(j_ops.pip_candidates(jnp.asarray(pts), jnp.asarray(pids),
+                             j.edge_pool, backend="ref"),
+        ops.pip_candidates(torch.from_numpy(pts), torch.from_numpy(pids),
+                           t.edge_pool))
+    edges = np.asarray(j.block_edges)[np.clip(pids, 0, None)]
+    _eq(j_ops.pip_gathered(jnp.asarray(pts), jnp.asarray(edges),
+                           backend="ref"),
+        ops.pip_gathered(torch.from_numpy(pts), torch.from_numpy(edges)))
+
+
+# ------------------------------------------------------ one-pass cascade
+def _cascade_both(j, t, pts, backend="ref", **over):
+    jargs = [getattr(j, f) for f in ("quant", "cell_lo", "cell_hi",
+                                     "cell_val", "top_start", "cand",
+                                     "block_bbox")]
+    targs = [getattr(t, f) for f in ("quant", "cell_lo", "cell_hi",
+                                     "cell_val", "top_start", "cand",
+                                     "block_bbox")]
+    jpool, tpool = j.edge_pool, t.edge_pool
+    if over.get("empty_cand"):
+        jargs[5] = jnp.zeros((0, 8), jnp.int32)
+        targs[5] = torch.zeros((0, 8), dtype=torch.int32)
+    if over.get("empty_cells"):
+        for a in (1, 2, 3):
+            jargs[a] = jnp.zeros((0,), jnp.int32)
+            targs[a] = torch.zeros(0, dtype=torch.int32)
+    if over.get("empty_pool"):
+        jpool = j_ops.build_edge_pool(np.zeros((0, 4, 4), np.float32))
+        tpool = ops.build_edge_pool(np.zeros((0, 4, 4), np.float32),
+                                    device="cpu")
+    kw = dict(max_level=j.max_level, gbits=j.gbits,
+              search_iters=j.search_iters)
+    want = j_ops.assign_cascade(jnp.asarray(pts), *jargs, jpool, **kw,
+                                backend="ref")
+    got = ops.assign_cascade(torch.as_tensor(pts, device=t.device),
+                             *targs, tpool, **kw, backend=backend)
+    return want, got
+
+
+@pytest.mark.parametrize("gbits", [4, 0])
+def test_assign_cascade_twin(indices, synth_small, points_small, gbits):
+    """All four outputs equal, on real points plus off-extent / FAR / NaN
+    rows, for a top-grid index and a gbits=0 (full-search) one."""
+    j, t = indices[gbits]
+    pts = _edge_points(synth_small, points_small)
+    want, got = _cascade_both(j, t, pts)
+    for a, b in zip(want, got):
+        _eq(a, b)
+    flags = got[1].numpy()
+    assert (flags & 1).sum() > 0          # the boundary path ran
+    tail = slice(len(pts) - 6, None)      # off-extent rows: -1, no flags
+    assert (got[0].numpy()[tail] == -1).all()
+    for out in got[1:]:
+        assert (out.numpy()[tail] == 0).all()
+
+
+@pytest.mark.parametrize("empty", ["empty_cand", "empty_cells",
+                                   "empty_pool"])
+def test_assign_cascade_empty_tables(indices, synth_small, points_small,
+                                     empty):
+    j, t = indices[4]
+    pts = _edge_points(synth_small, points_small, n=64)
+    want, got = _cascade_both(j, t, pts, **{empty: True})
+    for a, b in zip(want, got):
+        _eq(a, b)
+
+
+# ------------------------------------------------------------- dispatch
+def test_resolve_backend(monkeypatch):
+    monkeypatch.delenv("REPRO_TORCH_KERNELS", raising=False)
+    assert ops.resolve_backend(None, "cpu") == "ref"
+    assert ops.resolve_backend("auto", torch.device("cpu")) == "ref"
+    with pytest.raises(ValueError, match="cannot run"):
+        ops.resolve_backend("cuda", "cpu")
+    with pytest.raises(ValueError, match="cannot run"):
+        ops.resolve_backend("ref", "cuda")
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        ops.resolve_backend("pallas", "cpu")
+    monkeypatch.setenv("REPRO_TORCH_KERNELS", "cuda")
+    with pytest.raises(ValueError, match="cannot run"):
+        ops.pip_gathered(torch.zeros(1, 2), torch.zeros(1, 3, 4))
+
+
+# ------------------------------------------- CUDA kernels vs their twins
+@pytest.mark.cuda
+def test_cuda_assign_cascade_matches_twin(indices, synth_small,
+                                          points_small, cuda_device):
+    _, t = indices[4]
+    tc = dataclasses.replace(
+        t, **{f: getattr(t, f).to(cuda_device) for f in INDEX_FIELDS},
+        edge_pool=dataclasses.replace(
+            t.edge_pool, blocks=t.edge_pool.blocks.to(cuda_device),
+            first=t.edge_pool.first.to(cuda_device),
+            count=t.edge_pool.count.to(cuda_device)))
+    pts = _edge_points(synth_small, points_small)
+    args = [getattr(tc, f) for f in ("quant", "cell_lo", "cell_hi",
+                                     "cell_val", "top_start", "cand",
+                                     "block_bbox")]
+    pool = tc.edge_pool
+    kw = dict(max_level=t.max_level, gbits=t.gbits,
+              search_iters=t.search_iters)
+    p = torch.as_tensor(pts, device=cuda_device)
+    got = cascade.assign_cascade(p, *args, pool.first, pool.count,
+                                 pool.blocks, **kw)
+    want = ref.assign_cascade(p, *args, pool.first, pool.count,
+                              pool.blocks, max_blocks=pool.max_blocks, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_crossing_kernels_match_twins(cuda_device):
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(rng.uniform(-1, 1, (4099, 2)).astype(np.float32),
+                          device=cuda_device)
+    edges = torch.as_tensor(_random_edges(rng, 4099, 37),
+                            device=cuda_device)
+    assert torch.equal(pip.crossings_gathered(pts, edges),
+                       ref.crossings_gathered(pts, edges))
+    pool = ops.build_edge_pool(_random_edges(rng, 50, 600), be=128,
+                               device=cuda_device)
+    pids = torch.as_tensor(rng.integers(-1, 50, 4099).astype(np.int32),
+                           device=cuda_device)
+    safe = pids.clamp(min=0)
+    first = torch.where(pids >= 0, pool.first[safe], 0).int()
+    nblk = torch.where(pids >= 0, pool.count[safe], 0).int()
+    assert torch.equal(
+        gather_pip.crossings_candidates(first, nblk, pts, pool.blocks,
+                                        pool.max_blocks),
+        ref.crossings_candidates(pts, first, nblk, pool.blocks,
+                                 pool.max_blocks))
