@@ -1,13 +1,17 @@
-"""Where the time goes in the PyTorch port's exact fast path, on one GPU.
+"""Where the time goes in the PyTorch port's mapping paths, on one GPU.
 
     python3 scripts/torch_profile.py [--n 16777216]
 
 Builds the benchmark-scale census (benchmarks/common.py SCALE) and its
 covering at max_level 9, then for each path (``fast``, ``fast`` with
-``fused=True``, ``fast_onepass``) runs one warm batch of ``--n`` points
-under ``torch.profiler`` and prints the wall time of the batch, the
-device time summed over its kernels (busy share = device / wall), and
-the operators with the most device time.  Needs a CUDA device.
+``fused=True``, ``fast_onepass``, ``simple``, ``simple`` with
+``fused=True``, ``hybrid``; the configs of chip_smoke.py) runs one warm
+batch of ``--n`` points under ``torch.profiler`` and prints the wall
+time of the batch, the device time summed over its kernels (busy share
+= device / wall), and the operators and kernels with the most device
+time, and the operators with the most device time by input shape (which
+tells apart calls of one operator from different call sites).  Needs a
+CUDA device.
 """
 import argparse
 import dataclasses
@@ -48,21 +52,24 @@ def main() -> int:
     sc = build_synth_census(**SCALE)
     cov = build_cell_covering(sc.census, max_level=9)
     cfg = EngineConfig(mode="exact", cap_boundary=0.5)
-    engines = {
-        "fast": GeoEngine.build(sc.census, "fast", cfg, covering=cov),
-        "fast_fused": GeoEngine.build(
-            sc.census, "fast", dataclasses.replace(cfg, fused=True),
-            covering=cov),
-        "fast_onepass": GeoEngine.build(sc.census, "fast_onepass", cfg,
-                                        covering=cov),
+    scfg = EngineConfig(cap_state=0.5, cap_county=0.5, cap_block=0.5)
+    specs = {
+        "fast": ("fast", cfg),
+        "fast_fused": ("fast", dataclasses.replace(cfg, fused=True)),
+        "fast_onepass": ("fast_onepass", cfg),
+        "simple": ("simple", scfg),
+        "simple_fused": ("simple", dataclasses.replace(scfg, fused=True)),
+        "hybrid": ("hybrid", EngineConfig(cap_boundary=0.5)),
     }
     xy, *_ = sc.sample_points(np.random.default_rng(0), args.n)
     pts = torch.from_numpy(xy).cuda()
-    for name, eng in engines.items():
+    for name, (strategy, c) in specs.items():
+        eng = GeoEngine.build(sc.census, strategy, c, covering=cov)
         eng.assign(pts)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             eng.assign(pts)
             torch.cuda.synchronize()
@@ -74,7 +81,9 @@ def main() -> int:
                      key=device_us, reverse=True)
         busy = sum(device_us(e) for e in kernels) / 1e3
         print(f"== {name}: wall {wall * 1e3:.3f} ms, device {busy:.3f} ms "
-              f"(busy {busy / (wall * 1e3):.1%}), {args.n} points")
+              f"(busy {busy / (wall * 1e3):.1%}), {args.n} points, "
+              f"{len(kernels)} distinct kernels, "
+              f"{sum(e.count for e in kernels)} launches")
         for title, rows in (("operators", ops), ("kernels", kernels)):
             print(f"  top {title} by device time:")
             for e in rows[:TOP]:
@@ -83,6 +92,16 @@ def main() -> int:
                     break
                 print(f"  {us / 1e3:9.3f} ms  {us / 1e3 / busy:6.1%}  "
                       f"x{e.count:<4d} {e.key[:80]}")
+        by_shape = sorted((e for e in prof.key_averages(
+            group_by_input_shape=True) if e.device_type == DeviceType.CPU),
+            key=device_us, reverse=True)
+        print("  top operators by device time and input shapes:")
+        for e in by_shape[:TOP]:
+            us = device_us(e)
+            if us <= 0:
+                break
+            print(f"  {us / 1e3:9.3f} ms  {us / 1e3 / busy:6.1%}  "
+                  f"x{e.count:<4d} {e.key} {str(e.input_shapes)[:100]}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,9 +1,10 @@
 """GeoIndexSet: the in-memory index artifact behind every strategy (port
 of src/repro/core/artifact.py; DESIGN.md §11).
 
-One object owns the host census and cell covering and the device index
-derived from them (``FastIndex``, with or without its edge pool), all on
-one ``device``.  Components build lazily through ``ensure``: strategies
+One object owns the host census and cell covering and the device indices
+derived from them (``SimpleIndex`` for the cascade, ``FastIndex`` for the
+cell lookup, each with or without its edge pools), all on one
+``device``.  Components build lazily through ``ensure``: strategies
 declare what they need and the engine ensures exactly that.
 ``capabilities()`` is the snapshot the registry's build-time validation
 and the planner read.  ``save``/``load`` (the npz + manifest format) come
@@ -17,7 +18,7 @@ from typing import Any, Dict, Optional
 from repro_torch.core.cells import CellCovering, build_cell_covering
 from repro_torch.core.fast import FastIndex
 from repro_torch.core.geometry import CensusMap
-from repro_torch.core.registry import not_ported
+from repro_torch.core.simple import SimpleIndex
 from repro_torch.kernels import ops
 
 
@@ -32,6 +33,7 @@ class GeoIndexSet:
 
     census: Optional[CensusMap] = None
     covering: Optional[CellCovering] = None
+    simple: Optional[SimpleIndex] = None
     fast: Optional[FastIndex] = None
     max_level: int = 9
     gbits: int = 4
@@ -41,10 +43,27 @@ class GeoIndexSet:
     tuning: Dict[str, Any] = dataclasses.field(default_factory=dict)
     device: Any = "cuda"
 
+    @classmethod
+    def build(cls, census: CensusMap, components=(), pools=(), *,
+              max_level: int = 9, gbits: int = 4, max_cand: int = 8,
+              covering: Optional[CellCovering] = None,
+              device="cuda") -> "GeoIndexSet":
+        """Build the requested ``components`` ("simple" | "fast" |
+        "covering") from a host census on ``device``; ``pools`` names the
+        components that also need their edge pools (the fused path)."""
+        self = cls(census=census, covering=covering, max_level=max_level,
+                   gbits=gbits, max_cand=max_cand, device=device)
+        for comp in components:
+            self.ensure(comp)
+        for comp in pools:
+            self.ensure(comp, pool=True)
+        return self
+
     def ensure(self, component: str, pool: bool = False) -> None:
-        """Build ``component`` ("covering" | "fast") if missing, and its
-        edge pool when ``pool``.  A pool attaches to a built index in
-        place, packed from the same edge arrays."""
+        """Build ``component`` ("covering" | "simple" | "fast") if
+        missing, and its edge pools when ``pool``.  Pools attach to a
+        built index in place, packed from the same edge arrays at
+        ``pool_be()``."""
         if component == "covering":
             if self.covering is None:
                 self._need_census("the cell covering")
@@ -65,10 +84,15 @@ class GeoIndexSet:
                         self.fast.block_edges.cpu().numpy(),
                         be=self.pool_be(), device=self.device))
         elif component == "simple":
-            raise not_ported("simple")
+            if self.simple is None:
+                self._need_census("the simple (cascade) index")
+                self.simple = SimpleIndex.from_census(self.census,
+                                                      device=self.device)
+            if pool and self.simple.state_pool is None:
+                self.simple = self.simple.with_pools(self.pool_be())
         else:
             raise ValueError(f"unknown index component {component!r}; "
-                             f"expected 'fast' or 'covering'")
+                             f"expected 'simple', 'fast', or 'covering'")
 
     def _need_census(self, what: str) -> None:
         if self.census is None:
@@ -104,9 +128,10 @@ class GeoIndexSet:
         return {
             "census": self.census is not None,
             "covering": self.covering is not None,
-            "simple": False,
+            "simple": self.simple is not None,
             "fast": self.fast is not None,
-            "simple_pool": False,
+            "simple_pool": (self.simple is not None
+                            and self.simple.state_pool is not None),
             "fast_pool": (self.fast is not None
                           and self.fast.edge_pool is not None),
             "sharded": [],

@@ -1,19 +1,28 @@
 """GeoEngine: plan-and-execute facade over registered mapping strategies
 (port of src/repro/core/engine.py; DESIGN.md §3, §11).
 
-    eng = GeoEngine.build(census, strategy="fast")      # index on cuda
+    eng = GeoEngine.build(census)     # strategy "simple", index on cuda
     res = eng.assign(points)          # AssignResult of [N] i32 tensors
     res.block                         # block ids (-1 = off-map)
     eng.explain()                     # {"strategy": ..., "reasons": [...]}
 
 The index and every assigned batch live on ``device`` — "cuda" unless
 the caller passes ``device="cpu"`` (the tests do), and there is no
-fallback to the CPU when no card is found.  On the card the exact fast
-path runs the hand-written CUDA kernels: ``fused=False`` the gathered
-PIP kernel, ``fused=True`` the candidate PIP kernel over the edge pool,
-``fused="onepass"`` (the ``fast_onepass`` strategy) the one-pass
-cascade.  Results are identical in all three.  Capability gaps surface
-as ValueError at construction, never at the first assign.
+fallback to the CPU when no card is found.  On the card every strategy
+runs the hand-written CUDA kernels:
+
+  * ``simple`` (the paper's §III cascade): ``bbox_mask`` at the state
+    level, ``bbox_count_select`` at the county and block levels, and
+    candidate PIP per level;
+  * ``fast`` exact (§IV): candidate PIP on boundary cells;
+  * ``hybrid``: the cell lookup, then the ``simple`` cascade on the
+    boundary points;
+  * ``fast_onepass``: the one-pass cascade kernel.
+
+Candidate PIP runs the gathered PIP kernel with ``fused=False`` and the
+candidate PIP kernel over the edge pools with ``fused=True``; the
+results are identical.  Capability gaps surface as ValueError at
+construction, never at the first assign.
 """
 from __future__ import annotations
 
@@ -32,29 +41,49 @@ from repro_torch.core.fast import FastConfig
 from repro_torch.core.geometry import CensusMap
 from repro_torch.core.registry import available_strategies, get_strategy
 from repro_torch.core.resolve import AssignResult
+from repro_torch.core.simple import SimpleConfig
 from repro_torch.kernels import ops
 
 # Names an explicit ``GeoEngine.build(strategy=...)`` accepts ("auto"
 # additionally asks the planner).
-STRATEGIES = ("fast", "fast_onepass")
+STRATEGIES = ("simple", "fast", "fast_onepass", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static engine knobs (the fast path's subset of the JAX package's;
-    the cascade's caps come with the simple-cascade slice)."""
+    """Static engine knobs (the JAX package's, less the sharded path's
+    ``cap_shard``).  The per-strategy configs derive from this one."""
 
     backend: str | None = None   # kernel backend override
+    k_cand: int = 4              # cascade PIP candidates per level
+    cap_state: float = 0.25      # cascade compaction fractions
+    cap_county: float = 0.5
+    cap_block: float = 0.5
     mode: str = "exact"          # fast boundary handling: exact | approx
-    cap_boundary: float = 0.25   # boundary compaction fraction
+    cap_boundary: float = 0.25   # fast/hybrid boundary compaction fraction
     max_level: int = 9           # covering depth
     gbits: int = 4               # top-grid bits
     max_cand: int = 8            # boundary candidate list width
-    fused: bool | str = False    # False | True | "onepass" (see module doc)
+    fused: bool | str = False    # False | True | "onepass" (see module
+    #                              doc); strategies other than fast take
+    #                              "onepass" as True
+
+    def simple_cfg(self) -> SimpleConfig:
+        return SimpleConfig(k_cand=self.k_cand, cap_state=self.cap_state,
+                            cap_county=self.cap_county,
+                            cap_block=self.cap_block, backend=self.backend,
+                            fused=bool(self.fused))
 
     def fast_cfg(self) -> FastConfig:
         return FastConfig(mode=self.mode, cap_boundary=self.cap_boundary,
                           backend=self.backend, fused=self.fused)
+
+    def hybrid_cascade_cfg(self) -> SimpleConfig:
+        # The cascade only sees the compacted boundary buffer, so it runs
+        # at full capacity: the buffer is the capacity limit.
+        return SimpleConfig(k_cand=self.k_cand, cap_state=1.0,
+                            cap_county=1.0, cap_block=1.0,
+                            backend=self.backend, fused=bool(self.fused))
 
 
 class GeoEngine:
@@ -74,7 +103,7 @@ class GeoEngine:
             strategy, self.cfg, plan_mod.device_kind_of(indices.device))
 
     @classmethod
-    def build(cls, census: CensusMap, strategy: str = "fast",
+    def build(cls, census: CensusMap, strategy: str = "simple",
               cfg: Optional[EngineConfig] = None, covering=None, *,
               device="cuda") -> "GeoEngine":
         """Build the indices ``strategy`` needs from a host census, on
@@ -133,12 +162,20 @@ class GeoEngine:
         return torch.device(self.indices.device)
 
     @property
+    def simple_index(self):
+        return self.indices.simple
+
+    @property
     def fast_index(self):
         return self.indices.fast
 
     @property
     def covering(self):
         return self.indices.covering
+
+    @property
+    def census(self):
+        return self.indices.census
 
     # -- planning introspection ---------------------------------------------
 
@@ -187,10 +224,18 @@ class GeoEngine:
     # -- index / extent handles ---------------------------------------------
 
     def extent_quant(self) -> tuple[np.ndarray, int]:
-        """(quant [4] f32 = (x0, y0, sx, sy), max_level) of the fast index
-        (every ported strategy reads one)."""
-        return (self.fast_index.quant.cpu().numpy(),
-                self.fast_index.max_level)
+        """(quant [4] f32 = (x0, y0, sx, sy), max_level): the fast
+        index's when there is one, else derived from the census extent
+        with the formula ``FastIndex.from_covering`` uses."""
+        if self.fast_index is not None:
+            return (self.fast_index.quant.cpu().numpy(),
+                    self.fast_index.max_level)
+        if self.census is None:
+            raise ValueError("extent_quant needs a fast index or a census "
+                             "(engine built via GeoEngine.build)")
+        return (fast_mod.quant_for_extent(self.census.extent,
+                                          self.cfg.max_level),
+                self.cfg.max_level)
 
     def extent_contains(self, points) -> np.ndarray:
         """[N] bool (host numpy) — True where the point lies inside this
@@ -199,8 +244,10 @@ class GeoEngine:
         return fast_mod.np_extent_mask(quant, max_level, points)
 
     def host_parents(self) -> tuple[np.ndarray, np.ndarray]:
-        """(block_parent [Nb], county_parent [Nc]) as host arrays."""
-        index = self.fast_index
+        """(block_parent [Nb], county_parent [Nc]) as host arrays, from
+        the fast index or else the simple one."""
+        index = self.fast_index if self.fast_index is not None \
+            else self.simple_index
         return (index.block_parent.cpu().numpy(),
                 index.county_parent.cpu().numpy())
 

@@ -107,11 +107,9 @@ class FastIndex:
         t = {f: tensor(arrays[f]) for f in INDEX_FIELDS}
         pool = None
         if "edge_pool_blocks" in arrays:
-            p = {f: tensor(arrays[f"edge_pool_{f}"]) for f in POOL_FIELDS}
-            count = np.asarray(arrays["edge_pool_count"])
-            pool = ops.EdgePool(
-                **p, max_blocks=max(int(count.max()) if count.size else 1, 1),
-                be=int(p["blocks"].shape[2]))
+            pool = ops.EdgePool.from_numpy(
+                *(arrays[f"edge_pool_{f}"] for f in POOL_FIELDS),
+                device=device)
         return cls(**t, edge_pool=pool, max_level=max_level, gbits=gbits,
                    search_iters=search_iters)
 

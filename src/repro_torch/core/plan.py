@@ -8,9 +8,6 @@ returns a ``GeoPlan`` whose reasons say why.
 
 The CUDA rule for ``fused`` keeps the JAX package's off-TPU default (the
 gathered path, ``fused=False``) until a measured H100 rule replaces it.
-A plan that lands on a strategy this port does not run yet (``simple``,
-``hybrid``) raises NotImplementedError naming the missing slice; it does
-not quietly pick another strategy.
 """
 from __future__ import annotations
 
@@ -19,8 +16,6 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
-
-from repro_torch.core.registry import NOT_PORTED, not_ported
 
 # Planner thresholds (the JAX package's, unchanged; DESIGN.md §11).
 HYBRID_BOUNDARY_FRAC = 0.35
@@ -154,8 +149,6 @@ def plan_for(cfg, *, covering=None, capabilities: Optional[dict] = None,
         else:
             reasons.append("no covering to measure boundary traffic yet; "
                            "cell index is the paper's default winner")
-    if strategy in NOT_PORTED:
-        raise not_ported(strategy)
 
     # -- mode ---------------------------------------------------------------
     mode = cfg.mode
@@ -164,22 +157,33 @@ def plan_for(cfg, *, covering=None, capabilities: Optional[dict] = None,
                        "the leaf cell diagonal)")
 
     # -- fused kernel -------------------------------------------------------
-    runs_candidate_pip = mode == "exact"
-    pool_available = (fresh or caps.get("fast_pool", False)
+    runs_candidate_pip = (strategy in ("simple", "hybrid")
+                          or (strategy in ("fast", "fast_onepass")
+                              and mode == "exact"))
+    pool_cap = {"simple": "simple_pool", "hybrid": "simple_pool",
+                "fast": "fast_pool",
+                "fast_onepass": "fast_pool"}[strategy]
+    # A pool is usable when built or buildable (an artifact that carries
+    # its census packs pools on demand).
+    pool_available = (fresh or caps.get(pool_cap, False)
                       or caps.get("census", False))
+    onepass_ok = (strategy in ("fast", "fast_onepass")
+                  and mode == "exact" and pool_available)
     if strategy == "fast_onepass":
         fused = "onepass"
         reasons.append("fast_onepass pins the one-pass fused cascade "
                        "kernel (kernels/cascade.py)")
     elif cfg.fused == "onepass":
-        if runs_candidate_pip and pool_available:
+        if onepass_ok:
             fused = "onepass"
             reasons.append("one-pass fused cascade requested by config")
         else:
-            fused = False
-            reasons.append("onepass requested but it needs the exact fast "
-                           "path with an edge pool: dropped (no candidate "
-                           "PIP or no edge pool)")
+            fused = bool(runs_candidate_pip and pool_available)
+            reasons.append(
+                "onepass requested but it needs the exact fast path with "
+                "an edge pool: "
+                + ("kept the two-kernel fused path" if fused
+                   else "dropped (no candidate PIP or no edge pool)"))
     elif cfg.fused:
         fused = runs_candidate_pip and pool_available
         reasons.append("fused requested by config"

@@ -23,8 +23,6 @@ COMPONENTS = ("simple", "fast", "covering")
 # Strategies of the JAX package that this port does not run yet, with
 # the ROADMAP slice that brings each.
 NOT_PORTED = {
-    "simple": "the simple-cascade slice (ROADMAP queue 1, item 5)",
-    "hybrid": "the simple-cascade slice (ROADMAP queue 1, items 5-6)",
     "sharded": "the distributed slice (ROADMAP queue 1, item 11)",
 }
 

@@ -129,6 +129,20 @@ def onepass_stats(flags: torch.Tensor, nrest: torch.Tensor,
             "bbox_skips": torch.where(boundary, nskip, 0).sum()}
 
 
+def first_k_candidates(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Slots of the first min(k, C) set bits per row of a [R, C] mask
+    (else -1); k is clamped so narrow candidate tables (tiny maps) work.
+
+    Set bits score ``C - slot`` (unique, > 0), unset bits 0, so the top
+    scores are the earliest set slots in order; ``topk``'s order among
+    tied zeros does not matter, since every zero maps to -1."""
+    c = mask.shape[1]
+    iota = torch.arange(c, dtype=torch.int32, device=mask.device)[None, :]
+    score = torch.where(mask != 0, c - iota, 0)     # larger = earlier slot
+    vals, _ = torch.topk(score, min(k, c), dim=1, sorted=True)
+    return torch.where(vals > 0, c - vals, -1)      # [R, k] slot indices
+
+
 def _pip_ids(points, pid, edges_table, edge_pool, backend):
     """Inside mask of each point vs its own candidate id (pid < 0 = never
     inside).  Candidate path when an edge pool is given, gathered path

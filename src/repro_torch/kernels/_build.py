@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cascade.cu", "gather_pip.cu", "pip.cu")
+SOURCES = ("bbox.cu", "cascade.cu", "gather_pip.cu", "pip.cu")
 HEADERS = ("pip.cuh",)
 # -fmad=false: no FMA contraction, so products round as numpy/XLA round
 # them (the crossing test and the quantize must be bit-equal).
@@ -42,8 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 
-LAUNCHES = {"assign_cascade": 0, "crossings_candidates": 0,
-            "crossings_gathered": 0}
+LAUNCHES = {"assign_cascade": 0, "bbox_count_select": 0, "bbox_mask": 0,
+            "crossings_candidates": 0, "crossings_gathered": 0,
+            "crossings_one": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +54,9 @@ _SIGNATURES = {
     "repro_assign_cascade": [_P] * 15 + [_N] + [_I] * 8 + [_P],
     "repro_crossings_candidates": [_P] * 5 + [_N, _I, _P],
     "repro_crossings_gathered": [_P] * 3 + [_N, _I, _P],
+    "repro_crossings_one": [_P] * 3 + [_N, _I, _P],
+    "repro_bbox_mask": [_P] * 3 + [_N, _I, _P],
+    "repro_bbox_count_select": [_P] * 4 + [_N, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -163,6 +167,14 @@ def require(t, name: str, dtype, shape: tuple, device) -> None:
                          f"{shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(t, name: str, nbytes: int) -> None:
+    """Raise unless ``t``'s data is ``nbytes``-aligned (the kernels load
+    points as float2 and edges / boxes as float4)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must be {nbytes}-byte aligned (vector "
+                         f"loads)")
 
 
 def ptr(t) -> ctypes.c_void_p:

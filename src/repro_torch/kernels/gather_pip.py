@@ -55,6 +55,19 @@ class EdgePool:
         return sum(t.numel() * t.element_size()
                    for t in (self.blocks, self.first, self.count))
 
+    @classmethod
+    def from_numpy(cls, blocks, first, count, device="cuda") -> "EdgePool":
+        """A pool from host arrays (e.g. one packed by the JAX package);
+        ``max_blocks`` and ``be`` follow from them.  The tensors are
+        copies."""
+        count = np.array(count)
+        blocks = torch.as_tensor(np.array(blocks), device=device)
+        return cls(blocks=blocks,
+                   first=torch.as_tensor(np.array(first), device=device),
+                   count=torch.as_tensor(count, device=device),
+                   max_blocks=max(int(count.max()) if count.size else 1, 1),
+                   be=int(blocks.shape[2]))
+
 
 def build_edge_pool(edges: np.ndarray, be: int = DEF_BE,
                     device="cuda") -> EdgePool:

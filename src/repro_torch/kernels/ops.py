@@ -1,5 +1,6 @@
 """Public kernel API: natural layouts, empty-table normalization, backend
-dispatch (port of src/repro/kernels/ops.py, exact fast path only).
+dispatch (port of src/repro/kernels/ops.py; the segment reduction comes
+with the analytics slice).
 
 Backend selection (``REPRO_TORCH_KERNELS`` env var or explicit
 ``backend=``):
@@ -17,6 +18,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.kernels import bbox as bbox_kernels
 from repro_torch.kernels import cascade as cascade_kernels
 from repro_torch.kernels import gather_pip as gather_pip_kernels
 from repro_torch.kernels import pip as pip_kernels
@@ -45,6 +47,17 @@ def resolve_backend(backend: str | None, device) -> str:
         raise ValueError(f"kernel backend {b!r} cannot run tensors on "
                          f"{device}")
     return b
+
+
+def pip_one(points: torch.Tensor, edges: torch.Tensor,
+            backend: str | None = None) -> torch.Tensor:
+    """Inside mask of [N, 2] points vs one polygon's [E, 4] edge table."""
+    b = resolve_backend(backend, points.device)
+    if b == "ref":
+        return ref.pip_one(points, edges)
+    cross = pip_kernels.crossings_one(points.float().contiguous(),
+                                      edges.float().contiguous())
+    return (cross & 1).bool()
 
 
 def pip_gathered(points: torch.Tensor, edges: torch.Tensor,
@@ -125,6 +138,41 @@ def assign_cascade(points: torch.Tensor, quant: torch.Tensor,
         points.float().contiguous(), quant, cell_lo, cell_hi, cell_val,
         top_start, cand, bbox, first, count, blocks, max_level=max_level,
         gbits=gbits, search_iters=iters)
+
+
+def bbox_mask(points: torch.Tensor, boxes: torch.Tensor,
+              backend: str | None = None) -> torch.Tensor:
+    """[N, M] int8 membership of points in a shared [M, 4] box table."""
+    b = resolve_backend(backend, points.device)
+    if b == "ref":
+        return ref.bbox_mask(points, boxes)
+    return bbox_kernels.bbox_mask(points.float().contiguous(),
+                                  boxes.float().contiguous())
+
+
+def bbox_mask_gathered(points: torch.Tensor, boxes: torch.Tensor,
+                       backend: str | None = None) -> torch.Tensor:
+    """[N, C] int8 membership in per-point gathered boxes [N, C, 4].
+
+    A torch op on every backend, as in the reference: the comparisons
+    over the gathered boxes are bound by reading them.  ``backend`` is
+    still validated, so callers route every geometry op through here
+    uniformly.
+    """
+    resolve_backend(backend, points.device)
+    return ref.bbox_mask_gathered(points, boxes)
+
+
+def bbox_count_select(points: torch.Tensor, boxes: torch.Tensor,
+                      backend: str | None = None):
+    """Membership count + largest containing slot over per-point gathered
+    boxes [N, C, 4] (padded slots already empty).  Returns (count [N]
+    i32, sel [N] i32)."""
+    b = resolve_backend(backend, points.device)
+    if b == "ref":
+        return ref.bbox_count_select(points, boxes)
+    return bbox_kernels.bbox_count_select(points.float().contiguous(),
+                                          boxes.float().contiguous())
 
 
 def edges_from_soup_np(verts: np.ndarray) -> np.ndarray:

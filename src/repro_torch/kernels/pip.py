@@ -1,17 +1,25 @@
-"""Crossing-number point-in-polygon over per-point edge tables (port of
-src/repro/kernels/pip.py::crossings_gathered).
+"""Crossing-number point-in-polygon over dense edge tables (port of
+src/repro/kernels/pip.py).  Kernels: ``csrc/pip.cu``.
 
-Kernel: ``csrc/pip.cu``, replacing the Pallas ``crossings_gathered``
-(src/repro/kernels/pip.py:113).  What bounds it on the card: reading the
-gathered [N, E, 4] f32 edge table, 16 bytes per edge for a handful of
-compares and products — memory, by a wide margin.  Design: the natural
-[N, E, 4] layout (no transpose to the TPU's [N, 4, E] lane layout, no
-padding to tile multiples); one warp per row, lane j loads edge j as one
-16-byte vector, so a warp reads its row contiguously; warp-shuffle sum.
+  * ``crossings_gathered`` replaces the Pallas ``crossings_gathered``
+    (src/repro/kernels/pip.py:113): each point against its own edge
+    table.  What bounds it on the card: reading the gathered [N, E, 4]
+    f32 edge table, 16 bytes per edge for a handful of compares and
+    products — memory, by a wide margin.  Design: the natural [N, E, 4]
+    layout (no transpose to the TPU's [N, 4, E] lane layout, no padding
+    to tile multiples); one warp per row, lane j loads edge j as one
+    16-byte vector, so a warp reads its row contiguously; warp-shuffle
+    sum.
+  * ``crossings_one`` replaces the Pallas ``crossings_one``
+    (src/repro/kernels/pip.py:86): every point against one shared
+    [E, 4] table.  What bounds it: the crossing tests, 6 fp32 operations
+    per (point, edge) against 12 bytes per point in and out.  Design:
+    one thread per point; each block stages the table through shared
+    memory in 256-edge tiles (read from device memory once per block)
+    and every thread runs the whole tile; E = 0 writes 0.
 
-``ops.pip_gathered`` is the public API (parity -> bool, backend
-dispatch).  ``crossings_one`` (the shared-table kernel) is not ported
-yet.
+``ops.pip_gathered`` / ``ops.pip_one`` are the public API (parity ->
+bool, backend dispatch).
 """
 from __future__ import annotations
 
@@ -34,8 +42,7 @@ def crossings_gathered(points: torch.Tensor,
     n = points.shape[0]
     _build.require(points, "points", torch.float32, (n, 2), dev)
     _build.require(edges, "edges", torch.float32, (n, None, 4), dev)
-    if edges.data_ptr() % 16:
-        raise ValueError("edges must be 16-byte aligned (float4 loads)")
+    _build.require_aligned(edges, "edges", 16)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
@@ -45,4 +52,31 @@ def crossings_gathered(points: torch.Tensor,
             _build.ptr(points), _build.ptr(edges), _build.ptr(out), n,
             edges.shape[1], _build.stream_of(points))
     _build.check(status, "crossings_gathered")
+    return out
+
+
+def crossings_one(points: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Crossing counts of [N, 2] f32 points against one shared [E, 4] f32
+    edge table.  Returns [N] i32.
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel on
+    the current stream, without synchronizing.
+    """
+    if points.device.type == "cpu":
+        return ref.crossings_one(points, edges)
+    dev = points.device
+    n = points.shape[0]
+    _build.require(points, "points", torch.float32, (n, 2), dev)
+    _build.require(edges, "edges", torch.float32, (None, 4), dev)
+    _build.require_aligned(points, "points", 8)
+    _build.require_aligned(edges, "edges", 16)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        status = lib.repro_crossings_one(
+            _build.ptr(points), _build.ptr(edges), _build.ptr(out), n,
+            edges.shape[0], _build.stream_of(points))
+    _build.check(status, "crossings_one")
     return out

@@ -5,6 +5,8 @@ src/repro/kernels/ref.py, so on the same inputs it gives bit-equal
 results.  The twins are the CPU backend (``ops`` picks them for CPU
 tensors), what the CPU tests hold against the JAX reference, and what
 chip_smoke.py holds each CUDA kernel against on the card.
+``bbox_mask_gathered`` has no kernel: it is a torch op on every
+backend, as in the reference.
 
 Crossing-number test (paper §III-A): a point is inside a polygon iff a
 ray in +x crosses the boundary an odd number of times.  Edge
@@ -26,6 +28,24 @@ def _cross(px, py, x1, y1, x2, y2):
     lhs = (px - x1) * (y2 - y1)
     rhs = (py - y1) * (x2 - x1)
     return straddle & ((lhs < rhs) == (y2 > y1))
+
+
+def crossings_one(points: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Crossing counts of N points against one shared edge table.
+
+    points [N, 2] float, edges [E, 4] float (x1, y1, x2, y2; zero-length
+    edges never cross) -> [N] int32.
+    """
+    px = points[:, 0:1]
+    py = points[:, 1:2]
+    cross = _cross(px, py, edges[None, :, 0], edges[None, :, 1],
+                   edges[None, :, 2], edges[None, :, 3])
+    return cross.sum(dim=1, dtype=torch.int32)
+
+
+def pip_one(points: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Inside mask of N points against one polygon edge table."""
+    return (crossings_one(points, edges) & 1).bool()
 
 
 def crossings_gathered(points: torch.Tensor,
@@ -70,6 +90,40 @@ def pip_candidates(points: torch.Tensor, first: torch.Tensor,
                    max_blocks: int) -> torch.Tensor:
     return (crossings_candidates(points, first, count, blocks, max_blocks)
             & 1).bool()
+
+
+def bbox_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """[N, M] int8 membership of N points in M shared boxes (open
+    intervals); boxes [M, 4] = (xmin, xmax, ymin, ymax)."""
+    px, py = points[:, 0:1], points[:, 1:2]
+    m = ((px > boxes[None, :, 0]) & (px < boxes[None, :, 1])
+         & (py > boxes[None, :, 2]) & (py < boxes[None, :, 3]))
+    return m.to(torch.int8)
+
+
+def bbox_mask_gathered(points: torch.Tensor,
+                       boxes: torch.Tensor) -> torch.Tensor:
+    """[N, C] int8 membership where each point has its own C boxes
+    [N, C, 4]."""
+    px, py = points[:, 0:1], points[:, 1:2]
+    m = ((px > boxes[..., 0]) & (px < boxes[..., 1])
+         & (py > boxes[..., 2]) & (py < boxes[..., 3]))
+    return m.to(torch.int8)
+
+
+def bbox_count_select(points: torch.Tensor, boxes: torch.Tensor):
+    """Membership count and largest containing slot over gathered boxes.
+
+    points [N, 2]; boxes [N, C, 4] (padded boxes empty, xmin > xmax).
+    Returns (count [N] i32, sel [N] i32 — the largest containing slot,
+    -1 if none; when count == 1 it is *the* containing slot).
+    """
+    m = bbox_mask_gathered(points, boxes)
+    count = m.sum(dim=1, dtype=torch.int32)
+    iota = torch.arange(boxes.shape[1], dtype=torch.int32,
+                        device=points.device)[None, :]
+    sel = torch.where(m != 0, iota, -1).amax(dim=1)
+    return count, sel.to(torch.int32)
 
 
 def grid_coord(f: torch.Tensor, nmax: int) -> torch.Tensor:

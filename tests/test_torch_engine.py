@@ -1,9 +1,11 @@
 """The port's engine (``repro_torch.core.engine.GeoEngine`` on the CPU)
 against the JAX package's with ``backend="ref"``: the same census,
 covering and points give equal state / county / block ids and equal
-``GeoStats`` counters for ``fast`` (approx, exact, exact+fused, and an
-exact config whose caps overflow) and ``fast_onepass``, through
-``assign``, ``assign_padded`` and the extent handles.  Tolerance: exact
+``GeoStats`` counters (the per-level ``extra`` breakdown included) for
+``simple`` (default caps, fused, overflowing caps), ``fast`` (approx,
+exact, exact+fused, and exact configs whose caps overflow),
+``fast_onepass`` and ``hybrid`` (plain and fused), through ``assign``,
+``assign_padded``, the extent handles and the planner.  Tolerance: exact
 equality.
 """
 import dataclasses
@@ -19,6 +21,7 @@ from repro.core.compact import capacity_for
 from repro.core.engine import EngineConfig as JConfig
 from repro.core.engine import GeoEngine as JEngine
 from repro.core.fast import cell_values as j_cell_values
+from repro.core.plan import plan_for as JPlanFor
 from repro.core.resolve import resolve_candidates as j_resolve
 from repro_torch.core import plan as t_plan
 from repro_torch.core.artifact import GeoIndexSet
@@ -28,6 +31,11 @@ from repro_torch.core.registry import get_strategy
 from repro_torch.core.resolve import resolve_candidates as t_resolve
 
 CASES = {
+    "simple": ("simple", dict()),
+    "simple_fused": ("simple", dict(fused=True)),
+    "simple_capped": ("simple", dict(cap_state=0.01)),
+    "hybrid": ("hybrid", dict()),
+    "hybrid_fused": ("hybrid", dict(fused=True)),
     "approx": ("fast", dict(mode="approx")),
     "exact": ("fast", dict()),
     "exact_fused": ("fast", dict(fused=True)),
@@ -74,6 +82,12 @@ def _ids(res):
             else a.numpy() for a in (res.state, res.county, res.block)]
 
 
+def _ints(tree):
+    """A nested stats dict with every counter as a python int."""
+    return {k: _ints(v) if isinstance(v, dict) else int(v)
+            for k, v in tree.items()}
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_assign_matches_reference(engines, points, points_small, case):
     j, t = engines[case]
@@ -81,17 +95,18 @@ def test_assign_matches_reference(engines, points, points_small, case):
     for a, b in zip(_ids(rj), _ids(rt)):
         np.testing.assert_array_equal(a, b)
     assert rj.stats.as_dict() == rt.stats.as_dict()
+    assert _ints(rj.stats.extra) == _ints(rt.stats.extra)
     block = _ids(rt)[2]
     assert (block[-6:] == -1).all()
-    if case.startswith("exact") and "capped" not in case \
-            or case.startswith("onepass"):
+    if case != "approx" and "capped" not in case:
         np.testing.assert_array_equal(block[:len(points_small[1])],
                                       points_small[1])
     if "capped" in case:
         assert rt.stats.as_dict()["overflow"] > 0
 
 
-@pytest.mark.parametrize("case", ["exact", "exact_fused", "onepass"])
+@pytest.mark.parametrize("case", ["exact", "exact_fused", "onepass",
+                                  "simple", "simple_fused", "hybrid"])
 def test_assign_padded_matches_reference(engines, points, case):
     j, t = engines[case]
     padded = np.zeros((1024, 2), np.float32)
@@ -105,8 +120,12 @@ def test_assign_padded_matches_reference(engines, points, case):
     assert rt.stats.as_dict() == t.assign(points[:1000]).stats.as_dict()
 
 
-def test_extent_and_parent_handles_match(engines, points):
-    j, t = engines["exact"]
+@pytest.mark.parametrize("case", ["exact", "simple"])
+def test_extent_and_parent_handles_match(engines, points, case):
+    """Also on a simple-only engine: the extent from the census, the
+    parents from the simple index."""
+    j, t = engines[case]
+    assert (t.fast_index is None) == (case == "simple")
     np.testing.assert_array_equal(j.extent_contains(points),
                                   t.extent_contains(points))
     jq, jl = j.extent_quant()
@@ -117,7 +136,9 @@ def test_extent_and_parent_handles_match(engines, points):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["exact", "exact_fused", "onepass"])
+@pytest.mark.parametrize("case", ["exact", "exact_fused", "onepass",
+                                  "simple", "simple_fused", "hybrid",
+                                  "hybrid_fused"])
 def test_explain_and_footprint_match(engines, case):
     j, t = engines[case]
     assert j.explain() == t.explain()
@@ -193,20 +214,71 @@ def test_resolve_candidates_matches_reference(engines, points, two_phase,
         assert int(st.overflow) > 0
 
 
-def test_unported_choices_raise(engines, covering):
-    """A plan or call that needs a strategy not ported yet raises
-    NotImplementedError naming its slice — never a quiet substitute."""
-    heavy = dataclasses.replace(covering, val=-np.ones_like(covering.val))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        t_plan.plan_for(EngineConfig(), covering=heavy, device_kind="cpu")
-    with pytest.raises(NotImplementedError, match="simple"):
-        t_plan.plan_for(EngineConfig(), capabilities={}, device_kind="cpu")
-    for name in ("simple", "hybrid", "sharded"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_strategy(name)
+def test_unported_choices_raise(engines):
+    """The one strategy not ported yet, and the engine call that needs
+    it, raise NotImplementedError naming its slice — never a quiet
+    substitute."""
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        get_strategy("sharded")
     with pytest.raises(NotImplementedError, match="distributed"):
         engines["exact"][1].assign_sharded(np.zeros((4, 2), np.float32),
                                            mesh=None)
+
+
+def test_default_strategy_matches_reference(synth_small, points):
+    """``GeoEngine.build(census)`` builds the simple cascade in both
+    packages, with the same plan and the same answers."""
+    census = synth_small.census
+    j = JEngine.build(census)
+    t = GeoEngine.build(census, device="cpu")
+    assert j.strategy == t.strategy == "simple"
+    assert j.explain() == t.explain()
+    assert j.indices.capabilities() == t.indices.capabilities()
+    rj, rt = j.assign(jnp.asarray(points)), t.assign(points)
+    for a, b in zip(_ids(rj), _ids(rt)):
+        np.testing.assert_array_equal(a, b)
+    assert rj.stats.as_dict() == rt.stats.as_dict()
+
+
+@pytest.mark.parametrize("fused", [False, True, "onepass"])
+def test_heavy_boundary_plan_matches_reference(covering, fused):
+    """A covering whose boundary fraction is >= 0.35 plans ``hybrid`` as
+    the reference does, with the same fused choice and reasons; a
+    "onepass" request keeps the two-kernel fused path.  The device
+    rule's wording differs (the port names the card, not the TPU), so
+    with fused=False the last reason is only checked for its device."""
+    heavy = dataclasses.replace(covering, val=-np.ones_like(covering.val))
+    j = JPlanFor(JConfig(backend="ref", fused=fused), covering=heavy,
+                 device_kind="cpu").as_dict()
+    t = t_plan.plan_for(EngineConfig(fused=fused), covering=heavy,
+                        device_kind="cpu").as_dict()
+    assert t["strategy"] == "hybrid"
+    assert t["fused"] == (fused is not False)
+    if fused is False:
+        assert "'cpu'" in t["reasons"][-1]
+        j["reasons"], t["reasons"] = j["reasons"][:-1], t["reasons"][:-1]
+    assert j == t
+
+
+def test_auto_builds_hybrid_on_heavy_boundary(synth_small, covering,
+                                              points):
+    """strategy="auto" over a heavy-boundary covering builds hybrid (no
+    longer raises) and assigns as the reference's engine does."""
+    census = synth_small.census
+    heavy = dataclasses.replace(covering, val=-np.ones_like(covering.val),
+                                cand=covering.cand[:1])
+    j = JEngine.build(census, "auto", JConfig(backend="ref", max_level=8),
+                      covering=heavy)
+    t = GeoEngine.build(census, "auto", EngineConfig(max_level=8),
+                        covering=CellCovering(**dataclasses.asdict(heavy)),
+                        device="cpu")
+    assert j.strategy == t.strategy == "hybrid"
+    assert j.explain()["fused"] == t.explain()["fused"]
+    rj, rt = j.assign(jnp.asarray(points)), t.assign(points)
+    for a, b in zip(_ids(rj), _ids(rt)):
+        np.testing.assert_array_equal(a, b)
+    assert rj.stats.as_dict() == rt.stats.as_dict()
+    assert rt.stats.as_dict()["overflow"] > 0
 
 
 def test_fused_over_poolless_index_fails_at_build(engines):

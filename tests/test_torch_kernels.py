@@ -1,8 +1,10 @@
 """The port's kernel layer (src/repro_torch/kernels) against the JAX
 package's: each plain PyTorch twin against ``repro.kernels.ref`` on the
-same numpy inputs, the edge-pool packing, the empty-table normalization
-and the backend dispatch.  Tolerance: exact equality throughout (crossing
-counts, ids, flags and the packed pool are integers or copied floats).
+same numpy inputs — and the bbox and ``crossings_one`` twins also against
+the Pallas kernels themselves, run with ``backend="interpret"`` — the
+edge-pool packing, the empty-table normalization and the backend
+dispatch.  Tolerance: exact equality throughout (crossing counts, ids,
+flags, masks and the packed pool are integers or copied floats).
 
 The CUDA kernels themselves run only on a card: the cases marked
 ``cuda`` hold each kernel against its twin there and skip elsewhere;
@@ -17,11 +19,13 @@ import torch
 
 from repro.core.cells import build_cell_covering
 from repro.core.fast import FastIndex as JFastIndex
+from repro.core.resolve import first_k_candidates as j_first_k
 from repro.kernels import cascade as j_cascade
 from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
 from repro_torch.core.fast import INDEX_FIELDS, FastIndex
-from repro_torch.kernels import cascade, gather_pip, ops, pip, ref
+from repro_torch.core.resolve import first_k_candidates
+from repro_torch.kernels import bbox, cascade, gather_pip, ops, pip, ref
 
 NEEDS_CUDA = "needs a CUDA device; chip_smoke.py checks it"
 
@@ -88,6 +92,127 @@ def test_morton_and_effective_iters_match():
                                   (31058, 4, 7), (10, 2, 0)):
         assert (cascade.effective_iters(n_cells, gbits, iters)
                 == j_cascade.effective_iters(n_cells, gbits, iters))
+
+
+def _random_boxes(rng, shape, empty_frac=0.3):
+    """Boxes (xmin, xmax, ymin, ymax) of the given leading shape; a share
+    of them are the empty padding box (xmin > xmax)."""
+    lo = rng.uniform(-1.0, 1.0, shape + (2,))
+    hi = lo + rng.uniform(0.0, 1.0, shape + (2,))
+    boxes = np.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]],
+                     -1).astype(np.float32)
+    boxes[rng.random(shape) < empty_frac] = [1.0, 0.0, 1.0, 0.0]
+    return boxes
+
+
+def _odd_points(rng, n):
+    """Random points, then NaN, FAR, off-extent and on-edge rows."""
+    pts = rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32)
+    extra = [[np.nan, 0.0], [0.0, np.nan], [1e30, 1e30], [-1e30, 0.0],
+             [5.0, 5.0], [-3.0, 0.5], [np.inf, -np.inf]]
+    return np.concatenate([pts, extra]).astype(np.float32)
+
+
+# ----------------------------------------------------------- bbox twins
+def test_bbox_mask_twin(synth_small, points_small):
+    """The shared-table mask against the Pallas kernel (interpret) and
+    the reference oracle: random boxes with empty padding, and the
+    census' state boxes."""
+    rng = np.random.default_rng(10)
+    cases = [(_odd_points(rng, 600), _random_boxes(rng, (37,))),
+             (_edge_points(synth_small, points_small),
+              np.asarray(synth_small.census.states.bbox, np.float32))]
+    for pts, boxes in cases:
+        got = ops.bbox_mask(torch.from_numpy(pts), torch.from_numpy(boxes))
+        assert got.dtype == torch.int8
+        for backend in ("interpret", "ref"):
+            _eq(j_ops.bbox_mask(jnp.asarray(pts), jnp.asarray(boxes),
+                                backend=backend), got)
+        _eq(j_ref.bbox_mask(jnp.asarray(pts), jnp.asarray(boxes)),
+            bbox.bbox_mask(torch.from_numpy(pts), torch.from_numpy(boxes)))
+        assert 0 < int(got.sum()) < got.numel()
+        # NaN / FAR / off-extent rows match no box.
+        assert not got[-6:].any()
+
+
+@pytest.mark.parametrize("c", [1, 8, 24, 40])
+def test_bbox_count_select_twin(c):
+    """Count and selected slot against the Pallas kernel (interpret) and
+    the reference oracle, for one box, the county and block widths, and
+    more than one 32-slot ballot chunk."""
+    rng = np.random.default_rng(11 + c)
+    pts = _odd_points(rng, 700)
+    boxes = _random_boxes(rng, (len(pts), c))
+    cnt, sel = ops.bbox_count_select(torch.from_numpy(pts),
+                                     torch.from_numpy(boxes))
+    assert cnt.dtype == sel.dtype == torch.int32
+    for backend in ("interpret", "ref"):
+        want = j_ops.bbox_count_select(jnp.asarray(pts), jnp.asarray(boxes),
+                                       backend=backend)
+        _eq(want[0], cnt)
+        _eq(want[1], sel)
+    for a, b in zip(j_ref.bbox_count_select(jnp.asarray(pts),
+                                            jnp.asarray(boxes)),
+                    bbox.bbox_count_select(torch.from_numpy(pts),
+                                           torch.from_numpy(boxes))):
+        _eq(a, b)
+    assert (cnt[-7:] == 0).all() and (sel[-7:] == -1).all()
+    assert int(cnt.max()) > (1 if c > 1 else 0)
+    if c == 40:
+        assert int(sel.max()) >= 32          # a hit in the second chunk
+    # The gathered mask (a torch op on every backend) agrees.
+    _eq(j_ops.bbox_mask_gathered(jnp.asarray(pts), jnp.asarray(boxes),
+                                 backend="ref"),
+        ops.bbox_mask_gathered(torch.from_numpy(pts),
+                               torch.from_numpy(boxes)))
+
+
+@pytest.mark.parametrize("source", ["random", "census", "empty"])
+def test_crossings_one_twin(synth_small, points_small, source):
+    """Crossings against one shared table: the twin against the Pallas
+    kernel (interpret, through ``pip_one``) and the reference oracle."""
+    rng = np.random.default_rng(12)
+    if source == "random":
+        pts = _odd_points(rng, 600)
+        edges = _random_edges(rng, 1, 300)[0]
+    elif source == "census":
+        pts = _edge_points(synth_small, points_small)
+        edges = ops.edges_from_soup_np(synth_small.census.states.verts)[3]
+    else:
+        pts = _odd_points(rng, 50)
+        edges = np.zeros((0, 4), np.float32)
+    tp, te = torch.from_numpy(pts), torch.from_numpy(edges)
+    cross = pip.crossings_one(tp, te)
+    _eq(j_ref.crossings_one(jnp.asarray(pts), jnp.asarray(edges)), cross)
+    _eq(j_ref.crossings_one(jnp.asarray(pts), jnp.asarray(edges)),
+        ref.crossings_one(tp, te))
+    inside = ops.pip_one(tp, te)
+    # The Pallas grid cannot take an empty table (it pads E to 512 but
+    # slices 512 of 0), so E = 0 is held against the oracle alone.
+    for backend in ("interpret", "ref") if len(edges) else ("ref",):
+        _eq(j_ops.pip_one(jnp.asarray(pts), jnp.asarray(edges),
+                          backend=backend), inside)
+    if source == "empty":
+        assert not cross.any()
+    else:
+        assert inside.any() and not inside.all()
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 30])
+@pytest.mark.parametrize("c", [1, 8, 24])
+def test_first_k_candidates_matches_reference(k, c):
+    """Slots of the first min(k, C) set bits, -1 past them: k > C, rows
+    with fewer than k set bits, empty and full rows."""
+    rng = np.random.default_rng(13)
+    mask = (rng.random((300, c)) < rng.random((300, 1))).astype(np.int8)
+    mask[0] = 0
+    mask[1] = 1
+    want = j_first_k(jnp.asarray(mask), k)
+    got = first_k_candidates(torch.from_numpy(mask), k)
+    assert got.shape == (300, min(k, c))
+    _eq(want, got)
+    assert (got[0] == -1).all()
+    assert (got[1] == torch.arange(min(k, c))).all()
 
 
 # ----------------------------------------------------------- edge pool
@@ -239,6 +364,14 @@ def test_resolve_backend(monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_KERNELS", "cuda")
     with pytest.raises(ValueError, match="cannot run"):
         ops.pip_gathered(torch.zeros(1, 2), torch.zeros(1, 3, 4))
+    pts, boxes = torch.zeros(1, 2), torch.zeros(1, 3, 4)
+    for call in (lambda: ops.pip_one(pts, torch.zeros(3, 4)),
+                 lambda: ops.bbox_mask(pts, boxes[0]),
+                 lambda: ops.bbox_count_select(pts, boxes),
+                 # No kernel behind it, but the backend is still checked.
+                 lambda: ops.bbox_mask_gathered(pts, boxes)):
+        with pytest.raises(ValueError, match="cannot run"):
+            call()
 
 
 # ------------------------------------------- CUDA kernels vs their twins
@@ -289,3 +422,29 @@ def test_cuda_crossing_kernels_match_twins(cuda_device):
                                         pool.max_blocks),
         ref.crossings_candidates(pts, first, nblk, pool.blocks,
                                  pool.max_blocks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 8, 24, 40])
+def test_cuda_bbox_kernels_match_twins(cuda_device, c):
+    rng = np.random.default_rng(14)
+    pts = torch.as_tensor(_odd_points(rng, 5000), device=cuda_device)
+    boxes = torch.as_tensor(_random_boxes(rng, (pts.shape[0], c)),
+                            device=cuda_device)
+    for a, b in zip(bbox.bbox_count_select(pts, boxes),
+                    ref.bbox_count_select(pts, boxes)):
+        assert torch.equal(a, b)
+    shared = boxes[0].contiguous()
+    assert torch.equal(bbox.bbox_mask(pts, shared),
+                       ref.bbox_mask(pts, shared))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [0, 37, 300])
+def test_cuda_crossings_one_matches_twin(cuda_device, e):
+    rng = np.random.default_rng(15)
+    pts = torch.as_tensor(_odd_points(rng, 5000), device=cuda_device)
+    edges = torch.as_tensor(_random_edges(rng, 1, e)[0]
+                            .reshape(e, 4), device=cuda_device)
+    assert torch.equal(pip.crossings_one(pts, edges),
+                       ref.crossings_one(pts, edges))
