@@ -27,7 +27,8 @@ construction, never at the first assign.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -101,6 +102,11 @@ class GeoEngine:
         self._impl.validate(indices, self.cfg)
         self.plan = plan if plan is not None else plan_mod.explicit_plan(
             strategy, self.cfg, plan_mod.device_kind_of(indices.device))
+        # Optional observability hook (DESIGN.md §15): when set to a
+        # callable ``f(stage, seconds, batch=b)``, every padded assign is
+        # timed to completion (the device synchronized) and reported.
+        # Off by default — the hot path must not pay a sync unasked.
+        self.stage_timer: Optional[Callable[..., None]] = None
 
     @classmethod
     def build(cls, census: CensusMap, strategy: str = "simple",
@@ -209,17 +215,30 @@ class GeoEngine:
         are rewritten to ``ops.FAR`` (outside every extent, bbox and
         polygon), so they enter no need mask, compaction or PIP call,
         the GeoStats counters equal an unpadded assign of the valid
-        prefix, and pad rows come back -1 in all three id tensors."""
+        prefix, and pad rows come back -1 in all three id tensors.  With
+        ``stage_timer`` set, the call synchronizes the engine's device
+        and reports ``("assign_padded", seconds, batch=b)``."""
         if not self._impl.caps.supports_padded:
             raise ValueError(f"strategy {self.strategy!r} does not "
                              f"support padded batches")
+        timer = self.stage_timer
+        t0 = time.perf_counter() if timer is not None else 0.0
         pts = self._points(points)
         valid = torch.arange(pts.shape[0], device=self.device) < n_valid
         masked = torch.where(valid[:, None], pts, ops.FAR)
         res = self.assign(masked)
-        return AssignResult(torch.where(valid, res.state, -1),
-                            torch.where(valid, res.county, -1),
-                            torch.where(valid, res.block, -1), res.stats)
+        out = AssignResult(torch.where(valid, res.state, -1),
+                           torch.where(valid, res.county, -1),
+                           torch.where(valid, res.block, -1), res.stats)
+        if timer is not None:
+            # Sync so the interval covers the device work, not just the
+            # launches — the engine-side truth that the serving layer's
+            # host-observed device_assign brackets.
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timer("assign_padded", time.perf_counter() - t0,
+                  batch=pts.shape[0])
+        return out
 
     # -- index / extent handles ---------------------------------------------
 

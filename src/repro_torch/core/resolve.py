@@ -54,6 +54,18 @@ class ResolveStats:
     overflow: Any
     phase2_miss: Any
 
+    def as_dict(self) -> dict:
+        return {"n_need": self.n_need, "n_pip": self.n_pip,
+                "overflow": self.overflow, "phase2_miss": self.phase2_miss}
+
+    def merge(self, other: "ResolveStats") -> "ResolveStats":
+        """Counter-wise sum — aggregates resolves across micro-batches."""
+        return ResolveStats(
+            n_need=self.n_need + other.n_need,
+            n_pip=self.n_pip + other.n_pip,
+            overflow=self.overflow + other.overflow,
+            phase2_miss=self.phase2_miss + other.phase2_miss)
+
 
 @dataclasses.dataclass
 class GeoStats:
@@ -72,6 +84,19 @@ class GeoStats:
     overflow: Any
     extra: Any = dataclasses.field(default_factory=dict)
 
+    def merge(self, other: "GeoStats") -> "GeoStats":
+        """Counter-wise sum across micro-batches (serving aggregation).
+
+        ``extra`` is summed leaf by leaf over the nested dicts, so both
+        stats must come from the same strategy + config (identical extra
+        structure) — the serving layer keeps one running GeoStats per
+        engine.  Non-mutating; the sums stay on the counters' device.
+        """
+        return GeoStats(n_need=self.n_need + other.n_need,
+                        n_pip=self.n_pip + other.n_pip,
+                        overflow=self.overflow + other.overflow,
+                        extra=_add_nested(self.extra, other.extra))
+
     def as_dict(self) -> dict:
         """Flat JSON-ready counters (python ints)."""
         d = {"n_need": int(self.n_need), "n_pip": int(self.n_pip),
@@ -84,6 +109,16 @@ class GeoStats:
         else:
             d["n_boundary"] = d["n_need"]
         return d
+
+
+def _add_nested(a, b):
+    """Leaf-wise sum of two nested dicts of the same structure."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise ValueError(f"cannot merge stats with keys {sorted(a)} "
+                             f"and {sorted(b)}")
+        return {k: _add_nested(a[k], b[k]) for k in a}
+    return a + b
 
 
 def _sum_nested(tree, key: str) -> int:

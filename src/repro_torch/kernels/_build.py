@@ -32,7 +32,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bbox.cu", "cascade.cu", "gather_pip.cu", "pip.cu")
+SOURCES = ("bbox.cu", "cascade.cu", "gather_pip.cu", "pip.cu",
+           "segment.cu")
 HEADERS = ("pip.cuh",)
 # -fmad=false: no FMA contraction, so products round as numpy/XLA round
 # them (the crossing test and the quantize must be bit-equal).
@@ -44,7 +45,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 LAUNCHES = {"assign_cascade": 0, "bbox_count_select": 0, "bbox_mask": 0,
             "crossings_candidates": 0, "crossings_gathered": 0,
-            "crossings_one": 0}
+            "crossings_one": 0, "segment_reduce_sorted": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "repro_crossings_one": [_P] * 3 + [_N, _I, _P],
     "repro_bbox_mask": [_P] * 3 + [_N, _I, _P],
     "repro_bbox_count_select": [_P] * 4 + [_N, _I, _P],
+    "repro_segment_reduce_sorted": [_P] * 8 + [_N, _I, _P],
+    "repro_segment_tile_rows": [],
 }
 
 _lock = threading.Lock()
@@ -179,6 +182,11 @@ def require_aligned(t, name: str, nbytes: int) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_or_null(t) -> ctypes.c_void_p:
+    """``ptr(t)``, or a null pointer for ``None``."""
+    return ctypes.c_void_p() if t is None else ptr(t)
 
 
 def stream_of(t) -> ctypes.c_void_p:

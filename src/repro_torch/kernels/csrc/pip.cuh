@@ -1,7 +1,8 @@
 // Shared device code of the crossing-number kernels (cascade.cu,
 // gather_pip.cu, pip.cu): the per-edge crossing test, the warp sum, and
 // the crossing count of one point against a run of edge-pool blocks.
-// bbox.cu uses only its launch geometry (kWarp, kThreads, warp_grid).
+// bbox.cu and segment.cu use only its launch geometry (kWarp, kThreads,
+// kWarpsPerBlock, warp_grid).
 //
 // Bit-equality with the numpy / XLA references rests on two rules:
 //   * every product and difference rounds on its own (no FMA

@@ -1,6 +1,5 @@
 """Public kernel API: natural layouts, empty-table normalization, backend
-dispatch (port of src/repro/kernels/ops.py; the segment reduction comes
-with the analytics slice).
+dispatch (port of src/repro/kernels/ops.py).
 
 Backend selection (``REPRO_TORCH_KERNELS`` env var or explicit
 ``backend=``):
@@ -14,6 +13,7 @@ Asking for ``cuda`` with CPU tensors raises, and so does asking for
 from __future__ import annotations
 
 import os
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ from repro_torch.kernels import cascade as cascade_kernels
 from repro_torch.kernels import gather_pip as gather_pip_kernels
 from repro_torch.kernels import pip as pip_kernels
 from repro_torch.kernels import ref
+from repro_torch.kernels import segment as segment_kernels
 # re-export: ops is the one import surface strategy code uses.
 # geolint: ignore[unused-import] -- re-export through ops.*
 from repro_torch.kernels.gather_pip import (DEF_BE, EdgePool,  # noqa: F401
@@ -173,6 +174,94 @@ def bbox_count_select(points: torch.Tensor, boxes: torch.Tensor,
         return ref.bbox_count_select(points, boxes)
     return bbox_kernels.bbox_count_select(points.float().contiguous(),
                                           boxes.float().contiguous())
+
+
+class SegmentReduce(NamedTuple):
+    """Per-segment aggregates of ``segment_reduce`` (all [S]-shaped
+    tensors).  ``min``/``max`` are only meaningful where ``count > 0``
+    (empty segments carry the +inf/-inf reduction identities)."""
+
+    count: torch.Tensor                # i32
+    sum: torch.Tensor                  # f32
+    min: torch.Tensor                  # f32
+    max: torch.Tensor                  # f32
+
+
+def segment_reduce(ids: torch.Tensor, values: Optional[torch.Tensor] = None,
+                   *, n_segments: int,
+                   backend: str | None = None) -> SegmentReduce:
+    """Per-block aggregation of assigned ids (DESIGN.md §16): count /
+    sum / min / max of ``values`` grouped by ``ids`` over ``n_segments``
+    blocks.  Rows with ids outside [0, n_segments) — the engine's -1
+    "off map" answer included — are ignored on every backend.
+
+    ``values=None`` aggregates a zero column (callers wanting only
+    occupancy counts).  The kernel path stable-sorts rows by id on the
+    device first (glue, as ``jnp.argsort`` is in the reference); the ref
+    path is the plain twin.  Semantic ground truth is
+    ``ref.np_segment_reduce`` (numpy bincount, f64 accumulate).
+    """
+    b = resolve_backend(backend, ids.device)
+    ids = ids.reshape(-1).to(torch.int32)
+    if values is not None:
+        values = values.reshape(-1).to(torch.float32)
+        if values.shape != ids.shape:
+            raise ValueError(f"values {tuple(values.shape)} do not match "
+                             f"ids {tuple(ids.shape)}")
+    # Park every invalid row at the scratch segment so all backends see
+    # one normalized id range [0, n_segments].
+    invalid = (ids < 0) | (ids >= n_segments)
+    ids = torch.where(invalid, n_segments, ids)
+    if b == "ref":
+        out = ref.segment_reduce(ids, values, n_segments)
+    else:
+        ids_s, order = torch.sort(ids, stable=True)
+        # A zero column (None) is neither gathered nor read: the kernel
+        # takes the counts from the segment bounds alone.
+        out = segment_kernels.segment_reduce_sorted(
+            ids_s, None if values is None else values[order], n_segments)
+    count, total, vmin, vmax = out
+    # Normalize empty-segment sentinels once, after any backend, so the
+    # backends are identical by construction even if a reduction
+    # identity differs in sign-of-zero or NaN handling.
+    empty = count == 0
+    return SegmentReduce(
+        count.to(torch.int32),
+        torch.where(empty, 0.0, total),
+        torch.where(empty, float("inf"), vmin),
+        torch.where(empty, float("-inf"), vmax))
+
+
+def segment_counts(ids: torch.Tensor, *, n_segments: int,
+                   backend: str | None = None) -> torch.Tensor:
+    """[S] i32 occupancy counts of assigned ids (invalid ids ignored)."""
+    return segment_reduce(ids, None, n_segments=n_segments,
+                          backend=backend).count
+
+
+def assign_aggregate(points: torch.Tensor, quant: torch.Tensor,
+                     cell_lo: torch.Tensor, cell_hi: torch.Tensor,
+                     cell_val: torch.Tensor, top_start: torch.Tensor,
+                     cand: torch.Tensor, bbox: torch.Tensor, pool: EdgePool,
+                     *, n_segments: int, max_level: int, gbits: int,
+                     search_iters: int,
+                     values: Optional[torch.Tensor] = None,
+                     backend: str | None = None):
+    """Fused assign→aggregate: the one-pass cascade immediately followed
+    by the segment reduction, both on the points' device, so the [N] id
+    vector never crosses to the host — only the [S] per-block
+    aggregates do, when the caller reads them.
+
+    Returns ``(SegmentReduce, (bid, flags, nrest, nskip))`` — the raw
+    cascade outputs ride along for ``onepass_stats`` accounting.
+    """
+    bid, flags, nrest, nskip = assign_cascade(
+        points, quant, cell_lo, cell_hi, cell_val, top_start, cand, bbox,
+        pool, max_level=max_level, gbits=gbits, search_iters=search_iters,
+        backend=backend)
+    red = segment_reduce(bid, values, n_segments=n_segments,
+                         backend=backend)
+    return red, (bid, flags, nrest, nskip)
 
 
 def edges_from_soup_np(verts: np.ndarray) -> np.ndarray:

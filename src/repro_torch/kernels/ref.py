@@ -6,7 +6,8 @@ results.  The twins are the CPU backend (``ops`` picks them for CPU
 tensors), what the CPU tests hold against the JAX reference, and what
 chip_smoke.py holds each CUDA kernel against on the card.
 ``bbox_mask_gathered`` has no kernel: it is a torch op on every
-backend, as in the reference.
+backend, as in the reference.  ``np_segment_reduce`` is the numpy
+ground truth of the segment reduction (a copy of the reference's).
 
 Crossing-number test (paper §III-A): a point is inside a polygon iff a
 ray in +x crosses the boundary an odd number of times.  Edge
@@ -18,6 +19,9 @@ point, tested without division as
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from repro_torch.kernels.cascade import OUTSIDE, morton
@@ -215,3 +219,58 @@ def assign_cascade(points: torch.Tensor, quant: torch.Tensor,
     bid = torch.where(boundary, resolved, torch.where(v >= 0, v, -1))
     flags = boundary.int() | (slot0_hit.int() << 1)
     return bid.int(), flags, nrest, nskip
+
+
+def segment_reduce(ids: torch.Tensor, values: Optional[torch.Tensor],
+                   n_segments: int):
+    """Twin of the segment-reduce kernel (kernels/segment.py).
+
+    Rows whose id lies outside [0, n_segments) land in no segment: they
+    are parked at the extra scratch segment ``n_segments``, sliced off
+    here (``ops.segment_reduce`` parks them before any backend).  The ids
+    need not be sorted; ``values=None`` is a zero column.  Returns (count
+    [S] i32, sum [S] f32, min [S] f32, max [S] f32); empty segments are
+    (0, 0.0, +inf, -inf).  On a CUDA tensor ``index_add_`` adds with
+    atomics, so the f32 sum's order (and its rounding) varies from run to
+    run; it is exact on integer-valued columns below 2**24.
+    """
+    dev = ids.device
+    ix = torch.where((ids < 0) | (ids > n_segments), n_segments,
+                     ids).long()
+    values = torch.zeros(ids.shape, device=dev) if values is None \
+        else values.float()
+    num = n_segments + 1                  # + the park segment
+    count = torch.zeros(num, dtype=torch.int32, device=dev).index_add_(
+        0, ix, torch.ones_like(ids, dtype=torch.int32))
+    total = torch.zeros(num, dtype=torch.float32, device=dev).index_add_(
+        0, ix, values)
+    vmin = torch.full((num,), float("inf"), device=dev).scatter_reduce(
+        0, ix, values, "amin", include_self=True)
+    vmax = torch.full((num,), float("-inf"), device=dev).scatter_reduce(
+        0, ix, values, "amax", include_self=True)
+    return (count[:n_segments], total[:n_segments], vmin[:n_segments],
+            vmax[:n_segments])
+
+
+def np_segment_reduce(ids, values, n_segments: int):
+    """Host numpy ``bincount`` ground truth for segment reduction — the
+    semantics every backend must reproduce.  Rows with ids outside
+    [0, n_segments) are ignored; sums accumulate in float64 and round
+    once to f32 at the end, so any f32 reduction order that is exact
+    (integer-valued data, counts) is bit-identical to it.
+    """
+    ids = np.asarray(ids)
+    if values is None:
+        values = np.zeros(ids.shape, np.float32)
+    values = np.asarray(values)
+    valid = (ids >= 0) & (ids < n_segments)
+    ids = ids[valid].astype(np.int64)
+    vals = values[valid].astype(np.float64)
+    count = np.bincount(ids, minlength=n_segments).astype(np.int32)
+    total = np.bincount(ids, weights=vals,
+                        minlength=n_segments).astype(np.float32)
+    vmin = np.full(n_segments, np.inf, np.float64)
+    np.minimum.at(vmin, ids, vals)
+    vmax = np.full(n_segments, -np.inf, np.float64)
+    np.maximum.at(vmax, ids, vals)
+    return count, total, vmin.astype(np.float32), vmax.astype(np.float32)

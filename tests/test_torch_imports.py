@@ -1,7 +1,8 @@
 """The port stands alone: no file under src/repro_torch, and not
 chip_smoke.py, imports ``jax`` or the JAX package ``repro`` (an AST scan
-of every import statement), importing the port's engine loads neither,
-and chip_smoke.py refuses to run without a CUDA device.
+of every import statement), importing the port's engine, serving,
+analytics or obs package loads neither, and chip_smoke.py refuses to run
+without a CUDA device.
 """
 import ast
 import glob
@@ -34,8 +35,11 @@ def _imported_roots(path):
 
 
 def test_port_files_found():
-    assert len(PORT_FILES) >= 17
-    assert "src/repro_torch/core/engine.py" in PORT_FILES
+    assert len(PORT_FILES) >= 33
+    for path in ("core/engine.py", "serving/server.py",
+                 "analytics/aggregate.py", "obs/profile.py",
+                 "kernels/segment.py"):
+        assert f"src/repro_torch/{path}" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -54,6 +58,21 @@ def test_engine_import_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = _run(["-c", "import sys, repro_torch.core.engine, "
               "repro_torch.kernels.ops; "
+              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro')); print(bad); "
+              "sys.exit(1 if bad else 0)"], cwd=REPO, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serving",
+                                    "repro_torch.analytics",
+                                    "repro_torch.obs"])
+def test_slice_import_loads_no_jax(module):
+    """The serving, analytics and obs packages load neither ``jax`` nor
+    ``repro`` (the server pulls in the engine, the kernels and numpy
+    copies of the reference's host modules)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = _run(["-c", f"import sys, {module}; "
               "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'repro')); print(bad); "
               "sys.exit(1 if bad else 0)"], cwd=REPO, env=env)

@@ -1,0 +1,352 @@
+"""The port's observability slice (src/repro_torch/obs, and the
+``ServerMetrics`` registry it backs) on the CPU, mirroring
+tests/test_obs.py: histogram algebra equal to the JAX package's on the
+same feeds, the Prometheus exposition equal to the JAX registry's text,
+tracer span trees through the synchronous serve path, the profiler hooks
+(``torch.profiler`` in place of ``jax.profiler``) and the engine's
+``stage_timer``.  Tolerance: exact equality, except that quantiles are
+exact only within a bucket's resolution (as in the reference).
+"""
+import json
+import os
+import time
+from collections import defaultdict
+
+import numpy as np
+import pytest
+
+from repro.obs import LatencyHistogram as JLatencyHistogram
+from repro.obs import Tracer as JTracer
+from repro.serving.metrics import ServerMetrics as JServerMetrics
+from repro_torch.core.cells import build_cell_covering
+from repro_torch.core.engine import EngineConfig, GeoEngine
+from repro_torch.obs import (LatencyHistogram, SpanBuffer, Tracer,
+                             device_annotation, profiler_available,
+                             start_profile, stop_profile)
+from repro_torch.obs.profile import TRACE_FILE
+from repro_torch.obs.trace import Span
+from repro_torch.serving import GeoServer, QueueFull, ServeConfig
+from repro_torch.serving.metrics import LatencyWindow, ServerMetrics
+
+BUCKETS = (64, 256, 1024)
+STREAM = (1, 7, 300, 555, 1024, 113)
+EPS_S = 1e-9
+
+
+@pytest.fixture(scope="module")
+def engine(synth_small):
+    cov = build_cell_covering(synth_small.census, max_level=8)
+    return GeoEngine.build(synth_small.census, "fast",
+                           EngineConfig(cap_boundary=1.0, max_level=8,
+                                        fused=True),
+                           covering=cov, device="cpu")
+
+
+def _by_trace(spans):
+    groups = defaultdict(list)
+    for s in spans:
+        groups[s.trace_id].append(s)
+    return groups
+
+
+def _assert_tree_invariants(spans):
+    """One root per completed trace; children resolve and nest in it."""
+    for tid, group in _by_trace(spans).items():
+        roots = [s for s in group if s.parent_id is None]
+        assert len(roots) == 1, f"trace {tid}: {len(roots)} roots"
+        root = roots[0]
+        assert root.name == "request"
+        ids = {s.span_id for s in group}
+        for s in group:
+            if s is root:
+                continue
+            assert s.parent_id in ids
+            assert s.t0 >= root.t0 - EPS_S and s.t1 <= root.t1 + EPS_S
+            assert s.t1 >= s.t0 - EPS_S
+
+
+# -- histogram algebra -------------------------------------------------------
+
+def _feed(hist, samples):
+    for s in samples:
+        hist.observe(s)
+    return hist
+
+
+@pytest.mark.parametrize("lo, hi, per_octave", [(1e-6, 64.0, 4),
+                                                (1e-5, 1.0, 8)])
+def test_hist_matches_reference(lo, hi, per_octave):
+    """Same layout, buckets, quantiles and cumulative rows as the JAX
+    package's histogram on the same samples (quantiles within one
+    bucket's resolution of the exact ones)."""
+    rng = np.random.default_rng(0)
+    samples = np.concatenate([rng.uniform(1e-4, 1e-1, 4096), [0.0, 1e9]])
+    t = _feed(LatencyHistogram(lo, hi, per_octave), samples)
+    j = _feed(JLatencyHistogram(lo, hi, per_octave), samples)
+    np.testing.assert_array_equal(t.uppers, j.uppers)
+    np.testing.assert_array_equal(t.counts, j.counts)
+    assert t.cumulative() == j.cumulative()
+    assert t.snapshot_ms() == j.snapshot_ms()
+    tol = 2 ** (0.5 / per_octave)
+    for q in (0.5, 0.9, 0.99):
+        assert t.quantile(q) == j.quantile(q)
+        exact = np.quantile(samples[:-2], q)
+        assert exact / tol <= t.quantile(q) <= exact * tol * 1.01
+
+
+def test_hist_merge_associative_and_layout_checked():
+    rng = np.random.default_rng(1)
+    parts = [rng.uniform(1e-5, 1.0, 257) for _ in range(3)]
+    hs = [_feed(LatencyHistogram(), p) for p in parts]
+    direct = _feed(LatencyHistogram(), np.concatenate(parts))
+    for m in (hs[0].merge(hs[1]).merge(hs[2]),
+              hs[0].merge(hs[1].merge(hs[2]))):
+        np.testing.assert_array_equal(m.counts, direct.counts)
+        assert m.count == direct.count and m.max == direct.max
+        assert m.sum == pytest.approx(direct.sum)
+    with pytest.raises(ValueError, match="layout"):
+        LatencyHistogram().merge(LatencyHistogram(per_octave=8))
+    empty = LatencyHistogram()
+    assert empty.quantile(0.5) == 0.0
+    assert empty.snapshot_ms()["p99"] is None
+
+
+# -- metrics semantics -------------------------------------------------------
+
+def test_latency_window_reports_both_counts():
+    w = LatencyWindow(window=8)
+    for i in range(20):
+        w.observe(0.001 * (i + 1))
+    snap = w.snapshot_ms()
+    assert snap["count_total"] == 20 and snap["count_window"] == 8
+    assert snap["p50"] == pytest.approx(
+        np.percentile(np.arange(13, 21) * 1.0, 50))
+
+
+def test_observe_cache_gauges_survive_rewind():
+    m = ServerMetrics()
+    m.observe_cache({"hits": 50, "misses": 10, "insertions": 8,
+                     "evictions": 1, "entries": 7})
+    before = dict(m.counters)
+    m.observe_cache({"hits": 2, "misses": 1, "insertions": 1,
+                     "evictions": 0, "entries": 1})
+    assert m.gauges["cache_hits"] == 2 and m.counters == before
+    assert m.snapshot()["derived"]["cache_hit_rate"] == pytest.approx(2 / 3)
+
+
+def test_expose_text_golden_and_equal_to_reference():
+    """The exposition is the JAX registry's, byte for byte."""
+    texts = []
+    for cls in (ServerMetrics, JServerMetrics):
+        m = cls()
+        m.inc("requests", 3)
+        m.inc("points_in", 42)
+        m.inc("weird name-1!", 2)
+        m.set_gauge("queue_depth_points", 0)
+        m.observe_stage("merge", 2e-6)
+        m.observe_stage("device_assign", 0.0123)
+        texts.append(m.expose_text())
+    assert texts[0] == texts[1]
+    assert "weird_name_1__total 2" in texts[0]
+    assert 'stage_latency_seconds_bucket{stage="merge",le="2e-06"} 1' \
+        in texts[0]
+
+
+# -- span plumbing -----------------------------------------------------------
+
+def test_span_buffer_bounded_drop_oldest():
+    buf = SpanBuffer(capacity=4)
+    for i in range(6):
+        buf.append(Span(1, i, None, "s", float(i), float(i + 1), "t", {}))
+    assert len(buf) == 4 and buf.dropped == 2
+    assert [s.span_id for s in buf.snapshot()] == [2, 3, 4, 5]
+    buf.clear()
+    assert len(buf) == 0 and buf.dropped == 0
+
+
+def test_tracer_sampling_matches_reference():
+    """The deterministic credit sampler keeps the same requests as the
+    JAX package's tracer."""
+    for rate in (0.3, 0.5, 0.25):
+        t, j = Tracer(sample_rate=rate), JTracer(sample_rate=rate)
+        kept = [t.start_trace() is not None for _ in range(100)]
+        assert kept == [j.start_trace() is not None for _ in range(100)]
+    assert kept == [(i + 1) % 4 == 0 for i in range(100)]
+    with pytest.raises(ValueError):
+        Tracer(sample_rate=1.5)
+
+
+def test_request_trace_and_chrome_export(tmp_path):
+    tr = Tracer(sample_rate=1.0)
+    t0 = time.perf_counter()
+    rt = tr.start_trace(t0)
+    host = rt.span("host_prepare", t0 + 0.01, t0 + 0.02)
+    rt.span("route", t0 + 0.011, t0 + 0.015, parent=host, region=0)
+    rt.end(t0 + 0.05, n_points=3)
+    rt.end(t0 + 9.0)                   # second close is a no-op
+    spans = tr.buffer.snapshot()
+    assert [s.name for s in spans] == ["host_prepare", "route", "request"]
+    _assert_tree_invariants(spans)
+    path = str(tmp_path / "trace.json")
+    n = tr.export_chrome(path)
+    doc = json.load(open(path))
+    assert len(doc["traceEvents"]) == n
+    assert {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"} == \
+        {"host_prepare", "route", "request"}
+    assert tr.export_spans(str(tmp_path / "spans.json")) == 3
+
+
+# -- serve-path integration --------------------------------------------------
+
+def test_sync_serving_bit_identical_with_full_tracing(engine,
+                                                      points_small):
+    xy = points_small[0]
+    tracer = Tracer(sample_rate=1.0)
+    traced = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=True),
+                       tracer=tracer)
+    plain = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=True))
+    off = 0
+    for size in STREAM:
+        req = xy[off:off + size]
+        off += size
+        rt, rp = traced.submit(req), plain.submit(req)
+        direct = engine.assign(req)
+        np.testing.assert_array_equal(rt.block, direct.block.numpy())
+        np.testing.assert_array_equal(rt.state, direct.state.numpy())
+        np.testing.assert_array_equal(rt.block, rp.block)
+    assert tracer.stats()["sampled"] == len(STREAM)
+    spans = tracer.buffer.snapshot()
+    _assert_tree_invariants(spans)
+    assert len([s for s in spans if s.parent_id is None]) == len(STREAM)
+    assert {"request", "submit", "queue_wait", "host_prepare", "route",
+            "cache_lookup", "cache_learn", "device_assign",
+            "merge"} <= {s.name for s in spans}
+
+
+def test_stage_histograms_and_metrics_text(engine, points_small):
+    """Per-stage histograms record with no tracer; a tracer at rate 0
+    records nothing; the exposition renders every serve stage."""
+    tracer = Tracer(sample_rate=0.0)
+    server = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=True),
+                       tracer=tracer)
+    server.submit(points_small[0][:200])
+    stages = server.snapshot()["stages"]
+    for stage in ("queue_wait", "host_prepare", "device_assign", "merge",
+                  "request"):
+        assert stages[stage]["count"] > 0 and stages[stage]["p99"] >= 0
+    assert len(tracer.buffer) == 0 and tracer.stats()["started"] == 1
+    txt = server.metrics_text()
+    assert "requests_total 1" in txt and "cache_misses gauge" in txt
+    assert 'stage_latency_seconds_bucket{stage="device_assign"' in txt
+    assert txt.count('le="+Inf"') >= 5
+
+
+def test_serving_cache_totals_are_monotonic(engine, points_small):
+    xy = points_small[0]
+    server = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=True))
+    server.submit(xy[:500])
+    c1 = server.metrics.counters["cache_misses_total"]
+    cache = server.regions[0].cache
+    cache._map.clear()
+    cache.hits = cache.misses = 0
+    server.submit(xy[:500])
+    assert server.metrics.counters["cache_misses_total"] > c1
+    assert server.snapshot()["gauges"]["cache_misses"] < \
+        server.metrics.counters["cache_misses_total"]
+
+
+def test_shed_request_closes_trace_without_orphans(engine, points_small):
+    xy = points_small[0]
+    tracer = Tracer(sample_rate=1.0)
+    server = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=False,
+                                           max_queue_points=100,
+                                           policy="shed"), tracer=tracer)
+    server.enqueue(xy[:80])
+    with pytest.raises(QueueFull):
+        server.enqueue(xy[80:200])
+    server.flush()
+    spans = tracer.buffer.snapshot()
+    _assert_tree_invariants(spans)
+    sheds = [s for s in spans if s.parent_id is None
+             and s.attrs.get("error")]
+    assert [s.attrs["error"] for s in sheds] == ["QueueFull"]
+
+
+def test_check_trace_validator_on_live_export(engine, points_small,
+                                              tmp_path):
+    """scripts/check_trace.py accepts the port server's export."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", os.path.join(os.path.dirname(__file__), "..",
+                                    "scripts", "check_trace.py"))
+    check_trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_trace)
+    tracer = Tracer(sample_rate=1.0)
+    server = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=True),
+                       tracer=tracer)
+    for size in STREAM:
+        server.submit(points_small[0][:size])
+    good = str(tmp_path / "good.json")
+    tracer.export_chrome(good)
+    check_trace.main(good)
+
+
+# -- profiler hooks + engine stage timer -------------------------------------
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_device_annotation_is_exception_safe(device):
+    assert profiler_available()
+    with device_annotation("geo_test/b256", device):
+        x = 1 + 1
+    assert x == 2
+    with pytest.raises(KeyError):         # the body's errors propagate
+        with device_annotation("geo_test/raise", device):
+            raise KeyError("body")
+
+
+def test_profile_capture_writes_chrome_trace(engine, points_small,
+                                             tmp_path):
+    """start/stop bracket a traced serve; the Chrome trace lands under
+    the logdir and names the device-assign range; a second start while
+    one is active and a stop with none are refused."""
+    server = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=False,
+                                           trace_device=True))
+    logdir = str(tmp_path / "prof")
+    assert server.start_profile(logdir)
+    assert not start_profile(logdir)      # one capture per process
+    res = server.submit(points_small[0][:128])
+    assert server.stop_profile()
+    assert not stop_profile()
+    np.testing.assert_array_equal(
+        res.block, engine.assign(points_small[0][:128]).block.numpy())
+    doc = json.load(open(os.path.join(logdir, TRACE_FILE)))
+    names = {e.get("name") for e in doc["traceEvents"]}
+    assert "geo_device_assign/b256" in names
+
+
+def test_engine_stage_timer_hook(engine):
+    calls = []
+    engine.stage_timer = lambda stage, s, **kw: calls.append((stage, s, kw))
+    try:
+        res = engine.assign_padded(np.zeros((64, 2), np.float32), 10)
+    finally:
+        engine.stage_timer = None
+    assert (res.block.numpy() == -1).all()
+    assert len(calls) == 1
+    stage, seconds, kw = calls[0]
+    assert stage == "assign_padded" and seconds > 0 and kw == {"batch": 64}
+    engine.assign_padded(np.zeros((64, 2), np.float32), 10)
+    assert len(calls) == 1                # off again: nothing reported
+
+
+def test_engine_stage_timer_through_server(engine, points_small):
+    """A timer set on the served engine sees every padded assign the
+    server makes, at its bucket size."""
+    seen = []
+    engine.stage_timer = lambda stage, s, **kw: seen.append(kw["batch"])
+    try:
+        GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=False)).submit(
+            points_small[0][:300])
+    finally:
+        engine.stage_timer = None
+    assert seen == [1024]
