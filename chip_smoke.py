@@ -3,23 +3,37 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Drives the port's mapping, analytics and serving paths through their
-public entry points (``GeoEngine.build`` / ``assign`` / ``assign_padded``,
-``ops.pip_one``, ``BlockAggregator``, ``ops.assign_aggregate``,
-``GeoServer``) on the card:
+Drives the port's mapping, analytics, serving and LM serving paths
+through their public entry points (``GeoEngine.build`` / ``assign`` /
+``assign_padded``, ``ops.pip_one``, ``BlockAggregator``,
+``ops.assign_aggregate``, ``GeoServer``, ``repro_torch.launch.serve``) on
+the card:
 
   1. prints the card (nvidia-smi name and power limit), torch and nvcc
      versions, and builds the CUDA kernels from ``src/repro_torch/
-     kernels/csrc`` (build seconds, ptxas register counts);
-  2. builds the benchmark-scale census (benchmarks/common.py SCALE:
-     16 states / 128 counties / 3,072 blocks), its covering at max_level
-     9, and six engines on cuda: ``fast`` (gathered PIP kernel), ``fast``
-     with ``fused=True`` (candidate PIP kernel), ``fast_onepass``
-     (one-pass cascade kernel), ``simple`` and ``simple`` with
-     ``fused=True`` (the bbox kernels, then gathered / candidate PIP per
-     level) and ``hybrid`` (the cell lookup, then the simple cascade on
-     boundary points);
-  3. kernel phase: a 2^16-point batch through each engine, and through
+     kernels/csrc`` (build seconds, ptxas register counts), and beside
+     them a copy of the flash kernel with a planted fault (one KV tile
+     skipped); meanwhile a child process builds the host map of phase 3;
+  2. LM path: ``flash_attn_bhsd`` against its twin (f32 and bf16, causal
+     and full, D 16 / 64 / 128, S 64 / 100 / 300 / 2048, a second launch
+     bit-equal; GQA through ``flash_attn`` and ``ops.flash_attn``), then
+     Qwen1.5-0.5B at full width (24 layers, d 1024, vocab 151,936; random
+     weights from ``LM_SEED``) serving 8 prompts of 2,048 tokens and 64
+     greedy tokens through ``launch.serve.serve``: the prefill launches
+     the flash kernel once per layer (each call held against the twin,
+     and the planted fault shown to fail the same bound on each), decode
+     launches none of the eight kernels, and a teacher-forced
+     ``forward`` over prompt + generated tokens agrees with decode's
+     logits and, wherever its top-2 margin is clear, with its tokens;
+  3. the benchmark-scale census (benchmarks/common.py SCALE: 16 states /
+     128 counties / 3,072 blocks) and its covering at max_level 9, from
+     the child process, and six engines on cuda: ``fast`` (gathered PIP
+     kernel), ``fast`` with ``fused=True`` (candidate PIP kernel),
+     ``fast_onepass`` (one-pass cascade kernel), ``simple`` and
+     ``simple`` with ``fused=True`` (the bbox kernels, then gathered /
+     candidate PIP per level) and ``hybrid`` (the cell lookup, then the
+     simple cascade on boundary points);
+  4. kernel phase: a 2^16-point batch through each engine, and through
      ``ops.pip_one`` against each state's edge table; every kernel call
      is held against its plain PyTorch twin on the same inputs (exact
      equality), and each engine against a CPU engine of the same config
@@ -29,7 +43,7 @@ public entry points (``GeoEngine.build`` / ``assign`` / ``assign_padded``,
      columns exact against the twin and the numpy oracle, f32 columns
      within rtol 1e-5 of the oracle, and a second launch bit-equal to
      the first;
-  4. main path: 2^24 points through each engine, with every launch
+  5. main path: 2^24 points through each engine, with every launch
      counter set to 0 just before and read just after (the kernels each
      engine must launch, and no other); block ids equal across the exact
      paths and to ground truth (accuracy 1.0), ``hybrid`` equal to
@@ -42,15 +56,17 @@ public entry points (``GeoEngine.build`` / ``assign`` / ``assign_padded``,
      integer-valued column (equal to the numpy oracle) and
      ``ops.assign_aggregate`` on the ``fast_onepass`` index (equal to the
      segment reduction of the cascade's ids);
-  5. serving path: a ``GeoServer`` over ``fast`` with the windowed
+  6. serving path: a ``GeoServer`` over ``fast`` with the windowed
      analytics mounted replays examples/analytics_geo.py's stream on
      this map (served ids equal direct assigns, cache on = cache off,
      analytics snapshot equal to a CPU port server's on the same
      requests, spans and histograms for every stage), then serves 256
      requests of 16,384 points (pts/s, p50/p99 request latency);
-  6. times each engine (pts/s), ``fused_counts`` (pts/s, and its
-     assign / sort / kernel split) and each kernel at the main path's
-     inputs beside its plain twin and its bound.
+  7. times each engine (pts/s), ``fused_counts`` (pts/s, and its
+     assign / sort / kernel split), the LM's prefill and decode tok/s,
+     and each kernel at the main path's inputs beside its plain twin,
+     its bound and, for flash attention, ``scaled_dot_product_attention``
+     (timed only: the port never calls it).
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -61,12 +77,16 @@ CUDA device it exits non-zero and prints no result.
 """
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
+import math
+import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,9 +103,11 @@ TWIN_CHUNK = 1 << 18          # rows per plain-twin call (bounds its memory)
 TIMED_BATCHES = 3
 KERNEL_REPS = 5
 LEAD_CYCLES = 10_000_000      # ~5 ms of spin on the card before a timing
-# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor) peak.
+# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor) peak, dense
+# bf16 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 OPS_PER_EDGE_TEST = 6         # 4 subtractions + 2 products (crosses())
 OPS_PER_BOX_TEST = 4          # 4 comparisons (in_box())
 OPS_PER_SEGMENT_ROW = 3       # add, min, max (segment.cu add_value())
@@ -97,6 +119,29 @@ SUM_RTOL = 1e-5
 SERVE_BUCKETS = (1024, 4096, 16384)
 SERVE_SECONDS, SERVE_BACKGROUND, SERVE_VENUE, SERVE_TAIL_T = 16, 2048, 1024, 32.0
 LOAD_REQUESTS, LOAD_POINTS = 256, 16384
+# The LM serving path: Qwen1.5-0.5B at full width, a chat-style batch.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "qwen1.5-0.5b", 8, 2048, 64, 0
+FLASH_DIMS, FLASH_LENGTHS = (16, 64, 128), (64, 100, 300, 2048)
+# Flash kernel vs its twin.  f32: within 1e-5 absolute (summation order
+# only; on an H100 the cases came within 1.4e-6).  bf16, element by
+# element: two bf16 ulps of the twin's output plus 2^-7 times the twin's
+# spread, sum_j p_j |v_j| / l (``ref.flash_attn_bhsd(spread=True)``).
+# Kernel and twin round p to bf16 from scores summed in another order, so
+# a p at a rounding edge can round to the neighbouring value, a step of
+# at most 2^-7 p_j; those steps move the output by at most 2^-7 times the
+# spread, and its own rounding by up to two ulps.  (On an H100 a 2-ulp
+# bound alone failed a [2, 2048, 64] case at 2.5 ulps.)  The f32 cases
+# run the same code without the roundings and hold its arithmetic to
+# 1e-5.  The bound must also have teeth at the prefill's shape: a copy of
+# the kernel that skips KV tile FAULT_TILE must fail it on every prefill
+# call.
+FLASH_F32_ATOL, FLASH_BF16_ULPS, FLASH_P_STEP = 1e-5, 2.0, 2.0 ** -7
+FAULT_TILE = 48               # keys 1,536-1,567 of the prefill's 2,048
+# Teacher-forced logits (f32, scale ~1): decode against forward over the
+# same tokens, both in bf16 through 24 layers; on an H100 they came
+# 0.068-0.071 apart (the CPU tests see 0.05 between repro and the port
+# over two layers).
+LOGIT_TOL = 0.125
 SERVE_STAGES = ("queue_wait", "host_prepare", "device_assign", "merge",
                 "request", "analytics_observe")
 SPAN_NAMES = {"request", "submit", "queue_wait", "host_prepare", "route",
@@ -116,6 +161,8 @@ KERNELS = {
                           "src/repro/kernels/bbox.py:80"),
     "segment_reduce_sorted": ("src/repro_torch/kernels/csrc/segment.cu",
                               "src/repro/kernels/segment.py:83"),
+    "flash_attn_bhsd": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:78"),
 }
 # The kernels each engine's assign must launch (and no other).
 ENGINE_KERNELS = {
@@ -128,6 +175,9 @@ ENGINE_KERNELS = {
     "hybrid": ("bbox_mask", "bbox_count_select", "crossings_gathered"),
     "fused_counts": ("crossings_gathered", "segment_reduce_sorted"),
     "serving": ("crossings_gathered",),
+    "lm_prefill": ("flash_attn_bhsd",),
+    "lm_decode": (),
+    "lm_forward": ("flash_attn_bhsd",),
 }
 # The main-path run whose calls each kernel's row is measured on.
 ROW_PATH = {"assign_cascade": "fast_onepass",
@@ -173,6 +223,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def flash_over(out, want, spread) -> float:
+    """Max over the elements of |out - want| / (FLASH_BF16_ULPS bf16 ulps
+    of want + FLASH_P_STEP spread); equal elements count 0."""
+    if not out.numel():
+        return 0.0
+    want = want.float()
+    diff = (out.float() - want).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)   # 0 at 0
+    tol = FLASH_BF16_ULPS * ulp + FLASH_P_STEP * spread
+    return float(torch.where(diff == 0, 0.0, diff / tol).max())
+
+
+def flash_err(out, want, spread, what) -> tuple:
+    """(max abs err, max err / tolerance) of a flash output against its
+    twin's ``(want, spread)``; raises unless it is within the dtype's
+    tolerance (see FLASH_*)."""
+    err = max_abs_err(out, want, what)
+    if out.dtype == torch.float32:
+        check(err <= FLASH_F32_ATOL, f"{what}: max abs err {err} > "
+                                     f"{FLASH_F32_ATOL}")
+        return err, err / FLASH_F32_ATOL
+    over = flash_over(out, want, spread)
+    check(over <= 1.0, f"{what}: max abs err {err}, {over:.3g}x the "
+                       f"tolerance")
+    return err, over
+
+
 def max_abs_err(a, b, what):
     """Max |a - b| of two same-shape, same-type tensors; equal values
     (infinities included) count 0."""
@@ -203,14 +280,15 @@ class Capture:
 
 class Smoke:
     def __init__(self):
-        from repro_torch.kernels import (_build, bbox, cascade, gather_pip,
-                                         pip, ref, segment)
-        self.build, self.ref = _build, ref
+        from repro_torch.kernels import (_build, bbox, cascade, flash_attn,
+                                         gather_pip, pip, ref, segment)
+        self.build, self.ref, self.flash = _build, ref, flash_attn
         self.modules = {"assign_cascade": cascade,
                         "crossings_candidates": gather_pip,
                         "crossings_gathered": pip, "crossings_one": pip,
                         "bbox_mask": bbox, "bbox_count_select": bbox,
-                        "segment_reduce_sorted": segment}
+                        "segment_reduce_sorted": segment,
+                        "flash_attn_bhsd": flash_attn}
 
     @contextlib.contextmanager
     def capture(self, keep=None):
@@ -254,6 +332,9 @@ class Smoke:
         ref = self.ref
         if name == "segment_reduce_sorted":    # a reduction over all rows
             return ref.segment_reduce(*args)
+        if name == "flash_attn_bhsd":          # (out, spread): see FLASH_*
+            return ref.flash_attn_bhsd(*args, **kw, bk=self.flash.KV_TILE,
+                                       spread=True)
         rows = args[0].shape[0]
         parts = []
         for lo in range(0, rows, TWIN_CHUNK):
@@ -276,11 +357,16 @@ class Smoke:
     def compare(self, name, calls):
         """Max |kernel - twin| over every output of every call (float
         outputs: equal values, infinities included, count 0; NaN against
-        a number counts inf)."""
+        a number counts inf).  Flash attention is held to its tolerance
+        here (``flash_err``); every other kernel must give 0."""
         err = 0
         for args, kw, outs in calls:
-            for a, b in zip(outs, self.twin(name, args, kw)):
-                err = max(err, max_abs_err(a, b, name))
+            want = self.twin(name, args, kw)
+            if name == "flash_attn_bhsd":
+                err = max(err, flash_err(outs[0], *want, name)[0])
+            else:
+                err = max([err] + [max_abs_err(a, b, name)
+                                   for a, b in zip(outs, want)])
         return err
 
     def check_all(self, cap, what: str) -> dict:
@@ -291,8 +377,9 @@ class Smoke:
             kept = cap.calls[name]
             err = max(self.compare(name, kept),
                       cap.checked[name]["max_abs_err"])
-            check(err == 0, f"{name} differs from its twin (max abs err "
-                            f"{err}) on {what}")
+            check(err == 0 or name == "flash_attn_bhsd",
+                  f"{name} differs from its twin (max abs err {err}) on "
+                  f"{what}")
             n[name] = len(kept) + cap.checked[name]["calls"]
         return n
 
@@ -443,11 +530,396 @@ def segment_phase(n_blocks) -> list:
     return rows
 
 
+def flash_phase(smoke) -> list:
+    """``flash_attn_bhsd`` against its twin on the card: f32 and bf16,
+    causal and full, D in FLASH_DIMS, S in FLASH_LENGTHS (100 and 300 are
+    no tile multiple), BH 3 (2 at S = 2048), each within its tolerance
+    and a second launch bit-equal to the first; then GQA 8:2 through
+    ``flash_attn`` (S = 256, a tile multiple) and ``ops.flash_attn``
+    (S = 100).  Returns one summary row per case."""
+    from repro_torch.kernels import ops
+    fa, ref = smoke.flash, smoke.ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    rows = []
+    for dtype, causal, d, s in itertools.product(
+            (torch.float32, torch.bfloat16), (True, False), FLASH_DIMS,
+            FLASH_LENGTHS):
+        bh = 2 if s >= 2048 else 3
+        q, k, v = (rand(bh, s, d, dtype=dtype) for _ in range(3))
+        out = fa.flash_attn_bhsd(q, k, v, causal=causal)
+        again = fa.flash_attn_bhsd(q, k, v, causal=causal)
+        twin = smoke.twin("flash_attn_bhsd", (q, k, v), {"causal": causal})
+        torch.cuda.synchronize()
+        what = f"flash_attn_bhsd {dtype} causal={causal} [{bh}, {s}, {d}]"
+        check(torch.equal(out, again), f"{what}: a second launch is not "
+                                       f"bit-equal")
+        err, over = flash_err(out, *twin, what)
+        rows.append(dict(case="bhsd", dtype=str(dtype).split(".")[-1],
+                         causal=causal, bh=bh, s=s, d=d, max_abs_err=err,
+                         over=over))
+
+    def twin_part(i):          # the twin's output (0) or spread (1)
+        return lambda q, k, v, causal: ref.flash_attn_bhsd(
+            q, k, v, causal=causal, bk=fa.KV_TILE, spread=True)[i]
+
+    b, h, kh, d = 2, 8, 2, 64
+    for s, fn, name in ((256, fa.flash_attn, "flash_attn"),
+                        (100, ops.flash_attn, "ops.flash_attn")):
+        q = rand(b, s, h, d, dtype=torch.bfloat16)
+        k, v = (rand(b, s, kh, d, dtype=torch.bfloat16) for _ in range(2))
+        out = fn(q, k, v, causal=True)
+        want, spread = (fa.attend_bshd(twin_part(i), q, k, v, causal=True)
+                        for i in (0, 1))
+        torch.cuda.synchronize()
+        err, over = flash_err(out, want, spread, f"GQA via {name}")
+        rows.append(dict(case=f"gqa {h}:{kh} via {name}", dtype="bfloat16",
+                         causal=True, bh=b * h, s=s, d=d, max_abs_err=err,
+                         over=over))
+    return rows
+
+
+def start_fault_build(build, tmp):
+    """Start nvcc on a copy of ``csrc/flash_attn.cu`` in ``tmp`` with one
+    fault planted: every block skips KV tile FAULT_TILE.  Returns (the
+    nvcc process, the library it writes)."""
+    src = (build.CSRC / "flash_attn.cu").read_text()
+    loop = "  for (int t = 0; t < tiles; ++t) {\n"
+    check(src.count(loop) == 1, "flash_attn.cu: the KV tile loop is not "
+                                "where the planted fault goes")
+    cu = os.path.join(tmp, "flash_attn_fault.cu")
+    with open(cu, "w") as f:
+        f.write(src.replace(
+            loop, loop + f"    if (t == {FAULT_TILE}) continue;\n"))
+    lib = os.path.join(tmp, "libflash_fault.so")
+    return subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", lib, cu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_fault(build, proc, lib_path):
+    """Wait for ``start_fault_build``'s nvcc and bind its library: a
+    function of bf16 q, k, v [BH, S, D] -> the faulty causal output.  Its
+    launches are counted nowhere."""
+    log = proc.communicate()[0]
+    check(proc.returncode == 0, f"planted-fault flash build failed:\n{log}")
+    fn = ctypes.CDLL(lib_path).repro_flash_attn_bhsd
+    fn.argtypes = build._SIGNATURES["repro_flash_attn_bhsd"]
+    fn.restype = ctypes.c_int
+
+    def faulty(q, k, v):
+        out = torch.empty_like(q)
+        bh, s, d = q.shape
+        status = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+                    bh, s, d, 1, 1, ctypes.c_float(1.0 / math.sqrt(d)),
+                    build.stream_of(q))
+        check(status == 0, f"planted-fault flash launch failed ({status})")
+        return out
+    return faulty
+
+
+def flash_bound(q, causal: bool) -> tuple:
+    """(bound ms, by, bytes, operations) of one flash call on an H100: q,
+    k, v read once and o written once, over the HBM rate; 4 BH S^2 D
+    operations (2 products of [S, D] by [D, S]), half under the causal
+    mask, over the tensor-core peak of the input dtype (bf16) or the
+    fp32 peak."""
+    bh, s, d = q.shape
+    nbytes = 4 * q.numel() * q.element_size()
+    ops = 4 * bh * s * s * d // (2 if causal else 1)
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
 def pip_one_states(ops, state_edges, pts):
     """[S, N] inside masks of every point against each state's edge
     table, through the public ``ops.pip_one``."""
     return torch.stack([ops.pip_one(pts, state_edges[s])
                         for s in range(state_edges.shape[0])])
+
+
+def lm_path(smoke, result, launches, main_calls, faulty):
+    """The LM serving path on the card (phase 2 of the module doc): the
+    flash kernel phase, then Qwen1.5-0.5B at full width through
+    ``launch.serve.serve`` with the launch counts of each phase, every
+    prefill flash call held against the twin (and ``faulty``, the kernel
+    with a planted fault, shown to fail the same bound on each), and the
+    teacher-forced check.  Records the prefill's flash launches and its
+    first call (for the timing) in ``launches`` / ``main_calls``; returns
+    (model, prompts, generated tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    result["flash_phase"] = flash_phase(smoke)
+    f32_err = max(r["max_abs_err"] for r in result["flash_phase"]
+                  if r["dtype"] == "float32")
+    bf16_worst = max(r["over"] for r in result["flash_phase"]
+                     if r["dtype"] == "bfloat16")
+    print(f"kernel phase: flash_attn_bhsd == twin on "
+          f"{len(result['flash_phase'])} cases (f32 and bf16, causal and "
+          f"full, D {FLASH_DIMS}, S {FLASH_LENGTHS}; GQA 8:2 via "
+          f"flash_attn and ops.flash_attn): f32 max abs err {f32_err:.3g} "
+          f"(tol {FLASH_F32_ATOL}), bf16 within {bf16_worst:.3g}x the "
+          f"tolerance ({FLASH_BF16_ULPS} ulps + {FLASH_P_STEP} spread, "
+          f"element by element); second launch bit-equal")
+    lm_cfg = get_config(LM_ARCH)
+    n_layers = lm_cfg.n_layers
+    t0 = time.perf_counter()
+    model = serve_mod.load_model(lm_cfg, seed=LM_SEED, device="cuda")
+    prompts = serve_mod.make_prompts(lm_cfg, LM_BATCH, LM_PROMPT, LM_SEED,
+                                     "cuda")
+    torch.cuda.synchronize()
+    result["lm_load_s"] = time.perf_counter() - t0
+    result["lm_params"] = model.param_count()
+    print(f"LM: {lm_cfg.name} at full width ({n_layers} layers, d "
+          f"{lm_cfg.d_model}, {lm_cfg.n_heads} heads of {lm_cfg.hd}, d_ff "
+          f"{lm_cfg.d_ff}, vocab {lm_cfg.vocab}): {result['lm_params']} "
+          f"parameters, random from seed {LM_SEED}, on the card in "
+          f"{result['lm_load_s']:.2f} s")
+    phase_counts = {}
+
+    def on_phase(name, edge):
+        if edge == "start":
+            smoke.build.reset_launches()
+        else:
+            phase_counts[name] = dict(smoke.build.LAUNCHES)
+
+    with smoke.capture(keep=["flash_attn_bhsd"]) as cap:
+        res = serve_mod.serve(model, prompts, LM_GEN, on_phase=on_phase)
+    for name, counts in phase_counts.items():
+        for kname, n in counts.items():
+            want = kname in ENGINE_KERNELS[f"lm_{name}"]
+            check((n > 0) == want, f"LM {name}: {kname} launched {n} times")
+    check(phase_counts["prefill"]["flash_attn_bhsd"] == n_layers,
+          f"LM prefill: flash_attn_bhsd launched "
+          f"{phase_counts['prefill']['flash_attn_bhsd']} times, not once "
+          f"per layer ({n_layers})")
+    prefill_calls = cap.calls["flash_attn_bhsd"]
+    bhsd = (LM_BATCH * lm_cfg.n_heads, LM_PROMPT, lm_cfg.hd)
+    check(len(prefill_calls) == n_layers and all(
+        a[0].shape == bhsd and a[0].dtype == torch.bfloat16
+        and kw == {"causal": True} for a, kw, _ in prefill_calls),
+        f"LM prefill: flash calls not {n_layers} causal bf16 {bhsd}")
+    lm_err, lm_over, fault_over, fault_vmax = 0.0, 0.0, [], []
+    for args, kw, (out,) in prefill_calls:
+        want, spread = smoke.twin("flash_attn_bhsd", args, kw)
+        err, over = flash_err(out, want, spread, "LM prefill flash call")
+        lm_err, lm_over = max(lm_err, err), max(lm_over, over)
+        # The planted fault must fail where the kernel passes.
+        bad = faulty(*args)
+        fault_over.append(flash_over(bad, want, spread))
+        # What the earlier whole-call rule (2^-7 max|v|) would have said.
+        fault_vmax.append(float((bad.float() - want.float()).abs().max()
+                                / (FLASH_P_STEP
+                                   * args[2].float().abs().max())))
+        del want, spread, bad
+    check(min(fault_over) > 1.0,
+          f"LM prefill: a kernel that skips KV tile {FAULT_TILE} passes the "
+          f"flash tolerance on a call ({min(fault_over):.3g}x)")
+    launches["flash_attn_bhsd"] = phase_counts["prefill"]["flash_attn_bhsd"]
+    main_calls["flash_attn_bhsd"] = prefill_calls[:1]
+    del cap, prefill_calls
+    gen_tok = res.tokens
+    check(gen_tok.shape == (LM_BATCH, LM_GEN)
+          and bool(((gen_tok >= 0) & (gen_tok < lm_cfg.vocab)).all())
+          and torch.equal(gen_tok[:, 0], res.prefill_logits.argmax(-1).int())
+          and bool(torch.isfinite(res.prefill_logits).all()),
+          "LM: generated tokens out of range or not the prefill's argmax")
+    print(f"main path LM prefill: {LM_BATCH} x {LM_PROMPT} tokens, launches "
+          f"{ {k: v for k, v in phase_counts['prefill'].items() if v} } (one "
+          f"per layer over B * H = {bhsd[0]} heads); each call == twin "
+          f"(max abs err {lm_err:.3g}, {lm_over:.3g}x the tolerance; the "
+          f"kernel with KV tile {FAULT_TILE} skipped fails it on every call, "
+          f"{min(fault_over):.3g}-{max(fault_over):.3g}x; against the earlier "
+          f"2^-7 max|v| rule {min(fault_vmax):.3g}-{max(fault_vmax):.3g}x); "
+          f"decode "
+          f"{LM_GEN - 1} steps, launches "
+          f"{ {k: v for k, v in phase_counts['decode'].items() if v} } (none "
+          f"of the eight kernels)")
+    # Teacher-forced: forward over prompt + generated tokens (its flash
+    # calls held against the twin as they run), and decode fed the same
+    # tokens; position S - 1 + i predicts generated token i.
+    full = torch.cat([prompts, gen_tok], dim=1)
+    run = serve_mod.run_config(LM_PROMPT)
+    with smoke.capture(keep=[]) as cap:
+        smoke.build.reset_launches()
+        logits, _ = model.forward(run, {"tokens": full})
+        torch.cuda.synchronize()
+        counts = dict(smoke.build.LAUNCHES)
+    for kname, n in counts.items():
+        want = kname in ENGINE_KERNELS["lm_forward"]
+        check((n > 0) == want, f"LM forward: {kname} launched {n} times")
+    check(counts["flash_attn_bhsd"] == n_layers
+          and cap.checked["flash_attn_bhsd"]["calls"] == n_layers,
+          "LM forward: flash_attn_bhsd not once per layer")
+    fwd_err = cap.checked["flash_attn_bhsd"]["max_abs_err"]
+    pred = logits[:, LM_PROMPT - 1:LM_PROMPT - 1 + LM_GEN].clone()
+    del logits
+    with torch.inference_mode():
+        lg, cache = model.prefill(run, prompts, LM_PROMPT + LM_GEN)
+        dec = [lg[:, -1]]
+        for i in range(LM_GEN - 1):
+            lg, cache = model.decode_step(run, gen_tok[:, i:i + 1], cache)
+            dec.append(lg[:, -1])
+    dec = torch.stack(dec, dim=1)
+    del cache
+    dec_diff = float((dec - pred).abs().max())
+    check(bool(torch.isfinite(pred).all()) and dec_diff <= LOGIT_TOL,
+          f"LM: decode logits differ from forward's by {dec_diff} > "
+          f"{LOGIT_TOL}")
+    top = pred.topk(2, dim=-1)
+    clear = (top.values[..., 0] - top.values[..., 1]) > LOGIT_TOL
+    agree = top.indices[..., 0] == gen_tok.long()
+    check(bool(agree[clear].all()), "LM: forward's argmax differs from a "
+                                    "generated token where its margin is "
+                                    "clear")
+    result["lm_check"] = dict(
+        prefill_flash_max_abs_err=lm_err, prefill_flash_over=lm_over,
+        fault_over=fault_over, fault_over_vmax_rule=fault_vmax,
+        forward_flash_max_abs_err=fwd_err, decode_vs_forward=dec_diff,
+        skipped=int((~clear).sum()), agree_all=int(agree.sum()),
+        distinct_tokens=int(torch.unique(gen_tok).numel()))
+    print(f"main path LM teacher-forced: forward over {LM_BATCH} x "
+          f"{full.shape[1]} tokens (flash once per layer, each == twin as it "
+          f"ran, max abs err {fwd_err:.3g}); decode logits within "
+          f"{dec_diff:.4g} of forward's (tol {LOGIT_TOL}); forward's argmax "
+          f"== the generated token on all {int(clear.sum())} steps whose "
+          f"top-2 margin > {LOGIT_TOL}, {result['lm_check']['skipped']} of "
+          f"{clear.numel()} skipped ({int(agree.sum())} agree in all); "
+          f"{result['lm_check']['distinct_tokens']} distinct tokens "
+          f"generated")
+    del pred, dec
+
+    return model, prompts, gen_tok
+
+
+def device_us(evt) -> float:
+    """A profiler event's own device microseconds (the attribute's name
+    differs across torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_busy(fn) -> dict:
+    """Run ``fn`` once under torch.profiler: host wall ms (synchronized),
+    device ms summed over kernels, the busy share, launches and the top
+    kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=device_us, reverse=True)
+    busy = sum(device_us(e) for e in kernels) / 1e3
+    return dict(wall_ms=wall, device_ms=busy, busy=busy / wall,
+                launches=sum(e.count for e in kernels),
+                top=[(e.key[:60], device_us(e) / 1e3, e.count)
+                     for e in kernels[:5]])
+
+
+def lm_timing(model, prompts, gen_tok, result, card) -> None:
+    """Prefill and decode tok/s and peak device memory of one more
+    ``serve`` run (no capture, no checks inside it); then one prefill and
+    four decode steps under torch.profiler (device busy share, top
+    kernels)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.runtime.steps import make_serve_step
+    res_t = serve_mod.serve(model, prompts, LM_GEN)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    result["lm"] = dict(
+        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+        prefill_s=res_t.prefill_s, decode_s=res_t.decode_s,
+        prefill_tok_s=res_t.prefill_tok_s(),
+        decode_tok_s=res_t.decode_tok_s(), weight_bytes=weights,
+        peak_bytes=weights + res_t.peak_bytes,
+        same_tokens=bool(torch.equal(res_t.tokens, gen_tok)))
+    lm = result["lm"]
+    print(f"LM serving ({card}): prefill {LM_BATCH} x {LM_PROMPT} in "
+          f"{lm['prefill_s'] * 1e3:.1f} ms = {lm['prefill_tok_s']:.5g} tok/s; "
+          f"{LM_GEN - 1} decode steps in {lm['decode_s'] * 1e3:.1f} ms = "
+          f"{lm['decode_tok_s']:.5g} tok/s "
+          f"({lm['decode_s'] / (LM_GEN - 1) * 1e3:.2f} ms a step); peak "
+          f"device memory {lm['peak_bytes'] / 2**30:.2f} GiB (the weights "
+          f"{weights / 2**30:.2f} GiB + the run's own peak); tokens equal "
+          f"to the first run: {lm['same_tokens']}")
+    run = serve_mod.run_config(LM_PROMPT)
+    state = {}
+
+    def prefill():
+        state["out"] = model.prefill(run, prompts, LM_PROMPT + LM_GEN)
+
+    step = make_serve_step(model, run)
+
+    def decode():
+        tok, cache = gen_tok[:, :1], state["out"][1]
+        for _ in range(4):
+            tok, cache = step(tok, cache)
+
+    lm["profile"] = {"prefill": profile_busy(prefill),
+                     "decode_4_steps": profile_busy(decode)}
+    for name, p in lm["profile"].items():
+        print(f"LM {name} under torch.profiler: wall {p['wall_ms']:.2f} ms, "
+              f"device {p['device_ms']:.2f} ms (busy {p['busy']:.1%}), "
+              f"{p['launches']} launches; top kernels "
+              + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in p["top"]))
+
+
+def flash_row(smoke, calls, launches: int) -> dict:
+    """The flash kernel's row, per call at the prefill's shape ([B * H,
+    S, hd] bf16, causal: ``calls`` holds the prefill's first call),
+    beside its twin and PyTorch's fused attention on the same tensors
+    viewed [B, H, S, hd] (timed only; the port never calls it)."""
+    (q, k, v), kw, (out,) = calls[0]
+    err = smoke.compare("flash_attn_bhsd", calls)
+    fa_fn = smoke.flash.flash_attn_bhsd
+    ms = cuda_ms(lambda: fa_fn(q, k, v, **kw), KERNEL_REPS)
+    plain = cuda_ms(lambda: smoke.ref.flash_attn_bhsd(
+        q, k, v, **kw, bk=smoke.flash.KV_TILE), 2)     # without the spread
+    bh, s, d = q.shape
+    q4, k4, v4 = (x.view(LM_BATCH, bh // LM_BATCH, s, d) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_diff = float((sdpa(q4, k4, v4, is_causal=True).float().reshape(
+        out.shape) - out.float()).abs().max())
+    library = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), KERNEL_REPS)
+    bound, bound_by, nbytes, n_ops = flash_bound(q, kw["causal"])
+    print(f"flash_attn_bhsd: {ms:.4f} ms per call at {list(q.shape)} bf16 "
+          f"causal (the lm_prefill path: {launches} calls, "
+          f"{ms * launches:.2f} ms a prefill; {n_ops / ms / 1e9:.4g} "
+          f"TFLOP/s) vs plain twin {plain:.3f} ms, "
+          f"scaled_dot_product_attention {library:.4f} ms (output within "
+          f"{lib_diff:.3g} of the kernel's; kernel / library "
+          f"{ms / library:.3g}x); bound {bound:.4f} ms by {bound_by} "
+          f"({nbytes} B, {n_ops} ops); {bound / ms:.2%} of bound")
+    return {"name": "flash_attn_bhsd", "route": "cuda",
+            "source": KERNELS["flash_attn_bhsd"][0],
+            "replaces": KERNELS["flash_attn_bhsd"][1], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library}
+
+
+def host_map():
+    """The census and its covering at SCALE, on the host (numpy; no card).
+    Returns (census, covering, census s, covering s)."""
+    from repro_torch.core.cells import build_cell_covering
+    from repro_torch.core.synth import build_synth_census
+    t0 = time.perf_counter()
+    sc = build_synth_census(**SCALE)
+    t1 = time.perf_counter()
+    cov = build_cell_covering(sc.census, max_level=MAX_LEVEL)
+    return sc, cov, t1 - t0, time.perf_counter() - t1
 
 
 def main() -> int:
@@ -459,11 +931,10 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    phase_s = {}
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.core import fast as fast_mod
-    from repro_torch.core.cells import build_cell_covering
     from repro_torch.core.engine import EngineConfig, GeoEngine
-    from repro_torch.core.synth import build_synth_census
     from repro_torch.kernels import ops
 
     result = {}
@@ -475,25 +946,46 @@ def main() -> int:
         capture_output=True, text=True).stdout.strip().splitlines()
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}); "
           f"{nvcc[-1] if nvcc else 'nvcc not found'}")
-    smoke = Smoke()
-    t0 = time.perf_counter()
-    smoke.build.load()
-    info = smoke.build.BUILD_INFO
-    result["build_s"] = time.perf_counter() - t0
-    print(f"kernel build: {result['build_s']:.2f} s "
-          f"(cached={info['cached']}) -> {info['path']}")
-    for line in info["log"].splitlines():
-        if ("Used" in line and "registers" in line) or "Compiling" in line:
-            print(f"  {line.strip()}")
+    # The host map (phase 3) needs no card: a child process builds it
+    # while the card builds the kernels and runs the LM path.
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        host = pool.apply_async(host_map)
+        smoke = Smoke()
+        smoke.build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=smoke.build.BUILD_ROOT) as tmp:
+            fault_build = start_fault_build(smoke.build, tmp)
+            try:
+                smoke.build.load()
+            finally:
+                faulty = load_fault(smoke.build, *fault_build)
+        info = smoke.build.BUILD_INFO
+        result["build_s"] = time.perf_counter() - t0
+        print(f"kernel build: {result['build_s']:.2f} s "
+              f"(cached={info['cached']}) -> {info['path']}; beside it the "
+              f"flash kernel with KV tile {FAULT_TILE} skipped")
+        for line in info["log"].splitlines():
+            if ("Used" in line and "registers" in line) or "Compiling" in line:
+                print(f"  {line.strip()}")
 
-    # -- 2. census, covering, engines -----------------------------------------
-    t0 = time.perf_counter()
-    sc = build_synth_census(**SCALE)
+        phase_s["build"] = time.perf_counter() - t_start
+        # -- 2. LM path -------------------------------------------------------
+        main_calls, launches = {}, {}
+        model, prompts, gen_tok = lm_path(smoke, result, launches,
+                                          main_calls, faulty)
+        flash_kernel = flash_row(smoke, main_calls["flash_attn_bhsd"],
+                                 launches["flash_attn_bhsd"])
+
+        phase_s["lm_path"] = time.perf_counter() - t_start
+        # -- 3. census, covering, engines -------------------------------------
+        t0 = time.perf_counter()
+        sc, cov, result["census_s"], result["covering_s"] = host.get()
+        result["host_map_wait_s"] = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
     census = sc.census
-    result["census_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cov = build_cell_covering(census, max_level=MAX_LEVEL)
-    result["covering_s"] = time.perf_counter() - t0
     cfg = EngineConfig(mode="exact", cap_boundary=0.5, max_level=MAX_LEVEL)
     # The cascade's caps of examples/quickstart.py.
     scfg = EngineConfig(cap_state=0.5, cap_county=0.5, cap_block=0.5,
@@ -513,7 +1005,9 @@ def main() -> int:
     torch.cuda.synchronize()
     result["engines_s"] = time.perf_counter() - t0
     result["footprint"] = engines["fast_onepass"].indices.memory_footprint()
-    print(f"host build: census {result['census_s']:.2f} s, covering "
+    print(f"host build (a child process, waited for "
+          f"{result['host_map_wait_s']:.2f} s after the LM path): census "
+          f"{result['census_s']:.2f} s, covering "
           f"{result['covering_s']:.2f} s ({len(cov.lo)} cells, "
           f"{cov.n_boundary} boundary), {len(engines)} engines "
           f"{result['engines_s']:.2f} s; footprint {result['footprint']}")
@@ -528,7 +1022,8 @@ def main() -> int:
           f"{list(sindex.county_children.shape)}, block_children "
           f"{list(sindex.block_children.shape)}")
 
-    # -- 3. kernel phase: each kernel vs its twin, each engine vs the CPU ---
+    phase_s["host_build"] = time.perf_counter() - t_start
+    # -- 4. kernel phase: each kernel vs its twin, each engine vs the CPU ---
     xy_k, truth_k, *_ = sc.sample_points(np.random.default_rng(1), N_KERNEL)
     pts_k = torch.from_numpy(xy_k).cuda()
     for name, eng in engines.items():
@@ -574,13 +1069,14 @@ def main() -> int:
           f"{worst:.3g} of the f64 oracle (rtol {SUM_RTOL}), second launch "
           f"bit-equal")
 
-    # -- 4. main path ---------------------------------------------------------
+    phase_s["kernel_phase"] = time.perf_counter() - t_start
+    # -- 5. main path ---------------------------------------------------------
     t0 = time.perf_counter()
     xy, truth, _, truth_sid = sc.sample_points(np.random.default_rng(0),
                                                N_MAIN)
     result["sample_s"] = time.perf_counter() - t0
     pts = torch.from_numpy(xy).cuda()
-    main_calls, launches, ids, stats = {}, {}, {}, {}
+    ids, stats = {}, {}
     result["peak_bytes"], result["checked_in_flight"] = {}, {}
     for name, eng in engines.items():
         keep = [k for k, path in ROW_PATH.items() if path == name]
@@ -598,7 +1094,7 @@ def main() -> int:
         for kname in keep:
             launches[kname] = counts[kname]
             main_calls[kname] = cap.calls[kname]
-        # The kept calls are held against their twins in section 5.
+        # The kept calls are held against their twins in section 7.
         checked = {k: v for k, v in cap.checked.items() if v["calls"]}
         for kname, c in checked.items():
             check(c["max_abs_err"] == 0, f"{kname} differs from its twin "
@@ -672,7 +1168,8 @@ def main() -> int:
           f"{sindex.state_edges.shape[0]} state tables; share of points "
           f"whose inside-state is the true state: {share}")
 
-    # -- 4b. analytics path --------------------------------------------------
+    phase_s["main_path"] = time.perf_counter() - t_start
+    # -- 5b. analytics path --------------------------------------------------
     from repro_torch.analytics import AnalyticsConfig, BlockAggregator
     from repro_torch.kernels import ref as ref_mod
     from repro_torch.kernels import segment as segment_mod
@@ -728,7 +1225,8 @@ def main() -> int:
           f"assign_aggregate(fast_onepass index) == segment_reduce of its "
           f"cascade ids == oracle")
 
-    # -- 5. serving path -----------------------------------------------------
+    phase_s["analytics"] = time.perf_counter() - t_start
+    # -- 6. serving path -----------------------------------------------------
     from repro_torch.obs import Tracer
     from repro_torch.serving import GeoServer, ServeConfig
     from repro_torch.serving import server as server_mod
@@ -851,7 +1349,8 @@ def main() -> int:
           f"{ {k: round(v, 3) for k, v in result['serve_load']['stage_p50_ms'].items()} }"
           f"; cache hit rate {load.cache_snapshot()['hit_rate']:.3f}")
 
-    # -- 6. timing ------------------------------------------------------------
+    phase_s["serving"] = time.perf_counter() - t_start
+    # -- 7. timing ------------------------------------------------------------
     result["pts_per_s"], result["batch_device_ms"] = {}, {}
     for name, eng in engines.items():
         ts, dev = [], []
@@ -931,9 +1430,14 @@ def main() -> int:
           f"{split['kernel_zero_column_read']:.4f} ms, with a zero column "
           f"on skewed ids ({hot} of {N_MAIN} rows in block {venue}) "
           f"{split['kernel_skewed']:.4f} ms")
+    phase_s["geo_timing"] = time.perf_counter() - t_start
+    lm_timing(model, prompts, gen_tok, result, card)
+    phase_s["lm_timing"] = time.perf_counter() - t_start
     kernels = []
     index = engines["fast_onepass"].fast_index
     for kname in KERNELS:
+        if kname == "flash_attn_bhsd":
+            continue
         calls = main_calls[kname]
         err = smoke.compare(kname, calls)
         check(err == 0, f"{kname} differs from its twin at the main "
@@ -955,10 +1459,14 @@ def main() -> int:
               f"path ({len(calls)} call(s), {rows} rows) vs plain twin "
               f"{plain:.3f} ms; bound {bound:.4f} ms by {bound_by} "
               f"({nbytes} B, {n_ops} ops); {bound / ms:.1%} of bound")
+    kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = time.perf_counter() - t_start
-    print(f"smoke ran {result['total_s']:.1f} s")
+    phase_s["timing"] = time.perf_counter() - t_start
+    result["total_s"] = phase_s["timing"]
+    result["phase_end_s"] = phase_s
+    print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
+          f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

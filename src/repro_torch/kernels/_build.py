@@ -32,8 +32,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bbox.cu", "cascade.cu", "gather_pip.cu", "pip.cu",
-           "segment.cu")
+SOURCES = ("bbox.cu", "cascade.cu", "flash_attn.cu", "gather_pip.cu",
+           "pip.cu", "segment.cu")
 HEADERS = ("pip.cuh",)
 # -fmad=false: no FMA contraction, so products round as numpy/XLA round
 # them (the crossing test and the quantize must be bit-equal).
@@ -45,11 +45,13 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 LAUNCHES = {"assign_cascade": 0, "bbox_count_select": 0, "bbox_mask": 0,
             "crossings_candidates": 0, "crossings_gathered": 0,
-            "crossings_one": 0, "segment_reduce_sorted": 0}
+            "crossings_one": 0, "flash_attn_bhsd": 0,
+            "segment_reduce_sorted": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _N = ctypes.c_int64
+_F = ctypes.c_float
 # C signature of every entry point (restype c_int = cudaGetLastError()).
 _SIGNATURES = {
     "repro_assign_cascade": [_P] * 15 + [_N] + [_I] * 8 + [_P],
@@ -60,6 +62,7 @@ _SIGNATURES = {
     "repro_bbox_count_select": [_P] * 4 + [_N, _I, _P],
     "repro_segment_reduce_sorted": [_P] * 8 + [_N, _I, _P],
     "repro_segment_tile_rows": [],
+    "repro_flash_attn_bhsd": [_P] * 4 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

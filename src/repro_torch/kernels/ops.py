@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import bbox as bbox_kernels
 from repro_torch.kernels import cascade as cascade_kernels
+from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import gather_pip as gather_pip_kernels
 from repro_torch.kernels import pip as pip_kernels
 from repro_torch.kernels import ref
@@ -262,6 +263,17 @@ def assign_aggregate(points: torch.Tensor, quant: torch.Tensor,
     red = segment_reduce(bid, values, n_segments=n_segments,
                          backend=backend)
     return red, (bid, flags, nrest, nskip)
+
+
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, backend: str | None = None):
+    """Causal or full self-attention of q [B, S, H, D] over k, v
+    [B, S, KH, D] (KV heads repeated to H) -> [B, S, H, D] in q's dtype,
+    any S: the flash kernel on ``cuda``, its plain twin on ``ref`` (the
+    wrapper picks by the tensors' device, which ``resolve_backend`` has
+    matched to the backend)."""
+    resolve_backend(backend, q.device)
+    return flash_kernels.flash_attn(q, k, v, causal=causal)
 
 
 def edges_from_soup_np(verts: np.ndarray) -> np.ndarray:

@@ -8,6 +8,8 @@ chip_smoke.py holds each CUDA kernel against on the card.
 ``bbox_mask_gathered`` has no kernel: it is a torch op on every
 backend, as in the reference.  ``np_segment_reduce`` is the numpy
 ground truth of the segment reduction (a copy of the reference's).
+``flash_attn_bhsd`` has no counterpart in src/repro/kernels/ref.py: it
+is the plain form of the Pallas flash kernel itself (see its doc).
 
 Crossing-number test (paper §III-A): a point is inside a polygon iff a
 ray in +x crosses the boundary an odd number of times.  Edge
@@ -19,6 +21,7 @@ point, tested without division as
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -274,3 +277,49 @@ def np_segment_reduce(ids, values, n_segments: int):
     vmax = np.full(n_segments, -np.inf, np.float64)
     np.maximum.at(vmax, ids, vals)
     return count, total, vmin.astype(np.float32), vmax.astype(np.float32)
+
+
+def flash_attn_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bk: int, spread: bool = False):
+    """Twin of the flash kernel (src/repro/kernels/flash_attn.py
+    ``_flash_kernel``): q, k, v [BH, S, D] -> [BH, S, D] in q's dtype.
+
+    It walks the Pallas kernel's sequential KV axis in tiles of ``bk``
+    keys, with its arithmetic: s = q . k^T in f32 times 1 / sqrt(D); keys
+    past S (the ragged last tile, here cut short) and, when causal,
+    kpos > qpos masked to -1e30; m and l in f32, l summing the f32 p; acc
+    += p.astype(v.dtype) @ v in f32; out = acc / max(l, 1e-30).  The
+    query tiles need no loop: rows are independent, so the Pallas ``bq``
+    changes no bit.  Note ``models.attention.blockwise_attn`` differs: it
+    sums p into l after rounding it to bf16.
+
+    With ``spread=True`` it returns ``(out, spread)``: spread [BH, S, D]
+    f32 is sum_j p_j |v_j| / l over the same p and l, what bounds the
+    output's move when some p round to the neighbouring value of v's
+    dtype (at most 2^-7 p_j each in bf16).
+    """
+    bh, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    qpos = torch.arange(s, device=q.device)[:, None]
+    m = torch.full((bh, s, 1), -1.0e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, s, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((bh, s, d), dtype=torch.float32, device=q.device)
+    acc_abs = torch.zeros_like(acc) if spread else None
+    for k0 in range(0, s, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        sc = (qf @ kt.float().transpose(1, 2)) * scale
+        if causal:
+            kpos = k0 + torch.arange(kt.shape[1], device=q.device)
+            sc = torch.where(kpos[None, :] <= qpos, sc, -1.0e30)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        r = torch.exp(m - m_new)
+        l = l * r + p.sum(dim=-1, keepdim=True)
+        acc = acc * r + p.to(v.dtype).float() @ vt.float()
+        if spread:
+            acc_abs = acc_abs * r + p @ vt.float().abs()
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    out = (acc / l).to(q.dtype)
+    return (out, acc_abs / l) if spread else out

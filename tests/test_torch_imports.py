@@ -1,8 +1,9 @@
 """The port stands alone: no file under src/repro_torch, and not
 chip_smoke.py, imports ``jax`` or the JAX package ``repro`` (an AST scan
 of every import statement), importing the port's engine, serving,
-analytics or obs package loads neither, and chip_smoke.py refuses to run
-without a CUDA device.
+analytics, obs or model-stack modules loads neither, chip_smoke.py
+refuses to run without a CUDA device, and the serving launcher runs on
+the CPU only when asked (``--device cpu``).
 """
 import ast
 import glob
@@ -35,10 +36,12 @@ def _imported_roots(path):
 
 
 def test_port_files_found():
-    assert len(PORT_FILES) >= 33
+    assert len(PORT_FILES) >= 61
     for path in ("core/engine.py", "serving/server.py",
                  "analytics/aggregate.py", "obs/profile.py",
-                 "kernels/segment.py"):
+                 "kernels/segment.py", "models/model.py",
+                 "kernels/flash_attn.py", "launch/serve.py",
+                 "runtime/steps.py", "configs/qwen1_5_0_5b.py"):
         assert f"src/repro_torch/{path}" in PORT_FILES
 
 
@@ -66,11 +69,15 @@ def test_engine_import_loads_no_jax():
 
 @pytest.mark.parametrize("module", ["repro_torch.serving",
                                     "repro_torch.analytics",
-                                    "repro_torch.obs"])
+                                    "repro_torch.obs",
+                                    "repro_torch.models.model",
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.runtime.steps"])
 def test_slice_import_loads_no_jax(module):
-    """The serving, analytics and obs packages load neither ``jax`` nor
-    ``repro`` (the server pulls in the engine, the kernels and numpy
-    copies of the reference's host modules)."""
+    """The serving, analytics and obs packages and the model stack load
+    neither ``jax`` nor ``repro`` (the server pulls in the engine, the
+    kernels and numpy copies of the reference's host modules; the model
+    stack the configs, which are copies, and the kernels)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = _run(["-c", f"import sys, {module}; "
               "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -91,3 +98,20 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         r = _run(["chip_smoke.py"], cwd=cwd)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_serve_launcher_needs_no_jax_and_no_fallback():
+    """``python -m repro_torch.launch.serve`` runs the reduced qwen on the
+    CPU when asked, and without a card fails at its default
+    ``--device cuda`` rather than falling back."""
+    import torch
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    args = ["-m", "repro_torch.launch.serve", "--arch", "qwen1.5-0.5b",
+            "--reduced", "--batch", "1", "--prompt-len", "8", "--gen", "3"]
+    r = _run(args + ["--device", "cpu"], cwd=REPO, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "[serve] qwen1.5-0.5b-reduced: prefill 1x8" in r.stdout
+    if torch.cuda.is_available():
+        return
+    r = _run(args, cwd=REPO, env=env)
+    assert r.returncode != 0 and "[serve]" not in r.stdout
