@@ -12,16 +12,20 @@ the card:
   1. prints the card (nvidia-smi name and power limit), torch and nvcc
      versions, and builds the CUDA kernels from ``src/repro_torch/
      kernels/csrc`` (build seconds, ptxas register counts), and beside
-     them a copy of the flash kernel with a planted fault (one KV tile
-     skipped); meanwhile a child process builds the host map of phase 3;
-  2. LM path: ``flash_attn_bhsd`` against its twin (f32 and bf16, causal
-     and full, D 16 / 64 / 128, S 64 / 100 / 300 / 2048, a second launch
-     bit-equal; GQA through ``flash_attn`` and ``ops.flash_attn``), then
+     them a copy of the tensor-core flash kernel with a planted fault
+     (one KV tile skipped); meanwhile a child process builds the host map
+     of phase 3;
+  2. LM path: ``flash_attn_bhsd`` against its twin on both routes (f32
+     and bf16, causal and full, D 16 / 32 / 64 / 128, S 64 / 100 / 300 /
+     2048: bf16 at D 64 / 128 on the tensor-core kernel, the rest on the
+     CUDA-core one; a second launch bit-equal; GQA through ``flash_attn``
+     and ``ops.flash_attn``), then
      Qwen1.5-0.5B at full width (24 layers, d 1024, vocab 151,936; random
      weights from ``LM_SEED``) serving 8 prompts of 2,048 tokens and 64
      greedy tokens through ``launch.serve.serve``: the prefill launches
-     the flash kernel once per layer (each call held against the twin,
-     and the planted fault shown to fail the same bound on each), decode
+     the flash kernel once per layer, every call on the tensor-core route
+     (each call held against the twin, and the planted fault shown to
+     fail the same bound on each), decode
      launches none of the eight kernels, and a teacher-forced
      ``forward`` over prompt + generated tokens agrees with decode's
      logits and, wherever its top-2 margin is clear, with its tokens;
@@ -63,10 +67,17 @@ the card:
      requests, spans and histograms for every stage), then serves 256
      requests of 16,384 points (pts/s, p50/p99 request latency);
   7. times each engine (pts/s), ``fused_counts`` (pts/s, and its
-     assign / sort / kernel split), the LM's prefill and decode tok/s,
+     assign / sort / kernel split), the LM's prefill and decode tok/s
+     (right after phase 2, while the child process builds the host map),
      and each kernel at the main path's inputs beside its plain twin,
      its bound and, for flash attention, ``scaled_dot_product_attention``
-     (timed only: the port never calls it).
+     (timed only: the port never calls it); then ``assign_cascade`` on
+     three more batches sampled (seed CASCADE_SEED) from the main path's
+     points as its call classified them: 2^20 points all in boundary
+     cells, 2^20 all in interior cells, and 2^20 + 37 points with
+     off-extent, infinite and NaN ones mixed in, each bit-equal to the
+     twin, the first two timed (the locate stage alone against locate +
+     edge tests).
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -121,7 +132,7 @@ SERVE_SECONDS, SERVE_BACKGROUND, SERVE_VENUE, SERVE_TAIL_T = 16, 2048, 1024, 32.
 LOAD_REQUESTS, LOAD_POINTS = 256, 16384
 # The LM serving path: Qwen1.5-0.5B at full width, a chat-style batch.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "qwen1.5-0.5b", 8, 2048, 64, 0
-FLASH_DIMS, FLASH_LENGTHS = (16, 64, 128), (64, 100, 300, 2048)
+FLASH_DIMS, FLASH_LENGTHS = (16, 32, 64, 128), (64, 100, 300, 2048)
 # Flash kernel vs its twin.  f32: within 1e-5 absolute (summation order
 # only; on an H100 the cases came within 1.4e-6).  bf16, element by
 # element: two bf16 ulps of the twin's output plus 2^-7 times the twin's
@@ -131,12 +142,15 @@ FLASH_DIMS, FLASH_LENGTHS = (16, 64, 128), (64, 100, 300, 2048)
 # at most 2^-7 p_j; those steps move the output by at most 2^-7 times the
 # spread, and its own rounding by up to two ulps.  (On an H100 a 2-ulp
 # bound alone failed a [2, 2048, 64] case at 2.5 ulps.)  The f32 cases
-# run the same code without the roundings and hold its arithmetic to
-# 1e-5.  The bound must also have teeth at the prefill's shape: a copy of
-# the kernel that skips KV tile FAULT_TILE must fail it on every prefill
-# call.
+# run the CUDA-core kernel without the roundings and hold its arithmetic
+# to 1e-5.  The bound must also have teeth at the prefill's shape: a copy
+# of the tensor-core kernel that skips KV tile FAULT_TILE must fail it on
+# every prefill call.
 FLASH_F32_ATOL, FLASH_BF16_ULPS, FLASH_P_STEP = 1e-5, 2.0, 2.0 ** -7
-FAULT_TILE = 48               # keys 1,536-1,567 of the prefill's 2,048
+FAULT_TILE = 12               # keys 1,536-1,663 of the prefill's 2,048
+# The cascade's extra batches: 2^20 boundary points, 2^20 interior ones,
+# and a ragged 2^20 + 37 with off-extent points mixed in.
+CASCADE_SEED, CASCADE_BATCH, CASCADE_RAGGED = 7, 1 << 20, (1 << 20) + 37
 # Teacher-forced logits (f32, scale ~1): decode against forward over the
 # same tokens, both in bf16 through 24 layers; on an H100 they came
 # 0.068-0.071 apart (the CPU tests see 0.05 between repro and the port
@@ -161,7 +175,7 @@ KERNELS = {
                           "src/repro/kernels/bbox.py:80"),
     "segment_reduce_sorted": ("src/repro_torch/kernels/csrc/segment.cu",
                               "src/repro/kernels/segment.py:83"),
-    "flash_attn_bhsd": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+    "flash_attn_bhsd": ("src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
                         "src/repro/kernels/flash_attn.py:78"),
 }
 # The kernels each engine's assign must launch (and no other).
@@ -333,8 +347,10 @@ class Smoke:
         if name == "segment_reduce_sorted":    # a reduction over all rows
             return ref.segment_reduce(*args)
         if name == "flash_attn_bhsd":          # (out, spread): see FLASH_*
-            return ref.flash_attn_bhsd(*args, **kw, bk=self.flash.KV_TILE,
-                                       spread=True)
+            q = args[0]
+            return ref.flash_attn_bhsd(
+                *args, **kw, bk=self.flash.kv_tile(q.dtype, q.shape[2]),
+                spread=True)
         rows = args[0].shape[0]
         parts = []
         for lo in range(0, rows, TWIN_CHUNK):
@@ -415,6 +431,79 @@ def cascade_edge_tests(fast_mod, index, pts, bid, flags, nskip) -> int:
               "cascade work count: rebuilt bbox rejections != nskip")
         tests += int((pool.count[safe] * (attempted & inb)).sum())
     return tests * pool.be
+
+
+def cascade_batches(smoke, call, extent, main_ms) -> dict:
+    """``assign_cascade`` on three batches drawn (seed CASCADE_SEED) from
+    the main path's points as its call classified them: CASCADE_BATCH
+    points all in boundary cells, CASCADE_BATCH all in interior cells, and
+    CASCADE_RAGGED points (no multiple of the block's 256) with one in a
+    hundred replaced by an off-extent, FAR, infinite or NaN point.  Each
+    must be bit-equal to the twin.  The first two are then timed: the
+    interior batch runs the locate stage alone, the boundary batch the
+    locate and the edge tests, which splits ``main_ms`` (the main path's
+    batch) between the two stages."""
+    (pts, *tables), kw, (bid, flags, _, _) = call
+    fn = smoke.modules["assign_cascade"].assign_cascade
+    gen = torch.Generator(device="cuda").manual_seed(CASCADE_SEED)
+
+    def sample(rows, n):
+        return rows[torch.randperm(rows.numel(), generator=gen,
+                                   device="cuda")[:n]]
+
+    is_bnd = (flags & 1) == 1
+    bnd_rows = is_bnd.nonzero().squeeze(1)
+    int_rows = (~is_bnd & (bid >= 0)).nonzero().squeeze(1)
+    x0, x1, y0, y1 = extent
+    odd = torch.tensor([[x0 - 1.0, y0], [x1 + 1.0, y1], [1e30, 1e30],
+                        [-1e30, -1e30], [math.inf, y0], [x0, -math.inf],
+                        [math.nan, y0], [x0, math.nan]], device="cuda")
+    ragged = pts[sample(torch.arange(pts.shape[0], device="cuda"),
+                        CASCADE_RAGGED)].clone()
+    at = sample(torch.arange(CASCADE_RAGGED, device="cuda"),
+                CASCADE_RAGGED // 100)
+    ragged[at] = odd[torch.arange(at.numel(), device="cuda") % len(odd)]
+    batches = {"boundary": pts[sample(bnd_rows, CASCADE_BATCH)],
+               "interior": pts[sample(int_rows, CASCADE_BATCH)],
+               "ragged": ragged}
+    out = {}
+    for name, b in batches.items():
+        got = fn(b, *tables, **kw)
+        want = smoke.twin("assign_cascade", (b, *tables), kw)
+        err = max(max_abs_err(g, w, f"assign_cascade {name}")
+                  for g, w in zip(got, want))
+        check(err == 0, f"assign_cascade differs from its twin on the "
+                        f"{name} batch (max abs err {err})")
+        bflags = got[1] & 1
+        out[name] = dict(rows=b.shape[0], max_abs_err=err,
+                         boundary=int(bflags.sum()))
+    check(out["boundary"]["boundary"] == CASCADE_BATCH
+          and out["interior"]["boundary"] == 0,
+          f"assign_cascade batches not as sampled: {out}")
+    odd_out = fn(ragged[at], *tables, **kw)
+    check(bool((odd_out[0] == -1).all()) and all(
+        bool((o == 0).all()) for o in odd_out[1:]),
+        "assign_cascade: an off-extent point got an id or flags")
+    for name in ("interior", "boundary"):
+        b = batches[name]
+        out[name]["ms"] = cuda_ms(lambda: fn(b, *tables, **kw), KERNEL_REPS)
+    per_pt = {k: out[k]["ms"] / CASCADE_BATCH for k in ("interior",
+                                                        "boundary")}
+    n_bnd = bnd_rows.numel()
+    locate = pts.shape[0] * per_pt["interior"]
+    edges = n_bnd * (per_pt["boundary"] - per_pt["interior"])
+    out["split"] = dict(main_ms=main_ms, locate_ms=locate, edge_ms=edges,
+                        boundary_points=n_bnd)
+    print(f"assign_cascade on three more batches (seed {CASCADE_SEED}), "
+          f"each == twin: {CASCADE_BATCH} boundary points "
+          f"{out['boundary']['ms']:.4f} ms, {CASCADE_BATCH} interior points "
+          f"{out['interior']['ms']:.4f} ms, {CASCADE_RAGGED} points with "
+          f"{at.numel()} off-extent / FAR / infinite / NaN ones (-1, no "
+          f"flags); the main batch's {main_ms:.4f} ms modelled as locate "
+          f"{locate:.4f} ms ({pts.shape[0]} points at the interior rate) + "
+          f"edge tests {edges:.4f} ms ({n_bnd} boundary points at the "
+          f"boundary rate's excess)")
+    return out
 
 
 def segment_work(ids, values, n_segments) -> tuple:
@@ -534,7 +623,8 @@ def flash_phase(smoke) -> list:
     """``flash_attn_bhsd`` against its twin on the card: f32 and bf16,
     causal and full, D in FLASH_DIMS, S in FLASH_LENGTHS (100 and 300 are
     no tile multiple), BH 3 (2 at S = 2048), each within its tolerance
-    and a second launch bit-equal to the first; then GQA 8:2 through
+    and a second launch bit-equal to the first, each on the route
+    ``flash_route`` names (both routes run); then GQA 8:2 through
     ``flash_attn`` (S = 256, a tile multiple) and ``ops.flash_attn``
     (S = 100).  Returns one summary row per case."""
     from repro_torch.kernels import ops
@@ -550,21 +640,27 @@ def flash_phase(smoke) -> list:
             FLASH_LENGTHS):
         bh = 2 if s >= 2048 else 3
         q, k, v = (rand(bh, s, d, dtype=dtype) for _ in range(3))
+        route = fa.flash_route(dtype, d)
+        before = smoke.build.ROUTE_LAUNCHES[f"flash_attn_bhsd:{route}"]
         out = fa.flash_attn_bhsd(q, k, v, causal=causal)
         again = fa.flash_attn_bhsd(q, k, v, causal=causal)
         twin = smoke.twin("flash_attn_bhsd", (q, k, v), {"causal": causal})
         torch.cuda.synchronize()
-        what = f"flash_attn_bhsd {dtype} causal={causal} [{bh}, {s}, {d}]"
+        what = (f"flash_attn_bhsd {route} {dtype} causal={causal} "
+                f"[{bh}, {s}, {d}]")
+        check(smoke.build.ROUTE_LAUNCHES[f"flash_attn_bhsd:{route}"]
+              == before + 2, f"{what}: not launched on its route")
         check(torch.equal(out, again), f"{what}: a second launch is not "
                                        f"bit-equal")
         err, over = flash_err(out, *twin, what)
-        rows.append(dict(case="bhsd", dtype=str(dtype).split(".")[-1],
-                         causal=causal, bh=bh, s=s, d=d, max_abs_err=err,
-                         over=over))
+        rows.append(dict(case="bhsd", route=route,
+                         dtype=str(dtype).split(".")[-1], causal=causal,
+                         bh=bh, s=s, d=d, max_abs_err=err, over=over))
 
     def twin_part(i):          # the twin's output (0) or spread (1)
         return lambda q, k, v, causal: ref.flash_attn_bhsd(
-            q, k, v, causal=causal, bk=fa.KV_TILE, spread=True)[i]
+            q, k, v, causal=causal, bk=fa.kv_tile(q.dtype, q.shape[2]),
+            spread=True)[i]
 
     b, h, kh, d = 2, 8, 2, 64
     for s, fn, name in ((256, fa.flash_attn, "flash_attn"),
@@ -576,27 +672,34 @@ def flash_phase(smoke) -> list:
                         for i in (0, 1))
         torch.cuda.synchronize()
         err, over = flash_err(out, want, spread, f"GQA via {name}")
-        rows.append(dict(case=f"gqa {h}:{kh} via {name}", dtype="bfloat16",
+        rows.append(dict(case=f"gqa {h}:{kh} via {name}",
+                         route=fa.flash_route(q.dtype, d), dtype="bfloat16",
                          causal=True, bh=b * h, s=s, d=d, max_abs_err=err,
                          over=over))
     return rows
 
 
 def start_fault_build(build, tmp):
-    """Start nvcc on a copy of ``csrc/flash_attn.cu`` in ``tmp`` with one
-    fault planted: every block skips KV tile FAULT_TILE.  Returns (the
-    nvcc process, the library it writes)."""
-    src = (build.CSRC / "flash_attn.cu").read_text()
-    loop = "  for (int t = 0; t < tiles; ++t) {\n"
-    check(src.count(loop) == 1, "flash_attn.cu: the KV tile loop is not "
-                                "where the planted fault goes")
+    """Start nvcc on a copy of ``csrc/flash_attn_wgmma.cu`` in ``tmp`` with
+    one fault planted: the consumers of every block skip KV tile
+    FAULT_TILE (they still release its stage, so the ring runs on).
+    Returns (the nvcc process, the library it writes)."""
+    src = (build.CSRC / "flash_attn_wgmma.cu").read_text()
+    wait = "    mbar_wait(full + 8 * stage, phase);\n"
+    check(src.count(wait) == 1, "flash_attn_wgmma.cu: the consumers' KV "
+                                "tile wait is not where the planted fault "
+                                "goes")
     cu = os.path.join(tmp, "flash_attn_fault.cu")
     with open(cu, "w") as f:
-        f.write(src.replace(
-            loop, loop + f"    if (t == {FAULT_TILE}) continue;\n"))
+        f.write(src.replace(wait, wait + (
+            f"    if (t == {FAULT_TILE}) {{\n"
+            f"      mbar_arrive(empty + 8 * stage);\n"
+            f"      continue;\n"
+            f"    }}\n")))
     lib = os.path.join(tmp, "libflash_fault.so")
     return subprocess.Popen(
-        [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", lib, cu],
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", lib, cu,
+         *build.LINK_FLAGS],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
@@ -606,15 +709,15 @@ def load_fault(build, proc, lib_path):
     launches are counted nowhere."""
     log = proc.communicate()[0]
     check(proc.returncode == 0, f"planted-fault flash build failed:\n{log}")
-    fn = ctypes.CDLL(lib_path).repro_flash_attn_bhsd
-    fn.argtypes = build._SIGNATURES["repro_flash_attn_bhsd"]
+    fn = ctypes.CDLL(lib_path).repro_flash_attn_wgmma
+    fn.argtypes = build._SIGNATURES["repro_flash_attn_wgmma"]
     fn.restype = ctypes.c_int
 
     def faulty(q, k, v):
         out = torch.empty_like(q)
         bh, s, d = q.shape
         status = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
-                    bh, s, d, 1, 1, ctypes.c_float(1.0 / math.sqrt(d)),
+                    bh, s, d, 1, ctypes.c_float(1.0 / math.sqrt(d)),
                     build.stream_of(q))
         check(status == 0, f"planted-fault flash launch failed ({status})")
         return out
@@ -658,13 +761,18 @@ def lm_path(smoke, result, launches, main_calls, faulty):
     result["flash_phase"] = flash_phase(smoke)
     f32_err = max(r["max_abs_err"] for r in result["flash_phase"]
                   if r["dtype"] == "float32")
-    bf16_worst = max(r["over"] for r in result["flash_phase"]
-                     if r["dtype"] == "bfloat16")
+    worst = {route: max(r["over"] for r in result["flash_phase"]
+                        if r["dtype"] == "bfloat16" and r["route"] == route)
+             for route in ("wgmma", "simt")}
+    n_route = {route: sum(r["route"] == route for r in result["flash_phase"])
+               for route in ("wgmma", "simt")}
     print(f"kernel phase: flash_attn_bhsd == twin on "
           f"{len(result['flash_phase'])} cases (f32 and bf16, causal and "
           f"full, D {FLASH_DIMS}, S {FLASH_LENGTHS}; GQA 8:2 via "
-          f"flash_attn and ops.flash_attn): f32 max abs err {f32_err:.3g} "
-          f"(tol {FLASH_F32_ATOL}), bf16 within {bf16_worst:.3g}x the "
+          f"flash_attn and ops.flash_attn; {n_route['wgmma']} on the "
+          f"tensor-core route, {n_route['simt']} on the CUDA-core one): f32 "
+          f"max abs err {f32_err:.3g} (tol {FLASH_F32_ATOL}), bf16 within "
+          f"{worst['wgmma']:.3g}x (wgmma) / {worst['simt']:.3g}x (simt) the "
           f"tolerance ({FLASH_BF16_ULPS} ulps + {FLASH_P_STEP} spread, "
           f"element by element); second launch bit-equal")
     lm_cfg = get_config(LM_ARCH)
@@ -681,13 +789,14 @@ def lm_path(smoke, result, launches, main_calls, faulty):
           f"{lm_cfg.d_ff}, vocab {lm_cfg.vocab}): {result['lm_params']} "
           f"parameters, random from seed {LM_SEED}, on the card in "
           f"{result['lm_load_s']:.2f} s")
-    phase_counts = {}
+    phase_counts, phase_routes = {}, {}
 
     def on_phase(name, edge):
         if edge == "start":
             smoke.build.reset_launches()
         else:
             phase_counts[name] = dict(smoke.build.LAUNCHES)
+            phase_routes[name] = dict(smoke.build.ROUTE_LAUNCHES)
 
     with smoke.capture(keep=["flash_attn_bhsd"]) as cap:
         res = serve_mod.serve(model, prompts, LM_GEN, on_phase=on_phase)
@@ -699,6 +808,9 @@ def lm_path(smoke, result, launches, main_calls, faulty):
           f"LM prefill: flash_attn_bhsd launched "
           f"{phase_counts['prefill']['flash_attn_bhsd']} times, not once "
           f"per layer ({n_layers})")
+    check(phase_routes["prefill"]["flash_attn_bhsd:wgmma"] == n_layers,
+          f"LM prefill: flash calls by route {phase_routes['prefill']}, not "
+          f"all {n_layers} on the tensor cores")
     prefill_calls = cap.calls["flash_attn_bhsd"]
     bhsd = (LM_BATCH * lm_cfg.n_heads, LM_PROMPT, lm_cfg.hd)
     check(len(prefill_calls) == n_layers and all(
@@ -732,7 +844,9 @@ def lm_path(smoke, result, launches, main_calls, faulty):
           "LM: generated tokens out of range or not the prefill's argmax")
     print(f"main path LM prefill: {LM_BATCH} x {LM_PROMPT} tokens, launches "
           f"{ {k: v for k, v in phase_counts['prefill'].items() if v} } (one "
-          f"per layer over B * H = {bhsd[0]} heads); each call == twin "
+          f"per layer over B * H = {bhsd[0]} heads; by route "
+          f"{ {k: v for k, v in phase_routes['prefill'].items() if v} }); "
+          f"each call == twin "
           f"(max abs err {lm_err:.3g}, {lm_over:.3g}x the tolerance; the "
           f"kernel with KV tile {FAULT_TILE} skipped fails it on every call, "
           f"{min(fault_over):.3g}-{max(fault_over):.3g}x; against the earlier "
@@ -751,12 +865,15 @@ def lm_path(smoke, result, launches, main_calls, faulty):
         logits, _ = model.forward(run, {"tokens": full})
         torch.cuda.synchronize()
         counts = dict(smoke.build.LAUNCHES)
+        routes = dict(smoke.build.ROUTE_LAUNCHES)
     for kname, n in counts.items():
         want = kname in ENGINE_KERNELS["lm_forward"]
         check((n > 0) == want, f"LM forward: {kname} launched {n} times")
     check(counts["flash_attn_bhsd"] == n_layers
-          and cap.checked["flash_attn_bhsd"]["calls"] == n_layers,
-          "LM forward: flash_attn_bhsd not once per layer")
+          and cap.checked["flash_attn_bhsd"]["calls"] == n_layers
+          and routes["flash_attn_bhsd:wgmma"] == n_layers,
+          f"LM forward: flash_attn_bhsd not once per layer on the tensor "
+          f"cores ({routes})")
     fwd_err = cap.checked["flash_attn_bhsd"]["max_abs_err"]
     pred = logits[:, LM_PROMPT - 1:LM_PROMPT - 1 + LM_GEN].clone()
     del logits
@@ -887,7 +1004,8 @@ def flash_row(smoke, calls, launches: int) -> dict:
     fa_fn = smoke.flash.flash_attn_bhsd
     ms = cuda_ms(lambda: fa_fn(q, k, v, **kw), KERNEL_REPS)
     plain = cuda_ms(lambda: smoke.ref.flash_attn_bhsd(
-        q, k, v, **kw, bk=smoke.flash.KV_TILE), 2)     # without the spread
+        q, k, v, **kw, bk=smoke.flash.kv_tile(q.dtype, q.shape[2])),
+        2)                                             # without the spread
     bh, s, d = q.shape
     q4, k4, v4 = (x.view(LM_BATCH, bh // LM_BATCH, s, d) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -895,8 +1013,9 @@ def flash_row(smoke, calls, launches: int) -> dict:
         out.shape) - out.float()).abs().max())
     library = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), KERNEL_REPS)
     bound, bound_by, nbytes, n_ops = flash_bound(q, kw["causal"])
-    print(f"flash_attn_bhsd: {ms:.4f} ms per call at {list(q.shape)} bf16 "
-          f"causal (the lm_prefill path: {launches} calls, "
+    route = smoke.flash.flash_route(q.dtype, q.shape[2])
+    print(f"flash_attn_bhsd ({route} route): {ms:.4f} ms per call at "
+          f"{list(q.shape)} bf16 causal (the lm_prefill path: {launches} calls, "
           f"{ms * launches:.2f} ms a prefill; {n_ops / ms / 1e9:.4g} "
           f"TFLOP/s) vs plain twin {plain:.3f} ms, "
           f"scaled_dot_product_attention {library:.4f} ms (output within "
@@ -907,7 +1026,8 @@ def flash_row(smoke, calls, launches: int) -> dict:
             "source": KERNELS["flash_attn_bhsd"][0],
             "replaces": KERNELS["flash_attn_bhsd"][1], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": library}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+            "kernel_route": route}
 
 
 def host_map():
@@ -976,8 +1096,11 @@ def main() -> int:
                                           main_calls, faulty)
         flash_kernel = flash_row(smoke, main_calls["flash_attn_bhsd"],
                                  launches["flash_attn_bhsd"])
-
         phase_s["lm_path"] = time.perf_counter() - t_start
+        # The LM's timing needs no host map: it runs while the child
+        # process still builds the covering.
+        lm_timing(model, prompts, gen_tok, result, card)
+        phase_s["lm_timing"] = time.perf_counter() - t_start
         # -- 3. census, covering, engines -------------------------------------
         t0 = time.perf_counter()
         sc, cov, result["census_s"], result["covering_s"] = host.get()
@@ -1431,8 +1554,6 @@ def main() -> int:
           f"on skewed ids ({hot} of {N_MAIN} rows in block {venue}) "
           f"{split['kernel_skewed']:.4f} ms")
     phase_s["geo_timing"] = time.perf_counter() - t_start
-    lm_timing(model, prompts, gen_tok, result, card)
-    phase_s["lm_timing"] = time.perf_counter() - t_start
     kernels = []
     index = engines["fast_onepass"].fast_index
     for kname in KERNELS:
@@ -1459,6 +1580,9 @@ def main() -> int:
               f"path ({len(calls)} call(s), {rows} rows) vs plain twin "
               f"{plain:.3f} ms; bound {bound:.4f} ms by {bound_by} "
               f"({nbytes} B, {n_ops} ops); {bound / ms:.1%} of bound")
+    result["cascade_batches"] = cascade_batches(
+        smoke, main_calls["assign_cascade"][0], census.extent,
+        next(k["ms"] for k in kernels if k["name"] == "assign_cascade"))
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card

@@ -32,8 +32,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bbox.cu", "cascade.cu", "flash_attn.cu", "gather_pip.cu",
-           "pip.cu", "segment.cu")
+SOURCES = ("bbox.cu", "cascade.cu", "flash_attn.cu", "flash_attn_wgmma.cu",
+           "gather_pip.cu", "pip.cu", "segment.cu")
 HEADERS = ("pip.cuh",)
 # -fmad=false: no FMA contraction, so products round as numpy/XLA round
 # them (the crossing test and the quantize must be bit-equal).
@@ -41,12 +41,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# The driver API, for cuTensorMapEncodeTiled (flash_attn_wgmma.cu's TMA
+# descriptors).
+LINK_FLAGS = ("-lcuda",)
 LIB_NAME = "librepro_torch_kernels.so"
 
 LAUNCHES = {"assign_cascade": 0, "bbox_count_select": 0, "bbox_mask": 0,
             "crossings_candidates": 0, "crossings_gathered": 0,
             "crossings_one": 0, "flash_attn_bhsd": 0,
             "segment_reduce_sorted": 0}
+# Launches per route of a kernel with more than one (kernels/flash_attn.py
+# ``flash_route``); each also counts in LAUNCHES under the kernel's name.
+ROUTE_LAUNCHES = {"flash_attn_bhsd:wgmma": 0, "flash_attn_bhsd:simt": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,7 +68,8 @@ _SIGNATURES = {
     "repro_bbox_count_select": [_P] * 4 + [_N, _I, _P],
     "repro_segment_reduce_sorted": [_P] * 8 + [_N, _I, _P],
     "repro_segment_tile_rows": [],
-    "repro_flash_attn_bhsd": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "repro_flash_attn_simt": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "repro_flash_attn_wgmma": [_P] * 4 + [_I] * 4 + [_F, _P],
 }
 
 _lock = threading.Lock()
@@ -71,8 +78,9 @@ BUILD_INFO: dict = {}     # path, seconds, cached, log — set by load()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:
@@ -87,7 +95,7 @@ def nvcc_path() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in HEADERS + SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -126,7 +134,8 @@ def build() -> Path:
                          str(CSRC / s), "-o", o]
                         for s, o in zip(SOURCES, objs)])
         tmp_lib = os.path.join(tmp, LIB_NAME)
-        log += _run_all([[nvcc, "-shared", "-o", tmp_lib, *objs]])
+        log += _run_all([[nvcc, "-shared", "-o", tmp_lib, *objs,
+                          *LINK_FLAGS]])
         os.replace(tmp_lib, lib_path)
     (out_dir / "build.log").write_text(log)
     BUILD_INFO.update(path=str(lib_path),
@@ -151,13 +160,16 @@ def load():
         return _lib
 
 
-def check(status: int, kernel: str) -> None:
-    """Raise if a launch returned a CUDA error; else count the launch."""
+def check(status: int, kernel: str, route: str | None = None) -> None:
+    """Raise if a launch returned a CUDA error; else count the launch (and
+    its route, for a kernel with more than one)."""
     if status != 0:
         msg = load().repro_cuda_error_string(status).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed with error "
                            f"{status} ({msg})")
     LAUNCHES[kernel] += 1
+    if route is not None:
+        ROUTE_LAUNCHES[f"{kernel}:{route}"] += 1
 
 
 def require(t, name: str, dtype, shape: tuple, device) -> None:
@@ -177,7 +189,8 @@ def require(t, name: str, dtype, shape: tuple, device) -> None:
 
 def require_aligned(t, name: str, nbytes: int) -> None:
     """Raise unless ``t``'s data is ``nbytes``-aligned (the kernels load
-    points as float2 and edges / boxes as float4)."""
+    points as float2 and edges / boxes as float4; TMA reads the flash
+    kernel's tensors from 16-byte bases)."""
     if t.data_ptr() % nbytes:
         raise ValueError(f"{name} must be {nbytes}-byte aligned (vector "
                          f"loads)")

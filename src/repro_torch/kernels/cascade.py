@@ -17,14 +17,18 @@ rejected before any edge was read).
 
 Kernel: ``csrc/cascade.cu``, replacing the Pallas ``assign_cascade``
 (src/repro/kernels/cascade.py:224).  What bounds it on the card: the
-point stream (8 bytes in, 16 out per point) against the data-dependent
-edge tests of boundary points (BE edges per pool block, most of them
-zero padding when polygons are small); the cell tables and the pool are
-a few MB and stay in L2.  Design: one warp per point; the lanes run the
-scalar stages redundantly (warp-broadcast loads, so the candidate walk
-is warp-uniform) and share a candidate's BE edges, reduced with a warp
-shuffle.  Interior points never touch the pool.  The TPU's double-
-buffered DMA becomes plain loads through L1/L2; prefetch is later work.
+point stream through HBM (8 bytes in, 16 out per point); the cell tables
+and the pool are a few MB and stay in L2.  Most points are interior, and
+their cost is the chain of dependent L2 reads of the bucket and the
+binary search, a latency that only many points in flight hide; then the
+boundary points' edge tests over padded BE-edge pool blocks (BE = 256),
+also read from L2.  Design: one thread per point for the locate, so every
+resident thread has a search in flight; interior, off-extent and no-cell
+points write their outputs at once; boundary points go into a queue in
+shared memory (ballot + popc + one counter per block), which the block's
+warps then drain one point per warp, the lanes sharing each candidate's
+BE edges (a warp-uniform walk, reduced with a warp shuffle).  The TPU's
+double-buffered DMA becomes plain loads through L1/L2.
 """
 from __future__ import annotations
 
@@ -96,6 +100,7 @@ def assign_cascade(points, quant, cell_lo, cell_hi, cell_val, top_start,
             (first, "first", i32, (p,)), (count, "count", i32, (p,)),
             (blocks, "blocks", f32, (None, 4, None))):
         _build.require(t, name, dtype, shape, dev)
+    _build.require_aligned(points, "points", 8)
     if n_cells < 1 or b < 1 or k < 1 or p < 1:
         raise ValueError("assign_cascade needs non-empty cell, candidate "
                          "and polygon tables (ops.assign_cascade pads them)")

@@ -1,23 +1,23 @@
-// Flash attention forward over [BH, S, D] (port of
-// src/repro/kernels/flash_attn.py::flash_attn_bhsd, the Pallas
-// ``_flash_kernel``; the dense LM's prefill and forward attention).
+// Flash attention forward over [BH, S, D] on the CUDA cores: the "simt"
+// route (port of src/repro/kernels/flash_attn.py::flash_attn_bhsd, the
+// Pallas ``_flash_kernel``).  kernels/flash_attn.py ``flash_route`` sends
+// f32 at every D and bf16 at D 16 / 32 here; bf16 at D 64 / 128 (every
+// full-width config) goes to the tensor-core kernel in
+// flash_attn_wgmma.cu.  f32 stays on the CUDA cores because the tensor
+// cores would compute in TF32, not the reference's f32.
 //
 // What it computes, as the Pallas kernel does: s = q . k^T in f32 times
 // 1 / sqrt(D) (the caller's ``scale``); positions with kpos >= S, and
 // kpos > qpos when causal, masked to -1e30; online max m and sum l in f32
 // over KV tiles, l summing the f32 p; acc += p.astype(v.dtype) @ v in
-// f32; out = acc / max(l, 1e-30) in q's dtype.  Inputs f32 or bf16,
-// D in {16, 32, 64, 128} (one template instance each).
+// f32; out = acc / max(l, 1e-30) in q's dtype.  f32 at D in {16, 32, 64,
+// 128}, bf16 at D in {16, 32} (one template instance each).
 //
 // What bounds it on an H100: causal attention is 4 * BH * S^2 / 2 * D
-// operations on 4 * BH * S * D elements of traffic (q, k, v read once, o
-// written once), S / 4 operations a byte in bf16, so from about S = 1,200
-// on it is operation-bound: 989 TFLOP/s on the bf16 tensor cores.  This first
-// kernel does its arithmetic in f32 on the CUDA cores (67 TFLOP/s peak),
-// so it cannot come near that bound; mma.sync / wgmma, TMA and a
-// producer warp are later work.  The Pallas kernel carries (m, l, acc) in
-// VMEM across a sequential KV grid axis; here a loop inside the block
-// takes the place of that axis:
+// operations on 4 * BH * S * D elements of traffic, so at long S it is
+// operation-bound, here at the 67 TFLOP/s f32 peak of the CUDA cores.
+// The Pallas kernel carries (m, l, acc) in VMEM across a sequential KV
+// grid axis; here a loop inside the block takes the place of that axis:
 //   * one block per (bh, tile of 64 query rows), 256 threads: four
 //     threads per query row, each owning D / 4 of the row's dims (float4
 //     groups at dims 16 g + 4 c, so the four threads of a row read four
@@ -83,7 +83,7 @@ struct Elem<__nv_bfloat16> {
 };
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kFlashThreads) flash_attn_kernel(
+__global__ void __launch_bounds__(kFlashThreads) flash_attn_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int s_len, int causal,
     float scale) {
@@ -202,25 +202,42 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
                  cudaStream_t st) {
   const int smem = 2 * kKeysPerTile * D * static_cast<int>(sizeof(float));
   const dim3 grid((s_len + kRowsPerBlock - 1) / kRowsPerBlock, bh);
-  flash_attn_kernel<D, T><<<grid, kFlashThreads, smem, st>>>(
+  flash_attn_simt_kernel<D, T><<<grid, kFlashThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s_len, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dim(const void* q, const void* k, const void* v, void* o,
+int dispatch_f32(const void* q, const void* k, const void* v, void* o,
                  int bh, int s_len, int d, int causal, float scale,
                  cudaStream_t st) {
+  switch (d) {
+    case 16:
+      return launch_flash<16, float>(q, k, v, o, bh, s_len, causal, scale,
+                                     st);
+    case 32:
+      return launch_flash<32, float>(q, k, v, o, bh, s_len, causal, scale,
+                                     st);
+    case 64:
+      return launch_flash<64, float>(q, k, v, o, bh, s_len, causal, scale,
+                                     st);
+    case 128:
+      return launch_flash<128, float>(q, k, v, o, bh, s_len, causal, scale,
+                                      st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                  int bh, int s_len, int d, int causal, float scale,
+                  cudaStream_t st) {
+  using T = __nv_bfloat16;
   switch (d) {
     case 16:
       return launch_flash<16, T>(q, k, v, o, bh, s_len, causal, scale, st);
     case 32:
       return launch_flash<32, T>(q, k, v, o, bh, s_len, causal, scale, st);
-    case 64:
-      return launch_flash<64, T>(q, k, v, o, bh, s_len, causal, scale, st);
-    case 128:
-      return launch_flash<128, T>(q, k, v, o, bh, s_len, causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -229,19 +246,18 @@ int dispatch_dim(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 }  // namespace repro_torch
 
-// q, k, v, o: [bh, s_len, d] contiguous, f32 (is_bf16 = 0) or bf16
-// (is_bf16 = 1); d in {16, 32, 64, 128}; bh in [1, 65535], s_len >= 1,
-// s_len * d < 2^31 (the wrapper checks all of it).  ``scale`` is
+// q, k, v, o: [bh, s_len, d] contiguous, f32 (is_bf16 = 0) with d in
+// {16, 32, 64, 128}, or bf16 (is_bf16 = 1) with d in {16, 32}; bh in
+// [1, 65535], s_len >= 1, s_len * d < 2^31 (the wrapper checks all of it).  ``scale`` is
 // 1 / sqrt(d) as the caller rounds it to f32.
-extern "C" int repro_flash_attn_bhsd(const void* q, const void* k,
+extern "C" int repro_flash_attn_simt(const void* q, const void* k,
                                      const void* v, void* o, int bh,
                                      int s_len, int d, int is_bf16,
                                      int causal, float scale, void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return dispatch_dim<__nv_bfloat16>(q, k, v, o, bh, s_len, d, causal,
-                                       scale, st);
+    return dispatch_bf16(q, k, v, o, bh, s_len, d, causal, scale, st);
   }
-  return dispatch_dim<float>(q, k, v, o, bh, s_len, d, causal, scale, st);
+  return dispatch_f32(q, k, v, o, bh, s_len, d, causal, scale, st);
 }

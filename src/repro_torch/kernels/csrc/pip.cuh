@@ -8,9 +8,10 @@
 //   * every product and difference rounds on its own (no FMA
 //     contraction).  The build passes -fmad=false; the explicit _rn
 //     intrinsics keep that true even if the flag is dropped;
-//   * one warp owns one point, and every lane computes the point's
-//     scalar path identically, so each branch below is warp-uniform and
-//     the full-mask shuffles are safe.
+//   * one warp owns one point (in cascade.cu, one queued boundary
+//     point), and every lane computes the point's scalar path
+//     identically, so each branch below is warp-uniform and the
+//     full-mask shuffles are safe.
 #pragma once
 
 #include <cstdint>

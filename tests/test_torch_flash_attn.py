@@ -13,14 +13,17 @@ outputs near zero and for a p that the two round to neighbouring bf16
 values (a step of 2^-7 of p).  The port's ``flash_attn`` wrapper keeps repro's
 tile-multiple assert; ``ops.flash_attn`` takes any S.
 
-The CUDA kernel runs only on a card: the cases marked ``cuda`` hold it
+The wrapper routes by shape (``flash_route``): bf16 at D 64 / 128 to the
+tensor-core kernel (128-key tiles), everything else to the CUDA-core one
+(32-key tiles); on the CPU it runs the twin at the tile of that route.
+The CUDA kernels run only on a card: the cases marked ``cuda`` hold them
 against the twin there and skip elsewhere (chip_smoke.py runs the same
 sweep on the card).  There bf16 is held element by element to two bf16
 ulps of the twin's output plus 2^-7 times the twin's spread, sum_j p_j
 |v_j| / l: kernel and twin may round a p at a bf16 rounding edge apart,
-a step of at most 2^-7 p_j.  The CPU cases below show that bound holds
-for a twin that only reorders its sums (another KV tile) and fails for
-one that skips a KV tile.
+a step of at most 2^-7 p_j.  The CPU cases below show that bound holds,
+at either route's tile, for a twin that only reorders its sums (another
+KV tile) and fails for one that skips a KV tile.
 """
 import math
 
@@ -139,9 +142,9 @@ def test_twin_matches_pallas_interpret(b, s, h, kh, d, causal, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,kh,d", SWEEP)
 def test_port_flash_attn_matches_repro(b, s, h, kh, d, causal, dtype):
-    """The port's [B, S, H, D] wrapper (CPU: the twin at the CUDA
-    kernel's 32-key tile) against repro's, Pallas in interpret mode at
-    its default tiles, GQA repeat included."""
+    """The port's [B, S, H, D] wrapper (CPU: the twin at the KV tile of
+    the route the card would take) against repro's, Pallas in interpret
+    mode at its default tiles, GQA repeat included."""
     rng = np.random.default_rng(7 * s + kh)
     q, k, v = _qkv(rng, b, s, h, kh, d)
     want = j_flash.flash_attn(
@@ -215,17 +218,53 @@ def test_flash_attn_keeps_tile_multiple_assert():
 
 
 def test_cpu_wrapper_runs_the_twin_and_counts_nothing():
-    """A CPU tensor takes the twin (at the kernel's tile) and launches
+    """A CPU tensor takes the twin (at its route's tile) and launches
     nothing; the ref backend refuses nothing on the CPU."""
     from repro_torch.kernels import _build
     rng = np.random.default_rng(1)
     q, k, v = (torch.as_tensor(rng.normal(size=(2, 70, 16)),
                                dtype=torch.float32) for _ in range(3))
-    before = _build.LAUNCHES["flash_attn_bhsd"]
+    before = (dict(_build.LAUNCHES), dict(_build.ROUTE_LAUNCHES))
     got = flash_attn.flash_attn_bhsd(q, k, v, causal=True)
-    assert _build.LAUNCHES["flash_attn_bhsd"] == before
-    assert torch.equal(got, ref.flash_attn_bhsd(q, k, v, causal=True,
-                                                bk=flash_attn.KV_TILE))
+    assert (dict(_build.LAUNCHES), dict(_build.ROUTE_LAUNCHES)) == before
+    assert torch.equal(got, ref.flash_attn_bhsd(
+        q, k, v, causal=True, bk=flash_attn.kv_tile(torch.float32, 16)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", flash_attn.HEAD_DIMS)
+def test_flash_route_by_dtype_and_head_dim(dtype, d):
+    """bf16 at D 64 / 128 (every full-width config) takes the tensor
+    cores; f32 at every D (no TF32) and bf16 at D 16 / 32 the CUDA
+    cores.  The KV tile follows the route."""
+    route = flash_attn.flash_route(dtype, d)
+    tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
+    assert route == ("wgmma" if tensor_cores else "simt")
+    assert flash_attn.kv_tile(dtype, d) == (
+        flash_attn.KV_TILE if tensor_cores else flash_attn.SIMT_KV_TILE)
+    assert (flash_attn.KV_TILE, flash_attn.SIMT_KV_TILE) == (128, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cpu_wrapper_calls_twin_at_route_tile(monkeypatch, dtype, d):
+    """On the CPU the wrapper calls the twin once, at the KV tile of the
+    route the same call takes on the card."""
+    calls = []
+    twin = ref.flash_attn_bhsd
+
+    def spy(*args, **kw):
+        calls.append(kw["bk"])
+        return twin(*args, **kw)
+
+    monkeypatch.setattr(ref, "flash_attn_bhsd", spy)
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, 40, d))).to(dtype)
+               for _ in range(3))
+    got = flash_attn.flash_attn_bhsd(q, k, v, causal=True)
+    want = 128 if flash_attn.flash_route(dtype, d) == "wgmma" else 32
+    assert calls == [want]
+    assert torch.equal(got, twin(q, k, v, causal=True, bk=want))
 
 
 @pytest.fixture
@@ -238,24 +277,32 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,d", [(64, 16), (100, 64), (300, 128),
-                                 (2048, 64)])
+@pytest.mark.parametrize("s,d", [(64, 16), (300, 32), (100, 64),
+                                 (300, 128), (2048, 64)])
 def test_cuda_kernel_matches_twin(cuda_device, s, d, causal, dtype):
+    """Both routes (bf16 at D 64 / 128 on the tensor cores, the rest on
+    the CUDA cores) against the twin at their tiles; a second launch
+    bit-equal."""
+    from repro_torch.kernels import _build
     rng = np.random.default_rng(s + d)
     q, k, v = (torch.as_tensor(rng.normal(size=(4, s, d)), dtype=dtype,
                                device=cuda_device) for _ in range(3))
+    route = f"flash_attn_bhsd:{flash_attn.flash_route(dtype, d)}"
+    before = _build.ROUTE_LAUNCHES[route]
     got = flash_attn.flash_attn_bhsd(q, k, v, causal=causal)
     again = flash_attn.flash_attn_bhsd(q, k, v, causal=causal)
     want = ref.flash_attn_bhsd(q, k, v, causal=causal,
-                               bk=flash_attn.KV_TILE)
+                               bk=flash_attn.kv_tile(dtype, d))
     torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[route] == before + 2
     assert torch.equal(got, again)
     if dtype == torch.float32:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    atol=1e-5, rtol=0)
     else:
         _, spread = ref.flash_attn_bhsd(q, k, v, causal=causal,
-                                        bk=flash_attn.KV_TILE, spread=True)
+                                        bk=flash_attn.kv_tile(dtype, d),
+                                        spread=True)
         assert _flash_over(got, want, spread) <= 1.0
 
 
@@ -277,19 +324,24 @@ def test_twin_spread_is_sum_p_abs_v_over_l():
     np.testing.assert_allclose(spread.numpy(), want, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("s,skip", [(512, 12), (1024, 24), (300, 7)])
-def test_bf16_bound_passes_reordering_and_fails_a_skipped_tile(s, skip):
-    """The bf16 bound chip_smoke.py holds the kernel to: the twin at a
+@pytest.mark.parametrize("s,tile,skip", [
+    (512, 32, 12), (1024, 32, 24), (300, 32, 7),        # CUDA-core tile
+    (512, 128, 3), (1024, 128, 6), (300, 128, 2)])      # tensor-core tile
+def test_bf16_bound_passes_reordering_and_fails_a_skipped_tile(s, tile,
+                                                               skip):
+    """The bf16 bound chip_smoke.py holds the kernels to: the twin at a
     64-key tile (other rescale points, other sums) stays within it of the
-    twin at the kernel's 32-key tile, and a twin that skips one 32-key
-    tile does not (v scaled as the LM's values, std 0.9)."""
+    twin at a kernel's tile (32 keys on the CUDA cores, 128 on the tensor
+    cores), and a twin that skips one tile of that size does not (v
+    scaled as the LM's values, std 0.9)."""
     rng = np.random.default_rng(s)
     q, k = (torch.as_tensor(rng.normal(size=(4, s, 64)),
                             dtype=torch.bfloat16) for _ in range(2))
     v = torch.as_tensor(0.9 * rng.normal(size=(4, s, 64)),
                         dtype=torch.bfloat16)
-    want, spread = ref.flash_attn_bhsd(q, k, v, causal=True, bk=32,
+    want, spread = ref.flash_attn_bhsd(q, k, v, causal=True, bk=tile,
                                        spread=True)
     reordered = ref.flash_attn_bhsd(q, k, v, causal=True, bk=64)
     assert _flash_over(reordered, want, spread) <= 1.0
-    assert _flash_over(_twin_skipping(q, k, v, skip), want, spread) > 1.0
+    skipped = _twin_skipping(q, k, v, skip, bk=tile)
+    assert _flash_over(skipped, want, spread) > 1.0

@@ -375,9 +375,45 @@ def test_resolve_backend(monkeypatch):
 
 
 # ------------------------------------------- CUDA kernels vs their twins
+def _cascade_batch(t, synth_small, points_small, batch):
+    """Points for the cascade: the edge rows of ``_edge_points``, or
+    (classified by the twin on the CPU) only boundary-cell points, only
+    interior ones, or a ragged batch (no multiple of the kernel's 256-point
+    blocks) with off-extent, FAR and NaN rows mixed in."""
+    pts = _edge_points(synth_small, points_small)
+    if batch == "edge_points":
+        return pts
+    args = [getattr(t, f) for f in ("quant", "cell_lo", "cell_hi",
+                                     "cell_val", "top_start", "cand",
+                                     "block_bbox")]
+    pool = t.edge_pool
+    xy = points_small[0].astype(np.float32)
+    _, flags, _, _ = ref.assign_cascade(
+        torch.as_tensor(xy), *args, pool.first, pool.count, pool.blocks,
+        max_blocks=pool.max_blocks, max_level=t.max_level, gbits=t.gbits,
+        search_iters=t.search_iters)
+    bnd = (flags.numpy() & 1) == 1
+    if batch == "boundary":
+        return xy[bnd]
+    if batch == "interior":
+        return xy[~bnd]
+    rng = np.random.default_rng(3)
+    out = xy[rng.permutation(len(xy))[:1037]].copy()
+    odd = pts[-6:]
+    at = rng.choice(len(out), 60, replace=False)
+    out[at] = odd[np.arange(60) % len(odd)]
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["edge_points", "boundary", "interior",
+                                   "ragged"])
 def test_cuda_assign_cascade_matches_twin(indices, synth_small,
-                                          points_small, cuda_device):
+                                          points_small, cuda_device, batch):
+    """The kernel bit-equal to its twin on real points with off-extent /
+    FAR / NaN rows, on boundary-cell points only (every point through the
+    queue and the edge tests), on interior points only (none), and on a
+    ragged batch with odd rows mixed in."""
     _, t = indices[4]
     tc = dataclasses.replace(
         t, **{f: getattr(t, f).to(cuda_device) for f in INDEX_FIELDS},
@@ -385,7 +421,7 @@ def test_cuda_assign_cascade_matches_twin(indices, synth_small,
             t.edge_pool, blocks=t.edge_pool.blocks.to(cuda_device),
             first=t.edge_pool.first.to(cuda_device),
             count=t.edge_pool.count.to(cuda_device)))
-    pts = _edge_points(synth_small, points_small)
+    pts = _cascade_batch(t, synth_small, points_small, batch)
     args = [getattr(tc, f) for f in ("quant", "cell_lo", "cell_hi",
                                      "cell_val", "top_start", "cand",
                                      "block_bbox")]
@@ -399,6 +435,35 @@ def test_cuda_assign_cascade_matches_twin(indices, synth_small,
                               pool.blocks, max_blocks=pool.max_blocks, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    boundary = (got[1] & 1).bool()
+    if batch == "boundary":
+        assert bool(boundary.all())
+    elif batch == "interior":
+        assert not bool(boundary.any())
+
+
+@pytest.mark.parametrize("batch", ["boundary", "interior", "ragged"])
+def test_assign_cascade_twin_on_kernel_test_batches(indices, synth_small,
+                                                    points_small, batch):
+    """The CUDA test's batches through the twin, equal to repro's: the
+    boundary batch is all boundary-cell hits, the interior batch none,
+    and the ragged one no multiple of the kernel's 256-point blocks, its
+    off-extent / FAR / NaN rows unassigned."""
+    j, t = indices[4]
+    pts = _cascade_batch(t, synth_small, points_small, batch)
+    want, got = _cascade_both(j, t, pts)
+    for a, b in zip(want, got):
+        _eq(a, b)
+    bid, flags = got[0].numpy(), got[1].numpy()
+    assert len(pts) > 0
+    if batch == "boundary":
+        assert ((flags & 1) == 1).all()
+    elif batch == "interior":
+        assert ((flags & 1) == 0).all()
+    else:
+        odd = ~np.isfinite(pts).all(1) | (np.abs(pts) > 1e29).any(1)
+        assert len(pts) % 256 != 0 and odd.sum() > 0
+        assert (bid[odd] == -1).all() and (flags[odd] == 0).all()
 
 
 @pytest.mark.cuda
