@@ -16,10 +16,12 @@ the card:
      (one KV tile skipped); meanwhile a child process builds the host map
      of phase 3;
   2. LM path: ``flash_attn_bhsd`` against its twin on both routes (f32
-     and bf16, causal and full, D 16 / 32 / 64 / 128, S 64 / 100 / 300 /
-     2048: bf16 at D 64 / 128 on the tensor-core kernel, the rest on the
-     CUDA-core one; a second launch bit-equal; GQA through ``flash_attn``
-     and ``ops.flash_attn``), then
+     and bf16, causal and full, D 12 / 16 / 24 / 32 / 64 / 128, S 64 /
+     100 / 300 / 2048: bf16 at D 64 / 128 on the tensor-core kernel, the
+     rest on the CUDA-core one, D 12 and 24 zero-padded to 16 and 32 by
+     the wrapper and held against the twin at the true D; a second
+     launch bit-equal; GQA through ``flash_attn`` and
+     ``ops.flash_attn``), then
      Qwen1.5-0.5B at full width (24 layers, d 1024, vocab 151,936; random
      weights from ``LM_SEED``) serving 8 prompts of 2,048 tokens and 64
      greedy tokens through ``launch.serve.serve``: the prefill launches
@@ -29,6 +31,10 @@ the card:
      launches none of the eight kernels, and a teacher-forced
      ``forward`` over prompt + generated tokens agrees with decode's
      logits and, wherever its top-2 margin is clear, with its tokens;
+     after the LM timing of phase 7, MiniCPM-2B's reduced config (head
+     dim 12) served through ``launch.serve.serve``, each prefill flash
+     call held against the twin, and one flash call over 65,537 heads
+     (two launches), its first, last and sampled heads against the twin;
   3. the benchmark-scale census (benchmarks/common.py SCALE: 16 states /
      128 counties / 3,072 blocks) and its covering at max_level 9, from
      the child process, and six engines on cuda: ``fast`` (gathered PIP
@@ -41,7 +47,15 @@ the card:
      ``ops.pip_one`` against each state's edge table; every kernel call
      is held against its plain PyTorch twin on the same inputs (exact
      equality), and each engine against a CPU engine of the same config
-     (the twins) on ids and stats; ``segment_reduce_sorted`` on 2^16 rows
+     (the twins) on ids and stats, and on ``flat[1:].view(-1, 2)``, a
+     misaligned view of the batch, equal to the aligned copy;
+     ``crossings_one`` on E = 0, 1 and 284 (no tile multiple) and a state
+     table over 2^16 + 5 points with NaN / inf / off-extent ones, and
+     ``crossings_candidates`` on the state tables packed at BE = 64
+     (2-3 blocks a polygon), a pool with a polygon of 0 live edges and a
+     pool rebuilt through ``EdgePool.from_numpy`` (derived live counts),
+     each bit-equal to its twin and a second launch bit-equal;
+     ``segment_reduce_sorted`` on 2^16 rows
      of uniform, skewed (40 % in one segment), invalid (parked and
      unparked), odd-``S`` and empty ids: integer-valued and absent (zero)
      columns exact against the twin and the numpy oracle, f32 columns
@@ -71,7 +85,10 @@ the card:
      (right after phase 2, while the child process builds the host map),
      and each kernel at the main path's inputs beside its plain twin,
      its bound and, for flash attention, ``scaled_dot_product_attention``
-     (timed only: the port never calls it); then ``assign_cascade`` on
+     and, for the segment counts, ``torch.bincount`` (timed only: the
+     port never calls them), with each ``crossings_candidates`` call's
+     rows, those with a candidate and those at the padding slots' alias
+     point; then ``assign_cascade`` on
      three more batches sampled (seed CASCADE_SEED) from the main path's
      points as its call classified them: 2^20 points all in boundary
      cells, 2^20 all in interior cells, and 2^20 + 37 points with
@@ -132,7 +149,16 @@ SERVE_SECONDS, SERVE_BACKGROUND, SERVE_VENUE, SERVE_TAIL_T = 16, 2048, 1024, 32.
 LOAD_REQUESTS, LOAD_POINTS = 256, 16384
 # The LM serving path: Qwen1.5-0.5B at full width, a chat-style batch.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "qwen1.5-0.5b", 8, 2048, 64, 0
-FLASH_DIMS, FLASH_LENGTHS = (16, 32, 64, 128), (64, 100, 300, 2048)
+# Head dims 12 and 24 are no kernel instance: the wrapper pads them.
+FLASH_DIMS, FLASH_LENGTHS = (12, 16, 24, 32, 64, 128), (64, 100, 300, 2048)
+# MiniCPM-2B's reduced config (head dim 12) served on the card.
+MINICPM_ARCH, MINICPM_BATCH, MINICPM_PROMPT, MINICPM_GEN = (
+    "minicpm-2b", 4, 64, 8)
+# One flash call over more heads than the kernels' grid y (65,535).
+MANY_HEADS, MANY_HEADS_SAMPLE = (65537, 128, 64), 8
+# The candidate-PIP pool cases: the block polygon emptied of its edges;
+# crossings_one's extra cases: rows (no multiple of 4 or 1,024).
+EMPTY_POLY, ONE_ROWS = 5, (1 << 16) + 5
 # Flash kernel vs its twin.  f32: within 1e-5 absolute (summation order
 # only; on an H100 the cases came within 1.4e-6).  bf16, element by
 # element: two bf16 ulps of the twin's output plus 2^-7 times the twin's
@@ -200,7 +226,7 @@ ROW_PATH = {"assign_cascade": "fast_onepass",
             "bbox_count_select": "simple", "crossings_one": "pip_one",
             "segment_reduce_sorted": "fused_counts"}
 # Positional arguments of each kernel wrapper that are per-row.
-ROW_ARGS = {"assign_cascade": (0,), "crossings_candidates": (0, 1, 2),
+ROW_ARGS = {"assign_cascade": (0,), "crossings_candidates": (0, 1),
             "crossings_gathered": (0, 1), "crossings_one": (0,),
             "bbox_mask": (0,), "bbox_count_select": (0, 1),
             "segment_reduce_sorted": (0, 1)}
@@ -356,16 +382,12 @@ class Smoke:
         for lo in range(0, rows, TWIN_CHUNK):
             a = [x[lo:lo + TWIN_CHUNK] if i in ROW_ARGS[name] else x
                  for i, x in enumerate(args)]
-            if name == "crossings_candidates":
-                first, nblk, points, blocks = a
-                out = (ref.crossings_candidates(points, first, nblk, blocks,
-                                                kw["max_blocks"]),)
-            elif name == "assign_cascade":
+            if name == "assign_cascade":
                 count = a[9]
                 out = ref.assign_cascade(
                     *a, **kw, max_blocks=max(int(count.max()), 1))
             else:
-                out = getattr(ref, name)(*a)
+                out = getattr(ref, name)(*a, **kw)
                 out = out if isinstance(out, tuple) else (out,)
             parts.append(out)
         return tuple(torch.cat(p) for p in zip(*parts))
@@ -520,26 +542,52 @@ def segment_work(ids, values, n_segments) -> tuple:
     return nbytes + 4 * n, n * OPS_PER_SEGMENT_ROW
 
 
+def candidates_work(pids, points, first, count, live, blocks,
+                    max_blocks=1) -> tuple:
+    """(bytes, live-edge tests) that one ``crossings_candidates`` call
+    needs: each row's id and point read once and its count written (16
+    bytes), the pool's per-polygon tables and its live edges (16 bytes
+    each) read once; one test for each live edge of each row's
+    candidate (none for a row without one), as ``ops`` clamps the ids."""
+    valid = pids >= 0
+    safe = pids.clamp(0, first.shape[0] - 1).long()
+    n = torch.minimum(live[safe].long(), count[safe].long() * blocks.shape[2])
+    tests = int(torch.where(valid, n, 0).sum())
+    nbytes = (16 * pids.shape[0] + 12 * first.shape[0]
+              + 16 * int(live.long().sum()))
+    return nbytes, tests
+
+
+def live_edges(edges) -> int:
+    """Rows of an [E, 4] table that ``crossings_one`` stages: y1 != y2."""
+    return int((edges[:, 1] != edges[:, 3]).sum())
+
+
 def bound_ms(name, calls, index, fast_mod) -> tuple:
     """Least time for the work of ``calls`` on an H100: the larger of the
     bytes moved (each input read once, each output written once; the
-    segment kernel's sorted ids only where searched) over the HBM rate
-    and the operations (crossing tests, box tests, segment rows) over
-    the fp32 peak."""
+    segment kernel's sorted ids only where searched; the candidate
+    pool's live edges only) over the HBM rate and the operations
+    (crossing tests, box tests, segment rows) over the fp32 peak.  The
+    crossing tests are those these inputs need: ``crossings_candidates``
+    tests each row's candidate's live edges, ``crossings_one`` the
+    table's edges with y1 != y2 (the others never straddle, and its
+    staging drops them)."""
     nbytes = ops = 0
     for args, kw, outs in calls:
         if name == "segment_reduce_sorted":
             b, o = segment_work(*args)
             nbytes, ops = nbytes + b, ops + o
             continue
+        if name == "crossings_candidates":
+            b, tests = candidates_work(*args, **kw)
+            nbytes, ops = nbytes + b, ops + tests * OPS_PER_EDGE_TEST
+            continue
         nbytes += call_bytes(args, outs)
         if name == "crossings_gathered":
             ops += args[1].shape[0] * args[1].shape[1] * OPS_PER_EDGE_TEST
         elif name == "crossings_one":
-            ops += args[0].shape[0] * args[1].shape[0] * OPS_PER_EDGE_TEST
-        elif name == "crossings_candidates":
-            ops += (int(args[1].sum()) * args[3].shape[2]
-                    * OPS_PER_EDGE_TEST)
+            ops += args[0].shape[0] * live_edges(args[1]) * OPS_PER_EDGE_TEST
         elif name == "bbox_mask":
             ops += args[0].shape[0] * args[1].shape[0] * OPS_PER_BOX_TEST
         elif name == "bbox_count_select":
@@ -1030,6 +1078,258 @@ def flash_row(smoke, calls, launches: int) -> dict:
             "kernel_route": route}
 
 
+def minicpm_path(smoke, result) -> None:
+    """MiniCPM-2B's reduced config (head dim 72 / 6 = 12, which no flash
+    kernel instance has) through ``launch.serve.serve`` on the card:
+    MINICPM_BATCH prompts of MINICPM_PROMPT tokens and MINICPM_GEN greedy
+    tokens.  The prefill must launch the flash kernel once per layer (its
+    wrapper pads D to 16 and slices it back), each call held against the
+    twin at the true D; decode launches none of the eight kernels."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve as serve_mod
+    cfg = get_reduced_config(MINICPM_ARCH)
+    model = serve_mod.load_model(cfg, seed=LM_SEED, device="cuda")
+    prompts = serve_mod.make_prompts(cfg, MINICPM_BATCH, MINICPM_PROMPT,
+                                     LM_SEED, "cuda")
+    counts = {}
+
+    def on_phase(name, edge):
+        if edge == "start":
+            smoke.build.reset_launches()
+        else:
+            counts[name] = dict(smoke.build.LAUNCHES)
+
+    with smoke.capture(keep=["flash_attn_bhsd"]) as cap:
+        res = serve_mod.serve(model, prompts, MINICPM_GEN, on_phase=on_phase)
+    torch.cuda.synchronize()
+    for name in ("prefill", "decode"):
+        for kname, n in counts[name].items():
+            want = kname in ENGINE_KERNELS[f"lm_{name}"]
+            check((n > 0) == want, f"{cfg.name} {name}: {kname} launched "
+                                   f"{n} times")
+    calls = cap.calls["flash_attn_bhsd"]
+    hd = cfg.d_model // cfg.n_heads
+    check(counts["prefill"]["flash_attn_bhsd"] == cfg.n_layers
+          and len(calls) == cfg.n_layers
+          and all(a[0].shape[2] == hd for a, _, _ in calls),
+          f"{cfg.name} prefill: flash calls {len(calls)} / launches "
+          f"{counts['prefill']['flash_attn_bhsd']}, not one per layer at "
+          f"head dim {hd}")
+    err = over = 0.0
+    for args, kw, (out,) in calls:
+        want, spread = smoke.twin("flash_attn_bhsd", args, kw)
+        e, o = flash_err(out, want, spread, f"{cfg.name} prefill flash call")
+        err, over = max(err, e), max(over, o)
+    tok = res.tokens
+    check(tok.shape == (MINICPM_BATCH, MINICPM_GEN)
+          and bool(((tok >= 0) & (tok < cfg.vocab)).all())
+          and bool(torch.isfinite(res.prefill_logits).all())
+          and torch.equal(tok[:, 0], res.prefill_logits.argmax(-1).int()),
+          f"{cfg.name}: generated tokens out of range or not the prefill's "
+          f"argmax")
+    result["minicpm"] = dict(
+        head_dim=hd, padded_to=smoke.flash.padded_head_dim(hd),
+        route=smoke.flash.flash_route(calls[0][0][0].dtype, hd),
+        dtype=str(calls[0][0][0].dtype).split(".")[-1],
+        prefill_flash_launches=counts["prefill"]["flash_attn_bhsd"],
+        max_abs_err=err, over=over, prefill_tok_s=res.prefill_tok_s(),
+        decode_tok_s=res.decode_tok_s())
+    m = result["minicpm"]
+    print(f"main path {cfg.name} (head dim {hd}, padded to "
+          f"{m['padded_to']} on the {m['route']} route, {m['dtype']}): "
+          f"{MINICPM_BATCH} x {MINICPM_PROMPT} prompt tokens and "
+          f"{MINICPM_GEN} greedy tokens through launch.serve.serve; prefill "
+          f"launches {m['prefill_flash_launches']} flash calls (one per "
+          f"layer), each == twin at the true head dim (max abs err "
+          f"{err:.3g}, {over:.3g}x the tolerance); decode launches none")
+
+
+def flash_many_heads(smoke, result) -> None:
+    """One ``flash_attn_bhsd`` call over MANY_HEADS = 65,537 heads (more
+    than the kernels' grid y of 65,535): the wrapper launches it in two
+    chunks on one stream.  The first and last heads (past 65,535) and a
+    seeded sample are held against the twin."""
+    fa = smoke.flash
+    bh, s, d = MANY_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = smoke.build.ROUTE_LAUNCHES["flash_attn_bhsd:wgmma"]
+    out = fa.flash_attn_bhsd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    n_launch = smoke.build.ROUTE_LAUNCHES["flash_attn_bhsd:wgmma"] - before
+    want_launch = -(-bh // fa.MAX_BH)
+    check(n_launch == want_launch, f"flash over {bh} heads: {n_launch} "
+                                   f"launches, not {want_launch}")
+    heads = torch.cat([torch.arange(4, device="cuda"),
+                       torch.arange(bh - 4, bh, device="cuda"),
+                       torch.randperm(bh, generator=gen,
+                                      device="cuda")[:MANY_HEADS_SAMPLE]])
+    args = (q[heads], k[heads], v[heads])
+    want, spread = smoke.twin("flash_attn_bhsd", args, {"causal": True})
+    err, over = flash_err(out[heads], want, spread,
+                          f"flash over {bh} heads")
+    ms = cuda_ms(lambda: fa.flash_attn_bhsd(q, k, v, causal=True), 2)
+    result["flash_many_heads"] = dict(
+        shape=[bh, s, d], launches=n_launch, heads_checked=heads.numel(),
+        max_abs_err=err, over=over, ms=ms)
+    print(f"kernel phase: flash_attn_bhsd over [{bh}, {s}, {d}] bf16 "
+          f"causal ({q.numel() * 2 / 2**30:.2f} GiB a tensor): {n_launch} "
+          f"launches of at most {fa.MAX_BH} heads; heads 0-3, "
+          f"{bh - 4}-{bh - 1} and {MANY_HEADS_SAMPLE} seeded ones == twin "
+          f"(max abs err {err:.3g}, {over:.3g}x the tolerance); {ms:.3f} ms "
+          f"a call")
+    del q, k, v, out, args, want, spread
+    torch.cuda.empty_cache()
+
+
+def misaligned_phase(engines, pts) -> None:
+    """Each engine's ``assign`` on ``flat[1:].view(-1, 2)``: contiguous
+    points whose data starts 4 bytes past a float2 boundary.  Ids and
+    stats must equal those of the aligned copy."""
+    flat = torch.empty(2 * pts.shape[0] + 1, device="cuda")
+    flat[1:] = pts.reshape(-1)
+    view = flat[1:].view(-1, 2)
+    check(view.is_contiguous() and view.data_ptr() % 8 != 0,
+          "the misaligned view is aligned")
+    for name, eng in engines.items():
+        got, want = eng.assign(view), eng.assign(view.clone())
+        for f in ("state", "county", "block"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"{name}: {f} ids on misaligned points differ")
+        check(got.stats.as_dict() == want.stats.as_dict(),
+              f"{name}: stats on misaligned points differ")
+    print(f"kernel phase: every engine's assign on flat[1:].view(-1, 2) of "
+          f"{pts.shape[0]} points (data_ptr % 8 == {view.data_ptr() % 8}) == "
+          f"on the aligned copy (ids, stats)")
+
+
+def pool_phase(smoke, ops, sindex, findex, pts, truth_block,
+               truth_state) -> list:
+    """``crossings_candidates`` against its twin on pools the main path
+    does not build: the state tables packed at BE = 64 (polygons of
+    92-142 live edges over 2-3 blocks), the block table with one polygon
+    emptied (0 live edges), and the block pool rebuilt through
+    ``EdgePool.from_numpy`` from its host arrays (live counts derived
+    from the blocks, equal to the packed ones).  Rows: each point's true
+    polygon, a random one, -1 and an id past the table, unsorted and
+    sorted; every count bit-equal to the twin and a second launch
+    bit-equal to the first."""
+    gp = smoke.modules["crossings_candidates"]
+    block_edges = findex.block_edges.cpu().numpy()
+    emptied = block_edges.copy()
+    emptied[EMPTY_POLY] = 0.0
+    base = ops.build_edge_pool(block_edges, device="cuda")
+    derived = ops.EdgePool.from_numpy(*(getattr(base, f).cpu().numpy()
+                                        for f in ("blocks", "first",
+                                                  "count")), device="cuda")
+    check(torch.equal(derived.live, base.live),
+          "EdgePool.from_numpy: derived live counts differ from the packed")
+    state = ops.build_edge_pool(sindex.state_edges.cpu().numpy(), be=64,
+                                device="cuda")
+    check(int(state.count.min()) >= 2, "state pool at BE 64: a polygon in "
+                                       "one block")
+    empty = ops.build_edge_pool(emptied, device="cuda")
+    check(int(empty.live[EMPTY_POLY]) == 0
+          and int(empty.count[EMPTY_POLY]) == 0, "emptied polygon has edges")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = []
+    for name, pool, truth in (("state_be64", state, truth_state),
+                              ("empty_polygon", empty, truth_block),
+                              ("from_numpy", derived, truth_block)):
+        n, p = pts.shape[0], pool.n_poly
+        pick = torch.randint(0, 4, (n,), generator=gen, device="cuda")
+        rand = torch.randint(0, p, (n,), generator=gen, device="cuda")
+        pid = torch.where(pick == 0, rand, truth.long())
+        pid = torch.where(pick == 1, -1, pid)
+        pid = torch.where((pick == 2) & (rand % 8 == 0), p, pid)
+        if name == "empty_polygon":
+            pid = torch.where(rand % 16 == 0, EMPTY_POLY, pid)
+        pid = pid.int()
+        for order in ("unsorted", "sorted"):
+            rows = pid if order == "unsorted" else torch.sort(pid)[0]
+            args = (rows, pts, pool.first, pool.count, pool.live,
+                    pool.blocks)
+            kw = {"max_blocks": pool.max_blocks}
+            got = gp.crossings_candidates(*args, **kw)
+            again = gp.crossings_candidates(*args, **kw)
+            want = smoke.twin("crossings_candidates", args, kw)[0]
+            check(torch.equal(got, again), f"crossings_candidates {name}: "
+                                           f"a second launch differs")
+            err = max_abs_err(got, want, f"crossings_candidates {name}")
+            check(err == 0, f"crossings_candidates differs from its twin "
+                            f"on the {name} pool ({order}; max abs err "
+                            f"{err})")
+            out.append(dict(pool=name, order=order, rows=n,
+                            blocks_per_poly=[int(pool.count.min()),
+                                             int(pool.count.max())],
+                            live=[int(pool.live.min()),
+                                  int(pool.live.max())],
+                            inside=int((got & 1).sum()), max_abs_err=err))
+    print("kernel phase: crossings_candidates == twin (and a second launch "
+          "== the first) on " + "; ".join(
+              f"{r['pool']} ({r['order']}: blocks a polygon "
+              f"{r['blocks_per_poly']}, live edges {r['live']}, "
+              f"{r['inside']} of {r['rows']} rows inside)" for r in out))
+    return out
+
+
+def one_phase(smoke, sindex, pts, extent) -> list:
+    """``crossings_one`` against its twin on tables the main path does
+    not pass: E = 0, E = 1, E = 284 (two state tables, no multiple of
+    the 256-edge tile, their y1 == y2 padding rows among them), and a
+    state table, each over ONE_ROWS points (no multiple of the 4-point
+    thread or the 1,024-point block) with NaN, infinite, FAR and
+    off-extent ones mixed in; bit-equal, and a second launch bit-equal
+    to the first."""
+    fn = smoke.modules["crossings_one"].crossings_one
+    x0, x1, y0, y1 = extent
+    odd = torch.tensor([[x0 - 1.0, y0], [x1 + 1.0, y1], [1e30, 1e30],
+                        [-1e30, -1e30], [math.inf, y0], [x0, -math.inf],
+                        [math.nan, y0], [x0, math.nan]], device="cuda")
+    rows = torch.cat([pts, odd])[:ONE_ROWS]
+    rows[::97] = odd[torch.arange(rows[::97].shape[0], device="cuda")
+                     % odd.shape[0]]
+    se = sindex.state_edges
+    tables = {"E=0": se[0, :0], "E=1": se[0, :1],
+              "E=284": torch.cat([se[0], se[1]])[:284],
+              "state 0": se[0]}
+    out = []
+    for name, edges in tables.items():
+        edges = edges.contiguous()
+        got, again = fn(rows, edges), fn(rows, edges)
+        want = smoke.ref.crossings_one(rows, edges)
+        check(torch.equal(got, again), f"crossings_one {name}: a second "
+                                       f"launch differs")
+        err = max_abs_err(got, want, f"crossings_one {name}")
+        check(err == 0, f"crossings_one differs from its twin at {name} "
+                        f"(max abs err {err})")
+        out.append(dict(table=name, edges=edges.shape[0],
+                        staged=live_edges(edges), rows=rows.shape[0],
+                        max_abs_err=err))
+    print(f"kernel phase: crossings_one == twin (and a second launch == "
+          f"the first) on {rows.shape[0]} points with NaN / inf / FAR / "
+          f"off-extent ones against " + ", ".join(
+              f"{r['table']} ({r['staged']} of {r['edges']} edges staged)"
+              for r in out))
+    return out
+
+
+def candidate_rows(calls) -> list:
+    """Per ``crossings_candidates`` call: its rows, the rows that carry a
+    candidate, and the rows at the call's most repeated point: the
+    compaction's unfilled slots, which all alias one row
+    (core/compact.py), times the candidate slots a point brings."""
+    out = []
+    for args, _, _ in calls:
+        pids, points = args[0], args[1]
+        _, reps = torch.unique(points.view(torch.int64), return_counts=True)
+        out.append(dict(rows=pids.shape[0],
+                        with_candidate=int((pids >= 0).sum()),
+                        alias_rows=int(reps.max()) if reps.numel() else 0))
+    return out
+
+
 def host_map():
     """The census and its covering at SCALE, on the host (numpy; no card).
     Returns (census, covering, census s, covering s)."""
@@ -1100,7 +1400,11 @@ def main() -> int:
         # The LM's timing needs no host map: it runs while the child
         # process still builds the covering.
         lm_timing(model, prompts, gen_tok, result, card)
+        del model, prompts, gen_tok
         phase_s["lm_timing"] = time.perf_counter() - t_start
+        minicpm_path(smoke, result)
+        flash_many_heads(smoke, result)
+        phase_s["lm_faults"] = time.perf_counter() - t_start
         # -- 3. census, covering, engines -------------------------------------
         t0 = time.perf_counter()
         sc, cov, result["census_s"], result["covering_s"] = host.get()
@@ -1147,7 +1451,8 @@ def main() -> int:
 
     phase_s["host_build"] = time.perf_counter() - t_start
     # -- 4. kernel phase: each kernel vs its twin, each engine vs the CPU ---
-    xy_k, truth_k, *_ = sc.sample_points(np.random.default_rng(1), N_KERNEL)
+    xy_k, truth_k, _, sid_k = sc.sample_points(np.random.default_rng(1),
+                                                N_KERNEL)
     pts_k = torch.from_numpy(xy_k).cuda()
     for name, eng in engines.items():
         strategy, c = specs[name]
@@ -1180,6 +1485,11 @@ def main() -> int:
           "pip_one: crossings_one not called once per state")
     print(f"kernel phase: crossings_one == twin on "
           f"{n_calls['crossings_one']} call(s) (one per state table)")
+    misaligned_phase(engines, pts_k)
+    result["one_phase"] = one_phase(smoke, sindex, pts_k, census.extent)
+    result["pool_phase"] = pool_phase(
+        smoke, ops, sindex, engines["fast_fused"].fast_index, pts_k,
+        torch.from_numpy(truth_k).cuda(), torch.from_numpy(sid_k).cuda())
     n_blocks = int(engines["fast"].fast_index.block_parent.shape[0])
     result["segment_phase"] = segment_phase(n_blocks)
     worst = max(r["sum_max_rel_err"] for r in result["segment_phase"]
@@ -1571,15 +1881,33 @@ def main() -> int:
         bound, bound_by, nbytes, n_ops = bound_ms(kname, calls, index,
                                                   fast_mod)
         rows = sum(a[0].shape[0] for a, _, _ in calls)
+        library, extra = None, ""
+        if kname == "segment_reduce_sorted":
+            # torch.bincount computes the counts-only call's counts (its
+            # parked segment S lands in one more bin); timed, never called
+            # by the port.
+            (ids_s, _, n_seg), _, (count, *_) = calls[0]
+            check(torch.equal(torch.bincount(ids_s, minlength=n_seg)[:n_seg]
+                              .int(), count.int()),
+                  "torch.bincount differs from the segment kernel's counts")
+            library = cuda_ms(lambda: torch.bincount(ids_s, minlength=n_seg),
+                              KERNEL_REPS)
+            extra = f"; torch.bincount {library:.4f} ms"
+        elif kname == "crossings_candidates":
+            result["candidate_rows"] = candidate_rows(calls)
+            extra = "; rows a call " + ", ".join(
+                f"{c['rows']} ({c['with_candidate']} with a candidate, "
+                f"{c['alias_rows']} at the padding slots' alias point)"
+                for c in result["candidate_rows"])
         kernels.append({
             "name": kname, "route": "cuda", "source": KERNELS[kname][0],
             "replaces": KERNELS[kname][1], "launches": launches[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library})
         print(f"{kname}: {ms:.4f} ms per batch on the {ROW_PATH[kname]} "
               f"path ({len(calls)} call(s), {rows} rows) vs plain twin "
               f"{plain:.3f} ms; bound {bound:.4f} ms by {bound_by} "
-              f"({nbytes} B, {n_ops} ops); {bound / ms:.1%} of bound")
+              f"({nbytes} B, {n_ops} ops); {bound / ms:.1%} of bound{extra}")
     result["cascade_batches"] = cascade_batches(
         smoke, main_calls["assign_cascade"][0], census.extent,
         next(k["ms"] for k in kernels if k["name"] == "assign_cascade"))

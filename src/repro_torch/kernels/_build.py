@@ -61,7 +61,7 @@ _F = ctypes.c_float
 # C signature of every entry point (restype c_int = cudaGetLastError()).
 _SIGNATURES = {
     "repro_assign_cascade": [_P] * 15 + [_N] + [_I] * 8 + [_P],
-    "repro_crossings_candidates": [_P] * 5 + [_N, _I, _P],
+    "repro_crossings_candidates": [_P] * 7 + [_N, _I, _I, _P],
     "repro_crossings_gathered": [_P] * 3 + [_N, _I, _P],
     "repro_crossings_one": [_P] * 3 + [_N, _I, _P],
     "repro_bbox_mask": [_P] * 3 + [_N, _I, _P],

@@ -1,15 +1,16 @@
 // Shared device code of the crossing-number kernels (cascade.cu,
 // gather_pip.cu, pip.cu): the per-edge crossing test, the warp sum, and
-// the crossing count of one point against a run of edge-pool blocks.
-// bbox.cu and segment.cu use only its launch geometry (kWarp, kThreads,
-// kWarpsPerBlock, warp_grid).
+// the crossing count of one point against a run of edge-pool blocks
+// (cascade.cu's walk).  bbox.cu and segment.cu use only its launch
+// geometry (kWarp, kThreads, kWarpsPerBlock, warp_grid).
 //
 // Bit-equality with the numpy / XLA references rests on two rules:
 //   * every product and difference rounds on its own (no FMA
 //     contraction).  The build passes -fmad=false; the explicit _rn
 //     intrinsics keep that true even if the flag is dropped;
-//   * one warp owns one point (in cascade.cu, one queued boundary
-//     point), and every lane computes the point's scalar path
+//   * where a warp shares one point's edges (pool_crossings in
+//     cascade.cu, one queued boundary point a warp; crossings_gathered
+//     in pip.cu), every lane computes the point's scalar path
 //     identically, so each branch below is warp-uniform and the
 //     full-mask shuffles are safe.
 #pragma once

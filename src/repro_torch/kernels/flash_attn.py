@@ -12,13 +12,24 @@ shapes.
 Two CUDA kernels, picked by ``flash_route(dtype, D)``, a route by shape
 and never a fallback (a launch that fails raises):
 
-* ``"wgmma"``: bf16 at D in {64, 128}, every full-width config the repo
-  ships.  Hopper's tensor cores (wgmma, with TMA filling a 2-stage K / V
-  ring), 128 query rows a block, ``KV_TILE`` keys a tile.
+* ``"wgmma"``: bf16 at a padded D of 64 or 128, every full-width config
+  the repo ships.  Hopper's tensor cores (wgmma, with TMA filling a
+  2-stage K / V ring), 128 query rows a block, ``KV_TILE`` keys a tile.
 * ``"simt"``: f32 at every D (the tensor cores would compute in TF32,
-  not the reference's f32) and bf16 at D in {16, 32} (the reduced test
-  configs).  f32 arithmetic on the CUDA cores, ``SIMT_KV_TILE`` keys a
-  tile.
+  not the reference's f32) and bf16 at a padded D of 16 or 32 (the
+  reduced test configs).  f32 arithmetic on the CUDA cores,
+  ``SIMT_KV_TILE`` keys a tile.
+
+A head dim the kernels lack (MiniCPM-2B's reduced 12, say) is
+zero-padded up to the next of ``HEAD_DIMS`` and launched with the true
+D's scale, 1 / sqrt(D); zero columns add nothing to q . k, and V's zero
+columns give zero output columns, which are sliced off.  The route
+follows the padded D.  D > 128 raises (MLA's 192 / 24 come with the MLA
+slice).  A call over more than ``MAX_BH`` heads (the kernels' grid y
+extent) launches in chunks of at most ``MAX_BH`` heads on the same
+stream, so any B * H runs, as the Pallas grid takes any.
+``run_padded`` does both, around the kernel launch or, in the CPU
+tests, the twin.
 
 ``_build.LAUNCHES["flash_attn_bhsd"]`` counts every launch and
 ``_build.ROUTE_LAUNCHES["flash_attn_bhsd:<route>"]`` the launches of each
@@ -49,14 +60,26 @@ SIMT_KV_TILE = 32             # keys per tile in csrc/flash_attn.cu
 HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_BH = 65535                # the kernels' grid y extent
+MAX_BH = 65535                # the kernels' grid y extent: heads a launch
+
+
+def padded_head_dim(d: int) -> int:
+    """The kernels' head dim for a call's true ``d``: the least entry of
+    ``HEAD_DIMS`` that holds it.  Raises for d > 128."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attn_bhsd: head dim {d} > {HEAD_DIMS[-1]}, the "
+                     f"kernels' largest (MLA's head dims come with the MLA "
+                     f"slice)")
 
 
 def flash_route(dtype, d: int) -> str:
-    """The kernel a [BH, S, d] call of ``dtype`` takes: ``"wgmma"`` (the
-    tensor cores) for bf16 at d in ``WGMMA_HEAD_DIMS``, else ``"simt"``
-    (f32 on the CUDA cores)."""
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+    """The kernel a [BH, S, d] call of ``dtype`` takes, by its padded head
+    dim: ``"wgmma"`` (the tensor cores) for bf16 at a padded d in
+    ``WGMMA_HEAD_DIMS``, else ``"simt"`` (f32 on the CUDA cores)."""
+    if (dtype == torch.bfloat16 and d <= HEAD_DIMS[-1]
+            and padded_head_dim(d) in WGMMA_HEAD_DIMS):
         return "wgmma"
     return "simt"
 
@@ -66,10 +89,47 @@ def kv_tile(dtype, d: int) -> int:
     return KV_TILE if flash_route(dtype, d) == "wgmma" else SIMT_KV_TILE
 
 
+def run_padded(fn, q, k, v, *, causal: bool, chunk: int = MAX_BH):
+    """``fn`` over q, k, v [BH, S, D] with D zero-padded to
+    ``padded_head_dim(D)`` and BH cut into chunks of at most ``chunk``
+    heads: ``fn(q, k, v, out, causal=, scale=)`` fills ``out`` (views of
+    one [BH, S, Dp] tensor, in order) at the true D's scale.  Returns
+    [BH, S, D] (padded columns sliced off)."""
+    bh, s, d = q.shape
+    dp = padded_head_dim(d)
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    out = torch.empty_like(q)
+    scale = 1.0 / math.sqrt(d)
+    for h0 in range(0, bh, chunk):
+        sl = slice(h0, h0 + chunk)
+        fn(q[sl], k[sl], v[sl], out[sl], causal=causal, scale=scale)
+    return out if dp == d else out[..., :d].contiguous()
+
+
+def _launch(q, k, v, out, *, causal: bool, scale: float) -> None:
+    """One launch of the route's kernel over [n <= MAX_BH, S, Dp]."""
+    bh, s, d = q.shape
+    route = flash_route(q.dtype, d)
+    lib = _build.load()
+    qkvo = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out))
+    with torch.cuda.device(q.device):
+        if route == "wgmma":
+            status = lib.repro_flash_attn_wgmma(
+                *qkvo, bh, s, d, int(causal), ctypes.c_float(scale),
+                _build.stream_of(q))
+        else:
+            status = lib.repro_flash_attn_simt(
+                *qkvo, bh, s, d, int(q.dtype == torch.bfloat16),
+                int(causal), ctypes.c_float(scale), _build.stream_of(q))
+    _build.check(status, "flash_attn_bhsd", route)
+
+
 def flash_attn_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q, k, v [BH, S, D] (f32 or bf16, one dtype, contiguous, D in
-    ``HEAD_DIMS``) -> [BH, S, D] in q's dtype."""
+    """q, k, v [BH, S, D] (f32 or bf16, one dtype, contiguous, D <= 128)
+    -> [BH, S, D] in q's dtype.  On the card, D is padded and BH chunked
+    (at most ``MAX_BH`` heads a launch) by ``run_padded``."""
     bh, s, d = q.shape
     if q.device.type == "cpu":
         return ref.flash_attn_bhsd(q, k, v, causal=causal,
@@ -79,30 +139,16 @@ def flash_attn_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attn_bhsd: dtype {q.dtype} not in {DTYPES}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.require(t, name, q.dtype, (bh, s, d), dev)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attn_bhsd: head dim {d} not in {HEAD_DIMS}")
-    if bh > MAX_BH or s * d >= 2**31:
+    dp = padded_head_dim(d)
+    if s * dp >= 2**31:
         raise ValueError(f"flash_attn_bhsd: [{bh}, {s}, {d}] out of range")
-    out = torch.empty_like(q)
     if bh == 0 or s == 0:
-        return out
-    route = flash_route(q.dtype, d)
-    if route == "wgmma":      # TMA reads each tensor from a 16-byte base
+        return torch.empty_like(q)
+    if dp == d and flash_route(q.dtype, d) == "wgmma":
+        # TMA reads from 16-byte bases (a padded copy is a new allocation).
         for t, name in ((q, "q"), (k, "k"), (v, "v")):
             _build.require_aligned(t, name, 16)
-    lib = _build.load()
-    qkvo = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out))
-    scale = ctypes.c_float(1.0 / math.sqrt(d))
-    with torch.cuda.device(dev):
-        if route == "wgmma":
-            status = lib.repro_flash_attn_wgmma(
-                *qkvo, bh, s, d, int(causal), scale, _build.stream_of(q))
-        else:
-            status = lib.repro_flash_attn_simt(
-                *qkvo, bh, s, d, int(q.dtype == torch.bfloat16),
-                int(causal), scale, _build.stream_of(q))
-    _build.check(status, "flash_attn_bhsd", route)
-    return out
+    return run_padded(_launch, q, k, v, causal=causal)
 
 
 def attend_bshd(fn, q, k, v, *, causal: bool):

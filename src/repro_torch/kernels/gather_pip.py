@@ -8,21 +8,28 @@ Data layout (``EdgePool``, built on the host by ``build_edge_pool``):
     to whole blocks.  Block 0 is reserved all-zero: zero-length edges
     give no crossings, so it is the "no candidate" target;
   * ``first [P]`` / ``count [P]`` i32 — CSR row pointers in block units:
-    polygon ``p`` owns blocks ``first[p] .. first[p]+count[p]-1``.
+    polygon ``p`` owns blocks ``first[p] .. first[p]+count[p]-1``;
+  * ``live [P]`` i32 — polygon ``p``'s live edges, at positions
+    ``0 .. live[p]-1`` of its blocks (edge ``i`` at block
+    ``first + i // BE``, lane ``i % BE``).  ``blocks`` / ``first`` /
+    ``count`` are array-equal to the JAX package's pool; ``live`` is the
+    port's own, computed on the host.  The one-pass cascade
+    (``csrc/cascade.cu``) does not read it yet.
 
 Kernel: ``csrc/gather_pip.cu``, replacing the Pallas
 ``crossings_candidates`` (src/repro/kernels/gather_pip.py:151).  What
-bounds it on the card: the crossing tests, BE per owned block per row
-(the blocks are zero-padded, so a small polygon still costs a whole
-block); the per-row inputs are 20 bytes and the pool stays in L2.
-Design: one warp per row, lanes over the block's BE edges, warp-shuffle
-sum; a row with ``nblk == 0`` writes 0 without loading.  The caller's
-candidate-id sort (core/resolve.py ``_pip_ids``) puts rows that read the
-same blocks next to each other, so L2 serves the repeats the TPU kernel
-skipped by revisiting its VMEM block.
+bounds it on the card: the rows' own bytes (12 in, 4 out); the census's
+block polygons have 4-14 live edges (8.2 on average) in 256-edge blocks,
+so the tests are few once the padding is skipped, and a polygon's edges
+stay in L1 / L2 for all its rows.  Design: one thread a row, walking its
+candidate's live edges and stopping at the last one; the caller's
+candidate-id sort (core/resolve.py ``_pip_ids``) makes the threads of a
+warp share a polygon, so each edge load is a broadcast.  The kernel
+reads ``first`` / ``count`` / ``live`` by id itself, so the caller
+gathers no per-row ranges.  A row without a candidate writes 0.
 
-``ops.pip_candidates`` is the public API (id masking, parity -> bool,
-backend dispatch).
+``ops.pip_candidates`` is the public API (parity -> bool, backend
+dispatch).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ class EdgePool:
     blocks: torch.Tensor     # [NB, 4, BE] f32 — block 0 reserved all-zero
     first: torch.Tensor      # [P] i32 — first pool block of polygon p
     count: torch.Tensor      # [P] i32 — pool blocks owned by polygon p
+    live: torch.Tensor       # [P] i32 — live edges of polygon p
     max_blocks: int = 1
     be: int = DEF_BE
 
@@ -53,20 +61,47 @@ class EdgePool:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.blocks, self.first, self.count))
+                   for t in (self.blocks, self.first, self.count, self.live))
 
     @classmethod
     def from_numpy(cls, blocks, first, count, device="cuda") -> "EdgePool":
         """A pool from host arrays (e.g. one packed by the JAX package);
-        ``max_blocks`` and ``be`` follow from them.  The tensors are
-        copies."""
-        count = np.array(count)
-        blocks = torch.as_tensor(np.array(blocks), device=device)
-        return cls(blocks=blocks,
-                   first=torch.as_tensor(np.array(first), device=device),
+        ``live``, ``max_blocks`` and ``be`` follow from them
+        (``live_from_blocks``).  The tensors are copies."""
+        blocks, first, count = (np.array(a) for a in (blocks, first, count))
+        live = live_from_blocks(blocks, first, count)
+        return cls(blocks=torch.as_tensor(blocks, device=device),
+                   first=torch.as_tensor(first, device=device),
                    count=torch.as_tensor(count, device=device),
+                   live=torch.as_tensor(live, device=device),
                    max_blocks=max(int(count.max()) if count.size else 1, 1),
                    be=int(blocks.shape[2]))
+
+
+def live_from_blocks(blocks: np.ndarray, first: np.ndarray,
+                     count: np.ndarray) -> np.ndarray:
+    """[P] i32 live-edge counts of a packed pool: one more than the last
+    position in polygon p's blocks whose edge is not all-zero (0 if none).
+    Exact for a pool packed by ``build_edge_pool`` (here or in the JAX
+    package): live edges sit at positions 0 .. n-1 and are never all-zero
+    (an all-zero edge is zero-length, and those are dropped)."""
+    blocks = np.asarray(blocks, np.float32)
+    first = np.asarray(first, np.int64)
+    count = np.asarray(count, np.int64)
+    be = blocks.shape[2]
+    live = np.zeros(first.shape[0], np.int64)
+    if not count.sum():
+        return live.astype(np.int32)
+    nz = (blocks != 0).any(axis=1)                          # [NB, BE]
+    # One past each block's last non-zero lane (0 for an empty block).
+    end = np.where(nz.any(axis=1), be - np.argmax(nz[:, ::-1], axis=1), 0)
+    owner = np.repeat(np.arange(first.shape[0]), count)
+    rank = np.arange(owner.shape[0]) - np.repeat(np.cumsum(count) - count,
+                                                 count)    # block in poly
+    blk_end = end[first[owner] + rank]
+    np.maximum.at(live, owner, np.where(blk_end > 0,
+                                        rank * be + blk_end, 0))
+    return live.astype(np.int32)
 
 
 def build_edge_pool(edges: np.ndarray, be: int = DEF_BE,
@@ -74,7 +109,8 @@ def build_edge_pool(edges: np.ndarray, be: int = DEF_BE,
     """Pack a dense ``[P, E, 4]`` edge table into a blocked-CSR EdgePool
     on ``device``.  Degenerate (zero-length) padding edges are dropped; a
     polygon with ``e`` live edges owns ``ceil(e / be)`` blocks.  The
-    packing is host numpy, array-equal to the reference's."""
+    packing is host numpy, array-equal to the reference's; ``live`` is
+    each polygon's ``e``."""
     e = np.asarray(edges, np.float32)
     p = e.shape[0]
     live = ~((e[..., 0] == e[..., 2]) & (e[..., 1] == e[..., 3]))
@@ -97,38 +133,50 @@ def build_edge_pool(edges: np.ndarray, be: int = DEF_BE,
     return EdgePool(blocks=torch.as_tensor(blocks, device=device),
                     first=torch.as_tensor(first, device=device),
                     count=torch.as_tensor(count, device=device),
+                    live=torch.as_tensor(n_live.astype(np.int32),
+                                         device=device),
                     max_blocks=max(int(count.max()) if p else 1, 1), be=be)
 
 
-def crossings_candidates(first: torch.Tensor, nblk: torch.Tensor,
-                         points: torch.Tensor, blocks: torch.Tensor,
+def crossings_candidates(pids: torch.Tensor, points: torch.Tensor,
+                         first: torch.Tensor, count: torch.Tensor,
+                         live: torch.Tensor, blocks: torch.Tensor,
                          max_blocks: int = 1) -> torch.Tensor:
-    """Crossing counts of [R, 2] f32 points vs their own pool slices.
+    """Crossing counts of [R, 2] f32 points vs the live edges of their
+    own candidate polygons ``pids`` [R] i32 (< 0: no candidate, count 0;
+    ids past the table clamp to its last polygon, as ``ops`` clamps
+    them), read from a pool's ``first`` / ``count`` / ``live`` [P >= 1]
+    i32 and ``blocks``.  Returns [R] i32.
 
-    ``first``/``nblk`` [R] i32 are per-row block ranges (``ops`` resolves
-    them from candidate ids; nblk == 0 means no candidate).  Returns [R]
-    i32.  CPU tensors go to the plain twin; CUDA tensors launch the
-    kernel on the current stream, without synchronizing.
+    CPU tensors go to the plain twin (``ref.crossings_candidates``, the
+    same arguments); CUDA tensors launch the kernel on the current
+    stream, without synchronizing.
     """
     if points.device.type == "cpu":
-        return ref.crossings_candidates(points, first, nblk, blocks,
-                                        max_blocks)
+        return ref.crossings_candidates(pids, points, first, count, live,
+                                        blocks, max_blocks)
     dev = points.device
-    r = points.shape[0]
+    r, p = points.shape[0], first.shape[0]
     for t, name, dtype, shape in (
-            (first, "first", torch.int32, (r,)),
-            (nblk, "nblk", torch.int32, (r,)),
+            (pids, "pids", torch.int32, (r,)),
             (points, "points", torch.float32, (r, 2)),
+            (first, "first", torch.int32, (p,)),
+            (count, "count", torch.int32, (p,)),
+            (live, "live", torch.int32, (p,)),
             (blocks, "blocks", torch.float32, (None, 4, None))):
         _build.require(t, name, dtype, shape, dev)
+    _build.require_aligned(points, "points", 8)
+    if p < 1:
+        raise ValueError("crossings_candidates needs a non-empty polygon "
+                         "table (ops.pip_candidates handles an empty one)")
     out = torch.empty(r, dtype=torch.int32, device=dev)
     if r == 0:
         return out
     lib = _build.load()
     with torch.cuda.device(dev):
         status = lib.repro_crossings_candidates(
-            _build.ptr(first), _build.ptr(nblk), _build.ptr(points),
-            _build.ptr(blocks), _build.ptr(out), r, blocks.shape[2],
-            _build.stream_of(points))
+            *(_build.ptr(t) for t in (pids, points, first, count, live,
+                                      blocks, out)),
+            r, p, blocks.shape[2], _build.stream_of(points))
     _build.check(status, "crossings_candidates")
     return out

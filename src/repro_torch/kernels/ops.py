@@ -9,6 +9,11 @@ Backend selection (``REPRO_TORCH_KERNELS`` env var or explicit
                tensors (default).
 Asking for ``cuda`` with CPU tensors raises, and so does asking for
 ``ref`` with CUDA tensors: no tensor on the card ever reaches a twin.
+
+The kernels load points as float2 and edges / boxes as float4, so every
+tensor ``ops`` hands a kernel wrapper goes through ``aligned`` first: a
+contiguous view that starts mid-vector (``flat[1:].view(-1, 2)``) is
+copied, as ``repro`` maps any array.
 """
 from __future__ import annotations
 
@@ -51,14 +56,22 @@ def resolve_backend(backend: str | None, device) -> str:
     return b
 
 
+def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t`` made contiguous, as it is if its data starts on an
+    ``nbytes`` boundary, else a contiguous copy (a new allocation, which
+    both allocators align far past 16 bytes)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def pip_one(points: torch.Tensor, edges: torch.Tensor,
             backend: str | None = None) -> torch.Tensor:
     """Inside mask of [N, 2] points vs one polygon's [E, 4] edge table."""
     b = resolve_backend(backend, points.device)
     if b == "ref":
         return ref.pip_one(points, edges)
-    cross = pip_kernels.crossings_one(points.float().contiguous(),
-                                      edges.float().contiguous())
+    cross = pip_kernels.crossings_one(aligned(points.float(), 8),
+                                      aligned(edges.float(), 16))
     return (cross & 1).bool()
 
 
@@ -68,8 +81,8 @@ def pip_gathered(points: torch.Tensor, edges: torch.Tensor,
     b = resolve_backend(backend, points.device)
     if b == "ref":
         return ref.pip_gathered(points, edges)
-    cross = pip_kernels.crossings_gathered(
-        points.float().contiguous(), edges.float().contiguous())
+    cross = pip_kernels.crossings_gathered(aligned(points.float(), 8),
+                                           aligned(edges.float(), 16))
     return (cross & 1).bool()
 
 
@@ -77,23 +90,22 @@ def pip_candidates(points: torch.Tensor, pids: torch.Tensor, pool: EdgePool,
                    backend: str | None = None) -> torch.Tensor:
     """Inside mask of [N, 2] points vs their own candidate polygon ids [N]
     (id < 0 = no candidate, never inside), read straight out of the
-    blocked-CSR ``pool`` — no gathered [N, E, 4] edge table."""
+    blocked-CSR ``pool`` — no gathered [N, E, 4] edge table.  Both
+    backends resolve each id's block range and live-edge count from the
+    pool themselves (ids past the table clamp to its last polygon), so
+    a row's count is 0 without a candidate."""
     b = resolve_backend(backend, points.device)
     if pool.n_poly == 0:               # empty polygon table: nothing matches
         return torch.zeros(points.shape[0], dtype=torch.bool,
                            device=points.device)
-    valid = pids >= 0
-    safe = pids.clamp(0, max(pool.n_poly - 1, 0))
-    first = torch.where(valid, pool.first[safe], 0).int()
-    nblk = torch.where(valid, pool.count[safe], 0).int()
+    args = (pids.int().contiguous(), aligned(points.float(), 8), pool.first,
+            pool.count, pool.live, pool.blocks)
     if b == "ref":
-        cross = ref.crossings_candidates(points, first, nblk, pool.blocks,
-                                         pool.max_blocks)
+        cross = ref.crossings_candidates(*args, pool.max_blocks)
     else:
         cross = gather_pip_kernels.crossings_candidates(
-            first, nblk, points.float().contiguous(), pool.blocks,
-            max_blocks=pool.max_blocks)
-    return (cross & 1).bool() & valid
+            *args, max_blocks=pool.max_blocks)
+    return (cross & 1).bool()
 
 
 def assign_cascade(points: torch.Tensor, quant: torch.Tensor,
@@ -137,7 +149,7 @@ def assign_cascade(points: torch.Tensor, quant: torch.Tensor,
             bbox, first, count, blocks, max_level=max_level, gbits=gbits,
             search_iters=iters, max_blocks=pool.max_blocks)
     return cascade_kernels.assign_cascade(
-        points.float().contiguous(), quant, cell_lo, cell_hi, cell_val,
+        aligned(points.float(), 8), quant, cell_lo, cell_hi, cell_val,
         top_start, cand, bbox, first, count, blocks, max_level=max_level,
         gbits=gbits, search_iters=iters)
 
@@ -148,8 +160,8 @@ def bbox_mask(points: torch.Tensor, boxes: torch.Tensor,
     b = resolve_backend(backend, points.device)
     if b == "ref":
         return ref.bbox_mask(points, boxes)
-    return bbox_kernels.bbox_mask(points.float().contiguous(),
-                                  boxes.float().contiguous())
+    return bbox_kernels.bbox_mask(aligned(points.float(), 8),
+                                  aligned(boxes.float(), 16))
 
 
 def bbox_mask_gathered(points: torch.Tensor, boxes: torch.Tensor,
@@ -173,8 +185,8 @@ def bbox_count_select(points: torch.Tensor, boxes: torch.Tensor,
     b = resolve_backend(backend, points.device)
     if b == "ref":
         return ref.bbox_count_select(points, boxes)
-    return bbox_kernels.bbox_count_select(points.float().contiguous(),
-                                          boxes.float().contiguous())
+    return bbox_kernels.bbox_count_select(aligned(points.float(), 8),
+                                          aligned(boxes.float(), 16))
 
 
 class SegmentReduce(NamedTuple):

@@ -13,10 +13,18 @@ src/repro/kernels/pip.py).  Kernels: ``csrc/pip.cu``.
   * ``crossings_one`` replaces the Pallas ``crossings_one``
     (src/repro/kernels/pip.py:86): every point against one shared
     [E, 4] table.  What bounds it: the crossing tests, 6 fp32 operations
-    per (point, edge) against 12 bytes per point in and out.  Design:
-    one thread per point; each block stages the table through shared
-    memory in 256-edge tiles (read from device memory once per block)
-    and every thread runs the whole tile; E = 0 writes 0.
+    per (point, edge) against 12 bytes per point in and out.  The first
+    design (one point a thread, ``crosses()`` on each raw staged edge)
+    spent ~15-20 instruction slots a test, recomputing each edge's own terms
+    for every point.  Design: each block stages the table in 256-edge
+    tiles in shared memory as precomputed terms (x1, y1, x2 - x1,
+    y2 - y1, y2, y2 > y1; the same IEEE operations, so bit-equal),
+    dropping the edges with y1 == y2, which never straddle; each thread
+    holds 4 points in registers, so every shared-memory load of an edge
+    serves 4 tests, and a test is two subtractions, two products, three
+    compares and the logic (~11 instructions in its SASS, so it runs at
+    the instruction rate, about a quarter of the fp32 bound;
+    scripts/crossings_one_variants.py).  E = 0 writes 0.
 
 ``ops.pip_gathered`` / ``ops.pip_one`` are the public API (parity ->
 bool, backend dispatch).

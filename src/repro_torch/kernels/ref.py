@@ -72,15 +72,19 @@ def pip_gathered(points: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return (crossings_gathered(points, edges) & 1).bool()
 
 
-def crossings_candidates(points: torch.Tensor, first: torch.Tensor,
-                         count: torch.Tensor, blocks: torch.Tensor,
-                         max_blocks: int) -> torch.Tensor:
-    """Twin of the candidate-PIP kernel (kernels/gather_pip.py).
+def crossings_pool(points: torch.Tensor, first: torch.Tensor,
+                   count: torch.Tensor, blocks: torch.Tensor,
+                   max_blocks: int,
+                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Crossing counts of each point against its own pool block range
+    (the reference's ``crossings_candidates``, op for op).
 
     points [N, 2] float; first/count [N] i32 — each point's pool block
     range (count 0 = no candidate); blocks [NB, 4, BE] float with block 0
     all-zero (the masked-gather target); max_blocks the max of ``count``
-    over the pool.  Returns [N] int32.
+    over the pool.  ``live`` [N] i32, if given, also masks the edges at
+    positions >= live in the range (position = block * BE + lane); with
+    ``live = count * BE`` it masks nothing.  Returns [N] int32.
     """
     b = torch.arange(max_blocks, dtype=torch.int32,
                      device=points.device)[None, :]
@@ -89,14 +93,31 @@ def crossings_candidates(points: torch.Tensor, first: torch.Tensor,
     px = points[:, 0][:, None, None]
     py = points[:, 1][:, None, None]
     cross = _cross(px, py, g[:, :, 0], g[:, :, 1], g[:, :, 2], g[:, :, 3])
+    if live is not None:
+        be = blocks.shape[2]
+        pos = (b[:, :, None] * be
+               + torch.arange(be, dtype=torch.int32,
+                              device=points.device)[None, None, :])
+        cross = cross & (pos < live[:, None, None])
     return cross.sum(dim=(1, 2), dtype=torch.int32)
 
 
-def pip_candidates(points: torch.Tensor, first: torch.Tensor,
-                   count: torch.Tensor, blocks: torch.Tensor,
-                   max_blocks: int) -> torch.Tensor:
-    return (crossings_candidates(points, first, count, blocks, max_blocks)
-            & 1).bool()
+def crossings_candidates(pids: torch.Tensor, points: torch.Tensor,
+                         first: torch.Tensor, count: torch.Tensor,
+                         live: torch.Tensor, blocks: torch.Tensor,
+                         max_blocks: int) -> torch.Tensor:
+    """Twin of the candidate-PIP kernel (kernels/gather_pip.py), with its
+    arguments: pids [N] i32 candidate polygon ids (< 0: none; clamped
+    into [0, P-1] otherwise, as the reference's ``ops`` clamps them),
+    points [N, 2], a pool's first / count / live [P] i32 and blocks.
+    Resolves each row's block range and live count by id, then
+    ``crossings_pool`` with edges at positions >= live masked.  Returns
+    [N] int32."""
+    valid = pids >= 0
+    safe = pids.clamp(0, max(first.shape[0] - 1, 0)).long()
+    return crossings_pool(points, torch.where(valid, first[safe], 0),
+                          torch.where(valid, count[safe], 0), blocks,
+                          max_blocks, live=torch.where(valid, live[safe], 0))
 
 
 def bbox_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -209,8 +230,7 @@ def assign_cascade(points: torch.Tensor, quant: torch.Tensor,
         do = attempt & inb
         nskip = nskip + (attempt & ~inb).int()
         nblk = torch.where(do, count[safe], 0)
-        cross = crossings_candidates(pts, first[safe], nblk, blocks,
-                                     max_blocks)
+        cross = crossings_pool(pts, first[safe], nblk, blocks, max_blocks)
         inside = do & ((cross & 1) == 1)
         best = torch.where(inside, pid, best)
         if s == 0:
@@ -280,12 +300,14 @@ def np_segment_reduce(ids, values, n_segments: int):
 
 
 def flash_attn_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, bk: int, spread: bool = False):
+                    causal: bool = True, bk: int, spread: bool = False,
+                    scale: Optional[float] = None):
     """Twin of the flash kernel (src/repro/kernels/flash_attn.py
     ``_flash_kernel``): q, k, v [BH, S, D] -> [BH, S, D] in q's dtype.
 
     It walks the Pallas kernel's sequential KV axis in tiles of ``bk``
-    keys, with its arithmetic: s = q . k^T in f32 times 1 / sqrt(D); keys
+    keys, with its arithmetic: s = q . k^T in f32 times ``scale`` (default
+    1 / sqrt(D); a caller that zero-pads D passes the true D's); keys
     past S (the ragged last tile, here cut short) and, when causal,
     kpos > qpos masked to -1e30; m and l in f32, l summing the f32 p; acc
     += p.astype(v.dtype) @ v in f32; out = acc / max(l, 1e-30).  The
@@ -299,7 +321,7 @@ def flash_attn_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype (at most 2^-7 p_j each in bf16).
     """
     bh, s, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = q.float()
     qpos = torch.arange(s, device=q.device)[:, None]
     m = torch.full((bh, s, 1), -1.0e30, dtype=torch.float32, device=q.device)

@@ -232,7 +232,8 @@ def test_build_edge_pool_array_equal(synth_small, table, be):
     for f in ("blocks", "first", "count"):
         _eq(getattr(j, f), getattr(t, f))
     assert (t.max_blocks, t.be, t.n_poly) == (j.max_blocks, j.be, j.n_poly)
-    assert t.nbytes() == j.nbytes()
+    # The port's pool also holds ``live`` [P] i32.
+    assert t.nbytes() == j.nbytes() + 4 * t.n_poly
 
 
 # ------------------------------------------------------ crossing twins
@@ -257,6 +258,10 @@ def test_crossings_gathered_twin(synth_small, points_small, source):
 
 
 def test_crossings_candidates_twin(indices, synth_small, points_small):
+    """The reference's per-row function (block ranges resolved from ids)
+    against the port's: ``crossings_pool`` on the same ranges, and the
+    id-taking twin and wrapper, which stop at each polygon's live
+    count."""
     j, t = indices[4]
     pts = _edge_points(synth_small, points_small)
     rng = np.random.default_rng(3)
@@ -268,13 +273,14 @@ def test_crossings_candidates_twin(indices, synth_small, points_small):
     want = j_ref.crossings_candidates(
         jnp.asarray(pts), jnp.asarray(first), jnp.asarray(nblk),
         j.edge_pool.blocks, j.edge_pool.max_blocks)
-    got = ref.crossings_candidates(
+    got = ref.crossings_pool(
         torch.from_numpy(pts), torch.from_numpy(first),
         torch.from_numpy(nblk), pool.blocks, pool.max_blocks)
     _eq(want, got)
-    _eq(want, gather_pip.crossings_candidates(
-        torch.from_numpy(first), torch.from_numpy(nblk),
-        torch.from_numpy(pts), pool.blocks, pool.max_blocks))
+    args = (torch.from_numpy(pids), torch.from_numpy(pts), pool.first,
+            pool.count, pool.live, pool.blocks, pool.max_blocks)
+    _eq(want, ref.crossings_candidates(*args))
+    _eq(want, gather_pip.crossings_candidates(*args))
 
 
 def test_ops_pip_masks_match(indices, synth_small, points_small):
@@ -479,14 +485,10 @@ def test_cuda_crossing_kernels_match_twins(cuda_device):
                                device=cuda_device)
     pids = torch.as_tensor(rng.integers(-1, 50, 4099).astype(np.int32),
                            device=cuda_device)
-    safe = pids.clamp(min=0)
-    first = torch.where(pids >= 0, pool.first[safe], 0).int()
-    nblk = torch.where(pids >= 0, pool.count[safe], 0).int()
-    assert torch.equal(
-        gather_pip.crossings_candidates(first, nblk, pts, pool.blocks,
-                                        pool.max_blocks),
-        ref.crossings_candidates(pts, first, nblk, pool.blocks,
-                                 pool.max_blocks))
+    args = (pids, pts, pool.first, pool.count, pool.live, pool.blocks,
+            pool.max_blocks)
+    assert torch.equal(gather_pip.crossings_candidates(*args),
+                       ref.crossings_candidates(*args))
 
 
 @pytest.mark.cuda

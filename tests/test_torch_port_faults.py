@@ -1,0 +1,264 @@
+"""Three inputs that ``repro`` takes and the port's kernels once refused
+on the card, and the wrappers' repairs:
+
+* F1, a head dim the flash kernels lack (MiniCPM-2B's reduced config has
+  72 / 6 = 12): ``flash_attn.run_padded`` zero-pads D to the next of
+  ``HEAD_DIMS``, launches at the true D's scale and slices the output.
+  With the twin in place of the kernel it equals the unpadded twin in
+  f32 within 2e-6 (the padded products sum the same terms plus exact
+  zeros; only a different matmul blocking could reorder them), and the
+  reduced MiniCPM-2B model runs end to end against ``repro``.
+* F2, more than 65,535 heads (the kernels' grid y): ``run_padded`` cuts
+  BH into chunks; with a small chunk and the twin it is bit-equal to one
+  call (heads are independent).
+* F3, a contiguous view that starts mid-vector (``flat[1:].view(-1,
+  2)``): ``ops.aligned`` copies it, and every engine maps it as it maps
+  the aligned copy.
+
+The cases marked ``cuda`` repeat each on the card, against the twins,
+and skip here; chip_smoke.py runs the same on the H100.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.cells import build_cell_covering
+from repro.core.engine import EngineConfig as JConfig
+from repro.core.engine import GeoEngine as JEngine
+from repro_torch.core.cells import CellCovering
+from repro_torch.core.engine import EngineConfig, GeoEngine
+from repro_torch.kernels import _build, flash_attn, ops, ref
+
+NEEDS_CUDA = "needs a CUDA device; chip_smoke.py checks it"
+F32_ATOL = 2e-6
+STRATEGIES = {"fast": ("fast", {}), "fast_fused": ("fast", {"fused": True}),
+              "fast_onepass": ("fast_onepass", {}), "simple": ("simple", {}),
+              "simple_fused": ("simple", {"fused": True}),
+              "hybrid": ("hybrid", {})}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CUDA)
+    return torch.device("cuda")
+
+
+def _qkv(rng, bh, s, d, dtype, device="cpu"):
+    return tuple(torch.as_tensor(rng.normal(size=(bh, s, d)),
+                                 dtype=torch.float32).to(device, dtype)
+                 for _ in range(3))
+
+
+def _twin_into(q, k, v, out, *, causal, scale):
+    """The twin with ``run_padded``'s launch signature."""
+    out.copy_(ref.flash_attn_bhsd(
+        q, k, v, causal=causal, scale=scale,
+        bk=flash_attn.kv_tile(q.dtype, q.shape[2])))
+
+
+# ------------------------------------------------------------------ F1
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [12, 24])
+def test_padded_head_dim_equals_unpadded_twin(d, causal):
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, 3, 70, d, torch.float32)
+    got = flash_attn.run_padded(_twin_into, q, k, v, causal=causal)
+    want = ref.flash_attn_bhsd(q, k, v, causal=causal,
+                               bk=flash_attn.kv_tile(torch.float32, d))
+    assert got.shape == (3, 70, d) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32_ATOL,
+                               rtol=0)
+
+
+def test_padded_head_dims_and_routes():
+    """D pads to the next kernel instance; the route follows the padded
+    D; D > 128 is refused."""
+    assert [flash_attn.padded_head_dim(d) for d in (1, 12, 16, 24, 33, 72,
+                                                     128)] == \
+        [16, 16, 16, 32, 64, 128, 128]
+    assert flash_attn.flash_route(torch.bfloat16, 12) == "simt"
+    assert flash_attn.flash_route(torch.bfloat16, 48) == "wgmma"
+    assert flash_attn.flash_route(torch.float32, 48) == "simt"
+    assert flash_attn.kv_tile(torch.bfloat16, 100) == flash_attn.KV_TILE
+    with pytest.raises(ValueError, match="head dim 192"):
+        flash_attn.padded_head_dim(192)
+    q = torch.zeros(2, 8, 192)
+    with pytest.raises(ValueError, match="head dim 192"):
+        flash_attn.run_padded(_twin_into, q, q, q, causal=True)
+
+
+def test_minicpm_reduced_forward_matches_repro():
+    """MiniCPM-2B's reduced config (head dim 12) through the port's
+    ``forward`` on the CPU twins, against repro's on the same weights
+    (logits within 0.1, the model tests' bound): the path that reaches
+    the padded flash call on the card."""
+    import jax
+    from repro import configs as j_configs
+    from repro.configs.base import RunConfig as JRunConfig
+    from repro.models.model import build_model as j_build_model
+    from repro.models.module import init_params as j_init_params
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import module
+    from repro_torch.models.model import build_model
+    cfg = configs.get_reduced_config("minicpm-2b")
+    assert cfg.d_model // cfg.n_heads == 12
+    jm = j_build_model(j_configs.get_reduced_config("minicpm-2b"))
+    jp = j_init_params(jm.specs, jax.random.key(0))
+    tm = build_model(cfg, "cpu")
+    module.params_from_numpy(tm, jax.tree.map(lambda a: np.array(a), jp))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)).astype(
+        np.int32)
+    kw = dict(remat="none", attn_chunk_q=16, attn_chunk_kv=16)
+    want = jm.forward(jp, JRunConfig(**kw), {"tokens": jnp.asarray(toks)})[0]
+    got, _ = tm.forward(RunConfig(**kw), {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               atol=0.1, rtol=0)
+
+
+# ------------------------------------------------------------------ F2
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 24])
+def test_chunked_heads_equal_one_call(dtype, d):
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 8, 40, d, dtype)
+    one = flash_attn.run_padded(_twin_into, q, k, v, causal=True)
+    for chunk in (1, 3, 8):
+        assert torch.equal(flash_attn.run_padded(
+            _twin_into, q, k, v, causal=True, chunk=chunk), one)
+
+
+def test_chunks_cover_every_head_once():
+    seen = []
+
+    def record(q, k, v, out, *, causal, scale):
+        seen.append(q.shape[0])
+        out.fill_(len(seen))
+
+    q = torch.zeros(10, 4, 16)
+    out = flash_attn.run_padded(record, q, q, q, causal=True, chunk=4)
+    assert seen == [4, 4, 2]
+    assert out[:, 0, 0].tolist() == [1] * 4 + [2] * 4 + [3] * 2
+
+
+# ------------------------------------------------------------------ F3
+def test_aligned_copies_only_a_misaligned_view():
+    flat = torch.arange(2 * 100 + 1, dtype=torch.float32)
+    view = flat[1:].view(-1, 2)
+    assert view.is_contiguous() and view.data_ptr() % 8 != 0
+    got = ops.aligned(view, 8)
+    assert got.data_ptr() % 8 == 0 and torch.equal(got, view)
+    assert got.data_ptr() != view.data_ptr()
+    ok = flat[2:200].view(-1, 2)
+    assert ok.data_ptr() % 8 == 0
+    assert ops.aligned(ok, 8) is ok
+    strided = flat[:200].view(100, 2)[:, :1]
+    assert ops.aligned(strided, 8).is_contiguous()
+
+
+@pytest.fixture(scope="module")
+def engines(synth_small):
+    census = synth_small.census
+    cov = build_cell_covering(census, max_level=8)
+    t_cov = CellCovering(**dataclasses.asdict(cov))
+    return census, cov, t_cov, {
+        name: GeoEngine.build(census, strategy,
+                              EngineConfig(max_level=8, **kw),
+                              covering=t_cov, device="cpu")
+        for name, (strategy, kw) in STRATEGIES.items()}
+
+
+def _same(a, b):
+    for f in ("state", "county", "block"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+    assert a.stats.as_dict() == b.stats.as_dict()
+
+
+@pytest.mark.parametrize("name", list(STRATEGIES))
+def test_misaligned_points_map_like_aligned(engines, points_small, name):
+    """Every engine on ``flat[1:].view(-1, 2)`` equals the aligned copy
+    and ``repro``'s engine on the same points."""
+    census, cov, _, eng = engines
+    xy = points_small[0][:1000].astype(np.float32)
+    flat = torch.empty(2 * len(xy) + 1)
+    flat[1:] = torch.from_numpy(xy).reshape(-1)
+    view = flat[1:].view(-1, 2)
+    assert view.data_ptr() % 8 != 0
+    got = eng[name].assign(view)
+    _same(got, eng[name].assign(view.clone()))
+    strategy, kw = STRATEGIES[name]
+    want = JEngine.build(census, strategy, JConfig(backend="ref",
+                                                   max_level=8, **kw),
+                         covering=cov).assign(jnp.asarray(xy))
+    np.testing.assert_array_equal(np.asarray(want.block),
+                                  got.block.numpy())
+
+
+# ------------------------------------------------------- on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [12, 24])
+def test_cuda_padded_head_dim_matches_twin(cuda_device, d, causal, dtype):
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, 3, 100, d, dtype, cuda_device)
+    got = flash_attn.flash_attn_bhsd(q, k, v, causal=causal)
+    want, spread = ref.flash_attn_bhsd(
+        q, k, v, causal=causal, bk=flash_attn.kv_tile(dtype, d),
+        spread=True)
+    assert got.shape == q.shape
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs())) - 7)
+        assert bool((diff <= 2 * ulp + 2.0 ** -7 * spread).all())
+
+
+@pytest.mark.cuda
+def test_cuda_minicpm_reduced_serves(cuda_device):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve as serve_mod
+    cfg = get_reduced_config("minicpm-2b")
+    model = serve_mod.load_model(cfg, seed=0, device=cuda_device)
+    prompts = serve_mod.make_prompts(cfg, 2, 32, 0, cuda_device)
+    before = _build.LAUNCHES["flash_attn_bhsd"]
+    res = serve_mod.serve(model, prompts, 4)
+    assert _build.LAUNCHES["flash_attn_bhsd"] - before >= cfg.n_layers
+    assert res.tokens.shape == (2, 4)
+    assert bool(torch.isfinite(res.prefill_logits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [24, 64])
+def test_cuda_chunked_heads_equal_one_launch(cuda_device, d):
+    """The kernel launched over chunks of 4 heads (``run_padded`` around
+    the wrapper's own launch) equals one launch over all 10."""
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, 10, 128, d, torch.bfloat16, cuda_device)
+    before = _build.LAUNCHES["flash_attn_bhsd"]
+    one = flash_attn.flash_attn_bhsd(q, k, v, causal=True)
+    chunked = flash_attn.run_padded(flash_attn._launch, q, k, v, causal=True,
+                                    chunk=4)
+    assert _build.LAUNCHES["flash_attn_bhsd"] - before == 1 + 3
+    assert torch.equal(one, chunked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STRATEGIES))
+def test_cuda_misaligned_points_map_like_aligned(engines, points_small,
+                                                 cuda_device, name):
+    census, _, t_cov, _ = engines
+    strategy, kw = STRATEGIES[name]
+    eng = GeoEngine.build(census, strategy, EngineConfig(max_level=8, **kw),
+                          covering=t_cov, device=cuda_device)
+    xy = torch.from_numpy(points_small[0].astype(np.float32)).to(cuda_device)
+    flat = torch.empty(2 * xy.shape[0] + 1, device=cuda_device)
+    flat[1:] = xy.reshape(-1)
+    view = flat[1:].view(-1, 2)
+    assert view.data_ptr() % 8 != 0
+    _same(eng.assign(view), eng.assign(view.clone()))
