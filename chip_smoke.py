@@ -55,12 +55,19 @@ the card:
      (2-3 blocks a polygon), a pool with a polygon of 0 live edges and a
      pool rebuilt through ``EdgePool.from_numpy`` (derived live counts),
      each bit-equal to its twin and a second launch bit-equal;
-     ``segment_reduce_sorted`` on 2^16 rows
-     of uniform, skewed (40 % in one segment), invalid (parked and
-     unparked), odd-``S`` and empty ids: integer-valued and absent (zero)
-     columns exact against the twin and the numpy oracle, f32 columns
-     within rtol 1e-5 of the oracle, and a second launch bit-equal to
-     the first;
+     ``bbox_mask`` at 1 / 7 / 16 / 33 / 56 / 513 / 3,072 boxes (both
+     kernel layouts) x 0 / 1 / 2^16 + 3 points with NaN / inf / FAR
+     points, points on box edges and empty boxes, the points also 8
+     bytes into a buffer: bit-equal to the twin, a second launch
+     bit-equal, one launch a call; ``segment_reduce_sorted`` on 2^16
+     rows of uniform, skewed (40 % in one segment), invalid (parked and
+     unparked), odd-``S``, ``S`` = 1, ``S`` > rows, 2^16 + 3 rows and
+     empty ids, and on 2^21 rows with one segment over more than 64 row
+     tiles: integer-valued and absent (zero) columns exact against the
+     twin and the numpy oracle, f32 columns within rtol 1e-5 of the
+     oracle, a second launch bit-equal to the first, a column 4 bytes
+     into a buffer bit-equal to the aligned one, 1 launch a call without
+     values and 2 with;
   5. main path: 2^24 points through each engine, with every launch
      counter set to 0 just before and read just after (the kernels each
      engine must launch, and no other); block ids equal across the exact
@@ -86,7 +93,9 @@ the card:
      and each kernel at the main path's inputs beside its plain twin,
      its bound and, for flash attention, ``scaled_dot_product_attention``
      and, for the segment counts, ``torch.bincount`` (timed only: the
-     port never calls them), with each ``crossings_candidates`` call's
+     port never calls them) and an empty kernel (the least time a launch
+     shows by the same clock), ``bbox_mask`` at a second width (56
+     county boxes), with each ``crossings_candidates`` call's
      rows, those with a candidate and those at the padding slots' alias
      point; then ``assign_cascade`` on
      three more batches sampled (seed CASCADE_SEED) from the main path's
@@ -159,6 +168,14 @@ MANY_HEADS, MANY_HEADS_SAMPLE = (65537, 128, 64), 8
 # The candidate-PIP pool cases: the block polygon emptied of its edges;
 # crossings_one's extra cases: rows (no multiple of 4 or 1,024).
 EMPTY_POLY, ONE_ROWS = 5, (1 << 16) + 5
+# bbox_mask's kernel-phase shapes: box counts in both of the kernel's
+# layouts (513 alone in its box tiles), most no multiple of 16; the second
+# timed width (56, the paper's count of US state-level entities).
+BBOX_BOXES, BBOX_ROWS, BBOX_WIDE = ((1, 7, 16, 33, 56, 513, 3072),
+                                    (0, 1, (1 << 16) + 3), 56)
+# segment_reduce_sorted's long-span case: one segment over more than
+# SPAN_TILES of the kernel's row tiles, in SPAN_ROWS rows.
+SPAN_TILES, SPAN_ROWS = 64, 1 << 21
 # Flash kernel vs its twin.  f32: within 1e-5 absolute (summation order
 # only; on an H100 the cases came within 1.4e-6).  bf16, element by
 # element: two bf16 ulps of the twin's output plus 2^-7 times the twin's
@@ -602,25 +619,39 @@ def bound_ms(name, calls, index, fast_mod) -> tuple:
             else "operations", nbytes, ops)
 
 
-def segment_phase(n_blocks) -> list:
+def segment_phase(n_blocks, tile_rows) -> list:
     """``segment_reduce_sorted`` against its twin and the numpy oracle on
     2^16 rows: uniform, skewed (40 % in one segment), invalid (ids < 0
     and >= S, parked at S as ``ops`` parks them, and unparked, straight
-    to the wrapper), an odd segment count and an empty input, each with
-    an integer-valued column, a uniform f32 column and no column (a zero
-    column the kernel never reads).  Returns one summary row per case."""
-    from repro_torch.kernels import ref, segment
+    to the wrapper), an odd segment count, one segment, more segments
+    than rows, a row count that is no multiple of 4 and an empty input;
+    and SPAN_ROWS rows with one segment over more than SPAN_TILES row
+    tiles of ``tile_rows``.  Each with an integer-valued column, a uniform
+    f32 column and no column (a zero column the kernel never reads);
+    each column also from a view that starts 4 bytes into a buffer (not
+    16-byte aligned), which must give the aligned call's bits.  A call
+    launches once without values and twice with them.  Returns one
+    summary row per case."""
+    from repro_torch.kernels import _build, ref, segment
     rng = np.random.default_rng(2)
     n = N_KERNEL
     uniform = rng.integers(0, n_blocks, n)
     skewed = uniform.copy()
     skewed[rng.random(n) < 0.4] = n_blocks // 3
     invalid = rng.integers(-3, n_blocks + 3, n)
+    span = SPAN_TILES * tile_rows + 1237
+    long_span = np.sort(np.concatenate([
+        rng.integers(0, n_blocks, SPAN_ROWS - span),
+        np.full(span, n_blocks // 2)]))
     cases = [("uniform", uniform, n_blocks, True),
              ("skewed", skewed, n_blocks, True),
              ("invalid", invalid, n_blocks, True),
              ("unparked", invalid, n_blocks, False),
              ("odd_segments", rng.integers(0, 1000, n), 1000, True),
+             ("one_segment", rng.integers(-1, 2, n), 1, True),
+             ("sparse", rng.integers(0, 4 * n, n), 4 * n, True),
+             ("odd_rows", rng.integers(0, 500, n + 3), 500, True),
+             ("long_span", long_span, n_blocks, True),
              ("empty", np.zeros(0, np.int64), n_blocks, True)]
     rows = []
     for name, ids, n_seg, parked in cases:
@@ -636,12 +667,27 @@ def segment_phase(n_blocks) -> list:
             s_ids, order = torch.sort(t_ids, stable=True)
             s_vals = None if vals is None \
                 else torch.from_numpy(vals).cuda()[order]
+            what = f"segment_reduce_sorted, {name} ids, {kind} values"
+            _build.reset_launches()
             first = segment.segment_reduce_sorted(s_ids, s_vals, n_seg)
+            launched = _build.LAUNCHES["segment_reduce_sorted"]
+            # An empty column is counts alone: one launch.
+            check(launched == (1 if vals is None or not len(ids) else 2),
+                  f"{what}: {launched} launches")
             second = segment.segment_reduce_sorted(s_ids, s_vals, n_seg)
             twin = ref.segment_reduce(s_ids, s_vals, n_seg)
+            if s_vals is not None:
+                buf = torch.empty(len(ids) + 1, device="cuda")
+                buf[1:] = s_vals
+                view = buf[1:]
+                check(not len(ids) or view.data_ptr() % 16 != 0,
+                      "the column view is 16-byte aligned")
+                shifted = segment.segment_reduce_sorted(s_ids, view, n_seg)
+                check(all(torch.equal(a, b) for a, b in zip(first, shifted)),
+                      f"{what}: a column 4 bytes into a buffer differs "
+                      f"from the aligned one")
             torch.cuda.synchronize()
             oracle = ref.np_segment_reduce(ids, vals, n_seg)
-            what = f"segment_reduce_sorted, {name} ids, {kind} values"
             check(all(torch.equal(a, b) for a, b in zip(first, second)),
                   f"{what}: a second launch is not bit-equal")
             err = 0
@@ -662,9 +708,74 @@ def segment_phase(n_blocks) -> list:
                                / np.maximum(total, 1e-30))) \
                 if len(ids) and kind == "float" else 0.0
             rows.append(dict(case=name, values=kind, rows=len(ids),
-                             segments=n_seg, max_abs_err=err,
-                             sum_max_rel_err=rel))
+                             segments=n_seg, launches=launched,
+                             max_abs_err=err, sum_max_rel_err=rel))
     return rows
+
+
+def bbox_phase(smoke, pts, extent) -> list:
+    """``bbox_mask`` against its twin at BBOX_BOXES boxes x BBOX_ROWS
+    points: seeded boxes over the extent, one in five empty (xmin >
+    xmax); the kernel phase's points with NaN, infinite and FAR rows and
+    rows exactly on a box's edges mixed in; each batch also as a view
+    that starts 8 bytes into a buffer (float2-aligned, not 16-byte).
+    Each call bit-equal to the twin, a second launch bit-equal to the
+    first, one launch a call."""
+    mod = smoke.modules["bbox_mask"]
+    x0, x1, y0, y1 = extent
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    odd = torch.tensor([[math.nan, y0], [x0, math.nan], [math.inf, y0],
+                        [-math.inf, y1], [x0, math.inf], [1e30, 1e30]],
+                       device="cuda")
+    out = []
+    for m in BBOX_BOXES:
+        u = torch.rand((m, 4), generator=gen, device="cuda")
+        xa = x0 + (x1 - x0) * u[:, 0]
+        ya = y0 + (y1 - y0) * u[:, 2]
+        boxes = torch.stack([xa, xa + 0.5 * (x1 - x0) * u[:, 1], ya,
+                             ya + 0.5 * (y1 - y0) * u[:, 3]], 1)
+        boxes[2::5] = boxes[2::5][:, [1, 0, 3, 2]]    # empty boxes
+        rows = torch.cat([pts, odd])[:max(BBOX_ROWS)].clone()
+        k = torch.arange(rows.shape[0], device="cuda") % m
+        edge = (torch.arange(rows.shape[0], device="cuda") % 13) == 0
+        rows[edge, 0] = boxes[k[edge], 0]             # on xmin
+        rows[edge, 1] = 0.5 * (boxes[k[edge], 2] + boxes[k[edge], 3])
+        top = (torch.arange(rows.shape[0], device="cuda") % 17) == 5
+        rows[top, 1] = boxes[k[top], 3]               # on ymax
+        rows[3::97] = odd[torch.arange(rows[3::97].shape[0],
+                                       device="cuda") % odd.shape[0]]
+        for n in BBOX_ROWS:
+            p = rows[:n].contiguous()
+            buf = torch.empty(2 * n + 2, device="cuda")
+            buf[2:] = p.reshape(-1)
+            view = buf[2:].view(-1, 2)
+            check(n == 0 or view.data_ptr() % 16 == 8,
+                  "the +8-byte view is aligned")
+            for layout, q in (("aligned", p), ("plus8", view)):
+                what = f"bbox_mask, {n} points x {m} boxes, {layout}"
+                smoke.build.reset_launches()
+                got = mod.bbox_mask(q, boxes)
+                launched = smoke.build.LAUNCHES["bbox_mask"]
+                again = mod.bbox_mask(q, boxes)
+                want = smoke.ref.bbox_mask(q, boxes)
+                torch.cuda.synchronize()
+                check(launched == (1 if n else 0),
+                      f"{what}: {launched} launches")
+                check(torch.equal(got, again), f"{what}: a second launch "
+                                               f"differs")
+                err = max_abs_err(got, want, what)
+                check(err == 0, f"{what}: differs from its twin (max abs "
+                                f"err {err})")
+                out.append(dict(boxes=m, rows=n, points=layout,
+                                inside=int(got.sum()), max_abs_err=err))
+    print(f"kernel phase: bbox_mask == twin (and a second launch == the "
+          f"first, one launch a call) at {BBOX_BOXES} boxes x {BBOX_ROWS} "
+          f"points, aligned and 8 bytes into a buffer, with NaN / inf / "
+          f"FAR points, points on box edges and one box in five empty; "
+          f"inside bits at {max(BBOX_ROWS)} points: " + ", ".join(
+              f"M {r['boxes']} {r['inside']}" for r in out
+              if r["rows"] == max(BBOX_ROWS) and r["points"] == "aligned"))
+    return out
 
 
 def flash_phase(smoke) -> list:
@@ -1491,16 +1602,21 @@ def main() -> int:
         smoke, ops, sindex, engines["fast_fused"].fast_index, pts_k,
         torch.from_numpy(truth_k).cuda(), torch.from_numpy(sid_k).cuda())
     n_blocks = int(engines["fast"].fast_index.block_parent.shape[0])
-    result["segment_phase"] = segment_phase(n_blocks)
+    result["bbox_phase"] = bbox_phase(smoke, pts_k, census.extent)
+    tile_rows = smoke.build.load().repro_segment_tile_rows()
+    result["segment_phase"] = segment_phase(n_blocks, tile_rows)
     worst = max(r["sum_max_rel_err"] for r in result["segment_phase"]
                 if r["values"] == "float")
     print(f"kernel phase: segment_reduce_sorted == twin and oracle on "
           f"{len(result['segment_phase'])} cases of {N_KERNEL} rows "
           f"(uniform, skewed 40 %, invalid parked and unparked, S = 1000, "
-          f"empty; integer, f32 and no values): count / min / max and "
-          f"integer-valued and zero-column sums exact, f32 sums within "
-          f"{worst:.3g} of the f64 oracle (rtol {SUM_RTOL}), second launch "
-          f"bit-equal")
+          f"S = 1, S = {4 * N_KERNEL}, {N_KERNEL + 3} rows, empty) and of "
+          f"{SPAN_ROWS} rows (one segment over more than {SPAN_TILES} tiles of "
+          f"{tile_rows} rows); integer, f32 and no values, each column also "
+          f"4 bytes into a buffer (bit-equal to the aligned call): count / "
+          f"min / max and integer-valued and zero-column sums exact, f32 "
+          f"sums within {worst:.3g} of the f64 oracle (rtol {SUM_RTOL}), "
+          f"second launch bit-equal, 1 launch without values and 2 with")
 
     phase_s["kernel_phase"] = time.perf_counter() - t_start
     # -- 5. main path ---------------------------------------------------------
@@ -1630,7 +1746,12 @@ def main() -> int:
     vals_np = np.random.default_rng(4).integers(-50, 50, N_MAIN).astype(
         np.float32)
     vals = torch.from_numpy(vals_np).cuda()
+    smoke.build.reset_launches()
     red = agg.reduce(blocks["fast"], vals)
+    torch.cuda.synchronize()
+    check(smoke.build.LAUNCHES["segment_reduce_sorted"] == 2,
+          f"BlockAggregator.reduce: segment_reduce_sorted launched "
+          f"{smoke.build.LAUNCHES['segment_reduce_sorted']} times, not 2")
     oracle = ref_mod.np_segment_reduce(bid_np, vals_np, n_blocks)
     for out, got, want in zip(("count", "sum", "min", "max"), red, oracle):
         check(np.array_equal(got.cpu().numpy(), want),
@@ -1866,6 +1987,10 @@ def main() -> int:
     phase_s["geo_timing"] = time.perf_counter() - t_start
     kernels = []
     index = engines["fast_onepass"].fast_index
+    # The least time a launch shows by the same clock: an empty kernel (a
+    # spin of 0 cycles), timed as the kernels are.
+    result["launch_floor_ms"] = floor = cuda_ms(
+        lambda: torch.cuda._sleep(0), KERNEL_REPS)
     for kname in KERNELS:
         if kname == "flash_attn_bhsd":
             continue
@@ -1892,7 +2017,9 @@ def main() -> int:
                   "torch.bincount differs from the segment kernel's counts")
             library = cuda_ms(lambda: torch.bincount(ids_s, minlength=n_seg),
                               KERNEL_REPS)
-            extra = f"; torch.bincount {library:.4f} ms"
+            extra = (f"; torch.bincount {library:.4f} ms; an empty kernel "
+                     f"{floor:.4f} ms; with a value column (2 launches) "
+                     f"{split['kernel_zero_column_read']:.4f} ms")
         elif kname == "crossings_candidates":
             result["candidate_rows"] = candidate_rows(calls)
             extra = "; rows a call " + ", ".join(
@@ -1908,6 +2035,23 @@ def main() -> int:
               f"path ({len(calls)} call(s), {rows} rows) vs plain twin "
               f"{plain:.3f} ms; bound {bound:.4f} ms by {bound_by} "
               f"({nbytes} B, {n_ops} ops); {bound / ms:.1%} of bound{extra}")
+    # bbox_mask at a second width: the main path's points against the
+    # first BBOX_WIDE county boxes.
+    bm = smoke.modules["bbox_mask"].bbox_mask
+    wide = sindex.county_bbox[:BBOX_WIDE].contiguous()
+    wide_call = ((pts, wide), {}, (bm(pts, wide),))
+    err = smoke.compare("bbox_mask", [wide_call])
+    check(err == 0, f"bbox_mask differs from its twin at {BBOX_WIDE} boxes "
+                    f"(max abs err {err})")
+    wide_ms = cuda_ms(lambda: bm(pts, wide), KERNEL_REPS)
+    bound, bound_by, nbytes, _ = bound_ms("bbox_mask", [wide_call], index,
+                                          fast_mod)
+    del wide_call
+    result["bbox_wide"] = dict(boxes=BBOX_WIDE, rows=N_MAIN, ms=wide_ms,
+                               bound_ms=bound, bound_by=bound_by)
+    print(f"bbox_mask at [{N_MAIN}, {BBOX_WIDE}] (county boxes): "
+          f"{wide_ms:.4f} ms vs bound {bound:.4f} ms by {bound_by} "
+          f"({nbytes} B); {bound / wide_ms:.1%} of bound")
     result["cascade_batches"] = cascade_batches(
         smoke, main_calls["assign_cascade"][0], census.extent,
         next(k["ms"] for k in kernels if k["name"] == "assign_cascade"))

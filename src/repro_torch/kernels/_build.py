@@ -11,8 +11,10 @@ passed as ``c_void_p``.  Every C entry point returns
 ``cudaGetLastError()`` after its launch; ``check`` raises on non-zero.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made.  A
-wrapper adds one right after a launch that returned 0 and nowhere else,
-so a run can show that a path really went through the kernels.
+wrapper adds them right after a call that returned 0 and nowhere else
+(one a launch: a call of ``segment_reduce_sorted`` with a value column
+launches two), so a run can show that a path really went through the
+kernels.
 
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only host has no ``nvcc``.
@@ -58,6 +60,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _N = ctypes.c_int64
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)     # an int the entry point sets
 # C signature of every entry point (restype c_int = cudaGetLastError()).
 _SIGNATURES = {
     "repro_assign_cascade": [_P] * 15 + [_N] + [_I] * 8 + [_P],
@@ -66,7 +69,7 @@ _SIGNATURES = {
     "repro_crossings_one": [_P] * 3 + [_N, _I, _P],
     "repro_bbox_mask": [_P] * 3 + [_N, _I, _P],
     "repro_bbox_count_select": [_P] * 4 + [_N, _I, _P],
-    "repro_segment_reduce_sorted": [_P] * 8 + [_N, _I, _P],
+    "repro_segment_reduce_sorted": [_P] * 9 + [_N, _I, _P, _IP],
     "repro_segment_tile_rows": [],
     "repro_flash_attn_simt": [_P] * 4 + [_I] * 5 + [_F, _P],
     "repro_flash_attn_wgmma": [_P] * 4 + [_I] * 4 + [_F, _P],
@@ -160,14 +163,15 @@ def load():
         return _lib
 
 
-def check(status: int, kernel: str, route: str | None = None) -> None:
-    """Raise if a launch returned a CUDA error; else count the launch (and
-    its route, for a kernel with more than one)."""
+def check(status: int, kernel: str, route: str | None = None,
+          launches: int = 1) -> None:
+    """Raise if a launch returned a CUDA error; else count its
+    ``launches`` (and its route, for a kernel with more than one)."""
     if status != 0:
         msg = load().repro_cuda_error_string(status).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed with error "
                            f"{status} ({msg})")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[kernel] += launches
     if route is not None:
         ROUTE_LAUNCHES[f"{kernel}:{route}"] += 1
 

@@ -7,9 +7,19 @@ Kernels: ``csrc/bbox.cu``.
     (src/repro/kernels/bbox.py:57): the [N, M] int8 membership of N
     points in one shared [M, 4] box table — the cascade's state level.
     What bounds it on the card: bytes, 8 per point in and M out, against
-    4 comparisons per (point, box).  Design: one thread per output byte,
-    so a warp's stores are one contiguous run; the box table (a few
-    hundred bytes) is read through the read-only cache.
+    4 comparisons per (point, box).  The first design (one thread per
+    output byte, each with a 64-bit division) was bound by instruction
+    issue instead, at ~7x its bound.  Design: the mask is cut into
+    aligned 16-byte chunks, each written by one 16-byte store from one
+    thread that keeps the chunk's 16 boxes in registers, so a byte costs
+    4 compares and its packing, with no division and no shared-memory
+    load.  Where C = M / gcd(M, 16) <= 256, 16 / gcd(M, 16) rows make
+    a super-row of C chunks whose chunk c always
+    holds the same boxes; thread t of a persistent block takes chunk
+    t mod C of a run of super-rows, so a warp stores 512 contiguous bytes
+    and the next pass's points load while this one's are tested.  The
+    rest (odd M above 256) hold 512 boxes a warp and write each point's
+    run of a tile.  One launch either way.
   * ``bbox_count_select`` replaces the Pallas ``bbox_count_select``
     (src/repro/kernels/bbox.py:80): per point, over its own gathered
     [C, 4] boxes, the count of containing boxes and the largest
@@ -34,7 +44,6 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-
 def bbox_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """[N, M] int8 membership of [N, 2] f32 points in a shared [M, 4] f32
     box table.  CPU tensors go to the plain twin; CUDA tensors launch the
@@ -48,9 +57,12 @@ def bbox_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     _build.require_aligned(points, "points", 8)
     _build.require_aligned(boxes, "boxes", 16)
     m = boxes.shape[0]
+    if m >= 2**31:
+        raise ValueError(f"bbox_mask: {m} boxes out of range")
     out = torch.empty((n, m), dtype=torch.int8, device=dev)
     if n == 0 or m == 0:
         return out
+    _build.require_aligned(out, "out", 16)
     lib = _build.load()
     with torch.cuda.device(dev):
         status = lib.repro_bbox_mask(

@@ -5,10 +5,35 @@
 // everywhere, and an empty box (xmin > xmax) never matches.
 //
 //   * bbox_mask          — [N, M] int8 membership in one shared [M, 4]
-//                          box table (the state level).  One thread per
-//                          output byte, so consecutive threads write
-//                          consecutive bytes of a point's row; the small
-//                          box table is read through the read-only cache.
+//                          box table (the state level); replaces the
+//                          Pallas bbox_mask (src/repro/kernels/bbox.py:57).
+//                          What bounds it: bytes, 8 per point in and M
+//                          out; the comparisons are 4 per byte.  The first
+//                          design (one thread per output byte, a 64-bit
+//                          division for its (point, box)) was bound by
+//                          instruction issue at ~7x its bound; reading the
+//                          boxes from shared memory per test is bound by
+//                          its wavefronts once a warp's threads want
+//                          different boxes; short-lived blocks are bound
+//                          by their own latency.  So the mask is cut into
+//                          aligned 16-byte chunks, each written by one
+//                          16-byte store, and a thread keeps the 16 boxes
+//                          of its chunk in registers:
+//       - flat (C = M / gcd(M, 16) <= 256): L = 16 / gcd(M, 16) rows make
+//         a super-row of C whole chunks, and chunk c of every super-row
+//         holds the same boxes, (16c + k) mod M for byte k, and crosses
+//         from one row to the next at the same byte.  Thread t of a block
+//         takes chunk t mod C of a run of super-rows, so a pass of the
+//         block stores P C contiguous chunks (P = 256 / C super-rows) and
+//         a warp 512 contiguous bytes; the blocks are persistent and load
+//         the next pass's points while testing this one's.  Per byte: 4
+//         compares, the point's select and the packing, no division and
+//         no shared memory.  M < 16 reads each byte's point from L1.
+//       - box tiles (the rest, only odd M > 256 among M <= 512): a 2-D
+//         grid of points x tiles of 512 boxes; lane j of a warp holds
+//         group j of the tile and writes its 16 bytes of each point's
+//         run (one 16-byte store where the run is aligned for it, else
+//         words or bytes).
 //   * bbox_count_select  — per point, over its own gathered [C, 4] boxes:
 //                          the number of containing boxes and the largest
 //                          containing slot (-1 if none).  One warp per
@@ -20,21 +45,178 @@
 namespace repro_torch {
 namespace {
 
+constexpr int kChunk = 16;                 // bytes a thread stores at once
+constexpr int kBoxTile = 512;              // boxes a warp holds, box tiles
+constexpr int kRowsPerBlock = 128;         // points a block, box tiles
+constexpr unsigned kMaxGridY = 65535;
+
 __device__ __forceinline__ bool in_box(float px, float py, float4 b) {
   return (px > b.x) && (px < b.y) && (py > b.z) && (py < b.w);
 }
 
-__global__ void __launch_bounds__(kThreads) bbox_mask_kernel(
+// This thread's group of 16 boxes, first .. first + len - 1, into
+// registers; the slots past len get the empty box (1, 0, 1, 0), which
+// no point is in.
+__device__ __forceinline__ void load_group(const float4* __restrict__ boxes,
+                                           int first, int len, float4* bx) {
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) {
+    bx[k] = k < len ? __ldg(boxes + first + k)
+                    : make_float4(1.0f, 0.0f, 1.0f, 0.0f);
+  }
+}
+
+// The 16 results of point p against the group, packed little-endian:
+// byte k is box k of the group.
+__device__ __forceinline__ uint4 test_group(float2 p, const float4* bx) {
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) {
+    if (in_box(p.x, p.y, bx[k])) w[k / 4] |= 1u << (8 * (k % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Put a group's ``len`` result bytes at dst (the box-tile layout): one
+// 16-byte store where dst is 16-byte aligned and len is 16, 4-byte words
+// where dst is 4-byte aligned and len a multiple of 4, else single bytes.
+__device__ __forceinline__ void put_group(unsigned char* dst, uint4 w,
+                                          int len) {
+  const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+  const unsigned a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(dst));
+  if (len == kChunk && (a & (kChunk - 1)) == 0) {
+    *reinterpret_cast<uint4*>(dst) = w;
+  } else if ((a & 3) == 0 && (len & 3) == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * k < len) reinterpret_cast<unsigned*>(dst)[k] = ws[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k < len) dst[k] = static_cast<unsigned char>(ws[k / 4] >>
+                                                       (8 * (k % 4)));
+    }
+  }
+}
+
+// Flat layout (see the top).  A thread's chunk c: byte k is box
+// (16c + k) mod m of row o0 + (k >= split) of its super-row; kMode says
+// how many rows a chunk holds: kOneRow (m a multiple of 16: one row, so
+// one point a chunk), kTwoRows (m >= 16), kManyRows (m < 16: byte k's
+// point is row off[k], read from L1).  A block takes kPasses passes
+// at a time: super-rows base + u * supers_a_pass + t / C.
+constexpr int kOneRow = 0;
+constexpr int kTwoRows = 1;
+constexpr int kManyRows = 2;
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) bbox_mask_flat_kernel(
     const float2* __restrict__ points, const float4* __restrict__ boxes,
-    int8_t* __restrict__ out, int64_t total, int m) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       t < total; t += stride) {
-    const int64_t i = t / m;
-    const int j = static_cast<int>(t - i * m);
-    const float2 p = __ldg(points + i);
-    out[t] = in_box(p.x, p.y, __ldg(boxes + j)) ? 1 : 0;
+    int8_t* __restrict__ out, int64_t n, int m, int rows_a_super,
+    int chunks_a_super, int supers_a_pass) {
+  constexpr int kPasses = kMode == kOneRow ? 8 : 4;
+  const int t = threadIdx.x;
+  if (t >= supers_a_pass * chunks_a_super) return;   // no barrier below
+  const int c = t % chunks_a_super;
+  const int first = c * kChunk;
+  const int o0 = first / m;
+  const int split = m - (first - o0 * m);  // bytes before the next row
+  float4 bx[kChunk];
+  int off[kChunk];
+  {
+    int j = first - o0 * m;
+    int o = o0;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      bx[k] = __ldg(boxes + j);
+      off[k] = o;
+      if (++j == m) {
+        j = 0;
+        ++o;
+      }
+    }
+  }
+  const int64_t total = n * m;
+  const int64_t n_super = (n + rows_a_super - 1) / rows_a_super;
+  const int64_t span = static_cast<int64_t>(kPasses) * supers_a_pass;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * span;
+  auto point = [&](int64_t row) {
+    return __ldg(points + (row < n ? row : n - 1));
+  };
+  // Rows o0 and o0 + 1 of each of this thread's kPasses super-rows from
+  // ``base`` (a row past the end repeats the last point).
+  auto load = [&](int64_t b0, float2* pa, float2* pb) {
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u) {
+      const int64_t row = (b0 + u * supers_a_pass + t / chunks_a_super) *
+                              rows_a_super + o0;
+      pa[u] = point(row);
+      if (kMode == kTwoRows) pb[u] = split < kChunk ? point(row + 1) : pa[u];
+    }
+  };
+  float2 pa[kPasses] = {};
+  float2 pb[kPasses] = {};
+  int64_t base = static_cast<int64_t>(blockIdx.x) * span;
+  if (kMode != kManyRows) load(base, pa, pb);
+  for (; base < n_super; base += step) {
+    float2 na[kPasses] = {};
+    float2 nb[kPasses] = {};
+    if (kMode != kManyRows && base + step < n_super) load(base + step, na, nb);
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u) {
+      const int64_t sr = base + u * supers_a_pass + t / chunks_a_super;
+      const int64_t byte0 = (sr * chunks_a_super + c) * kChunk;
+      if (byte0 >= total) continue;
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        const float2 p = kMode == kManyRows ? point(sr * rows_a_super + off[k])
+                         : kMode == kOneRow ? pa[u]
+                                            : (k < split ? pa[u] : pb[u]);
+        if (in_box(p.x, p.y, bx[k])) w[k / 4] |= 1u << (8 * (k % 4));
+      }
+      if (byte0 + kChunk <= total) {
+        *reinterpret_cast<uint4*>(out + byte0) = make_uint4(w[0], w[1],
+                                                            w[2], w[3]);
+      } else {                             // the mask's ragged last chunk
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          if (byte0 + k < total) {
+            out[byte0 + k] = static_cast<int8_t>((w[k / 4] >> (8 * (k % 4)))
+                                                 & 1u);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u) {
+      pa[u] = na[u];
+      pb[u] = nb[u];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) bbox_mask_rows_kernel(
+    const float2* __restrict__ points, const float4* __restrict__ boxes,
+    int8_t* __restrict__ out, int64_t n, int m) {
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int64_t p_lo = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
+  const int64_t p_hi = p_lo + kRowsPerBlock < n ? p_lo + kRowsPerBlock : n;
+  const int tiles = (m + kBoxTile - 1) / kBoxTile;
+  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int c0 = tile * kBoxTile;
+    const int cn = m - c0 < kBoxTile ? m - c0 : kBoxTile;
+    const int j0 = lane * kChunk;          // this lane's group of the tile
+    const int len = cn - j0 < 0 ? 0 : (cn - j0 < kChunk ? cn - j0 : kChunk);
+    if (len == 0) continue;                // no barrier in this kernel
+    float4 bx[kChunk];
+    load_group(boxes, c0 + j0, len, bx);
+    for (int64_t p = p_lo + warp; p < p_hi; p += kWarpsPerBlock) {
+      put_group(reinterpret_cast<unsigned char*>(out + p * m + c0 + j0),
+                test_group(__ldg(points + p), bx), len);
+    }
   }
 }
 
@@ -62,24 +244,49 @@ __global__ void __launch_bounds__(kThreads) bbox_count_select_kernel(
   }
 }
 
-// Grid for a grid-stride loop over ``total`` items: one item per thread
-// up to a cap, so very large outputs loop instead of over-launching.
-inline unsigned stride_grid(int64_t total) {
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < (1 << 20) ? blocks : (1 << 20));
-}
-
 }  // namespace
 }  // namespace repro_torch
 
+// points [n, 2] f32 (8-byte aligned), boxes [m, 4] f32 (16-byte
+// aligned), out [n, m] int8 (16-byte aligned); n, m > 0.  One launch.
 extern "C" int repro_bbox_mask(const void* points, const void* boxes,
                                void* out, int64_t n, int m, void* stream) {
   using namespace repro_torch;
-  const int64_t total = n * m;
-  bbox_mask_kernel<<<stride_grid(total), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(points), static_cast<const float4*>(boxes),
-      static_cast<int8_t*>(out), total, m);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* p = static_cast<const float2*>(points);
+  const float4* b = static_cast<const float4*>(boxes);
+  int8_t* o = static_cast<int8_t*>(out);
+  int g = kChunk;                          // gcd(m, 16)
+  while (m % g) g /= 2;
+  const int rows_a_super = kChunk / g;
+  const int chunks_a_super = m / g;
+  if (chunks_a_super <= kThreads) {
+    const int supers_a_pass = kThreads / chunks_a_super;
+    const int64_t n_super = (n + rows_a_super - 1) / rows_a_super;
+    const int64_t blocks = (n_super + supers_a_pass - 1) / supers_a_pass;
+    auto kernel = m % kChunk == 0 ? &bbox_mask_flat_kernel<kOneRow>
+                  : m > kChunk    ? &bbox_mask_flat_kernel<kTwoRows>
+                                  : &bbox_mask_flat_kernel<kManyRows>;
+    int device = 0;
+    int sms = 0;
+    int per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  0);
+    const int64_t resident = static_cast<int64_t>(sms) *
+                             (per_sm > 0 ? per_sm : 1);
+    kernel<<<static_cast<unsigned>(blocks < resident ? blocks : resident),
+             kThreads, 0, st>>>(p, b, o, n, m, rows_a_super, chunks_a_super,
+                                supers_a_pass);
+  } else {
+    const unsigned tiles = static_cast<unsigned>((m + kBoxTile - 1) /
+                                                 kBoxTile);
+    const dim3 grid(static_cast<unsigned>((n + kRowsPerBlock - 1) /
+                                          kRowsPerBlock),
+                    tiles < kMaxGridY ? tiles : kMaxGridY);
+    bbox_mask_rows_kernel<<<grid, kThreads, 0, st>>>(p, b, o, n, m);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

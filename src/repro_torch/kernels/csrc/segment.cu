@@ -7,52 +7,80 @@
 // absorbs.  Here the sort does the matching: segment s is the one
 // contiguous run of rows whose id is s, [start[s], start[s + 1]).  What
 // bounds the card is reading the values once (4 bytes a row); the ids are
-// only binary-searched (S + 1 searches) and read at each tile's ends.
+// only searched (S + 1 searches) and read at the ends of each warp's
+// rows.  With no values (occupancy counts) only the searches and the 16
+// bytes a segment out remain, so that case is bound by the searches'
+// latency and by the launch itself.
 //
 // Rows whose id lies outside [0, S) land in no segment: being sorted,
-// they sit before start[0] (negative ids) or from start[S] on, and the
-// tiles cover only [start[0], start[S]).
+// they sit before start[0] (negative ids) or from start[S] on, and no
+// segment's run reaches them.
 //
-// Three launches, all on the caller's stream:
-//   1. segment_bounds  — start[s] = lower bound of s in the sorted ids,
-//                        for s in [0, S]; start[S] is the first row
-//                        with id >= S (parked), so rows past it land
-//                        nowhere.
-//   2. segment_tiles   — one block per tile of kTile rows, so a hot
-//                        segment (say 40 % of the rows) spreads over many
-//                        blocks instead of serializing on one.  A
-//                        segment that starts and ends inside the tile
-//                        is written out whole;
-//                        the tile's first and last segments, when they
-//                        cross the tile's edge, leave a partial in the
-//                        tile's two slots.  The first and last segments
-//                        reduce over the whole block; the ones between
-//                        them take one warp each.
-//   3. segment_fixup   — one warp per segment: an empty segment gets
-//                        (0, 0.0, +inf, -inf); a segment that spans
-//                        tiles folds its tiles' partials.
-// With no values (a zero column: occupancy counts) steps 2 and 3 give
-// way to segment_zero_column, one thread per segment: the count is
-// start[s + 1] - start[s], and sum / min / max are 0 where it is not 0.
-// No row is read beyond the binary searches.
+// Search.  start[s] is the lower bound of s in the ids, found by one warp
+// with a 33-way search: the lanes probe 32 evenly spaced rows of the open
+// range, a ballot of ``ids[probe] < s`` narrows it to one of the 33 gaps,
+// and a range of at most 32 rows ends it with one probe a lane.  At 2^24
+// rows that is 5 dependent rounds instead of a binary search's 24; the
+// first rounds probe the same rows for every bound and hit L2.  (Three
+// probes a lane, 4 rounds, measured slower: a round's probes are 32-byte
+// sectors read from memory, and they tripled.)
+//
+// No values: one launch, segment_counts.  A block searches the bounds of
+// its kSegsPerBlock segments plus one, a warp each, into shared memory,
+// then writes (count, 0, 0, 0) for a non-empty segment and (0, 0.0, +inf,
+// -inf) for an empty one.  No row is read beyond the searches.
+//
+// Values: two launches.
+//   1. segment_bounds — start[s] for s in [0, S], a warp each; it also
+//                       zeroes each segment's ticket.  It lets launch 2
+//                       start at once (programmatic dependent launch).
+//   2. segment_tiles  — one block of kTileWarps warps per tile of kTile
+//                       rows; each warp takes kWarpRows of them.  A warp
+//                       first copies its rows into shared memory (16-byte
+//                       asynchronous copies; single rows where the column
+//                       does not start on a 16-byte boundary or the rows
+//                       end mid-quad), so they stream while launch 1 still
+//                       searches and while the warp reads its ids.  Then,
+//                       32 segments at a time, a lane reads one segment's
+//                       bounds; the empty ones the warp owns (their start
+//                       lies in its rows) are written at once, and each
+//                       segment with rows here is reduced by the warp.  A
+//                       segment inside the warp's rows is written out; one
+//                       that crosses their edges leaves a partial.  Warp 0
+//                       then joins the warps' partials in warp order: a
+//                       segment inside the tile is written out, one that
+//                       crosses the tile's edge leaves a partial in the
+//                       tile's slot 0 (it began in an earlier tile) or
+//                       slot 1 (it begins here) and takes its ticket (an
+//                       integer atomic with release / acquire order); the
+//                       tile that gives its last partial folds them all in
+//                       tile order, one warp.
 //
 // Determinism, with no float atomics: every sum is taken in a fixed order
-// that depends only on the segment's bounds.  A thread adds its rows in
-// row order (rows begin + t, begin + t + kThreads, ...), a warp combines
-// lanes with a fixed xor butterfly, a block combines its warps in warp
-// order, and the fixup folds partials in tile order through the same
-// butterfly.  So two launches on the same input give bit-equal sums; an
-// integer-valued column below 2^24 sums exactly in any order, so there it
-// equals the bincount oracle bit for bit.  count, min and max are
-// order-free.  min / max propagate NaN, as torch.amin / amax do.
+// that depends only on the segment's bounds (tiles, warps' rows and quads
+// are fixed row ranges).  Within a warp's rows a lane adds its head row,
+// its quads (rows 4q .. 4q + 3: x, y, z, w) in quad order, then its tail
+// row, and the lanes combine with a fixed xor butterfly; warps' parts
+// join in warp order, and tiles' partials fold lane-strided in tile order
+// through the same butterfly.  So two launches on the same input give
+// bit-equal sums, and so does a column that does not start on a 16-byte
+// boundary; an integer-valued column below 2^24 sums exactly in any
+// order, so there it equals the bincount oracle bit for bit.  count, min
+// and max are order-free.  min / max propagate NaN, as torch.amin / amax
+// do.
 #include "pip.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr int kWarps = kWarpsPerBlock;
-constexpr int64_t kTile = 16 * kThreads;   // rows per tile block
+constexpr int kWarpRows = 2048;           // rows a warp reduces
+constexpr int kTileWarps = 4;             // warps a tile block
+constexpr int kTileThreads = kTileWarps * kWarp;
+constexpr int kTile = kWarpRows * kTileWarps;   // rows a tile block
+constexpr int kSegsPerBlock = kWarps - 1;  // segments a counts block
 constexpr int kSlot = 3;                   // partial = (sum, min, max)
+constexpr int kProbes = kWarp;             // a search round's probes
 
 struct Acc {
   float sum;
@@ -94,33 +122,26 @@ __device__ __forceinline__ Acc warp_combine(Acc a) {
   return a;
 }
 
-// This thread's rows of [begin, end), strided by ``stride``, in order.
-__device__ __forceinline__ Acc strided_rows(const float* __restrict__ values,
-                                            int64_t begin, int64_t end,
-                                            int first, int stride) {
-  Acc a = acc_empty();
-#pragma unroll 4
-  for (int64_t i = begin + first; i < end; i += stride) {
-    a = add_value(a, __ldg(values + i));
+// Lower bound of s in ids[0, n): the first row whose id is >= s (n if
+// none).  Called by a whole warp with the same s; every lane returns it.
+__device__ __forceinline__ int64_t warp_lower_bound(
+    const int* __restrict__ ids, int64_t n, int s, int lane) {
+  int64_t lo = 0;
+  int64_t hi = n;                          // the answer lies in [lo, hi]
+  while (hi - lo > kProbes) {              // warp-uniform
+    const int64_t probe = lo + (hi - lo) * (lane + 1) / (kProbes + 1);
+    const unsigned below = __ballot_sync(0xffffffffu,
+                                         __ldg(ids + probe) < s);
+    const int c = __popc(below);           // probes below s: a prefix
+    const int64_t p_prev =
+        __shfl_sync(0xffffffffu, probe, c > 0 ? c - 1 : 0);
+    const int64_t p_next = __shfl_sync(0xffffffffu, probe,
+                                       c < kProbes ? c : kProbes - 1);
+    if (c > 0) lo = p_prev + 1;
+    if (c < kProbes) hi = p_next;
   }
-  return a;
-}
-
-// Whole-block reduction of rows [begin, end); the result is valid in
-// thread 0.  Every thread of the block must call it (block-uniform).
-__device__ Acc block_rows(const float* __restrict__ values, int64_t begin,
-                          int64_t end, Acc* shared) {
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  Acc a = warp_combine(strided_rows(values, begin, end, threadIdx.x,
-                                    kThreads));
-  __syncthreads();                  // ``shared`` is free from an earlier use
-  if (lane == 0) shared[warp] = a;
-  __syncthreads();
-  if (warp == 0) {
-    a = warp_combine(lane < kWarps ? shared[lane] : acc_empty());
-  }
-  return a;
+  const bool below = lane < hi - lo && __ldg(ids + lo + lane) < s;
+  return lo + __popc(__ballot_sync(0xffffffffu, below));
 }
 
 __device__ __forceinline__ void write_out(int s, int64_t n_rows, Acc a,
@@ -132,183 +153,325 @@ __device__ __forceinline__ void write_out(int s, int64_t n_rows, Acc a,
   vmax[s] = a.mx;
 }
 
-__device__ __forceinline__ void write_slot(float* partials, int64_t tile,
-                                           int slot, Acc a) {
-  float* p = partials + (tile * 2 + slot) * kSlot;
-  p[0] = a.sum;
-  p[1] = a.mn;
-  p[2] = a.mx;
+__global__ void __launch_bounds__(kThreads) segment_counts_kernel(
+    const int* __restrict__ ids, int64_t n, int n_segments,
+    int* __restrict__ count, float* __restrict__ sum,
+    float* __restrict__ vmin, float* __restrict__ vmax) {
+  __shared__ int64_t bound[kWarps];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int s0 = blockIdx.x * kSegsPerBlock;
+  const int s = s0 + warp;                 // bounds s0 .. s0 + kSegsPerBlock
+  if (s <= n_segments) {
+    const int64_t b = warp_lower_bound(ids, n, s, lane);
+    if (lane == 0) bound[warp] = b;
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < kSegsPerBlock && s0 + t < n_segments) {
+    const int64_t n_rows = bound[t + 1] - bound[t];
+    const Acc a = n_rows > 0 ? Acc{0.0f, 0.0f, 0.0f} : acc_empty();
+    write_out(s0 + t, n_rows, a, count, sum, vmin, vmax);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) segment_bounds_kernel(
-    const int* __restrict__ ids, int64_t n, int n_bounds,
-    int64_t* __restrict__ start) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_bounds) return;
-  int64_t lo = 0;
-  int64_t hi = n;
-  while (lo < hi) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (__ldg(ids + mid) < s) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+    const int* __restrict__ ids, int64_t n, int n_segments,
+    int64_t* __restrict__ start, int* __restrict__ tickets) {
+  // Launch 2 may start now: it streams its rows, then waits for this
+  // grid to finish before it reads start or the tickets.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int lane = threadIdx.x % kWarp;
+  const int s = blockIdx.x * kWarps + threadIdx.x / kWarp;
+  if (s > n_segments) return;              // warp-uniform
+  const int64_t b = warp_lower_bound(ids, n, s, lane);
+  if (lane == 0) {
+    start[s] = b;
+    if (s < n_segments) tickets[s] = 0;
   }
-  start[s] = lo;
 }
 
-__global__ void __launch_bounds__(kThreads) segment_tiles_kernel(
-    const int* __restrict__ ids, const float* __restrict__ values,
-    const int64_t* __restrict__ start, int n_segments,
-    float* __restrict__ partials, int* __restrict__ count,
-    float* __restrict__ sum, float* __restrict__ vmin,
-    float* __restrict__ vmax) {
-  __shared__ Acc shared[kWarps];
-  const int64_t tile = blockIdx.x;
-  const int64_t tile_lo = tile * kTile;
-  // Rows before start[0] hold negative ids and land nowhere.
-  const int64_t lo = tile_lo > start[0] ? tile_lo : start[0];
-  const int64_t n_valid = start[n_segments];
-  const int64_t hi = tile_lo + kTile < n_valid ? tile_lo + kTile : n_valid;
-  if (lo >= hi) return;             // no row of the tile is in a segment
-  const int s_first = __ldg(ids + lo);
-  const int s_last = __ldg(ids + hi - 1);
+// Rows [b, e) of one segment inside the rows staged at ``tv`` (rows
+// lo ..), added by lane ``part`` of ``parts``: first one head row (rows
+// before the first whole quad, a quad being rows 4q .. 4q + 3), then
+// quads part, part + parts, ..., then one tail row.
+__device__ __forceinline__ Acc tile_rows(const float* tv, int64_t lo,
+                                         int64_t b, int64_t e, int part,
+                                         int parts) {
+  Acc a = acc_empty();
+  const int rb = static_cast<int>(b - lo);
+  const int re = static_cast<int>(e - lo);
+  int qb = (rb + 3) & ~3;                  // first whole quad's row
+  if (qb > re) qb = re;
+  int qe = re & ~3;                        // past the last whole quad
+  if (qe < qb) qe = qb;
+  if (rb + part < qb) a = add_value(a, tv[rb + part]);
+  const float4* quads = reinterpret_cast<const float4*>(tv + qb);
+  const int n_quads = (qe - qb) >> 2;
+#pragma unroll 4
+  for (int q = part; q < n_quads; q += parts) {
+    const float4 v = quads[q];
+    a = add_value(add_value(add_value(add_value(a, v.x), v.y), v.z), v.w);
+  }
+  if (qe + part < re) a = add_value(a, tv[qe + part]);
+  return a;
+}
 
-  // The first segment: it ends in this tile, or it fills the tile.
-  const int64_t f_begin = start[s_first];
-  const int64_t f_end = start[s_first + 1];
-  Acc a = block_rows(values, lo, f_end < hi ? f_end : hi, shared);
-  if (threadIdx.x == 0) {
-    if (f_begin >= lo && f_end <= hi) {
-      write_out(s_first, f_end - f_begin, a, count, sum, vmin, vmax);
-    } else {
-      write_slot(partials, tile, 0, a);
-    }
-  }
-  // The last segment, when it is another one: it starts in this tile.
-  if (s_last != s_first) {
-    const int64_t l_begin = start[s_last];
-    const int64_t l_end = start[s_last + 1];
-    a = block_rows(values, l_begin, hi, shared);
-    if (threadIdx.x == 0) {
-      if (l_end <= hi) {
-        write_out(s_last, l_end - l_begin, a, count, sum, vmin, vmax);
-      } else {
-        write_slot(partials, tile, 1, a);
-      }
-    }
-  }
-  // The segments between them lie wholly inside the tile: one warp
-  // each.  Empty ones are left to the fixup.
-  const int lane = threadIdx.x % kWarp;
-  for (int s = s_first + 1 + threadIdx.x / kWarp; s < s_last; s += kWarps) {
-    const int64_t b = start[s];
-    const int64_t e = start[s + 1];
-    if (b == e) continue;           // warp-uniform
-    a = warp_combine(strided_rows(values, b, e, lane, kWarp));
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(a), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A warp's last step for segment s (bounds [b, e)) whose rows in tile
+// [lo, hi) summed to ``a`` (valid in lane 0): the result when the segment
+// lies inside the tile; else a partial in the tile's slot 0 (the segment
+// began in an earlier tile) or slot 1 (it begins here), and the tile that
+// gives the segment's last partial (its ticket: an integer atomic with
+// release / acquire order) folds them all in tile order.  Every lane of
+// the warp calls it.
+__device__ void finish(int s, int64_t b, int64_t e, int64_t tile,
+                       int64_t lo, int64_t hi, Acc a, int lane,
+                       float* partials, int* tickets, int* count,
+                       float* sum, float* vmin, float* vmax) {
+  if (b >= lo && e <= hi) {
     if (lane == 0) write_out(s, e - b, a, count, sum, vmin, vmax);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) segment_fixup_kernel(
-    const int64_t* __restrict__ start, const float* __restrict__ partials,
-    int n_segments, int* __restrict__ count, float* __restrict__ sum,
-    float* __restrict__ vmin, float* __restrict__ vmax) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t s64 =
-      static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kWarp;
-  if (s64 >= n_segments) return;    // warp-uniform
-  const int s = static_cast<int>(s64);
-  const int64_t b = start[s];
-  const int64_t e = start[s + 1];
-  if (b == e) {
-    if (lane == 0) write_out(s, 0, acc_empty(), count, sum, vmin, vmax);
     return;
   }
   const int64_t t0 = b / kTile;
   const int64_t t1 = (e - 1) / kTile;
-  if (t0 == t1) return;             // written whole by its tile
-  // In its first tile the segment holds slot 1 unless it also opens
-  // that tile's rows (which begin at start[0] in the tile holding it);
-  // in every later tile it is the first segment, slot 0.
-  const int64_t opens = t0 * kTile > start[0] ? t0 * kTile : start[0];
-  const int first_slot = (b == opens) ? 0 : 1;
-  Acc a = acc_empty();
-  for (int64_t t = t0 + lane; t <= t1; t += kWarp) {
-    const float* p = partials + (t * 2 + (t == t0 ? first_slot : 0)) * kSlot;
-    a = combine(a, Acc{p[0], p[1], p[2]});
+  bool last = false;
+  if (lane == 0) {
+    float* p = partials + (tile * 2 + (b < lo ? 0 : 1)) * kSlot;
+    p[0] = a.sum;
+    p[1] = a.mn;
+    p[2] = a.mx;
+    // Release: the partial is visible before the ticket counts it.
+    int given;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(given) : "l"(tickets + s) : "memory");
+    last = given == static_cast<int>(t1 - t0);
   }
-  a = warp_combine(a);
-  if (lane == 0) write_out(s, e - b, a, count, sum, vmin, vmax);
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();
+  Acc f = acc_empty();
+#pragma unroll 4
+  for (int64_t u = t0 + lane; u <= t1; u += kWarp) {
+    const float* p = partials + (u * 2 + (u == t0 ? 1 : 0)) * kSlot;
+    f = combine(f, Acc{__ldcg(p), __ldcg(p + 1), __ldcg(p + 2)});
+  }
+  f = warp_combine(f);
+  if (lane == 0) write_out(s, e - b, f, count, sum, vmin, vmax);
 }
 
-__global__ void __launch_bounds__(kThreads) segment_zero_column_kernel(
-    const int64_t* __restrict__ start, int n_segments,
+template <bool kVec>
+__global__ void __launch_bounds__(kTileThreads) segment_tiles_kernel(
+    const int* __restrict__ ids, const float* __restrict__ values,
+    const int64_t* __restrict__ start, int64_t n, int n_segments,
+    int n_tiles, float* __restrict__ partials, int* __restrict__ tickets,
     int* __restrict__ count, float* __restrict__ sum,
     float* __restrict__ vmin, float* __restrict__ vmax) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_segments) return;
-  const int64_t n_rows = start[s + 1] - start[s];
+  __shared__ __align__(16) float tv[kTile];
+  // Per warp, the segments that cross its edges: slot 0 the one that
+  // began before its rows, slot 1 the one that begins there and runs on.
+  __shared__ Acc cross_acc[kTileWarps][2];
+  __shared__ int64_t cross_b[kTileWarps][2];
+  __shared__ int64_t cross_e[kTileWarps][2];
+  __shared__ int cross_s[kTileWarps][2];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int64_t tile = blockIdx.x;
+  const int64_t lo = tile * kTile;
+  const int64_t hi = lo + kTile < n ? lo + kTile : n;
+  const int64_t wlo = lo + int64_t{warp} * kWarpRows;
+  const int64_t whi = wlo + kWarpRows < hi ? wlo + kWarpRows : hi;
+  float* wv = tv + warp * kWarpRows;
+  // 1. The warp's rows into shared memory (16-byte asynchronous copies;
+  // single rows where the column is not 16-byte aligned or it ends
+  // mid-quad), streaming while the warp reads its bounds.
+  for (int q = lane; q < kWarpRows / 4; q += kWarp) {
+    const int64_t r = wlo + 4 * q;
+    if (kVec && r + 4 <= whi) {
+      cp_async16(wv + 4 * q, values + r);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        wv[4 * q + c] = r + c < whi ? __ldg(values + r + c) : 0.0f;
+      }
+    }
+  }
+  cp_async_commit();
+  if (lane < 2) cross_s[warp][lane] = -1;
+  if (wlo < whi) {                         // warp-uniform
+    // 2. Segments with rows here lie in [ids[wlo], ids[whi - 1]], clamped
+    // to [0, S); the warp owns the segments whose start lies in its rows
+    // (the last rows: up to n), from one past the id before them to one
+    // past their last id, and writes the empty ones among them.
+    auto clamp_seg = [n_segments](int64_t x) {
+      return static_cast<int>(x < 0 ? 0 : (x > n_segments ? n_segments : x));
+    };
+    const int id_lo = __ldg(ids + wlo);
+    const int id_hi = __ldg(ids + whi - 1);
+    const int own_lo =
+        wlo == 0 ? 0 : clamp_seg(int64_t{__ldg(ids + wlo - 1)} + 1);
+    const int own_hi =
+        whi == n ? n_segments : clamp_seg(int64_t{id_hi} + 1);
+    const int f = id_lo < 0 ? 0 : id_lo;
+    const int l = id_hi < n_segments ? id_hi + 1 : n_segments;
+    const int s_lo = f < own_lo ? f : own_lo;
+    const int s_hi = l > own_hi ? l : own_hi;  // exclusive
+    // Launch 1 (the bounds and the tickets) must be done from here on.
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    cp_async_wait_all();
+    __syncwarp();
+    // The bounds of 32 segments at a time, a lane each; the empty owned
+    // ones written at once, then each segment with rows here reduced by
+    // the warp.
+    for (int base = s_lo; base < s_hi; base += kWarp) {
+      const int my_s = base + lane;
+      const bool mine = my_s < s_hi;
+      const int64_t my_b = mine ? start[my_s] : 0;
+      const int64_t my_e = mine ? start[my_s + 1] : 0;
+      if (mine && my_b == my_e && my_s >= own_lo && my_s < own_hi) {
+        write_out(my_s, 0, acc_empty(), count, sum, vmin, vmax);
+      }
+      unsigned todo = __ballot_sync(
+          0xffffffffu, mine && my_b != my_e && my_b < whi && my_e > wlo);
+      while (todo) {
+        const int i = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int s = base + i;
+        const int64_t b = __shfl_sync(0xffffffffu, my_b, i);
+        const int64_t e = __shfl_sync(0xffffffffu, my_e, i);
+        const Acc a = warp_combine(tile_rows(wv, wlo, b > wlo ? b : wlo,
+                                             e < whi ? e : whi, lane, kWarp));
+        if (lane == 0) {
+          if (b >= wlo && e <= whi) {
+            write_out(s, e - b, a, count, sum, vmin, vmax);
+          } else {
+            const int slot = b < wlo ? 0 : 1;
+            cross_acc[warp][slot] = a;
+            cross_b[warp][slot] = b;
+            cross_e[warp][slot] = e;
+            cross_s[warp][slot] = s;
+          }
+        }
+      }
+    }
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  cp_async_wait_all();
+  __syncthreads();
+  if (warp != 0) return;
+  // 3. Warp 0 joins the warps' edges in warp order: lane w < kTileWarps the
+  // segment that begins in warp w's rows and runs on, lane kTileWarps the one
+  // that began before the block.  A joined segment inside the block is
+  // written out; one that crosses the block's edge goes on to finish().
+  int s = -1;
   Acc a = acc_empty();
-  if (n_rows > 0) a = Acc{0.0f, 0.0f, 0.0f};
-  write_out(s, n_rows, a, count, sum, vmin, vmax);
+  int64_t b = 0;
+  int64_t e = 0;
+  if (lane <= kTileWarps) {
+    const int w0 = lane < kTileWarps ? lane : 0;
+    const int slot = lane < kTileWarps ? 1 : 0;
+    s = cross_s[w0][slot];
+    if (s >= 0) {
+      a = cross_acc[w0][slot];
+      b = cross_b[w0][slot];
+      e = cross_e[w0][slot];
+      for (int w = w0 + 1; w < kTileWarps && cross_s[w][0] == s; ++w) {
+        a = combine(a, cross_acc[w][0]);
+      }
+      if (b >= lo && e <= hi) {
+        write_out(s, e - b, a, count, sum, vmin, vmax);
+        s = -1;
+      }
+    }
+  }
+  unsigned todo = __ballot_sync(0xffffffffu, s >= 0);
+  while (todo) {
+    const int i = __ffs(todo) - 1;
+    todo &= todo - 1;
+    Acc ai;
+    ai.sum = __shfl_sync(0xffffffffu, a.sum, i);
+    ai.mn = __shfl_sync(0xffffffffu, a.mn, i);
+    ai.mx = __shfl_sync(0xffffffffu, a.mx, i);
+    finish(__shfl_sync(0xffffffffu, s, i), __shfl_sync(0xffffffffu, b, i),
+           __shfl_sync(0xffffffffu, e, i), tile, lo, hi, ai, lane, partials,
+           tickets, count, sum, vmin, vmax);
+  }
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // ids [n] i32 sorted ascending (ids outside [0, n_segments) land in no
-// segment; the caller parks them at n_segments); values [n] f32, or null
-// for a zero column.  Scratch: start [n_segments + 1] i64 and partials
-// [ceil(n / kTile), 2, 3] f32 (see repro_segment_tile_rows; unused, and
-// may be null, when values is null).  Outputs count [n_segments] i32 and
-// sum / min / max [n_segments] f32.
+// segment; the caller parks them at n_segments); values [n] f32 (4-byte
+// aligned), or null for a zero column (n > 0 with values).  Scratch, used
+// only with values (else it may be null): start [n_segments + 1] i64,
+// partials [tiles, 2, 3] f32 and tickets [n_segments] i32, tiles =
+// ceil(n / kTile) (repro_segment_tile_rows).  Outputs count [n_segments]
+// i32 and sum / min / max [n_segments] f32, n_segments > 0.  *launched
+// is set to the launches made: 1 without values, 2 with.
 extern "C" int repro_segment_reduce_sorted(
     const void* ids, const void* values, void* start, void* partials,
-    void* count, void* sum, void* vmin, void* vmax, int64_t n,
-    int n_segments, void* stream) {
+    void* tickets, void* count, void* sum, void* vmin, void* vmax,
+    int64_t n, int n_segments, void* stream, int* launched) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_bounds = n_segments + 1;
-  segment_bounds_kernel<<<(n_bounds + kThreads - 1) / kThreads, kThreads, 0,
-                          st>>>(static_cast<const int*>(ids), n, n_bounds,
-                                static_cast<int64_t*>(start));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int* id = static_cast<const int*>(ids);
+  int* c = static_cast<int*>(count);
+  float* su = static_cast<float*>(sum);
+  float* mn = static_cast<float*>(vmin);
+  float* mx = static_cast<float*>(vmax);
+  *launched = 0;
   if (values == nullptr) {
-    if (n_segments > 0) {
-      segment_zero_column_kernel<<<(n_segments + kThreads - 1) / kThreads,
-                                   kThreads, 0, st>>>(
-          static_cast<const int64_t*>(start), n_segments,
-          static_cast<int*>(count), static_cast<float*>(sum),
-          static_cast<float*>(vmin), static_cast<float*>(vmax));
-    }
+    segment_counts_kernel<<<(n_segments + kSegsPerBlock - 1) / kSegsPerBlock,
+                            kThreads, 0, st>>>(id, n, n_segments, c, su, mn,
+                                               mx);
+    *launched = 1;
     return static_cast<int>(cudaGetLastError());
   }
-  const int64_t tiles = (n + kTile - 1) / kTile;
-  if (tiles > 0) {
-    segment_tiles_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-        static_cast<const int*>(ids), static_cast<const float*>(values),
-        static_cast<const int64_t*>(start), n_segments,
-        static_cast<float*>(partials), static_cast<int*>(count),
-        static_cast<float*>(sum), static_cast<float*>(vmin),
-        static_cast<float*>(vmax));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (n_segments > 0) {
-    segment_fixup_kernel<<<(n_segments + kWarps - 1) / kWarps, kThreads, 0,
-                           st>>>(
-        static_cast<const int64_t*>(start),
-        static_cast<const float*>(partials), n_segments,
-        static_cast<int*>(count), static_cast<float*>(sum),
-        static_cast<float*>(vmin), static_cast<float*>(vmax));
-  }
-  return static_cast<int>(cudaGetLastError());
+  int* tk = static_cast<int*>(tickets);
+  segment_bounds_kernel<<<(n_segments + 1 + kWarps - 1) / kWarps, kThreads,
+                          0, st>>>(id, n, n_segments,
+                                   static_cast<int64_t*>(start), tk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *launched = 1;
+  const float* v = static_cast<const float*>(values);
+  const bool vec = reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  auto kernel = vec ? &segment_tiles_kernel<true>
+                    : &segment_tiles_kernel<false>;
+  const int n_tiles = static_cast<int>((n + kTile - 1) / kTile);
+  // Programmatic dependent launch: its blocks may start streaming their
+  // rows while launch 1 still searches (griddepcontrol in both kernels).
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_tiles));
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, id, v,
+                           static_cast<const int64_t*>(start), n, n_segments,
+                           n_tiles, static_cast<float*>(partials), tk, c, su,
+                           mn, mx);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 2;
+  return static_cast<int>(err);
 }
 
-// Rows per tile block (the wrapper sizes the partials scratch with it).
-extern "C" int repro_segment_tile_rows() {
-  return static_cast<int>(repro_torch::kTile);
-}
+// Rows per tile block (the wrapper sizes the scratch with it).
+extern "C" int repro_segment_tile_rows() { return repro_torch::kTile; }

@@ -551,3 +551,140 @@ def test_cuda_segment_wrapper_contract(cuda_device, kind):
         torch.from_numpy(ids).to(cuda_device),
         None if vals is None else torch.from_numpy(vals).to(cuda_device), s)
     _assert_matches(got, ref.np_segment_reduce(ids, vals, s), "int")
+
+
+# ------------------- the redesigned segment kernel's cases and wrapper
+# The kernel's row tile (csrc/segment.cu kTile; the card's copy reports
+# it through repro_segment_tile_rows) sizes the long-span case.
+TILE_ROWS = 8192
+
+# (n rows, n segments, id kind): one segment; more segments than rows; a
+# row count that is no multiple of 4; one segment over more than 64 row
+# tiles among uniform ones.
+KERNEL_CASES = {
+    "one_segment": (3001, 1, "mixed"),
+    "more_segments_than_rows": (1003, 5000, "mixed"),
+    "odd_rows": (70001, 100, "mixed"),
+    "long_span": (1 << 20, 50, "long"),
+}
+
+
+def _kernel_case(case, kind):
+    """Sorted, parked ids and (for ``kind`` "int" / "float") their
+    values, straight to ``segment_reduce_sorted``."""
+    n, s, ids_kind = KERNEL_CASES[case]
+    rng = np.random.default_rng(list(KERNEL_CASES).index(case) + 40)
+    ids = rng.integers(-2, s + 2, size=n)
+    if ids_kind == "long":
+        span = 64 * TILE_ROWS + 1237
+        ids[(n - span) // 2:(n - span) // 2 + span] = s // 2
+    ids = np.sort(np.where((ids < 0) | (ids >= s), s, ids)).astype(np.int32)
+    vals = None if kind == "none" else (
+        rng.integers(-50, 50, size=n) if kind == "int"
+        else rng.random(n)).astype(np.float32)
+    return ids, vals, s
+
+
+@pytest.mark.parametrize("kind", ["int", "float", "none"])
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_segment_twin_on_kernel_cases(case, kind):
+    """The wrapper (the twin on the CPU) on the kernel's new cases against
+    the numpy oracle and the JAX ``ref`` backend; the long span really
+    covers more than 64 row tiles."""
+    ids, vals, s = _kernel_case(case, kind)
+    got = segment.segment_reduce_sorted(
+        torch.from_numpy(ids), None if vals is None else torch.from_numpy(
+            vals), s)
+    _assert_matches(got, ref.np_segment_reduce(ids, vals, s), kind)
+    jref = j_ops.segment_reduce(jnp.asarray(ids),
+                                None if vals is None else jnp.asarray(vals),
+                                n_segments=s, backend="ref")
+    _assert_matches(got, jref, kind)
+    if case == "long_span":
+        rows = np.flatnonzero(ids == s // 2)
+        assert rows[-1] // TILE_ROWS - rows[0] // TILE_ROWS > 64
+    if case == "more_segments_than_rows":
+        assert s > len(ids)
+
+
+def test_segment_twin_on_a_column_off_16_bytes():
+    """A value column that starts 4 bytes into a buffer gives the aligned
+    column's answer (the card's kernel reads it row by row)."""
+    ids, vals, s = _kernel_case("odd_rows", "float")
+    buf = torch.empty(len(vals) + 1)
+    buf[1:] = torch.from_numpy(vals)
+    view = buf[1:]
+    assert view.data_ptr() % 16 != 0
+    t_ids = torch.from_numpy(ids)
+    for a, b in zip(segment.segment_reduce_sorted(t_ids, view, s),
+                    segment.segment_reduce_sorted(
+                        t_ids, torch.from_numpy(vals), s)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n, s, values, want", [
+    (1 << 24, 3072, False, {}),
+    (0, 16, True, {}),
+    (1 << 24, 3072, True, {"start": ((3073,), torch.int64),
+                           "partials": ((2048, 2, 3), torch.float32),
+                           "tickets": ((3072,), torch.int32)}),
+    (8193, 1, True, {"start": ((2,), torch.int64),
+                     "partials": ((2, 2, 3), torch.float32),
+                     "tickets": ((1,), torch.int32)}),
+    (1, 5000, True, {"start": ((5001,), torch.int64),
+                     "partials": ((1, 2, 3), torch.float32),
+                     "tickets": ((5000,), torch.int32)}),
+])
+def test_segment_scratch_shapes(n, s, values, want):
+    """Counts (and an empty column) take no scratch; a value column takes
+    the bounds, two partials a tile and a ticket a segment."""
+    assert segment.scratch_shapes(n, s, TILE_ROWS, values) == want
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "values", "segments"])
+def test_segment_check_args_refuses(bad):
+    """The kernel's argument checks (run here on CPU tensors)."""
+    ids = torch.zeros(8, dtype=torch.int32)
+    vals = torch.zeros(8)
+    s = 4
+    if bad == "dtype":
+        ids = ids.long()
+    elif bad == "shape":
+        ids = ids.reshape(2, 4)
+    elif bad == "values":
+        vals = torch.zeros(7)
+    else:
+        s = -1
+    with pytest.raises(ValueError):
+        segment.check_args(ids, vals, s)
+    segment.check_args(torch.zeros(8, dtype=torch.int32), None, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "float", "none"])
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_cuda_segment_kernel_cases(cuda_device, case, kind):
+    """On the card: the new cases equal the oracle (f32 sums within
+    SUM_RTOL), a second launch is bit-equal, a call launches once without
+    values and twice with, and a column 4 bytes into a buffer gives the
+    aligned column's bits."""
+    from repro_torch.kernels import _build
+    ids, vals, s = _kernel_case(case, kind)
+    if case == "long_span":
+        assert _build.load().repro_segment_tile_rows() == TILE_ROWS
+    t_ids = torch.from_numpy(ids).to(cuda_device)
+    t_vals = None if vals is None else torch.from_numpy(vals).to(cuda_device)
+    _build.reset_launches()
+    got = segment.segment_reduce_sorted(t_ids, t_vals, s)
+    assert _build.LAUNCHES["segment_reduce_sorted"] == (1 if vals is None
+                                                        else 2)
+    again = segment.segment_reduce_sorted(t_ids, t_vals, s)
+    _assert_matches(got, ref.np_segment_reduce(ids, vals, s), kind)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if t_vals is not None:
+        buf = torch.empty(len(vals) + 1, device=cuda_device)
+        buf[1:] = t_vals
+        for a, b in zip(segment.segment_reduce_sorted(t_ids, buf[1:], s),
+                        got):
+            assert torch.equal(a, b)

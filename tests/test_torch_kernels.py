@@ -515,3 +515,85 @@ def test_cuda_crossings_one_matches_twin(cuda_device, e):
                             .reshape(e, 4), device=cuda_device)
     assert torch.equal(pip.crossings_one(pts, edges),
                        ref.crossings_one(pts, edges))
+
+
+# ------------------------- the redesigned bbox_mask kernel's shapes
+# Box counts in both of the kernel's layouts (flat: a super-row of
+# M / gcd(M, 16) 16-byte chunks fits the 256 threads; box tiles: 513, odd
+# and over 256) and point counts that are no multiple of anything.
+BBOX_BOXES = (1, 7, 16, 33, 56, 513, 3072)
+BBOX_ROWS = (0, 1, 1027)
+
+
+def _bbox_case(m, n):
+    """Seeded boxes (one in five empty), and n points: random ones with
+    NaN / inf / FAR rows and rows exactly on a box's xmin or ymax."""
+    rng = np.random.default_rng(m * 7 + n)
+    boxes = _random_boxes(rng, (m,), empty_frac=0.2)
+    pts = _odd_points(rng, max(n, 8))
+    k = np.arange(len(pts)) % m
+    pts[::13, 0] = boxes[k[::13], 0]
+    pts[5::17, 1] = boxes[k[5::17], 3]
+    return pts[-n:] if n else pts[:0], boxes
+
+
+def _plus8(t):
+    """``t`` ([n, 2] f32) as a view that starts 8 bytes into a buffer."""
+    buf = torch.empty(2 * t.shape[0] + 2, dtype=t.dtype, device=t.device)
+    buf[2:] = t.reshape(-1)
+    return buf[2:].view(-1, 2)
+
+
+@pytest.mark.parametrize("n", BBOX_ROWS)
+@pytest.mark.parametrize("m", BBOX_BOXES)
+def test_bbox_mask_twin_at_kernel_shapes(m, n):
+    """The wrapper (the twin on the CPU) against the reference oracle at
+    the kernel's shapes, on aligned points and on a view 8 bytes into a
+    buffer; NaN / inf / FAR rows match no box."""
+    pts, boxes = _bbox_case(m, n)
+    want = j_ref.bbox_mask(jnp.asarray(pts), jnp.asarray(boxes))
+    t_pts, t_boxes = torch.from_numpy(pts), torch.from_numpy(boxes)
+    for p in (t_pts, _plus8(t_pts)):
+        got = bbox.bbox_mask(p, t_boxes)
+        assert got.dtype == torch.int8 and got.shape == (n, m)
+        _eq(want, got)
+    bad = ~np.isfinite(pts).all(1) | (np.abs(pts) > 1e29).any(1)
+    assert not np.asarray(want)[bad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BBOX_ROWS + ((1 << 16) + 3,))
+@pytest.mark.parametrize("m", BBOX_BOXES)
+def test_cuda_bbox_mask_kernel_shapes(cuda_device, m, n):
+    """On the card: bit-equal to the twin at each shape, on aligned points
+    and on a view 8 bytes into a buffer; a second launch bit-equal; one
+    launch a call."""
+    from repro_torch.kernels import _build
+    pts, boxes = _bbox_case(m, n)
+    t_boxes = torch.from_numpy(boxes).to(cuda_device)
+    t_pts = torch.from_numpy(pts).to(cuda_device)
+    for p in (t_pts, _plus8(t_pts)):
+        _build.reset_launches()
+        got = bbox.bbox_mask(p, t_boxes)
+        assert _build.LAUNCHES["bbox_mask"] == (1 if n else 0)
+        assert torch.equal(got, bbox.bbox_mask(p, t_boxes))
+        assert torch.equal(got, ref.bbox_mask(p, t_boxes))
+
+
+def test_check_counts_each_launch(monkeypatch):
+    """``_build.check`` adds a call's launches to its kernel's count (two
+    for the segment kernel with a value column) and nothing on a failed
+    launch."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
+    _build.reset_launches()
+    _build.check(0, "segment_reduce_sorted", launches=2)
+    _build.check(0, "bbox_mask")
+    assert _build.LAUNCHES["segment_reduce_sorted"] == 2
+    assert _build.LAUNCHES["bbox_mask"] == 1
+    monkeypatch.setattr(_build, "load", lambda: type(
+        "Lib", (), {"repro_cuda_error_string": staticmethod(
+            lambda status: b"invalid argument")})())
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _build.check(1, "bbox_mask")
+    assert _build.LAUNCHES["bbox_mask"] == 1
