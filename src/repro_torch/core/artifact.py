@@ -1,5 +1,5 @@
-"""GeoIndexSet: the in-memory index artifact behind every strategy (port
-of src/repro/core/artifact.py; DESIGN.md §11).
+"""GeoIndexSet: the index artifact behind every strategy (port of
+src/repro/core/artifact.py; DESIGN.md §11).
 
 One object owns the host census and cell covering and the device indices
 derived from them (``SimpleIndex`` for the cascade, ``FastIndex`` for the
@@ -7,19 +7,49 @@ cell lookup, each with or without its edge pools), all on one
 ``device``.  Components build lazily through ``ensure``: strategies
 declare what they need and the engine ensures exactly that.
 ``capabilities()`` is the snapshot the registry's build-time validation
-and the planner read.  ``save``/``load`` (the npz + manifest format) come
-with a later slice.
+and the planner read.
+
+**Persistence** (``save``/``load``): the artifact writes its host
+primitives (the census polygon soups and the covering arrays) as one
+compressed npz beside a JSON manifest, in the JAX package's format: the
+same npz keys and dtypes, the same manifest keys, so an artifact saved
+by either package loads in the other.  Device indices are not stored:
+they are deterministic functions of the saved arrays, rebuilt by
+``ensure`` on the loading ``device``.  A cold start skips the covering
+BFS, the one build step that scales with the map's complexity.
+
+    idx = GeoIndexSet.build(census, components=("fast",), gbits=4)
+    idx.save("artifacts/national")
+    ...
+    idx = GeoIndexSet.load("artifacts/national", device="cuda")
+    eng = GeoEngine.from_index_set(idx, strategy="auto")
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 from repro_torch.core.cells import CellCovering, build_cell_covering
 from repro_torch.core.fast import FastIndex
-from repro_torch.core.geometry import CensusMap
+from repro_torch.core.geometry import CensusMap, PolygonSoup
 from repro_torch.core.simple import SimpleIndex
 from repro_torch.kernels import ops
+
+# v2 adds the ``tuning`` manifest block (the autotune record); v1
+# artifacts load with empty tuning.
+SCHEMA_VERSION = 2
+ACCEPTED_SCHEMA_VERSIONS = (1, 2)
+MANIFEST_NAME = "manifest.json"
+ARRAYS_NAME = "arrays.npz"
+FORMAT_NAME = "geo-index-set"
+
+_SOUP_FIELDS = ("verts", "n_verts", "bbox", "parent", "fips")
+_COVER_FIELDS = ("lo", "hi", "val", "level", "cand")
+_LEVELS = ("states", "counties", "blocks")
 
 
 @dataclasses.dataclass
@@ -38,8 +68,10 @@ class GeoIndexSet:
     max_level: int = 9
     gbits: int = 4
     max_cand: int = 8
-    # Autotune record (winner, be, device_kind, ...), as in the JAX
-    # package's manifest; the planner reads it.
+    # Autotune record, persisted in the manifest (schema v2) so a
+    # reloaded artifact plans from measurements.  Keys (all optional):
+    # "winner", "be", "device_kind", "pts_per_sec", "roofline_fraction",
+    # "recorded".
     tuning: Dict[str, Any] = dataclasses.field(default_factory=dict)
     device: Any = "cuda"
 
@@ -98,14 +130,34 @@ class GeoIndexSet:
         if self.census is None:
             raise ValueError(f"building {what} needs a census")
 
+    # -- autotune record ----------------------------------------------------
+
     def pool_be(self) -> int:
         """Edge-pool block size: the autotuned value when one is
         recorded, ``ops.DEF_BE`` otherwise."""
         return int(self.tuning.get("be") or 0) or ops.DEF_BE
 
+    def record_tuning(self, tuning: Dict[str, Any]) -> None:
+        """Merge an autotune result into the artifact (persisted by
+        ``save``).  When the recorded ``be`` changes the pool block size,
+        the built pools are dropped so the next ``ensure(..., pool=True)``
+        repacks at the tuned size."""
+        old_be = self.pool_be()
+        self.tuning = {**self.tuning, **tuning}
+        if self.pool_be() != old_be:
+            if self.fast is not None and self.fast.edge_pool is not None:
+                self.fast = dataclasses.replace(self.fast, edge_pool=None)
+            if self.simple is not None \
+                    and self.simple.state_pool is not None:
+                self.simple = dataclasses.replace(
+                    self.simple, state_pool=None, county_pool=None,
+                    block_pool=None)
+
     def memory_footprint(self) -> Dict[str, int]:
         """Bytes of the built device index and its pool (plus the pool's
-        block size); a lazy artifact reports 0s."""
+        block size), counted as the JAX package counts them: the pool's
+        ``blocks``, ``first`` and ``count`` (``EdgePool.nbytes()`` also
+        counts the port's ``live``).  A lazy artifact reports 0s."""
         fp = {"pool_be": self.pool_be(), "edge_pool_bytes": 0,
               "edge_pool_blocks": 0, "edge_pool_max_blocks": 0,
               "index_bytes": 0}
@@ -117,7 +169,9 @@ class GeoIndexSet:
                     fp["index_bytes"] += leaf.numel() * leaf.element_size()
             pool = self.fast.edge_pool
             if pool is not None:
-                fp["edge_pool_bytes"] = pool.nbytes()
+                fp["edge_pool_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for t in (pool.blocks, pool.first, pool.count))
                 fp["edge_pool_blocks"] = int(pool.blocks.shape[0])
                 fp["edge_pool_max_blocks"] = int(pool.max_blocks)
         return fp
@@ -136,3 +190,95 @@ class GeoIndexSet:
                           and self.fast.edge_pool is not None),
             "sharded": [],
         }
+
+    # -- persistence --------------------------------------------------------
+
+    def save(self, path: str) -> str:
+        """Write the artifact under directory ``path`` (created if
+        missing): ``manifest.json`` + ``arrays.npz`` (see the module
+        docstring for why device indices are not stored)."""
+        if self.census is None:
+            raise ValueError("GeoIndexSet.save needs at least a census")
+        os.makedirs(path, exist_ok=True)
+        arrays: Dict[str, np.ndarray] = {}
+        for lvl in _LEVELS:
+            soup = getattr(self.census, lvl)
+            for f in _SOUP_FIELDS:
+                arrays[f"census_{lvl}_{f}"] = np.asarray(getattr(soup, f))
+        # The extent rides in the npz as float64 (exact): the quant
+        # vector must see the same bounds after a reload.
+        arrays["extent"] = np.asarray(self.census.extent, np.float64)
+        components = ["census"]
+        if self.covering is not None:
+            for f in _COVER_FIELDS:
+                arrays[f"covering_{f}"] = np.asarray(
+                    getattr(self.covering, f))
+            components.append("covering")
+        manifest = {
+            "format": FORMAT_NAME,
+            "schema_version": SCHEMA_VERSION,
+            "components": components,
+            "max_level": int(self.max_level),
+            "gbits": int(self.gbits),
+            "max_cand": int(self.max_cand),
+            "counts": {
+                "states": self.census.states.n_poly,
+                "counties": self.census.counties.n_poly,
+                "blocks": self.census.blocks.n_poly,
+                "cells": (0 if self.covering is None
+                          else int(len(self.covering.lo))),
+            },
+            # Informational only: load() rebuilds device indices.
+            "built": self.capabilities(),
+            "tuning": self.tuning,
+        }
+        np.savez_compressed(os.path.join(path, ARRAYS_NAME), **arrays)
+        with open(os.path.join(path, MANIFEST_NAME), "w") as f:
+            json.dump(manifest, f, indent=2, sort_keys=True)
+        return path
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "GeoIndexSet":
+        """Reload an artifact directory for ``device``; ValueError on a
+        missing, foreign or newer-schema manifest.  Device indices
+        rebuild lazily through ``ensure``."""
+        mpath = os.path.join(path, MANIFEST_NAME)
+        if not os.path.exists(mpath):
+            raise ValueError(f"no {MANIFEST_NAME} under {path!r} — not a "
+                             f"saved GeoIndexSet")
+        with open(mpath) as f:
+            manifest = json.load(f)
+        if manifest.get("format") != FORMAT_NAME:
+            raise ValueError(f"manifest format {manifest.get('format')!r} "
+                             f"is not {FORMAT_NAME!r}")
+        version = manifest.get("schema_version")
+        if version not in ACCEPTED_SCHEMA_VERSIONS:
+            raise ValueError(
+                f"unsupported schema_version {version!r} (this build "
+                f"reads versions {sorted(ACCEPTED_SCHEMA_VERSIONS)}); "
+                f"re-save the artifact with a matching build")
+        with np.load(os.path.join(path, ARRAYS_NAME),
+                     allow_pickle=False) as z:
+            arrays = {k: z[k] for k in z.files}
+        extent = tuple(float(v) for v in arrays["extent"])
+        soups = {lvl: PolygonSoup(**{f: arrays[f"census_{lvl}_{f}"]
+                                     for f in _SOUP_FIELDS})
+                 for lvl in _LEVELS}
+        census = CensusMap(states=soups["states"],
+                           counties=soups["counties"],
+                           blocks=soups["blocks"], extent=extent)
+        covering = None
+        if "covering" in manifest.get("components", ()):
+            val = arrays["covering_val"]
+            covering = CellCovering(
+                **{f: arrays[f"covering_{f}"] for f in _COVER_FIELDS},
+                max_level=int(manifest["max_level"]), extent=extent,
+                n_interior=int((val >= 0).sum()),
+                n_boundary=int((val < 0).sum()))
+        return cls(census=census, covering=covering,
+                   max_level=int(manifest["max_level"]),
+                   gbits=int(manifest["gbits"]),
+                   max_cand=int(manifest["max_cand"]),
+                   # v1 manifests predate the tuning block: empty record.
+                   tuning=dict(manifest.get("tuning") or {}),
+                   device=device)

@@ -91,13 +91,26 @@ class GeoEngine:
     """Facade: plan once, build once, assign many (see module docstring)."""
 
     def __init__(self, strategy: str, cfg: Optional[EngineConfig] = None, *,
-                 indices: GeoIndexSet,
+                 indices: Optional[GeoIndexSet] = None,
+                 simple_index=None, fast_index=None, covering=None,
+                 census: Optional[CensusMap] = None,
                  plan: Optional[plan_mod.GeoPlan] = None):
-        """Wrap already-built indices.  Capability validation happens
-        HERE: a misconfigured engine never constructs."""
+        """Wrap already-built indices.  ``indices`` is the artifact; the
+        ``simple_index`` / ``fast_index`` / ``covering`` / ``census``
+        keywords are the legacy spelling, folded into one on the given
+        index's device ("cuda" when no index is given).  Capability
+        validation happens HERE: a misconfigured engine never
+        constructs."""
         self.cfg = cfg or EngineConfig()
         self._impl = get_strategy(strategy)
         self.strategy = strategy
+        if indices is None:
+            built = fast_index if fast_index is not None else simple_index
+            indices = GeoIndexSet(
+                census=census, covering=covering, simple=simple_index,
+                fast=fast_index, max_level=self.cfg.max_level,
+                gbits=self.cfg.gbits, max_cand=self.cfg.max_cand,
+                device=built.device if built is not None else "cuda")
         self.indices = indices
         self._impl.validate(indices, self.cfg)
         self.plan = plan if plan is not None else plan_mod.explicit_plan(

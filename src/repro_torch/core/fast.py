@@ -114,6 +114,23 @@ class FastIndex:
                    search_iters=search_iters)
 
 
+def unpart1by1(x: torch.Tensor) -> torch.Tensor:
+    """Gather the even bit positions of ``x`` into its low 16 bits (the
+    inverse of ``kernels.cascade.part1by1``)."""
+    x = x & 0x55555555
+    x = (x | (x >> 1)) & 0x33333333
+    x = (x | (x >> 2)) & 0x0F0F0F0F
+    x = (x | (x >> 4)) & 0x00FF00FF
+    x = (x | (x >> 8)) & 0x0000FFFF
+    return x
+
+
+def demorton(code: torch.Tensor):
+    """Inverse of ``morton``: int32 leaf codes -> (ix, iy) grid
+    coordinates."""
+    return unpart1by1(code), unpart1by1(code >> 1)
+
+
 def quant_for_extent(extent, max_level: int) -> np.ndarray:
     """THE quant vector: [4] f32 = (x0, y0, sx, sy) with s = 2^L / span."""
     x0, x1, y0, y1 = extent

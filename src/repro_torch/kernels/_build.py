@@ -76,14 +76,19 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+# Guards LAUNCHES and ROUTE_LAUNCHES: replica threads of the async
+# server launch kernels concurrently, and ``+=`` on a dict entry is a
+# read, an add and a write.
+_count_lock = threading.Lock()
 _lib = None
 BUILD_INFO: dict = {}     # path, seconds, cached, log — set by load()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, ROUTE_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
 def nvcc_path() -> str:
@@ -171,9 +176,10 @@ def check(status: int, kernel: str, route: str | None = None,
         msg = load().repro_cuda_error_string(status).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed with error "
                            f"{status} ({msg})")
-    LAUNCHES[kernel] += launches
-    if route is not None:
-        ROUTE_LAUNCHES[f"{kernel}:{route}"] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += launches
+        if route is not None:
+            ROUTE_LAUNCHES[f"{kernel}:{route}"] += 1
 
 
 def require(t, name: str, dtype, shape: tuple, device) -> None:

@@ -3,7 +3,8 @@ DESIGN.md §10, §14).
 
 Public surface:
 
-    from repro_torch.serving import GeoServer, ServeConfig    # sync
+    from repro_torch.serving import GeoServer, ServeConfig          # sync
+    from repro_torch.serving import AsyncGeoServer, FrontendConfig  # concurrent
 
 plus the composable pieces for custom serving loops: ``MicroBatcher`` /
 ``QueueFull`` (thread-safe micro-batching + backpressure),
@@ -16,8 +17,7 @@ registry, and ``ServeConfig(trace_device=True)`` +
 ``start_profile``/``stop_profile`` capture named device traces.
 Windowed streaming analytics (DESIGN.md §16) mounts behind the same
 facade: ``ServeConfig(analytics=AnalyticsConfig(...))`` +
-``GeoServer.snapshot_analytics()``.  The concurrent front end
-(``AsyncGeoServer``) is not ported yet.
+``GeoServer.snapshot_analytics()``.
 """
 from repro_torch.analytics import AnalyticsConfig
 from repro_torch.serving.batcher import (DEFAULT_BUCKETS, MicroBatch,
@@ -25,6 +25,7 @@ from repro_torch.serving.batcher import (DEFAULT_BUCKETS, MicroBatch,
                                          bucket_for, pad_points)
 from repro_torch.serving.cache import (CellTable, HotCellCache,
                                        np_extent_mask, np_quantize_codes)
+from repro_torch.serving.frontend import AsyncGeoServer, FrontendConfig
 from repro_torch.serving.metrics import LatencyWindow, ServerMetrics
 from repro_torch.serving.server import GeoServer, ServeConfig, ServeResult
 
@@ -34,4 +35,5 @@ __all__ = [
     "bucket_for", "pad_points", "CellTable", "HotCellCache",
     "np_extent_mask", "np_quantize_codes", "LatencyWindow",
     "ServerMetrics", "GeoServer", "ServeConfig", "ServeResult",
+    "AsyncGeoServer", "FrontendConfig",
 ]

@@ -44,13 +44,12 @@ This facade's serving loop is synchronous and single-threaded — the unit
 of concurrency here is the device batch.  The serve path keeps the
 reference's two stages (``_prepare_batch`` — routing + cache, ordered;
 ``_complete_batch`` — engine assigns), which its concurrent front-end
-(``frontend.AsyncGeoServer``, not ported yet) dispatches to replica
-workers.
+(``frontend.AsyncGeoServer``) dispatches to replica workers.
 
 Device tensors: routing, the cache and the analytics windows run on the
 host (numpy); each region's padded assign runs on its engine's device
 and only the [bucket] id rows come back.  ``GeoServer.from_artifact``
-needs ``GeoIndexSet.load``, which the port does not have yet.
+cold-starts a server from a saved ``GeoIndexSet`` (no covering BFS).
 """
 from __future__ import annotations
 
@@ -64,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.analytics import AnalyticsConfig, WindowedAggregator
+from repro_torch.core.artifact import GeoIndexSet
 from repro_torch.core.cells import build_cell_covering
 from repro_torch.core.engine import EngineConfig, GeoEngine
 from repro_torch.core.fast import np_extent_mask, np_quantize_codes
@@ -338,15 +338,17 @@ class GeoServer:
     @classmethod
     def from_artifact(cls, path: str, strategy: str = "auto",
                       cfg: Optional[ServeConfig] = None,
-                      engine_cfg: Optional[EngineConfig] = None
-                      ) -> "GeoServer":
-        """Not ported yet: a cold start needs ``GeoIndexSet.load``, which
-        comes with the slice that ports the async front end and the
-        artifact save/load (ROADMAP queue 1)."""
-        raise NotImplementedError(
-            "GeoServer.from_artifact is not ported to repro_torch yet: it "
-            "needs GeoIndexSet.save/load, which come with the front-end "
-            "and artifact slice (ROADMAP queue 1)")
+                      engine_cfg: Optional[EngineConfig] = None, *,
+                      device="cuda") -> "GeoServer":
+        """Cold start from a saved ``GeoIndexSet`` artifact
+        (core/artifact.py) on ``device``: the covering is read from disk
+        instead of rebuilt, the device indices are rebuilt from the saved
+        arrays, and the served ids equal those of the engine that saved
+        it.  ``strategy="auto"`` replans against the loaded capabilities
+        and the artifact's tuning record."""
+        indices = GeoIndexSet.load(path, device=device)
+        engine = GeoEngine.from_index_set(indices, strategy, engine_cfg)
+        return cls(engine, cfg, covering=indices.covering)
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -1,9 +1,10 @@
 """The port stands alone: no file under src/repro_torch, and not
-chip_smoke.py, imports ``jax`` or the JAX package ``repro`` (an AST scan
-of every import statement), importing the port's engine, serving,
+chip_smoke.py or the examples/torch_*.py twins, imports ``jax`` or the
+JAX package ``repro`` (an AST scan of every import statement), importing
+the port's engine, serving, front-end, artifact, enrichment, data,
 analytics, obs or model-stack modules loads neither, chip_smoke.py
-refuses to run without a CUDA device, and the serving launcher runs on
-the CPU only when asked (``--device cpu``).
+refuses to run without a CUDA device, and the serving launcher and the
+quickstart twin run on the CPU only when asked (``--device cpu``).
 """
 import ast
 import glob
@@ -19,7 +20,9 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "src", "repro_torch", "**",
                                     "*.py"), recursive=True)
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py"] + sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "examples", "torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -68,6 +71,10 @@ def test_engine_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("module", ["repro_torch.serving",
+                                    "repro_torch.serving.frontend",
+                                    "repro_torch.core.artifact",
+                                    "repro_torch.core.enrich",
+                                    "repro_torch.data",
                                     "repro_torch.analytics",
                                     "repro_torch.obs",
                                     "repro_torch.models.model",
@@ -115,3 +122,16 @@ def test_serve_launcher_needs_no_jax_and_no_fallback():
         return
     r = _run(args, cwd=REPO, env=env)
     assert r.returncode != 0 and "[serve]" not in r.stdout
+
+
+def test_quickstart_twin_needs_the_card_unless_asked():
+    """examples/torch_quickstart.py defaults to ``--device cuda`` and,
+    without a card, fails rather than falling back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the example would run")
+    assert "examples/torch_quickstart.py" in PORT_FILES
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = _run(["examples/torch_quickstart.py", "--points", "100"], cwd=REPO,
+             env=env)
+    assert r.returncode != 0 and "accuracy" not in r.stdout

@@ -15,10 +15,24 @@ on the card, and the wrappers' repairs:
   2)``): ``ops.aligned`` copies it, and every engine maps it as it maps
   the aligned copy.
 
+Two more, found later:
+
+* F4, the served footprint: ``GeoIndexSet.memory_footprint()`` counted
+  the pool's ``live`` [P] i32 in ``edge_pool_bytes``, which ``repro``
+  does not have, so a fused server's ``region0_*`` gauges differed from
+  ``repro``'s.  It now counts ``blocks``, ``first`` and ``count``
+  (``EdgePool.nbytes()`` stays the device total).
+* F5, the launch counters under threads: ``_build.check`` incremented
+  ``LAUNCHES`` outside any lock, and the async server's replica threads
+  launch concurrently.  The increments now hold ``_build._count_lock``.
+
 The cases marked ``cuda`` repeat each on the card, against the twins,
 and skip here; chip_smoke.py runs the same on the H100.
 """
 import dataclasses
+import sys
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +42,12 @@ import torch
 from repro.core.cells import build_cell_covering
 from repro.core.engine import EngineConfig as JConfig
 from repro.core.engine import GeoEngine as JEngine
+from repro.serving import GeoServer as JServer
+from repro.serving import ServeConfig as JServeConfig
 from repro_torch.core.cells import CellCovering
 from repro_torch.core.engine import EngineConfig, GeoEngine
 from repro_torch.kernels import _build, flash_attn, ops, ref
+from repro_torch.serving import GeoServer, ServeConfig
 
 NEEDS_CUDA = "needs a CUDA device; chip_smoke.py checks it"
 F32_ATOL = 2e-6
@@ -158,6 +175,97 @@ def test_aligned_copies_only_a_misaligned_view():
     assert ops.aligned(ok, 8) is ok
     strided = flat[:200].view(100, 2)[:, :1]
     assert ops.aligned(strided, 8).is_contiguous()
+
+
+# ------------------------------------------------------------------ F4
+def test_fused_footprint_and_gauges_match_repro(engines, points_small):
+    """A fused ``fast`` index and a fused server built the same way in
+    both packages: equal ``memory_footprint()`` and equal ``region0_*``
+    gauges in ``snapshot()`` and in the metrics text."""
+    census, cov, _, eng = engines
+    j = JEngine.build(census, "fast", JConfig(backend="ref", fused=True,
+                                              max_level=8), covering=cov)
+    t = eng["fast_fused"]
+    jfp, tfp = j.indices.memory_footprint(), t.indices.memory_footprint()
+    assert tfp == jfp and tfp["edge_pool_bytes"] > 0
+    pool = t.fast_index.edge_pool
+    assert pool.nbytes() == tfp["edge_pool_bytes"] + 4 * pool.n_poly
+    cfg = dict(buckets=(64, 256, 1024), cache=False)
+    js, ts = JServer(j, JServeConfig(**cfg)), GeoServer(t, ServeConfig(**cfg))
+    xy = points_small[0][:500]
+    js.submit(jnp.asarray(xy))
+    ts.submit(xy)
+
+    def region_gauges(snap):
+        return {k: v for k, v in snap["gauges"].items()
+                if k.startswith("region0_")}
+
+    jg, tg = region_gauges(js.snapshot()), region_gauges(ts.snapshot())
+    assert tg == jg and tg["region0_edge_pool_bytes"] > 0
+    lines = [ln for ln in ts.metrics_text().splitlines()
+             if "region0_" in ln and not ln.startswith("#")]
+    assert lines and lines == [
+        ln for ln in js.metrics_text().splitlines()
+        if "region0_" in ln and not ln.startswith("#")]
+
+
+# ------------------------------------------------------------------ F5
+def _hammer(n_threads=8, n_calls=10_000):
+    """``n_threads`` threads each call ``check(0, "bbox_mask")``
+    ``n_calls`` times, the interpreter switching threads as often as it
+    can; returns the count a lock-safe counter must reach."""
+    _build.reset_launches()
+    barrier = threading.Barrier(n_threads)
+
+    def work():
+        barrier.wait()
+        for _ in range(n_calls):
+            _build.check(0, "bbox_mask", route="r")
+
+    threads = [threading.Thread(target=work) for _ in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    return n_threads * n_calls
+
+
+class _YieldingCounts(dict):
+    """A counter dict that gives up the GIL between the read and the write
+    of ``d[k] += n`` — the preemption the interpreter allows there but
+    rarely takes."""
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        time.sleep(0)
+        return value
+
+
+def test_launch_counts_exact_under_threads(monkeypatch):
+    """8 threads call ``check(0, "bbox_mask")`` 10,000 times each (status
+    0 launches nothing, so this runs on the CPU): the count is exactly
+    80,000, also when every increment is preempted between its read and
+    its write."""
+    monkeypatch.setattr(_build, "ROUTE_LAUNCHES",
+                        {**_build.ROUTE_LAUNCHES, "bbox_mask:r": 0})
+    want = _hammer()
+    assert _build.LAUNCHES["bbox_mask"] == want
+    assert _build.ROUTE_LAUNCHES["bbox_mask:r"] == want
+    monkeypatch.setattr(_build, "LAUNCHES",
+                        _YieldingCounts(_build.LAUNCHES))
+    monkeypatch.setattr(_build, "ROUTE_LAUNCHES",
+                        _YieldingCounts(_build.ROUTE_LAUNCHES))
+    want = _hammer(n_calls=2_000)
+    assert _build.LAUNCHES["bbox_mask"] == want
+    assert _build.ROUTE_LAUNCHES["bbox_mask:r"] == want
+    monkeypatch.undo()
+    _build.reset_launches()
 
 
 @pytest.fixture(scope="module")

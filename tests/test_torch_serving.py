@@ -348,13 +348,28 @@ def test_warm_and_empty_requests(engines):
     assert server.flush() == 0
 
 
-def test_build_and_from_artifact(synth_small):
+def test_build_and_from_artifact(synth_small, points_small, tmp_path):
+    """``GeoServer.build`` on the CPU, then a cold start from the artifact
+    its engine saves: the same plan, ids and stats, the covering read
+    from disk (the cache needs it), the index on the asked device."""
     server = GeoServer.build(synth_small.census, "fast",
                              ServeConfig(buckets=BUCKETS, cache=False),
                              EngineConfig(max_level=7), device="cpu")
-    assert server.regions[0].engine.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="GeoIndexSet"):
-        GeoServer.from_artifact("unused")
+    engine = server.regions[0].engine
+    assert engine.device.type == "cpu"
+    engine.indices.save(str(tmp_path))
+    cold = GeoServer.from_artifact(str(tmp_path), strategy="fast",
+                                   cfg=ServeConfig(buckets=BUCKETS),
+                                   engine_cfg=engine.cfg, device="cpu")
+    cold_engine = cold.regions[0].engine
+    assert cold_engine.device.type == "cpu"
+    assert cold_engine.explain() == engine.explain()
+    assert cold.regions[0].cache is not None
+    xy = points_small[0][:700]
+    a, b = server.submit(xy), cold.submit(xy)
+    for field in ("state", "county", "block", "region"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    assert cold.stats[0].as_dict() == server.stats[0].as_dict()
 
 
 # -- multi-region routing ----------------------------------------------------
