@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Drives the port's mapping, analytics, serving, deployment and LM serving
-paths through their public entry points (``GeoEngine.build`` / ``assign``
-/ ``assign_padded``, ``ops.pip_one``, ``BlockAggregator``,
+Drives the port's mapping, analytics, serving, deployment, LM serving and
+training paths through their public entry points (``GeoEngine.build`` /
+``assign`` / ``assign_padded``, ``ops.pip_one``, ``BlockAggregator``,
 ``ops.assign_aggregate``, ``GeoServer``, ``GeoIndexSet.save`` /
 ``GeoServer.from_artifact``, ``AsyncGeoServer``, ``enrich``,
-``data.make_source``, ``repro_torch.launch.serve``) on the card:
+``data.make_source``, ``repro_torch.launch.serve``, ``launch.train``'s
+``setup`` / ``run_config`` with ``runtime.driver.train_loop`` over
+``runtime.steps.make_train_step``, ``checkpoint.manager``) on the card:
 
   1. prints the card (nvidia-smi name and power limit), torch and nvcc
      versions, and builds the CUDA kernels from ``src/repro_torch/
@@ -128,7 +130,32 @@ paths through their public entry points (``GeoEngine.build`` / ``assign``
         (8 x 2,048 tokens) over the ``fast`` engine: ``batch_at(0..3)``'s
         geo blocks equal a direct assign of the sampled points, its
         tokens a CPU source's, most points on the map, and
-        ``crossings_gathered`` launched.
+        ``crossings_gathered`` launched;
+  9. training (after phase 8):
+     a. ``make_flash_attn_trainable`` at [2, 2048, 16, 64] bf16: output
+        equal to ``flash_attn``'s bit for bit (the wgmma kernel launched
+        once), dq / dk / dv equal to ``torch.autograd.grad`` through
+        ``blockwise_attn`` bit for bit;
+     b. Qwen1.5-0.5B at full width built to train (f32 master weights,
+        random from TRAIN_SEED), ``launch.train.run_config`` with remat
+        "full", 8 x 2,048 GeoEnriched tokens over the ``fast`` engine,
+        ``train_loop`` over ``make_train_step`` for a warm-up step and 4
+        timed ones: each step launches ``flash_attn_bhsd`` 48 times (24
+        forward + 24 recompute), all on wgmma, and nothing else of the
+        eight; the warm-up's calls each held against the twin; losses
+        and grad norms finite, the first ce near ln(V), the loss falling;
+        step ms, tok/s, peak device memory; one more step split into
+        forward / backward / optimizer (CUDA events) and one under
+        torch.profiler (busy share, top kernels and operators);
+     c. the step's loss, ce and grad norm against the plain path's (the
+        same parameters and batch with flash's twin in the kernel's
+        place), within TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL;
+     d. one checkpoint save and restore of the full-width state (params,
+        m, v; free disk printed first), timed, the restored tensors equal
+        to the saved ones;
+     e. ``train_loop`` at the reduced config, 8 x 2,048 tokens: a failure
+        injected at step 6, restored from step 4, ends with parameters
+        and optimizer state equal to a run without it, bit for bit.
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -146,6 +173,7 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -224,6 +252,18 @@ FAULT_TILE = 12               # keys 1,536-1,663 of the prefill's 2,048
 # The cascade's extra batches: 2^20 boundary points, 2^20 interior ones,
 # and a ragged 2^20 + 37 with off-extent points mixed in.
 CASCADE_SEED, CASCADE_BATCH, CASCADE_RAGGED = 7, 1 << 20, (1 << 20) + 37
+# Training (phase 9): Qwen1.5-0.5B at full width, a warm-up step then
+# TRAIN_STEPS - 1 timed ones of TRAIN_BATCH x TRAIN_SEQ tokens; the
+# trainable flash checked at one [B, S, H, D] bf16 shape; the restart at
+# the reduced config.  The first ce sits near ln(V) (random weights give
+# unit-scale logits, which add ~0.5).  The kernel's step against the
+# plain path's (flash's twin on the card): the CPU tests' bounds of the
+# port's step against repro's (tests/test_torch_train.py: loss 5e-3
+# absolute, grad norm 5e-3 relative).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 5, 8, 2048, 0
+TRAIN_FLASH_SHAPE = (2, 2048, 16, 64)
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 8, 4, 6
+TRAIN_CE0_TOL, TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL = 1.0, 5e-3, 5e-3
 # Teacher-forced logits (f32, scale ~1): decode against forward over the
 # same tokens, both in bf16 through 24 layers; on an H100 they came
 # 0.068-0.071 apart (the CPU tests see 0.05 between repro and the port
@@ -265,6 +305,7 @@ ENGINE_KERNELS = {
     "lm_prefill": ("flash_attn_bhsd",),
     "lm_decode": (),
     "lm_forward": ("flash_attn_bhsd",),
+    "train_step": ("flash_attn_bhsd",),
 }
 # The main-path run whose calls each kernel's row is measured on.
 ROW_PATH = {"assign_cascade": "fast_onepass",
@@ -1049,7 +1090,7 @@ def lm_path(smoke, result, launches, main_calls, faulty):
     # tokens; position S - 1 + i predicts generated token i.
     full = torch.cat([prompts, gen_tok], dim=1)
     run = serve_mod.run_config(LM_PROMPT)
-    with smoke.capture(keep=[]) as cap:
+    with smoke.capture(keep=[]) as cap, torch.no_grad():
         smoke.build.reset_launches()
         logits, _ = model.forward(run, {"tokens": full})
         torch.cuda.synchronize()
@@ -1113,10 +1154,12 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def profile_busy(fn) -> dict:
+def profile_busy(fn, top: int = 5, ops: bool = False) -> dict:
     """Run ``fn`` once under torch.profiler: host wall ms (synchronized),
-    device ms summed over kernels, the busy share, launches and the top
-    kernels by device time."""
+    device ms summed over kernels, the busy share, launches and the
+    ``top`` kernels by device time; with ``ops``, also the ``top``
+    operators (aten ops and the like) by the device time of the kernels
+    they launched themselves."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1126,14 +1169,20 @@ def profile_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=device_us, reverse=True)
     busy = sum(device_us(e) for e in kernels) / 1e3
-    return dict(wall_ms=wall, device_ms=busy, busy=busy / wall,
-                launches=sum(e.count for e in kernels),
-                top=[(e.key[:60], device_us(e) / 1e3, e.count)
-                     for e in kernels[:5]])
+    out = dict(wall_ms=wall, device_ms=busy, busy=busy / wall,
+               launches=sum(e.count for e in kernels),
+               top=[(e.key[:60], device_us(e) / 1e3, e.count)
+                    for e in kernels[:top]])
+    if ops:
+        cpu = sorted((e for e in events if e.device_type == DeviceType.CPU
+                      and device_us(e) > 0), key=device_us, reverse=True)
+        out["ops"] = [(e.key[:60], device_us(e) / 1e3, e.count)
+                      for e in cpu[:top]]
+    return out
 
 
 def lm_timing(model, prompts, gen_tok, result, card) -> None:
@@ -1733,6 +1782,338 @@ def pipeline_phase(smoke, engine, cpu_engine, pts, want_ids, result):
           f"tokens == the CPU source's (points {ulps} ulps apart), {on_map} "
           f"of {PIPE_STEPS * PIPE_BATCH} on the map, launches "
           f"{out['pipeline_launches']}")
+
+
+def trainable_flash_check(smoke) -> dict:
+    """Phase 9a: ``make_flash_attn_trainable`` at TRAIN_FLASH_SHAPE bf16 on
+    the card: its output equals ``flash_attn``'s (the kernel, no grad) bit
+    for bit, its gradients equal ``torch.autograd.grad`` through
+    ``blockwise_attn`` (the program its backward runs) bit for bit, and
+    its forward launched the tensor-core kernel once."""
+    from repro_torch.models.attention import blockwise_attn
+    b, s, h, d = TRAIN_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    f = smoke.flash.make_flash_attn_trainable(causal=True)
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    out = f(q, k, v)
+    torch.cuda.synchronize()
+    launches = dict(smoke.build.ROUTE_LAUNCHES)
+    check(launches["flash_attn_bhsd:wgmma"] == 1
+          and smoke.build.LAUNCHES["flash_attn_bhsd"] == 1,
+          f"trainable flash: launches {launches}, not one wgmma call")
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    with torch.no_grad():
+        want = smoke.flash.flash_attn(q, k, v, causal=True)
+    check(torch.equal(out.detach(), want), "trainable flash: output differs "
+                                           "from flash_attn's")
+    c = min(1024, s)
+    ref = blockwise_attn(q, k, v, causal=True, chunk_q=c, chunk_kv=c)
+    want_g = torch.autograd.grad(ref, (q, k, v), g)
+    for name, a, w in zip("qkv", grads, want_g):
+        check(torch.equal(a, w), f"trainable flash: d{name} differs from "
+                                 f"autograd through blockwise_attn "
+                                 f"(max abs err {max_abs_err(a, w, name)})")
+    print(f"phase 9: make_flash_attn_trainable at {list(TRAIN_FLASH_SHAPE)} "
+          f"bf16: output == flash_attn (the wgmma kernel, launched once: "
+          f"{ {k: n for k, n in launches.items() if n} }), dq / dk / dv == "
+          f"autograd through blockwise_attn (chunk {c}) bit for bit")
+    return {"shape": list(TRAIN_FLASH_SHAPE), "launches": launches}
+
+
+def twin_flash(smoke):
+    """``flash_attn_bhsd`` replaced by its plain twin (at the route's KV
+    tile) inside the block: the plain path of the training step."""
+    ref, flash = smoke.ref, smoke.flash
+    saved = flash.flash_attn_bhsd
+
+    def twin(q, k, v, *, causal=True):
+        return ref.flash_attn_bhsd(q, k, v, causal=causal,
+                                   bk=flash.kv_tile(q.dtype, q.shape[2]))
+
+    @contextlib.contextmanager
+    def ctx():
+        flash.flash_attn_bhsd = twin
+        try:
+            yield
+        finally:
+            flash.flash_attn_bhsd = saved
+    return ctx()
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def state_of(params, opt) -> dict:
+    return {**{f"params/{k}": p for k, p in params.items()},
+            **{f"m/{k}": t for k, t in opt.m.items()},
+            **{f"v/{k}": t for k, t in opt.v.items()}, "step": opt.step}
+
+
+def checkpoint_round_trip(params, opt, root, result) -> None:
+    """Phase 9d: one save and one restore of the full-width state (params,
+    m, v: f32; the step), timed; every restored tensor equal to the saved
+    one after the live tensors were moved (+1)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    free = shutil.disk_usage(root).free
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in state_of(params, opt).values())
+    print(f"phase 9: checkpoint at full width: {state_bytes / 1e9:.3f} GB of "
+          f"state; {free / 1e9:.1f} GB free on the disk under {root}")
+    path = os.path.join(root, "ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    mgr = CheckpointManager(path, keep=1, async_save=False)
+    before = {k: t.detach().clone() for k, t in state_of(params, opt).items()}
+    step = int(opt.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(step, {"params": params, "opt": opt})
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(path)
+    with torch.no_grad():
+        for t in state_of(params, opt).values():
+            t.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.restore(step, {"params": params, "opt": opt})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for k, t in state_of(params, opt).items():
+        check(torch.equal(t, before[k]), f"checkpoint: {k} restored unequal")
+    keys = len(mgr.meta(step)["keys"])
+    shutil.rmtree(path)
+    result["checkpoint"] = dict(state_bytes=state_bytes, disk_bytes=nbytes,
+                                free_bytes=free, save_s=save_s,
+                                restore_s=restore_s, keys=keys)
+    print(f"phase 9: checkpoint save {save_s:.2f} s ({nbytes} B on disk, "
+          f"{keys} keys, {nbytes / save_s / 1e9:.3g} GB/s), restore "
+          f"{restore_s:.2f} s ({nbytes / restore_s / 1e9:.3g} GB/s); every "
+          f"restored tensor == the saved one")
+
+
+def restart_check(smoke, root, result) -> None:
+    """Phase 9e: ``train_loop`` at the reduced config, TRAIN_BATCH x
+    TRAIN_SEQ tokens (vocab 512: tokens repeat, so the embedding's
+    backward sums duplicates), RESTART_STEPS steps, a checkpoint every
+    RESTART_EVERY; with a failure injected at RESTART_FAIL its final
+    parameters and optimizer state equal a run without it, bit for
+    bit."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.driver import DriverConfig, train_loop
+    from repro_torch.runtime.steps import make_train_step
+    cfg = get_reduced_config(LM_ARCH)
+    run = train_mod.run_config(LM_ARCH, RESTART_STEPS, TRAIN_SEQ,
+                               remat="full")
+    src = SyntheticLM(cfg=cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      seed=TRAIN_SEED, device="cuda")
+    runs = []
+    for name, fail in (("clean", None), ("fault", {RESTART_FAIL})):
+        model, params, opt = train_mod.setup(cfg, seed=TRAIN_SEED,
+                                             device="cuda")
+        dcfg = DriverConfig(total_steps=RESTART_STEPS,
+                            ckpt_every=RESTART_EVERY,
+                            ckpt_dir=os.path.join(root, f"restart_{name}"),
+                            keep=2, log_every=RESTART_STEPS)
+        smoke.build.reset_launches()
+        t0 = time.perf_counter()
+        params, opt, hist = train_loop(make_train_step(model, run), params,
+                                       opt, src, dcfg, fail_at=fail,
+                                       log=lambda *_: None)
+        runs.append((params, opt, hist, time.perf_counter() - t0,
+                     dict(smoke.build.ROUTE_LAUNCHES)))
+    (p1, o1, h1, s1, l1), (p2, o2, h2, s2, l2) = runs
+    check(h1["restarts"] == 0 and h2["restarts"] == 1
+          and h2["steps_run"] == RESTART_STEPS + RESTART_FAIL - RESTART_EVERY,
+          f"restart: histories {h1} / {h2}")
+    check(int(o1.step) == int(o2.step) == RESTART_STEPS, "restart: steps")
+    diff = [k for k in p1 if not (torch.equal(p1[k], p2[k])
+                                  and torch.equal(o1.m[k], o2.m[k])
+                                  and torch.equal(o1.v[k], o2.v[k]))]
+    check(not diff, f"restart: {len(diff)} tensors differ from the clean "
+                    f"run's, first {diff[:3]}")
+    check(l1["flash_attn_bhsd:simt"] > 0, f"restart: flash launches {l1}")
+    result["restart"] = dict(steps=RESTART_STEPS, clean_s=s1, fault_s=s2,
+                             loss=h1["loss"], launches=l1)
+    print(f"phase 9: restart at the reduced config ({TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, vocab {cfg.vocab}): failure at step {RESTART_FAIL}, "
+          f"restored from step {RESTART_EVERY}; {len(p1)} params and their "
+          f"m, v == the clean run's bit for bit (clean {s1:.2f} s, with the "
+          f"restart {s2:.2f} s; flash {l1['flash_attn_bhsd:simt']} launches "
+          f"on the CUDA-core route); loss {h1['loss'][0]:.4f} -> "
+          f"{h1['loss'][-1]:.4f}")
+    shutil.rmtree(os.path.join(root, "restart_clean"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "restart_fault"), ignore_errors=True)
+
+
+def train_phase(smoke, engine, result) -> dict:
+    """Phase 9: training on the card (see the module doc).  Returns the
+    flash kernel's launches on the training path, for the kernels line."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import make_source
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.driver import DriverConfig, train_loop
+    out = result["train"] = {
+        "trainable_flash": trainable_flash_check(smoke)}
+    cfg = get_config(LM_ARCH)
+    n_flash = 2 * cfg.n_layers      # forward + the remat="full" recompute
+    root = str(smoke.build.BUILD_ROOT.parent / "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, params, opt = train_mod.setup(cfg, seed=TRAIN_SEED, device="cuda")
+    run = train_mod.run_config(LM_ARCH, TRAIN_STEPS, TRAIN_SEQ, remat="full")
+    src = make_source(cfg, ShapeConfig("train_smoke", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"), seed=TRAIN_SEED, geo=engine,
+                      device="cuda")
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    # The step train_loop calls, timed and counted: every counter set to 0
+    # just before a step and read just after it (the batch's geo join runs
+    # before, in batch_at); the warm-up step's flash calls each held
+    # against the twin as they run.
+    inner = steps.make_train_step(model, run)
+    rec = []
+
+    def step(params, opt, batch):
+        torch.cuda.synchronize()
+        smoke.build.reset_launches()
+        t0 = time.perf_counter()
+        with (smoke.capture(keep=[]) if not rec
+              else contextlib.nullcontext()) as cap:
+            params, opt, metrics = inner(params, opt, batch)
+            loss = float(metrics["loss"])
+        rec.append(dict(
+            s=time.perf_counter() - t0, loss=loss, ce=float(metrics["ce"]),
+            grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
+            launches=dict(smoke.build.LAUNCHES),
+            routes=dict(smoke.build.ROUTE_LAUNCHES),
+            checked=cap and dict(cap.checked["flash_attn_bhsd"])))
+        return params, opt, metrics
+
+    dcfg = DriverConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                        ckpt_dir=os.path.join(root, "loop"), keep=1,
+                        log_every=1)
+    t0 = time.perf_counter()
+    params, opt, hist = train_loop(step, params, opt, src, dcfg)
+    out["loop_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    shutil.rmtree(os.path.join(root, "loop"))
+    for i, r in enumerate(rec):
+        for kname, n in r["launches"].items():
+            check((n > 0) == (kname in ENGINE_KERNELS["train_step"]),
+                  f"train step {i}: {kname} launched {n} times")
+        check(r["launches"]["flash_attn_bhsd"] == n_flash
+              and r["routes"]["flash_attn_bhsd:wgmma"] == n_flash,
+              f"train step {i}: flash launches {r['routes']}, not {n_flash} "
+              f"on the tensor cores")
+        check(all(math.isfinite(r[k]) for k in ("loss", "grad_norm")),
+              f"train step {i}: loss {r['loss']}, grad norm "
+              f"{r['grad_norm']}")
+    checked = rec[0]["checked"]
+    check(checked["calls"] == n_flash, f"train warm-up: {checked['calls']} "
+                                       f"flash calls held against the twin")
+    lnv = math.log(cfg.vocab)
+    check(abs(rec[0]["ce"] - lnv) < TRAIN_CE0_TOL,
+          f"train: first ce {rec[0]['ce']} not near ln(V) = {lnv:.4f}")
+    check(hist["loss"] == [r["loss"] for r in rec]
+          and hist["loss"][-1] < hist["loss"][0] and hist["restarts"] == 0,
+          f"train: losses {hist['loss']} do not fall")
+    timed = [r["s"] for r in rec[1:]]
+    step_s = float(np.median(timed))
+    out.update(steps=rec, step_s=step_s, step_s_all=timed,
+               tok_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+               flash_per_step=n_flash, params=model.param_count())
+    print(f"phase 9: {cfg.name} at full width ({out['params']} params, f32 "
+          f"master weights, remat full, z-loss {run.z_loss}) through "
+          f"train_loop over make_train_step, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"GeoEnriched tokens ({card_line()}): losses "
+          f"{[round(x, 4) for x in hist['loss']]} (ln V = {lnv:.4f}), grad "
+          f"norms {[round(r['grad_norm'], 4) for r in rec]}, lr "
+          f"{[r['lr'] for r in rec]}; each step launched "
+          f"flash_attn_bhsd {n_flash} times, all on wgmma, and nothing else "
+          f"of the eight; the warm-up's {checked['calls']} calls each == twin "
+          f"(max abs err {checked['max_abs_err']:.3g}); step "
+          f"{step_s * 1e3:.1f} ms (median of {timed}), "
+          f"{out['tok_s']:.5g} tok/s; peak device memory "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB; train_loop with its two "
+          f"checkpoints {out['loop_s']:.1f} s")
+    batch = src.batch_at(TRAIN_STEPS)
+    # Forward / backward (with the remat recompute) / optimizer on the
+    # card, by CUDA events around the step's own pieces.
+    loss_fn = steps.make_loss_fn(model, run)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = loss_fn(batch)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    ev[2].record()
+    adamw.update(dict(zip(params, grads)), opt, params, run,
+                 adamw.schedule(run, opt.step))
+    ev[3].record()
+    torch.cuda.synchronize()
+    out["split_ms"] = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in
+                       enumerate(("forward", "backward", "optimizer"))}
+    del loss, grads
+    out["profile"] = profile_busy(
+        lambda: float(inner(params, opt, batch)[2]["loss"]), top=10,
+        ops=True)
+    p = out["profile"]
+    print(f"phase 9: a step on the card: forward "
+          f"{out['split_ms']['forward']:.1f} ms, backward (with the "
+          f"recompute) {out['split_ms']['backward']:.1f} ms, optimizer "
+          f"{out['split_ms']['optimizer']:.1f} ms; under torch.profiler: "
+          f"wall {p['wall_ms']:.1f} ms, device {p['device_ms']:.1f} ms (busy "
+          f"{p['busy']:.1%}), {p['launches']} launches; top kernels "
+          + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in p["top"])
+          + "; top operators " + "; ".join(f"{k} {ms:.1f} ms x{n}"
+                                           for k, ms, n in p["ops"]))
+    # The plain path: the same parameters and batch, flash's twin in the
+    # kernel's place.
+    grad_fn = steps.make_grad_fn(model, run)
+    cmp = {}
+    for name in ("kernel", "plain"):
+        with (twin_flash(smoke) if name == "plain"
+              else contextlib.nullcontext()):
+            smoke.build.reset_launches()
+            g, m = grad_fn(params, batch)
+            cmp[name] = dict(loss=float(m["loss"]), ce=float(m["ce"]),
+                             grad_norm=float(adamw.global_norm(g)),
+                             flash=smoke.build.LAUNCHES["flash_attn_bhsd"])
+            del g, m
+    k, pl = cmp["kernel"], cmp["plain"]
+    check(k["flash"] == n_flash and pl["flash"] == 0,
+          f"train plain path: flash launches {k['flash']} / {pl['flash']}")
+    check(abs(k["loss"] - pl["loss"]) <= TRAIN_LOSS_ATOL
+          and abs(k["ce"] - pl["ce"]) <= TRAIN_LOSS_ATOL
+          and abs(k["grad_norm"] - pl["grad_norm"])
+          <= TRAIN_GNORM_RTOL * pl["grad_norm"],
+          f"train: the kernel's step differs from the plain path's: {cmp}")
+    out["plain_path"] = cmp
+    print(f"phase 9: the step's loss / ce / grad norm on the kernel "
+          f"{k['loss']:.6f} / {k['ce']:.6f} / {k['grad_norm']:.6f} vs the "
+          f"plain path (flash's twin) {pl['loss']:.6f} / {pl['ce']:.6f} / "
+          f"{pl['grad_norm']:.6f} (tol {TRAIN_LOSS_ATOL} abs, "
+          f"{TRAIN_GNORM_RTOL} rel)")
+    checkpoint_round_trip(params, opt, root, out)
+    del model, params, opt, inner, loss_fn, grad_fn, src
+    torch.cuda.empty_cache()
+    restart_check(smoke, root, out)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"train_step": n_flash, "train_run": sum(
+        r["launches"]["flash_attn_bhsd"] for r in rec)}
 
 
 def host_map():
@@ -2362,10 +2743,19 @@ def main() -> int:
     pipeline_phase(smoke, engines["fast"], cpu_engine, pts, ids["fast"],
                    result)
     phase_s["pipeline"] = time.perf_counter() - t_start
+    # -- 9. training -----------------------------------------------------------
+    torch.cuda.empty_cache()
+    train_launches = train_phase(smoke, engines["fast"], result)
+    phase_s["train"] = time.perf_counter() - t_start
+    # Flash's launches: this slice's main path, the training run (and, by
+    # path, the prefill's and a training step's).
+    flash_kernel["launches_by_path"] = {
+        "lm_prefill": flash_kernel["launches"], **train_launches}
+    flash_kernel["launches"] = train_launches["train_run"]
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = phase_s["pipeline"]
+    result["total_s"] = phase_s["train"]
     result["phase_end_s"] = phase_s
     print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")

@@ -37,9 +37,16 @@ route.
 
 ``flash_attn`` is ``repro``'s [B, S, H, D] convenience wrapper (GQA by
 repeating the KV heads), with its tile-multiple assert for callers that
-pass ``bq`` / ``bk``; the dense model's prefill and forward reach it
-through ``ops.flash_attn``.  ``make_flash_attn_trainable`` (a backward that recomputes
-through ``blockwise_attn``) comes with the training slice.
+pass ``bq`` / ``bk``; the dense model's prefill and its forward without
+grad reach it through ``ops.flash_attn``.  Neither is differentiable:
+``flash_attn_bhsd`` raises when grad is enabled and an input requires
+grad (the kernel's launch is invisible to autograd, so its inputs would
+get no gradient).  ``make_flash_attn_trainable`` (``repro``'s
+``custom_vjp``, here a ``torch.autograd.Function``) is the path under
+autograd: its forward is ``flash_attn``, its backward recomputes
+through ``models.attention.blockwise_attn`` at ``chunk = min(chunk, S)``
+and returns that program's gradients.  ``repro`` has no backward kernel,
+and neither has the port.
 
 CPU tensors go to the plain twin ``ref.flash_attn_bhsd`` at the KV tile
 of the route the call would take on the card (``kv_tile``), so the CPU
@@ -131,6 +138,9 @@ def flash_attn_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     -> [BH, S, D] in q's dtype.  On the card, D is padded and BH chunked
     (at most ``MAX_BH`` heads a launch) by ``run_padded``."""
     bh, s, d = q.shape
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attn_bhsd is not differentiable: use "
+                           "make_flash_attn_trainable under autograd")
     if q.device.type == "cpu":
         return ref.flash_attn_bhsd(q, k, v, causal=causal,
                                    bk=kv_tile(q.dtype, d))
@@ -178,3 +188,46 @@ def flash_attn(q, k, v, *, causal: bool = True, bq: int | None = None,
     assert all(t is None or s % min(t, s) == 0 for t in (bq, bk)), \
         f"seq {s} must be a multiple of the tile ({bq}, {bk})"
     return attend_bshd(flash_attn_bhsd, q, k, v, causal=causal)
+
+
+class _TrainableFlash(torch.autograd.Function):
+    """``repro``'s ``custom_vjp``: forward by ``flash_attn``, backward by
+    autograd through ``blockwise_attn`` recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        return flash_attn(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.models.attention import blockwise_attn, repeat_kv
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        h, s = q.shape[2], q.shape[1]
+        c = min(ctx.chunk, s)
+        with torch.enable_grad():
+            # repeat_kv is jnp.repeat(axis=2) by expand + reshape: its
+            # backward sums the group in a fixed order.
+            o = blockwise_attn(q, repeat_kv(k, h), repeat_kv(v, h),
+                               causal=ctx.causal, chunk_q=c, chunk_kv=c)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
+def make_flash_attn_trainable(*, causal: bool = True, bq: int | None = None,
+                              bk: int | None = None, chunk: int = 1024):
+    """Training-capable flash attention (src/repro/kernels/flash_attn.py
+    ``make_flash_attn_trainable``): the forward runs ``flash_attn`` (the
+    kernel on the card, its twin on the CPU); the backward recomputes
+    through ``blockwise_attn`` at chunk ``min(chunk, S)``, no score tiles
+    saved.  ``bq`` / ``bk`` keep ``flash_attn``'s tile-multiple contract.
+
+    Returns f(q [B,S,H,D], k/v [B,S,KH,D]) -> [B,S,H,D].
+    """
+    def f(q, k, v):
+        s = q.shape[1]
+        assert all(t is None or s % min(t, s) == 0 for t in (bq, bk)), \
+            f"seq {s} must be a multiple of the tile ({bq}, {bk})"
+        return _TrainableFlash.apply(q, k, v, causal, chunk)
+    return f

@@ -8,13 +8,17 @@ full or rolling-window.
 
 The one place where the port's call graph differs from ``repro``'s:
 ``self_attn`` sends causal or full self-attention without a sliding
-window (S == T, dv == d, no query offset) to ``ops.flash_attn``, the
-port of the Pallas flash kernel, where ``repro`` calls
-``blockwise_attn``.  On a CUDA tensor that launches
-``kernels/csrc/flash_attn.cu``; on the CPU it runs the kernel's plain
-twin.  With a sliding window it keeps ``blockwise_attn``.  The two
-agree to rounding: the flash kernel sums the f32 probabilities into
-``l`` where ``blockwise_attn`` sums them after rounding to bf16.
+window (S == T, dv == d, no query offset) to the port of the Pallas
+flash kernel, where ``repro`` calls ``blockwise_attn``: to
+``ops.flash_attn`` when no gradient is wanted, and to
+``make_flash_attn_trainable`` (the kernel forward, a backward that
+recomputes through ``blockwise_attn``) when grad is enabled and an input
+requires grad.  On a CUDA tensor the forward launches the kernel
+(``kernels/csrc/flash_attn_wgmma.cu`` or ``flash_attn.cu``); on the CPU
+it runs the kernel's plain twin.  With a sliding window it keeps
+``blockwise_attn``.  The two agree to rounding: the flash kernel sums
+the f32 probabilities into ``l`` where ``blockwise_attn`` sums them
+after rounding to bf16.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense, dense_spec, \
     rope_tables
@@ -96,9 +101,13 @@ def blockwise_attn(q, k, v, *, causal: bool, window: Optional[int] = None,
 def self_attn(q, k, v, *, causal: bool, window: Optional[int],
               chunk_q: int, chunk_kv: int):
     """Self-attention of q [B, S, H, D] over k, v [B, S, KH, D]: the flash
-    kernel (``ops.flash_attn``) without a sliding window, else
-    ``blockwise_attn`` (see the module doc)."""
+    kernel without a sliding window (trainable under autograd, else
+    ``ops.flash_attn``), else ``blockwise_attn`` (see the module doc)."""
     if window is None:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return flash_kernels.make_flash_attn_trainable(
+                causal=causal)(q, k, v)
         return ops.flash_attn(q, k, v, causal=causal)
     return blockwise_attn(q, k, v, causal=causal, window=window,
                           chunk_q=chunk_q, chunk_kv=chunk_kv)

@@ -6,25 +6,38 @@ per block in an ``nn.ModuleList``, named after ``repro``'s tree:
 ``blocks.{i}.attn.wq.w``, ``embed.table``, ``unembed.w``) on an explicit
 device, and whose methods drop the params argument:
 
-  * ``forward(run, batch) -> (logits [B, S, V] f32, aux)``;
+  * ``forward(run, batch) -> (logits [B, S, V] f32, aux)`` — the training
+    and teacher-forced path, differentiable; ``run.remat`` wraps each
+    block in ``torch.utils.checkpoint`` as ``repro``'s ``_wrap_remat``
+    wraps it in ``jax.checkpoint`` (when grad is enabled);
   * ``init_cache(batch, max_len) -> cache`` (zeros);
   * ``decode_step(run, tokens [B, 1], cache) -> (logits [B, 1, V], cache)``
     — the caches are written in place, one slot per layer;
   * ``prefill(run, tokens [B, S], max_len) -> (last logits [B, 1, V],
     cache)`` — the serving entry point.
 
-All four run under ``torch.inference_mode()``.  The blocks' dense
-weights and biases are stored in the activation dtype (bf16), cast once
-at load: the same bits as ``repro``'s per-call cast in ``dense``.  Norm
-scales, the embedding table and the unembedding stay f32 (``repro``
-reads them in f32).  Self-attention without a sliding window goes
-through the flash kernel (``attention.self_attn``), where ``repro``
-calls ``blockwise_attn``.
+The last three run under ``torch.inference_mode()``.  Two builds:
+
+  * serving (``trainable=False``, the default): the blocks' dense
+    weights and biases are stored in the activation dtype (bf16), cast
+    once at load — the same bits as ``repro``'s per-call cast in
+    ``dense``; norm scales, the embedding table and the unembedding stay
+    f32 (``repro`` reads them in f32); no parameter has a gradient;
+  * training (``trainable=True``): every leaf in its spec's dtype (f32
+    master weights, as ``repro``'s params are), with a gradient; ``dense``
+    casts to bf16 on each call, as ``repro`` does.
+
+Self-attention without a sliding window goes through the flash kernel
+(``attention.self_attn``), where ``repro`` calls ``blockwise_attn``;
+under autograd through ``make_flash_attn_trainable``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
@@ -66,18 +79,48 @@ def _positions(s, device):
     return torch.arange(s, dtype=torch.int32, device=device)
 
 
+# The products "dots" keeps (``jax.checkpoint_policies.checkpoint_dots``):
+# the aten ops a matmul or einsum decomposes into.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _wrap_remat(fn, run):
+    """``fn`` under ``run.remat`` (``repro``'s ``_wrap_remat``): "none" as
+    it is; "dots" keeps the matrix products and recomputes the rest;
+    anything else ("full") recomputes the whole block in the backward.  Non-reentrant
+    ``torch.utils.checkpoint``, and only while grad is enabled (without
+    it nothing is saved to recompute)."""
+    if run.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if run.remat == "dots":
+        ctx = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint.checkpoint, fn,
+                                 use_reentrant=False, context_fn=ctx)
+    return functools.partial(checkpoint.checkpoint, fn, use_reentrant=False)
+
+
 class Model(nn.Module):
     """Base of the port's models: the config, the spec tree in
     ``repro``'s layout (stacked blocks) and the head parameters."""
 
-    def __init__(self, cfg: ModelConfig, specs: dict, device):
+    def __init__(self, cfg: ModelConfig, specs: dict, device,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.specs = specs
-        self.embed = ParamTree(specs["embed"], device)
-        self.final_norm = ParamTree(specs["final_norm"], device)
+        head = functools.partial(ParamTree, device=device,
+                                 requires_grad=trainable)
+        self.embed = head(specs["embed"])
+        self.final_norm = head(specs["final_norm"])
         if "unembed" in specs:
-            self.unembed = ParamTree(specs["unembed"], device)
+            self.unembed = head(specs["unembed"])
 
     @property
     def device(self) -> torch.device:
@@ -96,26 +139,28 @@ class Model(nn.Module):
 class DenseModel(Model):
     """L x [attn + ffn] decoder (``repro``'s ``build_dense``)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
         block = tf.dense_block_spec(cfg)
         specs = dict(_head_specs(cfg))
         specs["blocks"] = stack(block, cfg.n_layers)
-        super().__init__(cfg, specs, device)
+        super().__init__(cfg, specs, device, trainable)
         self.blocks = nn.ModuleList(
-            ParamTree(block, device, _block_dtype)
+            ParamTree(block, device, None if trainable else _block_dtype,
+                      requires_grad=trainable)
             for _ in range(cfg.n_layers))
 
     def _cache_len(self, max_len):
         w = self.cfg.sliding_window
         return min(max_len, w) if w else max_len
 
-    @torch.inference_mode()
     def forward(self, run, batch):
         tokens = batch["tokens"]
         x = embed(self.embed, tokens)
         pos = _positions(tokens.shape[1], x.device)
+        blk = _wrap_remat(
+            lambda p, x: tf.dense_block(p, self.cfg, run, x, pos), run)
         for p in self.blocks:
-            x = tf.dense_block(p, self.cfg, run, x, pos)
+            x = blk(p, x)
         return self._logits(x), {}
 
     @torch.inference_mode()
@@ -167,11 +212,13 @@ class DenseModel(Model):
         return self._logits(x[:, -1:, :]), cache
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> Model:
+def build_model(cfg: ModelConfig, device="cuda", *,
+                trainable: bool = False) -> Model:
     """The port's model for ``cfg``, its parameters allocated (not
-    initialized) on ``device``: load them with ``params_from_numpy``."""
+    initialized) on ``device``: load them with ``params_from_numpy``.
+    ``trainable`` builds it to train (see the module doc)."""
     if cfg.family == "dense":
-        return DenseModel(cfg, device)
+        return DenseModel(cfg, device, trainable)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "

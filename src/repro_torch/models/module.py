@@ -106,23 +106,26 @@ def param_bytes(specs) -> int:
 
 class ParamTree(nn.Module):
     """Parameters laid out as a spec tree: a submodule per dict level, an
-    uninitialized parameter per ``P`` leaf (no gradient: the port serves;
-    the training slice turns it on).  ``dtype_of(name, spec)`` may store a
-    leaf in another dtype than its spec's (see ``model.py``).  ``tree[k]``
-    and ``k in tree`` read it like ``repro``'s dicts, so the layer
-    functions take a module or a plain dict alike."""
+    uninitialized parameter per ``P`` leaf, with a gradient only when
+    ``requires_grad`` (a model built to train; a serving model's
+    parameters have none).  ``dtype_of(name, spec)`` may store a leaf in
+    another dtype than its spec's (see ``model.py``).  ``tree[k]`` and
+    ``k in tree`` read it like ``repro``'s dicts, so the layer functions
+    take a module or a plain dict alike."""
 
-    def __init__(self, specs: dict, device, dtype_of=None, prefix: str = ""):
+    def __init__(self, specs: dict, device, dtype_of=None, prefix: str = "",
+                 requires_grad: bool = False):
         super().__init__()
         for k, v in specs.items():
             name = f"{prefix}.{k}" if prefix else k
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v, device, dtype_of, name))
+                self.add_module(k, ParamTree(v, device, dtype_of, name,
+                                             requires_grad))
             else:
                 dtype = dtype_of(name, v) if dtype_of else v.dtype
                 self.register_parameter(k, nn.Parameter(
                     torch.empty(v.shape, dtype=dtype, device=device),
-                    requires_grad=False))
+                    requires_grad=requires_grad))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

@@ -2,9 +2,10 @@
 chip_smoke.py or the examples/torch_*.py twins, imports ``jax`` or the
 JAX package ``repro`` (an AST scan of every import statement), importing
 the port's engine, serving, front-end, artifact, enrichment, data,
-analytics, obs or model-stack modules loads neither, chip_smoke.py
-refuses to run without a CUDA device, and the serving launcher and the
-quickstart twin run on the CPU only when asked (``--device cpu``).
+analytics, obs, model-stack or training modules (optimizer, checkpoint
+manager, driver, train launcher) loads neither, chip_smoke.py refuses to
+run without a CUDA device, and the serving launcher and the quickstart
+twin run on the CPU only when asked (``--device cpu``).
 """
 import ast
 import glob
@@ -39,13 +40,16 @@ def _imported_roots(path):
 
 
 def test_port_files_found():
-    assert len(PORT_FILES) >= 61
+    assert len(PORT_FILES) >= 67
     for path in ("core/engine.py", "serving/server.py",
                  "analytics/aggregate.py", "obs/profile.py",
                  "kernels/segment.py", "models/model.py",
                  "kernels/flash_attn.py", "launch/serve.py",
-                 "runtime/steps.py", "configs/qwen1_5_0_5b.py"):
+                 "runtime/steps.py", "configs/qwen1_5_0_5b.py",
+                 "optim/adamw.py", "checkpoint/manager.py",
+                 "runtime/driver.py", "launch/train.py"):
         assert f"src/repro_torch/{path}" in PORT_FILES
+    assert "examples/torch_train_lm.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -79,12 +83,17 @@ def test_engine_import_loads_no_jax():
                                     "repro_torch.obs",
                                     "repro_torch.models.model",
                                     "repro_torch.launch.serve",
-                                    "repro_torch.runtime.steps"])
+                                    "repro_torch.runtime.steps",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.checkpoint.manager",
+                                    "repro_torch.runtime.driver",
+                                    "repro_torch.launch.train"])
 def test_slice_import_loads_no_jax(module):
-    """The serving, analytics and obs packages and the model stack load
-    neither ``jax`` nor ``repro`` (the server pulls in the engine, the
-    kernels and numpy copies of the reference's host modules; the model
-    stack the configs, which are copies, and the kernels)."""
+    """The serving, analytics and obs packages, the model stack and the
+    training modules load neither ``jax`` nor ``repro`` (the server pulls
+    in the engine, the kernels and numpy copies of the reference's host
+    modules; the model stack the configs, which are copies, and the
+    kernels; the train launcher the data pipeline)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = _run(["-c", f"import sys, {module}; "
               "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
