@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Drives the port's mapping, analytics, serving, deployment, LM serving and
-training paths through their public entry points (``GeoEngine.build`` /
-``assign`` / ``assign_padded``, ``ops.pip_one``, ``BlockAggregator``,
-``ops.assign_aggregate``, ``GeoServer``, ``GeoIndexSet.save`` /
-``GeoServer.from_artifact``, ``AsyncGeoServer``, ``enrich``,
-``data.make_source``, ``repro_torch.launch.serve``, ``launch.train``'s
-``setup`` / ``run_config`` with ``runtime.driver.train_loop`` over
-``runtime.steps.make_train_step``, ``checkpoint.manager``) on the card:
+Drives the port's mapping, analytics, serving, deployment, LM serving,
+training and MoE paths through their public entry points
+(``GeoEngine.build`` / ``assign`` / ``assign_padded``, ``ops.pip_one``,
+``BlockAggregator``, ``ops.assign_aggregate``, ``GeoServer``,
+``GeoIndexSet.save`` / ``GeoServer.from_artifact``, ``AsyncGeoServer``,
+``enrich``, ``data.make_source``, ``repro_torch.launch.serve``,
+``launch.train``'s ``setup`` / ``run_config`` with
+``runtime.driver.train_loop`` over ``runtime.steps.make_train_step``,
+``checkpoint.manager``, and the MoE family through
+``make_prefill_step`` and ``launch.serve``) on the card:
 
   1. prints the card (nvidia-smi name and power limit), torch and nvcc
      versions, and builds the CUDA kernels from ``src/repro_torch/
@@ -155,7 +157,34 @@ training paths through their public entry points (``GeoEngine.build`` /
         to the saved ones;
      e. ``train_loop`` at the reduced config, 8 x 2,048 tokens: a failure
         injected at step 6, restored from step 4, ends with parameters
-        and optimizer state equal to a run without it, bit for bit.
+        and optimizer state equal to a run without it, bit for bit;
+ 10. the MoE family (after phase 9):
+     a. Mixtral-8x7B at its published widths, MOE_LAYERS of 32 layers,
+        random weights drawn leaf by leaf (``launch.serve.load_model``):
+        ``runtime.steps.make_prefill_step`` over MOE_BATCH x MOE_SEQ
+        tokens launches ``flash_attn_bhsd`` once a layer (S <= window),
+        all on the tensor-core route, and nothing else of the eight; each
+        call held against the twin and the planted fault shown to fail
+        it; the forward's logits within LOGIT_TOL of the plain path's
+        (flash's twin), that run routed as the kernel's (each choice of
+        its own that differs a near tie, ROUTE_GAP) and dropping the
+        same choices; step tok/s, peak memory and a profile by part
+        (router, dispatch, expert products, flash, unembedding); the
+        flash kernel timed at that shape beside its bound and
+        ``scaled_dot_product_attention``;
+     b. ``launch.serve.serve`` with MOE_SERVE (the prompt fed token by
+        token: the MoE model has no ``prefill``, as in ``repro``): no
+        kernel of the eight launched, tok/s;
+     c. the no-drop copy (capacity_factor E / k): decode over the prompt
+        and generated tokens, routed as a teacher-forced ``forward``
+        routed, within LOGIT_TOL of its logits, argmax equal where its
+        margin is clear;
+     d. DeepSeek-V2 at its published widths, DSV2_LAYERS of 60 layers:
+        a forward over DSV2_BATCH x DSV2_SEQ and the token-loop serve of
+        DSV2_SERVE, no kernel of the eight launched (head dim 192; MLA);
+     e. Mixtral's reduced config trained MOE_TRAIN_STEPS steps through
+        ``launch.train.setup`` and ``train_loop``: losses finite,
+        ``lb_loss`` and ``dropped`` reported.
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -264,6 +293,25 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 5, 8, 2048, 0
 TRAIN_FLASH_SHAPE = (2, 2048, 16, 64)
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 8, 4, 6
 TRAIN_CE0_TOL, TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL = 1.0, 5e-3, 5e-3
+# Phase 10, the MoE family: Mixtral-8x7B at its published widths, cut to
+# MOE_LAYERS of 32 layers (32 are 93 GB in bf16, more than the card's 80),
+# forward over MOE_BATCH x MOE_SEQ tokens, served MOE_SERVE (prompts,
+# prompt tokens, generated tokens) through the token loop; DeepSeek-V2 at
+# its published widths, DSV2_LAYERS of 60 (the dense first layer and two
+# MoE layers, ~20 GB); Mixtral's reduced config trained MOE_TRAIN_STEPS
+# steps at MOE_TRAIN_SEQ (<= its window of 32).  Two runs of the port
+# compared (kernel vs plain path, decode vs forward) are routed alike: the
+# second takes the first's expert choices, and each choice of its own
+# that differs must be a near tie, the k-th and (k+1)-th probabilities
+# within ROUTE_GAP (tests/moe_pair.py's bound).  Random weights leave
+# the router's probabilities close together, so near ties are common.
+MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_SEQ, MOE_SEED = (
+    "mixtral-8x7b", 8, 8, 2048, 0)
+MOE_SERVE = (8, 128, 32)
+DSV2_ARCH, DSV2_LAYERS, DSV2_BATCH, DSV2_SEQ = "deepseek-v2-236b", 3, 2, 2048
+DSV2_SERVE = (2, 64, 16)
+MOE_TRAIN_STEPS, MOE_TRAIN_SEQ = 2, 32
+ROUTE_GAP = 2.0 ** -6
 # Teacher-forced logits (f32, scale ~1): decode against forward over the
 # same tokens, both in bf16 through 24 layers; on an H100 they came
 # 0.068-0.071 apart (the CPU tests see 0.05 between repro and the port
@@ -1145,33 +1193,56 @@ def lm_path(smoke, result, launches, main_calls, faulty):
     return model, prompts, gen_tok
 
 
-def device_us(evt) -> float:
+def device_us(evt, names=("self_device_time_total",
+                          "self_cuda_time_total")) -> float:
     """A profiler event's own device microseconds (the attribute's name
     differs across torch versions)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+    for name in names:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
 
 
-def profile_busy(fn, top: int = 5, ops: bool = False) -> dict:
+def device_total(evt) -> float:
+    """A profiler event's device microseconds, its children's included."""
+    return device_us(evt, ("device_time_total", "cuda_time_total"))
+
+
+def profile_busy(fn, top: int = 5, ops: bool = False, ranges=()) -> dict:
     """Run ``fn`` once under torch.profiler: host wall ms (synchronized),
     device ms summed over kernels, the busy share, launches and the
     ``top`` kernels by device time; with ``ops``, also the ``top``
     operators (aten ops and the like) by the device time of the kernels
-    they launched themselves."""
+    they launched themselves; with ``ranges`` ((module, attribute,
+    label), ...), each of those functions wrapped in a
+    ``record_function(label)`` range for the run, and ``ranges`` {label:
+    (device ms of the kernels launched inside, calls)}."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = []
+    for mod, attr, label in ranges:
+        real = getattr(mod, attr)
+
+        def wrap(*a, _real=real, _label=label, **kw):
+            with record_function(_label):
+                return _real(*a, **kw)
+        saved.append((mod, attr, real))
+        setattr(mod, attr, wrap)
+    labels = {label for _, _, label in ranges}
+    try:
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
     events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=device_us, reverse=True)
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and e.key not in labels), key=device_us, reverse=True)
     busy = sum(device_us(e) for e in kernels) / 1e3
     out = dict(wall_ms=wall, device_ms=busy, busy=busy / wall,
                launches=sum(e.count for e in kernels),
@@ -1182,6 +1253,10 @@ def profile_busy(fn, top: int = 5, ops: bool = False) -> dict:
                       and device_us(e) > 0), key=device_us, reverse=True)
         out["ops"] = [(e.key[:60], device_us(e) / 1e3, e.count)
                       for e in cpu[:top]]
+    if ranges:
+        out["ranges"] = {e.key: (device_total(e) / 1e3, e.count)
+                         for e in events if e.key in labels
+                         and e.device_type == DeviceType.CPU}
     return out
 
 
@@ -1232,10 +1307,11 @@ def lm_timing(model, prompts, gen_tok, result, card) -> None:
               + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in p["top"]))
 
 
-def flash_row(smoke, calls, launches: int) -> dict:
-    """The flash kernel's row, per call at the prefill's shape ([B * H,
-    S, hd] bf16, causal: ``calls`` holds the prefill's first call),
-    beside its twin and PyTorch's fused attention on the same tensors
+def flash_row(smoke, calls, launches: int, batch: int = LM_BATCH,
+              path: str = "lm_prefill") -> dict:
+    """The flash kernel's row, per call at a path's shape ([B * H, S, hd]
+    bf16, causal: ``calls`` holds the path's first call, ``batch`` its
+    B), beside its twin and PyTorch's fused attention on the same tensors
     viewed [B, H, S, hd] (timed only; the port never calls it)."""
     (q, k, v), kw, (out,) = calls[0]
     err = smoke.compare("flash_attn_bhsd", calls)
@@ -1245,7 +1321,7 @@ def flash_row(smoke, calls, launches: int) -> dict:
         q, k, v, **kw, bk=smoke.flash.kv_tile(q.dtype, q.shape[2])),
         2)                                             # without the spread
     bh, s, d = q.shape
-    q4, k4, v4 = (x.view(LM_BATCH, bh // LM_BATCH, s, d) for x in (q, k, v))
+    q4, k4, v4 = (x.view(batch, bh // batch, s, d) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_diff = float((sdpa(q4, k4, v4, is_causal=True).float().reshape(
         out.shape) - out.float()).abs().max())
@@ -1253,8 +1329,8 @@ def flash_row(smoke, calls, launches: int) -> dict:
     bound, bound_by, nbytes, n_ops = flash_bound(q, kw["causal"])
     route = smoke.flash.flash_route(q.dtype, q.shape[2])
     print(f"flash_attn_bhsd ({route} route): {ms:.4f} ms per call at "
-          f"{list(q.shape)} bf16 causal (the lm_prefill path: {launches} calls, "
-          f"{ms * launches:.2f} ms a prefill; {n_ops / ms / 1e9:.4g} "
+          f"{list(q.shape)} bf16 causal (the {path} path: {launches} calls, "
+          f"{ms * launches:.2f} ms a pass; {n_ops / ms / 1e9:.4g} "
           f"TFLOP/s) vs plain twin {plain:.3f} ms, "
           f"scaled_dot_product_attention {library:.4f} ms (output within "
           f"{lib_diff:.3g} of the kernel's; kernel / library "
@@ -2116,6 +2192,443 @@ def train_phase(smoke, engine, result) -> dict:
         r["launches"]["flash_attn_bhsd"] for r in rec)}
 
 
+class RouteLog:
+    """The port's router calls inside ``record()``: ([T, k] ids, [T] gap
+    between the k-th and (k+1)-th probability), on the host, in call
+    order (one call a MoE layer a pass)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe = moe
+
+    @contextlib.contextmanager
+    def record(self, force=None):
+        """With ``force`` (another run's calls, in order), each call routes
+        as that run's did: its ids, weighted by this run's probabilities
+        at them (renormalized, as the router does); the call's own choice
+        is what is recorded."""
+        calls, real = [], self.moe._router
+
+        def rec(params, cfg, x2d):
+            out = real(params, cfg, x2d)
+            probs = torch.softmax(x2d.float() @ params["router"]["w"].float(),
+                                  dim=-1)
+            top = probs.topk(cfg.top_k + 1, dim=-1).values
+            calls.append((out[1].cpu(), (top[:, -2] - top[:, -1]).cpu()))
+            if force is None:
+                return out
+            ids = force[len(calls) - 1][0].to(x2d.device)
+            p = probs.gather(1, ids.long())
+            return p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-9), ids, \
+                out[2]
+        self.moe._router = rec
+        try:
+            yield calls
+        finally:
+            self.moe._router = real
+
+
+def route_flips(ref_calls, calls, what) -> int:
+    """The routing choices of ``calls`` that differ from ``ref_calls``'
+    (the same pass in another run); each must be a near tie in the
+    reference, its k-th and (k+1)-th probabilities within ROUTE_GAP.
+    Returns their count."""
+    check(len(ref_calls) == len(calls) > 0, f"{what}: router calls "
+                                            f"{len(ref_calls)} vs {len(calls)}")
+    flips = 0
+    for (rids, gap), (ids, _) in zip(ref_calls, calls):
+        flip = (rids.sort(-1).values != ids.sort(-1).values).any(-1)
+        bad = flip & (gap >= ROUTE_GAP)
+        check(not bool(bad.any()),
+              f"{what}: routing differs at a clear gap (tokens "
+              f"{bad.nonzero().flatten()[:5].tolist()}, gaps "
+              f"{gap[bad][:5].tolist()})")
+        flips += int(flip.sum())
+    return flips
+
+
+def moe_load(arch, layers, result_key, result):
+    """``arch``'s full config cut to ``layers`` layers, on the card with
+    random weights (``launch.serve.load_model``, drawn leaf by leaf)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = serve_mod.load_model(cfg, seed=MOE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    result[result_key] = dict(
+        layers=layers, published_layers=get_config(arch).n_layers,
+        params=model.param_count(), weight_bytes=weights,
+        load_s=time.perf_counter() - t0,
+        load_peak_bytes=torch.cuda.max_memory_allocated() - base)
+    r = result[result_key]
+    print(f"phase 10: {cfg.name} at full width, {layers} of "
+          f"{r['published_layers']} layers (d {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.hd}, {cfg.n_experts} experts of {cfg.d_ff_expert} "
+          f"+ {cfg.n_shared_experts} shared, top-{cfg.top_k}, vocab "
+          f"{cfg.vocab}): {r['params']} params, {weights / 2**30:.2f} GiB on "
+          f"the card, drawn leaf by leaf in {r['load_s']:.2f} s (peak "
+          f"{r['load_peak_bytes'] / 2**30:.2f} GiB during the load)")
+    return cfg, model
+
+
+def moe_serve(smoke, model, shape, out, what):
+    """``launch.serve.serve`` (no ``prefill``: the prompt fed token by
+    token) with the counts of each phase: no kernel of the eight
+    launched.  Returns the ServeResult."""
+    from repro_torch.launch import serve as serve_mod
+    b, s, gen = shape
+    prompts = serve_mod.make_prompts(model.cfg, b, s, MOE_SEED, "cuda")
+    counts = {}
+
+    def on_phase(name, edge):
+        if edge == "start":
+            smoke.build.reset_launches()
+        else:
+            counts[name] = dict(smoke.build.LAUNCHES)
+
+    res = serve_mod.serve(model, prompts, gen, on_phase=on_phase)
+    for name, c in counts.items():
+        check(not any(c.values()), f"{what} serve {name}: launches {c}")
+    tok = res.tokens
+    check(tok.shape == (b, gen) and bool(((tok >= 0)
+                                          & (tok < model.cfg.vocab)).all())
+          and bool(torch.isfinite(res.prefill_logits).all())
+          and torch.equal(tok[:, 0], res.prefill_logits.argmax(-1).int()),
+          f"{what} serve: tokens out of range or not the last prompt "
+          f"step's argmax")
+    out["serve"] = dict(batch=b, prompt=s, gen=gen,
+                        prompt_tok_s=res.prefill_tok_s(),
+                        decode_tok_s=res.decode_tok_s(),
+                        prompt_s=res.prefill_s, decode_s=res.decode_s,
+                        peak_bytes=res.peak_bytes)
+    sv = out["serve"]
+    print(f"phase 10: {what} through launch.serve.serve, {b} prompts of {s} "
+          f"tokens fed token by token (no prefill, as repro) in "
+          f"{res.prefill_s:.2f} s = {sv['prompt_tok_s']:.5g} tok/s, then "
+          f"{gen - 1} greedy steps in {res.decode_s:.2f} s = "
+          f"{sv['decode_tok_s']:.5g} tok/s; no kernel of the eight launched; "
+          f"peak {res.peak_bytes / 2**30:.2f} GiB above the weights")
+    return res
+
+
+def mixtral_forward(smoke, cfg, model, faulty, out):
+    """Phase 10a: ``make_prefill_step`` over MOE_BATCH x MOE_SEQ tokens
+    (flash once a layer, each call against the twin and the planted
+    fault), the forward's logits and aux against the plain path (flash's
+    twin), then tok/s, peak memory and a profile by operator.  Returns
+    the first flash call (for the timing)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    from repro_torch.runtime.steps import make_prefill_step
+    run = serve_mod.run_config(MOE_SEQ)
+    toks = serve_mod.make_prompts(cfg, MOE_BATCH, MOE_SEQ, MOE_SEED, "cuda")
+    step = make_prefill_step(model, run)
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    with smoke.capture(keep=["flash_attn_bhsd"]) as cap:
+        last = step({"tokens": toks})
+        torch.cuda.synchronize()
+    counts = dict(smoke.build.LAUNCHES)
+    routes = dict(smoke.build.ROUTE_LAUNCHES)
+    for kname, n in counts.items():
+        check((n > 0) == (kname == "flash_attn_bhsd"),
+              f"mixtral forward: {kname} launched {n} times")
+    bhsd = (MOE_BATCH * cfg.n_heads, MOE_SEQ, cfg.hd)
+    calls = cap.calls["flash_attn_bhsd"]
+    check(counts["flash_attn_bhsd"] == cfg.n_layers == len(calls)
+          and routes["flash_attn_bhsd:wgmma"] == cfg.n_layers
+          and all(a[0].shape == bhsd and a[0].dtype == torch.bfloat16
+                  for a, _, _ in calls),
+          f"mixtral forward: flash launches {routes}, not {cfg.n_layers} "
+          f"wgmma calls at {bhsd}")
+    check(bool(torch.isfinite(last).all()) and last.shape == (MOE_BATCH,
+                                                              cfg.vocab),
+          "mixtral forward: last logits not finite")
+    err = over = 0.0
+    fault = []
+    for args, kw, (o,) in calls:
+        want, spread = smoke.twin("flash_attn_bhsd", args, kw)
+        e, ov = flash_err(o, want, spread, "mixtral forward flash call")
+        err, over = max(err, e), max(over, ov)
+        fault.append(flash_over(faulty(*args), want, spread))
+        del want, spread
+    check(min(fault) > 1.0, f"mixtral forward: the kernel with KV tile "
+                            f"{FAULT_TILE} skipped passes the flash "
+                            f"tolerance on a call ({min(fault):.3g}x)")
+    first = calls[:1]
+    del cap, calls
+    # The kernel's forward and the plain path's (flash's twin), the plain
+    # path routed as the kernel's routed (its own choices recorded: each
+    # that differs must be a near tie), so the two compute the same
+    # function and drop the same choices.
+    log = RouteLog()
+    res = {}
+    for name in ("kernel", "plain"):
+        force = res["kernel"][3] if name == "plain" else None
+        with (twin_flash(smoke) if name == "plain"
+              else contextlib.nullcontext()), log.record(force) as rc, \
+                torch.inference_mode():
+            smoke.build.reset_launches()
+            logits, aux = model.forward(run, {"tokens": toks})
+            torch.cuda.synchronize()
+            res[name] = (logits, int(aux["dropped"]), float(aux["lb_loss"]),
+                         rc, smoke.build.LAUNCHES["flash_attn_bhsd"])
+    (kl, kd, klb, krc, kn), (pl, pd, plb, prc, pn) = res["kernel"], \
+        res["plain"]
+    check(kn == cfg.n_layers and pn == 0,
+          f"mixtral plain path: flash launches {kn} / {pn}")
+    flips = route_flips(krc, prc, "mixtral kernel vs plain")
+    diff = float((kl - pl).abs().max())
+    check(bool(torch.isfinite(kl).all()) and diff <= LOGIT_TOL,
+          f"mixtral forward: logits differ from the plain path's by {diff}")
+    check(kd == pd, f"mixtral forward: dropped {kd} vs the plain path's {pd}")
+    del kl, pl, res
+    out["forward"] = dict(
+        batch=MOE_BATCH, seq=MOE_SEQ, flash_launches=cfg.n_layers,
+        flash_max_abs_err=err, flash_over=over, fault_over=fault,
+        logits_vs_plain=diff, near_tie_flips=flips,
+        routing_decisions=MOE_BATCH * MOE_SEQ * cfg.n_layers, dropped=kd,
+        dropped_plain=pd, lb_loss=klb, lb_loss_plain=plb,
+        capacity=moe.capacity_of(cfg, MOE_BATCH * MOE_SEQ))
+    f = out["forward"]
+    print(f"phase 10: mixtral make_prefill_step over {MOE_BATCH} x {MOE_SEQ} "
+          f"tokens: flash_attn_bhsd launched {cfg.n_layers} times (one a "
+          f"layer, all wgmma at {list(bhsd)}) and nothing else of the eight; "
+          f"each call == twin (max abs err {err:.3g}, {over:.3g}x the "
+          f"tolerance; the planted fault fails each, "
+          f"{min(fault):.3g}-{max(fault):.3g}x); forward's logits within "
+          f"{diff:.4g} of the plain path's (tol {LOGIT_TOL}; routed as the "
+          f"kernel's, whose choice it would have made otherwise in {flips} "
+          f"of {f['routing_decisions']} token-layers, all near ties, gap < "
+          f"{ROUTE_GAP}); dropped {kd} (plain {pd}) of "
+          f"{MOE_BATCH * MOE_SEQ * cfg.top_k} choices at capacity "
+          f"{f['capacity']}; lb_loss {klb:.6f} (plain {plb:.6f})")
+    # Timing: tok/s of the step, peak memory, a profile by operator.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step({"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    f["step_s"] = float(np.median(times))
+    f["step_s_all"] = times
+    f["tok_s"] = MOE_BATCH * MOE_SEQ / f["step_s"]
+    f["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    patches = [(moe, "_router", "router"),
+               (moe, "plan_routes", "dispatch: plan (sort)"),
+               (moe, "slot_tables", "dispatch: slot tables"),
+               (moe, "scatter_to_buckets", "dispatch: scatter"),
+               (moe, "gather_from_buckets", "dispatch: gather"),
+               (moe, "_expert_ffn", "expert products"),
+               (ops, "flash_attn", "flash attention"),
+               (model_mod, "unembed", "unembedding (f32)")]
+    f["profile"] = p = profile_busy(lambda: step({"tokens": toks}), top=8,
+                                    ranges=patches)
+    print(f"phase 10: mixtral forward step {f['step_s'] * 1e3:.1f} ms "
+          f"(median of {[round(t * 1e3, 1) for t in times]}) = "
+          f"{f['tok_s']:.5g} tok/s ({card_line()}); peak "
+          f"{f['peak_bytes'] / 2**30:.2f} GiB above the weights; under "
+          f"torch.profiler: wall {p['wall_ms']:.1f} ms, device "
+          f"{p['device_ms']:.1f} ms (busy {p['busy']:.1%}), {p['launches']} "
+          f"launches; by operator "
+          + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n)
+                      in p["ranges"].items())
+          + "; top kernels " + "; ".join(f"{k} {ms:.2f} ms x{n}"
+                                         for k, ms, n in p["top"]))
+    return first
+
+
+def mixtral_teacher_forced(smoke, cfg, model, gen_tok, prompts, out):
+    """Phase 10c: the no-drop copy (capacity_factor = E / k, so capacity
+    = T and nothing drops, in decode as in the forward): decode fed the
+    prompt and generated tokens one at a time, each step routed as the
+    teacher-forced forward routed those positions (its own choices
+    recorded: each that differs must be a near tie), against that
+    forward; logits within LOGIT_TOL at every position, argmax equal
+    where the forward's margin is clear."""
+    from repro_torch.launch import serve as serve_mod
+    full = torch.cat([prompts, gen_tok], dim=1)
+    b, n = full.shape
+    run = serve_mod.run_config(prompts.shape[1])
+    saved = model.cfg
+    model.cfg = nodrop = dataclasses.replace(
+        saved, capacity_factor=saved.n_experts / saved.top_k)
+    log = RouteLog()
+    flips = 0
+    try:
+        with torch.inference_mode():
+            with log.record() as fwd_calls:
+                smoke.build.reset_launches()
+                pred, aux = model.forward(run, {"tokens": full})
+                torch.cuda.synchronize()
+                fwd_flash = smoke.build.LAUNCHES["flash_attn_bhsd"]
+            check(int(aux["dropped"]) == 0, "no-drop forward dropped "
+                                            f"{int(aux['dropped'])}")
+            cache = model.init_cache(b, n)
+            dec = []
+            for i in range(n):
+                # Step i's rows are the forward's positions i.
+                force = [(ids.reshape(b, n, -1)[:, i], gap.reshape(b, n)[:, i])
+                         for ids, gap in fwd_calls]
+                with log.record(force) as rc:
+                    lg, cache = model.decode_step(run, full[:, i:i + 1],
+                                                  cache)
+                flips += route_flips(force, rc, "no-drop decode vs forward")
+                dec.append(lg[:, -1])
+            dec = torch.stack(dec, dim=1)
+    finally:
+        model.cfg = saved
+    check(fwd_flash == cfg.n_layers, f"no-drop forward: {fwd_flash} flash "
+                                     f"launches")
+    diff = float((dec - pred).abs().max())
+    check(bool(torch.isfinite(pred).all()) and diff <= LOGIT_TOL,
+          f"no-drop decode: logits differ from the forward's by {diff}")
+    top = pred.topk(2, dim=-1)
+    clear = (top.values[..., 0] - top.values[..., 1]) > LOGIT_TOL
+    agree = dec.argmax(-1) == top.indices[..., 0]
+    check(bool(agree[clear].all()), "no-drop decode: argmax differs from the "
+                                    "forward's where its margin is clear")
+    out["teacher_forced"] = dict(
+        positions=n, decode_vs_forward=diff, near_tie_flips=flips,
+        routing_decisions=b * n * cfg.n_layers,
+        argmax_checked=int(clear.sum()),
+        capacity_factor=nodrop.capacity_factor)
+    print(f"phase 10: the no-drop copy (capacity_factor "
+          f"{nodrop.capacity_factor}: capacity = T): decode over {b} x {n} "
+          f"tokens, routed as the teacher-forced forward routed (whose "
+          f"choice it would have made otherwise in {flips} of "
+          f"{b * n * cfg.n_layers} token-layers, all near ties), within "
+          f"{diff:.4g} of the forward's logits (tol {LOGIT_TOL}); argmax "
+          f"equal at all {int(clear.sum())} positions whose margin > "
+          f"{LOGIT_TOL}")
+
+
+def deepseek_path(smoke, out):
+    """Phase 10d: DeepSeek-V2 at full width, DSV2_LAYERS layers (the dense
+    first one, MLA + MoE after): ``make_prefill_step`` over DSV2_BATCH x
+    DSV2_SEQ tokens and the token-loop serve; no kernel of the eight
+    launched (head dim 192 and MLA's dv != d are no flash instance)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.runtime.steps import make_prefill_step
+    cfg, model = moe_load(DSV2_ARCH, DSV2_LAYERS, "deepseek", out)
+    r = out["deepseek"]
+    run = serve_mod.run_config(DSV2_SEQ)
+    toks = serve_mod.make_prompts(cfg, DSV2_BATCH, DSV2_SEQ, MOE_SEED, "cuda")
+    step = make_prefill_step(model, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    smoke.build.reset_launches()
+    with torch.inference_mode():
+        logits, aux = model.forward(run, {"tokens": toks})
+        torch.cuda.synchronize()
+    check(not any(smoke.build.LAUNCHES.values()),
+          f"deepseek forward: launches {dict(smoke.build.LAUNCHES)}")
+    check(logits.shape == (DSV2_BATCH, DSV2_SEQ, cfg.vocab)
+          and bool(torch.isfinite(logits).all())
+          and math.isfinite(float(aux["lb_loss"])),
+          "deepseek forward: logits or lb_loss not finite")
+    r["forward_dropped"] = int(aux["dropped"])
+    r["forward_lb_loss"] = float(aux["lb_loss"])
+    del logits, aux
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step({"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    r["forward_s"] = float(np.median(times))
+    r["forward_tok_s"] = DSV2_BATCH * DSV2_SEQ / r["forward_s"]
+    r["forward_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    print(f"phase 10: {cfg.name} forward over {DSV2_BATCH} x {DSV2_SEQ} "
+          f"tokens in {r['forward_s'] * 1e3:.1f} ms = "
+          f"{r['forward_tok_s']:.5g} tok/s ({card_line()}), peak "
+          f"{r['forward_peak_bytes'] / 2**30:.2f} GiB above the weights; "
+          f"no kernel of the eight launched; dropped {r['forward_dropped']}, "
+          f"lb_loss {r['forward_lb_loss']:.6f}")
+    moe_serve(smoke, model, DSV2_SERVE, r, cfg.name)
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def moe_train_check(smoke, out):
+    """Phase 10e: Mixtral's reduced config trained MOE_TRAIN_STEPS steps on
+    the card through ``launch.train.setup`` and ``train_loop`` over
+    ``make_train_step``: the loss finite, ``lb_loss`` and ``dropped``
+    reported each step."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.driver import DriverConfig, train_loop
+    cfg = get_reduced_config(MOE_ARCH)
+    model, params, opt = train_mod.setup(cfg, seed=MOE_SEED, device="cuda")
+    run = train_mod.run_config(MOE_ARCH, MOE_TRAIN_STEPS, MOE_TRAIN_SEQ)
+    src = SyntheticLM(cfg=cfg, batch=8, seq=MOE_TRAIN_SEQ, seed=MOE_SEED,
+                      device="cuda")
+    inner = steps.make_train_step(model, run)
+    rec = []
+
+    def step(params, opt, batch):
+        smoke.build.reset_launches()
+        params, opt, m = inner(params, opt, batch)
+        rec.append(dict({k: float(v) for k, v in m.items()},
+                        flash=smoke.build.LAUNCHES["flash_attn_bhsd"]))
+        return params, opt, m
+
+    root = str(smoke.build.BUILD_ROOT.parent / "moe_train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    dcfg = DriverConfig(total_steps=MOE_TRAIN_STEPS,
+                        ckpt_every=MOE_TRAIN_STEPS, ckpt_dir=root, keep=1,
+                        log_every=1)
+    _, _, hist = train_loop(step, params, opt, src, dcfg,
+                            log=lambda *_: None)
+    shutil.rmtree(root, ignore_errors=True)
+    check(hist["steps_run"] == MOE_TRAIN_STEPS and len(rec) == MOE_TRAIN_STEPS
+          and all(math.isfinite(r["loss"]) and math.isfinite(r["lb_loss"])
+                  and r["flash"] == cfg.n_layers for r in rec),
+          f"mixtral reduced train_loop: {rec}")
+    out["train"] = rec
+    print(f"phase 10: {cfg.name} through train_loop over make_train_step on "
+          f"the card, {MOE_TRAIN_STEPS} steps of 8 x {MOE_TRAIN_SEQ} (S <= "
+          f"window: flash's CUDA-core route at head dim {cfg.hd}): "
+          + "; ".join(f"loss {r['loss']:.4f} lb_loss {r['lb_loss']:.4f} "
+                      f"dropped {r['dropped']:.0f} (flash {r['flash']} "
+                      f"launches)" for r in rec))
+
+
+def moe_phase(smoke, result, faulty) -> dict:
+    """Phase 10 (see the module doc).  Returns the flash kernel's launches
+    on the Mixtral forward and its timing at that shape."""
+    out = result["moe"] = {}
+    cfg, model = moe_load(MOE_ARCH, MOE_LAYERS, "mixtral", out)
+    first = mixtral_forward(smoke, cfg, model, faulty, out["mixtral"])
+    timing = flash_row(smoke, first, cfg.n_layers, batch=MOE_BATCH,
+                       path="mixtral forward")
+    del first
+    res = moe_serve(smoke, model, MOE_SERVE, out["mixtral"], cfg.name)
+    from repro_torch.launch import serve as serve_mod
+    prompts = serve_mod.make_prompts(cfg, MOE_SERVE[0], MOE_SERVE[1],
+                                     MOE_SEED, "cuda")
+    mixtral_teacher_forced(smoke, cfg, model, res.tokens, prompts,
+                           out["mixtral"])
+    del model, res
+    torch.cuda.empty_cache()
+    deepseek_path(smoke, out)
+    moe_train_check(smoke, out)
+    return {"launches": cfg.n_layers, "timing": timing}
+
+
 def host_map():
     """The census and its covering at SCALE, on the host (numpy; no card).
     Returns (census, covering, census s, covering s)."""
@@ -2747,15 +3260,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = train_phase(smoke, engines["fast"], result)
     phase_s["train"] = time.perf_counter() - t_start
-    # Flash's launches: this slice's main path, the training run (and, by
-    # path, the prefill's and a training step's).
+    # -- 10. the MoE family ----------------------------------------------------
+    torch.cuda.empty_cache()
+    moe = moe_phase(smoke, result, faulty)
+    phase_s["moe"] = time.perf_counter() - t_start
+    # Flash's launches: the training run (and, by path, the prefill's, a
+    # training step's and the Mixtral forward's); its time at the Mixtral
+    # forward's shape beside the prefill's.
     flash_kernel["launches_by_path"] = {
-        "lm_prefill": flash_kernel["launches"], **train_launches}
+        "lm_prefill": flash_kernel["launches"], **train_launches,
+        "moe_forward": moe["launches"]}
     flash_kernel["launches"] = train_launches["train_run"]
+    flash_kernel["moe_forward_shape"] = {
+        k: moe["timing"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = phase_s["train"]
+    result["total_s"] = phase_s["moe"]
     result["phase_end_s"] = phase_s
     print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")

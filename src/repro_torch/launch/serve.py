@@ -4,6 +4,10 @@ prompts, then decode greedily.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --batch 8 --prompt-len 2048 --gen 64
 
+A model without ``prefill`` (the MoE family, as in ``repro``) takes its
+prompt one token at a time through the decode step, as ``repro``'s
+launcher does; the "prefill" phase is then that loop.
+
 Runs on the card (``--device cuda``, the default, never swapped for the
 CPU when there is no card); ``--device cpu`` asks for the same path on
 the kernels' plain twins (``--reduced`` sizes, in practice).  The
@@ -25,7 +29,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced_config
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.model import Model, build_model
-from repro_torch.models.module import init_params, params_from_numpy
+from repro_torch.models.module import init_params_into
 from repro_torch.runtime.steps import make_serve_step
 
 
@@ -33,7 +37,8 @@ from repro_torch.runtime.steps import make_serve_step
 class ServeResult:
     """What ``serve`` produced: the generated tokens [B, gen] i32 (the
     first from the prefill's logits, one per decode step after it), the
-    prefill's last-position logits [B, V] f32, the prompt length, the
+    prefill's last-position logits [B, V] f32 (the last prompt step's,
+    for a model fed token by token), the prompt length, the
     host seconds of each phase (each ends in a device sync), and the
     run's peak device memory above what was allocated when it started
     (the weights and whatever else the caller holds; CUDA only, else
@@ -55,10 +60,10 @@ class ServeResult:
 
 
 def load_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Model:
-    """``cfg``'s model on ``device`` with random weights from ``seed``."""
+    """``cfg``'s model on ``device`` with random weights from ``seed``
+    (drawn leaf by leaf into the parameters: ``init_params_into``)."""
     model = build_model(cfg, device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params_from_numpy(model, init_params(model.specs, gen, device))
+    init_params_into(model, torch.Generator(device=device).manual_seed(seed))
     return model
 
 
@@ -79,8 +84,10 @@ def run_config(prompt_len: int) -> RunConfig:
 def serve(model: Model, prompts: torch.Tensor, gen: int, *,
           on_phase: Optional[Callable[[str, str], None]] = None
           ) -> ServeResult:
-    """Prefill ``prompts`` [B, S] once, then ``gen - 1`` greedy decode
-    steps.  ``on_phase(phase, edge)`` is called with ("prefill" |
+    """Prefill ``prompts`` [B, S] once (or, for a model without
+    ``prefill``, feed them one token at a time through ``decode_step``),
+    then ``gen - 1`` greedy decode steps.  ``on_phase(phase, edge)`` is
+    called with ("prefill" |
     "decode", "start" | "end") right before each phase is driven and
     right after its device work has finished."""
     b, s = prompts.shape
@@ -98,7 +105,13 @@ def serve(model: Model, prompts: torch.Tensor, gen: int, *,
         sync()
         phase("prefill", "start")
         t0 = time.perf_counter()
-        logits, cache = model.prefill(run, prompts, s + gen)
+        if hasattr(model, "prefill"):
+            logits, cache = model.prefill(run, prompts, s + gen)
+        else:
+            cache = model.init_cache(b, s + gen)
+            for t in range(s):
+                logits, cache = model.decode_step(run, prompts[:, t:t + 1],
+                                                  cache)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         sync()
         prefill_s = time.perf_counter() - t0

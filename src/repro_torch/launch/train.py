@@ -26,7 +26,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_reduced_config
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.data.pipeline import make_source
 from repro_torch.models.model import build_model
-from repro_torch.models.module import init_params, params_from_numpy
+from repro_torch.models.module import init_params_into
 from repro_torch.optim import adamw
 from repro_torch.runtime.driver import DriverConfig, train_loop
 from repro_torch.runtime.steps import make_train_step
@@ -50,8 +50,7 @@ def setup(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     weights from ``seed``; returns (model, params {name: parameter},
     fresh AdamW state)."""
     model = build_model(cfg, device, trainable=True)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params_from_numpy(model, init_params(model.specs, gen, device))
+    init_params_into(model, torch.Generator(device=device).manual_seed(seed))
     params = dict(model.named_parameters())
     return model, params, adamw.init(params)
 

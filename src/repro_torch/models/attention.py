@@ -1,24 +1,35 @@
-"""Attention: GQA / MQA / MHA with RoPE and sliding windows (port of the
-GQA part of src/repro/models/attention.py; MLA comes with the MoE slice).
+"""Attention: GQA / MQA / MHA with RoPE and sliding windows, and
+DeepSeek-V2's multi-head latent attention (port of
+src/repro/models/attention.py).
 
 Training / prefill attention in ``repro`` is ``blockwise_attn``: online
 softmax over KV chunks, so the [S, S] score matrix is never
-materialized.  Decode is single-token attention against a KV cache,
-full or rolling-window.
+materialized.  Decode is single-token attention against a KV cache:
+full, rolling-window, or MLA's compressed latent (with the absorbed
+``W_uk`` / ``W_uv`` products in f32).
 
 The one place where the port's call graph differs from ``repro``'s:
-``self_attn`` sends causal or full self-attention without a sliding
-window (S == T, dv == d, no query offset) to the port of the Pallas
-flash kernel, where ``repro`` calls ``blockwise_attn``: to
-``ops.flash_attn`` when no gradient is wanted, and to
+``self_attn`` sends self-attention (S == T, dv == d, no query offset) to
+the port of the Pallas flash kernel, where ``repro`` calls
+``blockwise_attn``, when the shape lets the kernel compute the same
+function.  The route is by shape, decided before any launch:
+
+* flash when there is no sliding window, or S <= window (then the window
+  excludes no key: qpos - kpos <= S - 1 < window), and the head dim is
+  at most the kernels' 128;
+* ``blockwise_attn`` when S > window (the window masks keys), and when
+  the head dim exceeds 128 (DeepSeek-V2's dense layer, head dim 192;
+  ``flash_attn_bhsd`` itself raises there).
+
+Flash is ``ops.flash_attn`` when no gradient is wanted and
 ``make_flash_attn_trainable`` (the kernel forward, a backward that
 recomputes through ``blockwise_attn``) when grad is enabled and an input
 requires grad.  On a CUDA tensor the forward launches the kernel
 (``kernels/csrc/flash_attn_wgmma.cu`` or ``flash_attn.cu``); on the CPU
-it runs the kernel's plain twin.  With a sliding window it keeps
-``blockwise_attn``.  The two agree to rounding: the flash kernel sums
-the f32 probabilities into ``l`` where ``blockwise_attn`` sums them
-after rounding to bf16.
+it runs the kernel's plain twin.  The two agree to rounding: the flash
+kernel sums the f32 probabilities into ``l`` where ``blockwise_attn``
+sums them after rounding to bf16.  MLA's prefill keeps
+``blockwise_attn``, as ``repro`` (dv != d).
 """
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ import torch
 from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense, dense_spec, \
-    rope_tables
+    rmsnorm, rmsnorm_spec, rope_tables
 
 NEG_INF = -1.0e30
 
@@ -98,12 +109,19 @@ def blockwise_attn(q, k, v, *, causal: bool, window: Optional[int] = None,
     return out.to(q.dtype)
 
 
+def flash_takes(s: int, d: int, window: Optional[int]) -> bool:
+    """Whether ``self_attn`` routes a [B, s, H, d] self-attention with
+    ``window`` to the flash kernel (see the module doc)."""
+    return (window is None or s <= window) and \
+        d <= flash_kernels.HEAD_DIMS[-1]
+
+
 def self_attn(q, k, v, *, causal: bool, window: Optional[int],
               chunk_q: int, chunk_kv: int):
     """Self-attention of q [B, S, H, D] over k, v [B, S, KH, D]: the flash
-    kernel without a sliding window (trainable under autograd, else
+    kernel where ``flash_takes`` (trainable under autograd, else
     ``ops.flash_attn``), else ``blockwise_attn`` (see the module doc)."""
-    if window is None:
+    if flash_takes(q.shape[1], q.shape[-1], window):
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
             return flash_kernels.make_flash_attn_trainable(
@@ -231,3 +249,91 @@ def gqa_decode_self_attn(params, cfg, x, k_cache, v_cache, pos):
         o = decode_attn(q, k_cache, v_cache, pos + 1)
     out = dense(params["wo"], o.reshape(b, 1, -1))
     return out, k_cache, v_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# --------------------------------------------------------------------------
+def mla_spec(cfg):
+    d = cfg.d_model
+    h = cfg.n_heads
+    qk_d = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wdq": dense_spec(d, cfg.q_lora, ("embed", "q_lora")),
+        "q_norm": rmsnorm_spec(cfg.q_lora),
+        "wuq": dense_spec(cfg.q_lora, h * qk_d, ("q_lora", "heads")),
+        "wdkv": dense_spec(d, cfg.kv_lora, ("embed", "kv_lora")),
+        "kv_norm": rmsnorm_spec(cfg.kv_lora),
+        "wuk": dense_spec(cfg.kv_lora, h * cfg.qk_nope_dim,
+                          ("kv_lora", "heads")),
+        "wuv": dense_spec(cfg.kv_lora, h * cfg.v_head_dim,
+                          ("kv_lora", "heads")),
+        "wkr": dense_spec(d, cfg.qk_rope_dim, ("embed", None)),
+        "wo": dense_spec(h * cfg.v_head_dim, d, ("heads", "embed")),
+    }
+
+
+def _mla_qkr(params, cfg, x, positions):
+    """Shared q / rope-key computation. x [B,S,D]."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    cq = rmsnorm(params["q_norm"], dense(params["wdq"], x), cfg.norm_eps)
+    q = dense(params["wuq"], cq).reshape(
+        b, s, h, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = q[..., cfg.qk_nope_dim:]
+    sin, cos = rope_tables(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    kr = dense(params["wkr"], x).reshape(b, s, 1, cfg.qk_rope_dim)
+    kr = apply_rope(kr, sin, cos)
+    return q_nope, q_rope, kr, (sin, cos)
+
+
+def mla_self_attn(params, cfg, x, *, positions, chunk_q, chunk_kv):
+    """Training / prefill MLA in the expanded (naive) form, through
+    ``blockwise_attn`` as in ``repro``."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope, kr, _ = _mla_qkr(params, cfg, x, positions)
+    ckv = rmsnorm(params["kv_norm"], dense(params["wdkv"], x), cfg.norm_eps)
+    k_nope = dense(params["wuk"], ckv).reshape(b, s, h, cfg.qk_nope_dim)
+    v = dense(params["wuv"], ckv).reshape(b, s, h, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr.expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
+    o = blockwise_attn(q, k, v, causal=True, chunk_q=chunk_q,
+                       chunk_kv=chunk_kv)
+    return dense(params["wo"], o.reshape(b, s, -1))
+
+
+def mla_decode_self_attn(params, cfg, x, ckv, kr, pos):
+    """Decode with the compressed cache (c_kv + k_rope) and absorbed mats.
+
+    ckv: [B,T,kv_lora]; kr: [B,T,rope_d]; pos: [] absolute position (an
+    int32 tensor).  Scores = q_nope W_uk^T . ckv + q_rope . k_rope;
+    out = (P . ckv) W_uv, in f32.  Returns (out [B,1,D], ckv, kr): the
+    caches are written in place (one slot; ``repro`` returns updated
+    copies).
+    """
+    b = x.shape[0]
+    h = cfg.n_heads
+    q_nope, q_rope, kr_new, _ = _mla_qkr(params, cfg, x, pos[None])
+    ckv_new = rmsnorm(params["kv_norm"], dense(params["wdkv"], x),
+                      cfg.norm_eps)
+    t = ckv.shape[1]
+    idx = torch.clamp(pos, max=t - 1).reshape(1).long()
+    ckv.index_copy_(1, idx, ckv_new.to(ckv.dtype))
+    kr.index_copy_(1, idx, kr_new[:, :, 0].to(kr.dtype))
+    wuk = params["wuk"]["w"].reshape(cfg.kv_lora, h, cfg.qk_nope_dim)
+    # Absorb W_uk into the query:  [B,1,H,nope] x [C,H,nope] -> [B,H,C]
+    q_abs = torch.einsum("bshn,chn->bhc", q_nope.float(), wuk.float())
+    sc = torch.einsum("bhc,btc->bht", q_abs, ckv.float())
+    sc = sc + torch.einsum("bshr,btr->bht", q_rope.float(), kr.float())
+    sc = sc / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    ok = torch.arange(t, device=x.device)[None, None, :] < (pos + 1)
+    sc = torch.where(ok, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    octx = torch.einsum("bht,btc->bhc", p, ckv.float())
+    wuv = params["wuv"]["w"].reshape(cfg.kv_lora, h, cfg.v_head_dim)
+    o = torch.einsum("bhc,chv->bhv", octx, wuv.float())
+    out = dense(params["wo"], o.reshape(b, 1, -1).to(x.dtype))
+    return out, ckv, kr

@@ -1,10 +1,12 @@
-"""Model assembly (port of the dense family of src/repro/models/model.py).
+"""Model assembly (port of the dense and MoE families of
+src/repro/models/model.py).
 
 ``repro``'s ``Model`` is a record of pure functions over a param tree; the
 port's is an ``nn.Module`` that holds its parameters (one ``ParamTree``
-per block in an ``nn.ModuleList``, named after ``repro``'s tree:
-``blocks.{i}.attn.wq.w``, ``embed.table``, ``unembed.w``) on an explicit
-device, and whose methods drop the params argument:
+per layer of each stack in an ``nn.ModuleList``, named after ``repro``'s
+tree: ``blocks.{i}.attn.wq.w``, ``dense_blocks.{i}.ffn.w_up.w``,
+``embed.table``, ``unembed.w``) on an explicit device, and whose methods
+drop the params argument:
 
   * ``forward(run, batch) -> (logits [B, S, V] f32, aux)`` — the training
     and teacher-forced path, differentiable; ``run.remat`` wraps each
@@ -14,20 +16,27 @@ device, and whose methods drop the params argument:
   * ``decode_step(run, tokens [B, 1], cache) -> (logits [B, 1, V], cache)``
     — the caches are written in place, one slot per layer;
   * ``prefill(run, tokens [B, S], max_len) -> (last logits [B, 1, V],
-    cache)`` — the serving entry point.
+    cache)`` — the dense family's serving entry point.  The MoE family
+    has none, as in ``repro``: its serving feeds the prompt through
+    ``decode_step`` (``launch.serve``).
 
-The last three run under ``torch.inference_mode()``.  Two builds:
+The last three run under ``torch.inference_mode()``.  ``cache_specs`` /
+``abstract_params`` are meta-device stand-ins (shapes, no memory), and
+``input_specs`` those of a cell's inputs.  Two builds:
 
-  * serving (``trainable=False``, the default): the blocks' dense
-    weights and biases are stored in the activation dtype (bf16), cast
-    once at load — the same bits as ``repro``'s per-call cast in
-    ``dense``; norm scales, the embedding table and the unembedding stay
-    f32 (``repro`` reads them in f32); no parameter has a gradient;
+  * serving (``trainable=False``, the default): each block leaf is
+    stored in the dtype of its use (``_block_dtype``): bf16 for a leaf
+    ``repro`` only ever casts to the activation dtype (dense weights and
+    biases, the 3-D expert weights) — the same bits as ``repro``'s
+    per-call cast, once at load; f32 for a leaf ``repro`` reads in f32
+    (norm scales, the router, MLA's ``wuk`` / ``wuv``, which decode reads
+    in f32); the embedding table and the unembedding stay f32; no
+    parameter has a gradient;
   * training (``trainable=True``): every leaf in its spec's dtype (f32
     master weights, as ``repro``'s params are), with a gradient; ``dense``
     casts to bf16 on each call, as ``repro`` does.
 
-Self-attention without a sliding window goes through the flash kernel
+Self-attention goes through the flash kernel where its shape allows
 (``attention.self_attn``), where ``repro`` calls ``blockwise_attn``;
 under autograd through ``make_flash_attn_trainable``.
 """
@@ -39,21 +48,21 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import gqa_project_qkv, repeat_kv, \
     self_attn
 from repro_torch.models.ffn import ffn
 from repro_torch.models.layers import ACT_DTYPE, dense, embed, embed_spec, \
     rmsnorm, rmsnorm_spec, rope_tables, unembed, unembed_spec
-from repro_torch.models.module import ParamTree, param_count, stack
+from repro_torch.models.module import ParamTree, abstract_params, \
+    param_count, stack
 
 CACHE_DTYPE = tf.CACHE_DTYPE
 
-# The families still to port, and the ROADMAP (§1 item 12) slice that
+# The families still to port, and the ROADMAP (§1 item 6) slice that
 # ports each.
 _LATER = {
-    "moe": "the MoE slice (mixtral), after training and checkpointing",
     "vlm": "the vlm slice, after MoE and MLA",
     "encdec": "the encdec slice, after vlm",
     "ssm_hybrid": "the ssm_hybrid slice, after encdec",
@@ -69,10 +78,19 @@ def _head_specs(cfg):
     return s
 
 
+# Block leaves that ``repro`` reads in f32 (the router's logits; MLA
+# decode's absorbed products), kept f32 in the serving build.
+_F32_READS = ("router.w", "attn.wuk.w", "attn.wuv.w")
+# Block leaves that ``repro`` only casts to the activation dtype: dense
+# weights and biases, and the experts' 3-D weights.
+_ACT_LEAVES = ("w", "b", "w_gate", "w_up", "w_down")
+
+
 def _block_dtype(name: str, spec):
-    """Dense weights and biases (leaves ``w`` / ``b``) in the activation
-    dtype; everything else as its spec says."""
-    return ACT_DTYPE if name.rsplit(".", 1)[-1] in ("w", "b") else spec.dtype
+    """A serving block leaf's dtype, by its use (see the module doc)."""
+    if name.endswith(_F32_READS):
+        return torch.float32
+    return ACT_DTYPE if name.rsplit(".", 1)[-1] in _ACT_LEAVES else spec.dtype
 
 
 def _positions(s, device):
@@ -115,6 +133,7 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.specs = specs
+        self.trainable = trainable
         head = functools.partial(ParamTree, device=device,
                                  requires_grad=trainable)
         self.embed = head(specs["embed"])
@@ -122,12 +141,38 @@ class Model(nn.Module):
         if "unembed" in specs:
             self.unembed = head(specs["unembed"])
 
+    def _stack(self, block_spec: dict, n: int, device) -> nn.ModuleList:
+        """One ``ParamTree`` per layer of a stack of ``n`` blocks."""
+        return nn.ModuleList(
+            ParamTree(block_spec, device,
+                      None if self.trainable else _block_dtype,
+                      requires_grad=self.trainable)
+            for _ in range(n))
+
     @property
     def device(self) -> torch.device:
         return self.embed["table"].device
 
     def param_count(self) -> int:
         return param_count(self.specs)
+
+    def abstract_params(self):
+        """Meta-device stand-ins of ``repro``'s param tree (the specs'
+        shapes and dtypes, the stacks unsplit)."""
+        return abstract_params(self.specs)
+
+    def cache_specs(self, batch: int, max_len: int):
+        """Meta-device stand-ins of ``init_cache(batch, max_len)``."""
+        return self.init_cache(batch, max_len, device="meta")
+
+    def _cache_len(self, max_len):
+        w = self.cfg.sliding_window
+        return min(max_len, w) if w else max_len
+
+    def _kv(self, n, batch, t, device):
+        shape = (n, batch, t, self.cfg.n_kv_heads, self.cfg.hd)
+        return (torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
+                torch.zeros(shape, dtype=CACHE_DTYPE, device=device))
 
     def _logits(self, x):
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
@@ -144,14 +189,7 @@ class DenseModel(Model):
         specs = dict(_head_specs(cfg))
         specs["blocks"] = stack(block, cfg.n_layers)
         super().__init__(cfg, specs, device, trainable)
-        self.blocks = nn.ModuleList(
-            ParamTree(block, device, None if trainable else _block_dtype,
-                      requires_grad=trainable)
-            for _ in range(cfg.n_layers))
-
-    def _cache_len(self, max_len):
-        w = self.cfg.sliding_window
-        return min(max_len, w) if w else max_len
+        self.blocks = self._stack(block, cfg.n_layers, device)
 
     def forward(self, run, batch):
         tokens = batch["tokens"]
@@ -164,13 +202,11 @@ class DenseModel(Model):
         return self._logits(x), {}
 
     @torch.inference_mode()
-    def init_cache(self, batch, max_len):
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, self._cache_len(max_len),
-                 cfg.n_kv_heads, cfg.hd)
-        dev = self.device
-        return {"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=dev),
-                "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=dev),
+    def init_cache(self, batch, max_len, device=None):
+        dev = device or self.device
+        k, v = self._kv(self.cfg.n_layers, batch, self._cache_len(max_len),
+                        dev)
+        return {"k": k, "v": v,
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.inference_mode()
@@ -212,15 +248,125 @@ class DenseModel(Model):
         return self._logits(x[:, -1:, :]), cache
 
 
+class MoEModel(Model):
+    """``first_dense_layers`` x [attn + ffn] then the rest x [attn + MoE]
+    (``repro``'s ``build_moe``): Mixtral (GQA, a sliding window) and
+    DeepSeek-V2 (MLA, a dense first layer, shared experts).  No
+    ``prefill``, as in ``repro``."""
+
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
+        fd = cfg.first_dense_layers
+        specs = dict(_head_specs(cfg))
+        if fd:
+            specs["dense_blocks"] = stack(tf.dense_block_spec(cfg), fd)
+        specs["blocks"] = stack(tf.moe_block_spec(cfg), cfg.n_layers - fd)
+        super().__init__(cfg, specs, device, trainable)
+        if fd:
+            self.dense_blocks = self._stack(tf.dense_block_spec(cfg), fd,
+                                            device)
+        self.blocks = self._stack(tf.moe_block_spec(cfg),
+                                  cfg.n_layers - fd, device)
+
+    def _dense(self):
+        return self.dense_blocks if self.cfg.first_dense_layers else ()
+
+    def forward(self, run, batch):
+        """(logits, aux): aux["lb_loss"] the mean of the MoE layers'
+        load-balance losses, aux["dropped"] the sum of their dropped
+        (token, choice) pairs (i32)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed(self.embed, tokens)
+        pos = _positions(tokens.shape[1], x.device)
+        dblk = _wrap_remat(
+            lambda p, x: tf.dense_block(p, cfg, run, x, pos), run)
+        for p in self._dense():
+            x = dblk(p, x)
+        mblk = _wrap_remat(
+            lambda p, x: tf.moe_block(p, cfg, run, x, pos), run)
+        lb, dropped = [], []
+        for p in self.blocks:
+            x, aux = mblk(p, x)
+            lb.append(aux["lb_loss"])
+            dropped.append(aux["dropped"])
+        aux = {"lb_loss": torch.stack(lb).mean(),
+               "dropped": torch.stack(dropped).sum(dtype=torch.int32)}
+        return self._logits(x), aux
+
+    @torch.inference_mode()
+    def init_cache(self, batch, max_len, device=None):
+        cfg = self.cfg
+        dev = device or self.device
+        fd = cfg.first_dense_layers
+        n = cfg.n_layers - fd
+        c = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+        if cfg.mla:
+            c["ckv"] = torch.zeros((n, batch, max_len, cfg.kv_lora),
+                                   dtype=CACHE_DTYPE, device=dev)
+            c["kr"] = torch.zeros((n, batch, max_len, cfg.qk_rope_dim),
+                                  dtype=CACHE_DTYPE, device=dev)
+        else:
+            c["k"], c["v"] = self._kv(n, batch, self._cache_len(max_len),
+                                      dev)
+        if fd:
+            c["dense_k"], c["dense_v"] = self._kv(fd, batch, max_len, dev)
+        return c
+
+    @torch.inference_mode()
+    def decode_step(self, run, tokens, cache):
+        cfg = self.cfg
+        x = embed(self.embed, tokens)
+        pos = cache["pos"]
+        for i, p in enumerate(self._dense()):
+            x, _, _ = tf.dense_block_decode(p, cfg, x, cache["dense_k"][i],
+                                            cache["dense_v"][i], pos)
+        names = ("ckv", "kr") if cfg.mla else ("k", "v")
+        for i, p in enumerate(self.blocks):
+            x, _ = tf.moe_block_decode(p, cfg, x,
+                                       {k: cache[k][i] for k in names}, pos)
+        return self._logits(x), dict(cache, pos=pos + 1)
+
+
+_BUILDERS = {"dense": DenseModel, "moe": MoEModel}
+
+
 def build_model(cfg: ModelConfig, device="cuda", *,
                 trainable: bool = False) -> Model:
     """The port's model for ``cfg``, its parameters allocated (not
-    initialized) on ``device``: load them with ``params_from_numpy``.
-    ``trainable`` builds it to train (see the module doc)."""
-    if cfg.family == "dense":
-        return DenseModel(cfg, device, trainable)
+    initialized) on ``device``: load them with ``params_from_numpy`` or
+    ``init_params_into``.  ``trainable`` builds it to train (see the
+    module doc)."""
+    if cfg.family in _BUILDERS:
+        return _BUILDERS[cfg.family](cfg, device, trainable)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP §1 item 12: {_LATER[cfg.family]})")
+            f"(ROADMAP §1 item 6: {_LATER[cfg.family]})")
     raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                model: Model | None = None) -> dict:
+    """Meta-device stand-ins for every model input of a cell (``repro``'s
+    ``ShapeDtypeStruct``s).
+
+    For train / prefill: the token batch (+ modality stubs).  For
+    decode: a one-token batch and a full cache at ``seq_len``.
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        d = {"tokens": meta(b, s)}
+        if shape.kind == "train":
+            d["labels"] = meta(b, s)
+        if cfg.family == "vlm":
+            d["img"] = meta(b, cfg.n_img_tokens, cfg.d_vision,
+                            dtype=torch.bfloat16)
+        if cfg.family == "encdec":
+            d["frames"] = meta(b, s, cfg.d_model, dtype=torch.bfloat16)
+        return d
+    model = model or build_model(cfg, "meta")
+    return {"tokens": meta(b, 1), "cache": model.cache_specs(b, s)}

@@ -14,8 +14,10 @@ block stack).  From the spec tree come:
     dict level, a parameter per leaf, so a parameter's dotted name is its
     path in ``repro``'s tree (``blocks.3.attn.wq.w``, ``embed.table``).
 
-``params_from_numpy`` loads a tree in ``repro``'s layout (the stacked
-``[L, ...]`` block arrays split per layer) into a model.  The logical
+``params_from_numpy`` loads a tree in ``repro``'s layout (every stacked
+``[L, ...]`` array split per layer) into a model; ``init_params_into``
+draws a model's random weights straight into its parameters, one
+stacked leaf at a time.  The logical
 sharding axes of ``repro``'s specs are kept for the distributed slice.
 """
 from __future__ import annotations
@@ -80,7 +82,7 @@ def _init_one(p: P, generator: torch.Generator, device) -> torch.Tensor:
     # repro: truncated_normal(-2, 2) * std, i.e. cut at two deviations.
     t = torch.empty(p.shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(p.dtype)
+    return t.mul_(std).to(p.dtype)
 
 
 def init_params(specs, generator: torch.Generator, device):
@@ -134,37 +136,80 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
+def _stacked(model: nn.Module) -> set:
+    """The model's stacks: its ``nn.ModuleList`` children (``blocks``,
+    ``dense_blocks``), one ``ParamTree`` per layer of ``repro``'s stacked
+    ``[L, ...]`` arrays."""
+    return {n for n, m in model.named_children()
+            if isinstance(m, nn.ModuleList)}
+
+
+def _per_layer(name: str, t: torch.Tensor, stacked: set) -> list:
+    """[(parameter name, tensor)] of the leaf ``name`` of ``repro``'s tree:
+    split along its first axis when it belongs to a stack."""
+    head, _, rest = name.partition(".")
+    if head in stacked:
+        return [(f"{head}.{i}.{rest}", t[i]) for i in range(t.shape[0])]
+    return [(name, t)]
+
+
+def _check_names(params: dict, shapes: dict) -> None:
+    missing = sorted(set(params) - set(shapes))
+    extra = sorted(set(shapes) - set(params))
+    if missing or extra:
+        raise KeyError(f"param tree does not match the model: missing "
+                       f"{missing[:8]}, extra {extra[:8]}")
+    for name, p in params.items():
+        if tuple(shapes[name]) != tuple(p.shape):
+            raise ValueError(f"{name}: tree shape {tuple(shapes[name])} "
+                             f"!= parameter shape {tuple(p.shape)}")
+
+
 def params_from_numpy(model: nn.Module, tree) -> None:
     """Load ``repro``'s param tree into ``model``'s parameters.
 
     ``tree`` is ``repro``'s nested dict (``jax.tree.map(np.asarray,
     params)``); leaves may also be tensors (``init_params``).  The
-    stacked block arrays (``blocks.*``, ``[L, ...]``) are split per
-    layer.  Every name must match and every shape must agree, or
-    ``KeyError`` / ``ValueError`` is raised before anything is written;
-    each value is cast to its parameter's dtype (f32 -> bf16 rounds to
-    nearest even, as ``repro``'s per-call cast in ``dense`` does).
+    stacked arrays (``blocks.*``, ``dense_blocks.*``: ``[L, ...]``) are
+    split per layer.  Every name must match and every shape must agree,
+    or ``KeyError`` / ``ValueError`` is raised before anything is
+    written; each value is cast to its parameter's dtype (f32 -> bf16
+    rounds to nearest even, as ``repro``'s per-call cast in ``dense``
+    does).
     """
+    stacked = _stacked(model)
     flat = {}
     for name, arr in flatten(tree).items():
         t = arr if isinstance(arr, torch.Tensor) else torch.tensor(
             np.asarray(arr))
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            for i in range(t.shape[0]):
-                flat[f"blocks.{i}.{rest}"] = t[i]
-        else:
-            flat[name] = t
+        flat.update(_per_layer(name, t, stacked))
     params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(flat))
-    extra = sorted(set(flat) - set(params))
-    if missing or extra:
-        raise KeyError(f"param tree does not match the model: missing "
-                       f"{missing[:8]}, extra {extra[:8]}")
-    for name, p in params.items():
-        if tuple(flat[name].shape) != tuple(p.shape):
-            raise ValueError(f"{name}: tree shape {tuple(flat[name].shape)} "
-                             f"!= parameter shape {tuple(p.shape)}")
+    _check_names(params, {n: t.shape for n, t in flat.items()})
     with torch.no_grad():
         for name, p in params.items():
             p.copy_(flat[name].to(device=p.device, dtype=p.dtype))
+
+
+@torch.no_grad()
+def init_params_into(model: nn.Module, generator: torch.Generator) -> None:
+    """``params_from_numpy(model, init_params(model.specs, generator,
+    device))`` without the whole f32 tree: each leaf of ``model.specs``
+    is drawn in leaf order (the same draws, so the same weights), copied
+    into its parameters (cast to their dtype) and freed before the next
+    is drawn.  At Mixtral-8x7B's width the tree would hold 4 bytes a
+    parameter beside the model's 2."""
+    stacked = _stacked(model)
+    specs = flatten(model.specs)
+    params = dict(model.named_parameters())
+    shapes = {}
+    for name, spec in specs.items():
+        meta = torch.empty(spec.shape, device="meta")
+        shapes.update((n, t.shape) for n, t in _per_layer(name, meta,
+                                                          stacked))
+    _check_names(params, shapes)
+    device = next(iter(params.values())).device
+    for name, spec in specs.items():
+        t = _init_one(spec, generator, device)
+        for pname, part in _per_layer(name, t, stacked):
+            params[pname].copy_(part)
+        del t

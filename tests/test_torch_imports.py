@@ -2,8 +2,9 @@
 chip_smoke.py or the examples/torch_*.py twins, imports ``jax`` or the
 JAX package ``repro`` (an AST scan of every import statement), importing
 the port's engine, serving, front-end, artifact, enrichment, data,
-analytics, obs, model-stack or training modules (optimizer, checkpoint
-manager, driver, train launcher) loads neither, chip_smoke.py refuses to
+analytics, obs, model-stack (the MoE layer and its dispatch included) or
+training modules (optimizer, checkpoint manager, driver, train launcher)
+loads neither, chip_smoke.py refuses to
 run without a CUDA device, and the serving launcher and the quickstart
 twin run on the CPU only when asked (``--device cpu``).
 """
@@ -40,14 +41,15 @@ def _imported_roots(path):
 
 
 def test_port_files_found():
-    assert len(PORT_FILES) >= 67
+    assert len(PORT_FILES) >= 77
     for path in ("core/engine.py", "serving/server.py",
                  "analytics/aggregate.py", "obs/profile.py",
                  "kernels/segment.py", "models/model.py",
                  "kernels/flash_attn.py", "launch/serve.py",
                  "runtime/steps.py", "configs/qwen1_5_0_5b.py",
                  "optim/adamw.py", "checkpoint/manager.py",
-                 "runtime/driver.py", "launch/train.py"):
+                 "runtime/driver.py", "launch/train.py", "models/moe.py",
+                 "distributed/dispatch.py", "distributed/__init__.py"):
         assert f"src/repro_torch/{path}" in PORT_FILES
     assert "examples/torch_train_lm.py" in PORT_FILES
 
@@ -87,7 +89,9 @@ def test_engine_import_loads_no_jax():
                                     "repro_torch.optim.adamw",
                                     "repro_torch.checkpoint.manager",
                                     "repro_torch.runtime.driver",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.models.moe",
+                                    "repro_torch.distributed.dispatch"])
 def test_slice_import_loads_no_jax(module):
     """The serving, analytics and obs packages, the model stack and the
     training modules load neither ``jax`` nor ``repro`` (the server pulls
