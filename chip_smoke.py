@@ -11,8 +11,9 @@ training and MoE paths through their public entry points
 ``enrich``, ``data.make_source``, ``repro_torch.launch.serve``,
 ``launch.train``'s ``setup`` / ``run_config`` with
 ``runtime.driver.train_loop`` over ``runtime.steps.make_train_step``,
-``checkpoint.manager``, and the MoE family through
-``make_prefill_step`` and ``launch.serve``) on the card:
+``checkpoint.manager``, and the MoE, vlm and encdec families through
+``make_prefill_step``, ``launch.serve`` and ``launch.train``) on the
+card:
 
   1. prints the card (nvidia-smi name and power limit), torch and nvcc
      versions, and builds the CUDA kernels from ``src/repro_torch/
@@ -184,7 +185,34 @@ training and MoE paths through their public entry points
         DSV2_SERVE, no kernel of the eight launched (head dim 192; MLA);
      e. Mixtral's reduced config trained MOE_TRAIN_STEPS steps through
         ``launch.train.setup`` and ``train_loop``: losses finite,
-        ``lb_loss`` and ``dropped`` reported.
+        ``lb_loss`` and ``dropped`` reported;
+ 11. the vlm and encdec families (after phase 10):
+     a. Llama-3.2-Vision-90B at its published widths, VLM_GROUPS of its
+        20 groups (random weights drawn leaf by leaf, both gates of each
+        cross block then drawn non-zero): ``make_prefill_step`` over
+        VLM_BATCH x VLM_SEQ tokens and 1,600 image tokens a row launches
+        ``flash_attn_bhsd`` once a self layer (causal, on the tensor-core
+        route) and nothing else of the eight (the gated cross-attention
+        is ``blockwise_attn``, as in ``repro``); each call held against
+        the twin and the planted fault shown to fail it; the logits
+        within LOGIT_TOL of the plain path's; tok/s, peak memory and a
+        profile by part (flash, cross attention, FFN, unembedding, the
+        rest); ``launch.serve.serve`` with XATTN_SERVE (the token loop):
+        no kernel launched; with the attention gates at 0, decode within
+        LOGIT_TOL of a teacher-forced forward (decode never fills the
+        image caches, as in ``repro``);
+     b. SeamlessM4T-medium whole: ``make_prefill_step`` over
+        ENCDEC_BATCH x ENCDEC_SEQ frames and tokens launches flash once
+        an encoder layer on the full (non-causal) route and once a
+        decoder layer causal, all on wgmma, each call against the twin
+        and the planted fault; logits within LOGIT_TOL of the plain
+        path's; profile by part; flash timed at both shapes beside its
+        bound and ``scaled_dot_product_attention``; the token-loop serve,
+        no kernel launched;
+     c. both reduced configs trained XATTN_TRAIN_STEPS steps through
+        ``launch.train.setup`` and ``train_loop``: losses finite, flash
+        once a self layer a step, the loss on a held-out batch lower
+        after the steps than before.
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -312,6 +340,23 @@ DSV2_ARCH, DSV2_LAYERS, DSV2_BATCH, DSV2_SEQ = "deepseek-v2-236b", 3, 2, 2048
 DSV2_SERVE = (2, 64, 16)
 MOE_TRAIN_STEPS, MOE_TRAIN_SEQ = 2, 32
 ROUTE_GAP = 2.0 ** -6
+# Phase 11, the vlm and encdec families.  Llama-3.2-Vision-90B at its
+# published widths, cut to VLM_GROUPS of its 20 groups of 5 layers (4
+# self + 1 gated cross-attention): 10 of 100 layers, 17.1 GB of bf16
+# blocks beside 8.4 GB of f32 embedding and unembedding (the 100 layers
+# would be ~94 GB, over the card's 80); its forward over VLM_BATCH x
+# VLM_SEQ tokens and n_img_tokens (1,600) image tokens a row.
+# SeamlessM4T-medium whole (12 + 12 layers), its forward over
+# ENCDEC_BATCH x ENCDEC_SEQ frames and as many tokens.  Both served
+# XATTN_SERVE (prompts, prompt tokens, generated tokens) through the
+# token loop (neither has a prefill, as in repro); their reduced configs
+# trained XATTN_TRAIN_STEPS steps of 8 x XATTN_TRAIN_SEQ.  Both gates of
+# a vlm cross block start at zero (repro's init, which would hide the
+# image path): the smoke draws them from U(0.5, 1.5) after the load.
+VLM_ARCH, VLM_GROUPS, VLM_BATCH, VLM_SEQ = "llama-3.2-vision-90b", 2, 4, 2048
+ENCDEC_ARCH, ENCDEC_BATCH, ENCDEC_SEQ = "seamless-m4t-medium", 4, 2048
+XATTN_SERVE, XATTN_SEED = (4, 128, 32), 0
+XATTN_TRAIN_STEPS, XATTN_TRAIN_SEQ = 16, 64
 # Teacher-forced logits (f32, scale ~1): decode against forward over the
 # same tokens, both in bf16 through 24 layers; on an H100 they came
 # 0.068-0.071 apart (the CPU tests see 0.05 between repro and the port
@@ -983,19 +1028,19 @@ def start_fault_build(build, tmp):
 
 def load_fault(build, proc, lib_path):
     """Wait for ``start_fault_build``'s nvcc and bind its library: a
-    function of bf16 q, k, v [BH, S, D] -> the faulty causal output.  Its
-    launches are counted nowhere."""
+    function of bf16 q, k, v [BH, S, D] (and ``causal``) -> the faulty
+    output.  Its launches are counted nowhere."""
     log = proc.communicate()[0]
     check(proc.returncode == 0, f"planted-fault flash build failed:\n{log}")
     fn = ctypes.CDLL(lib_path).repro_flash_attn_wgmma
     fn.argtypes = build._SIGNATURES["repro_flash_attn_wgmma"]
     fn.restype = ctypes.c_int
 
-    def faulty(q, k, v):
+    def faulty(q, k, v, causal=True):
         out = torch.empty_like(q)
         bh, s, d = q.shape
         status = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
-                    bh, s, d, 1, ctypes.c_float(1.0 / math.sqrt(d)),
+                    bh, s, d, int(causal), ctypes.c_float(1.0 / math.sqrt(d)),
                     build.stream_of(q))
         check(status == 0, f"planted-fault flash launch failed ({status})")
         return out
@@ -1310,9 +1355,10 @@ def lm_timing(model, prompts, gen_tok, result, card) -> None:
 def flash_row(smoke, calls, launches: int, batch: int = LM_BATCH,
               path: str = "lm_prefill") -> dict:
     """The flash kernel's row, per call at a path's shape ([B * H, S, hd]
-    bf16, causal: ``calls`` holds the path's first call, ``batch`` its
-    B), beside its twin and PyTorch's fused attention on the same tensors
-    viewed [B, H, S, hd] (timed only; the port never calls it)."""
+    bf16, causal or full: ``calls`` holds the path's first call of the
+    kind, ``batch`` its B), beside its twin and PyTorch's fused attention
+    on the same tensors viewed [B, H, S, hd] (timed only; the port never
+    calls it)."""
     (q, k, v), kw, (out,) = calls[0]
     err = smoke.compare("flash_attn_bhsd", calls)
     fa_fn = smoke.flash.flash_attn_bhsd
@@ -1323,13 +1369,16 @@ def flash_row(smoke, calls, launches: int, batch: int = LM_BATCH,
     bh, s, d = q.shape
     q4, k4, v4 = (x.view(batch, bh // batch, s, d) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_diff = float((sdpa(q4, k4, v4, is_causal=True).float().reshape(
+    causal = kw["causal"]
+    lib_diff = float((sdpa(q4, k4, v4, is_causal=causal).float().reshape(
         out.shape) - out.float()).abs().max())
-    library = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), KERNEL_REPS)
-    bound, bound_by, nbytes, n_ops = flash_bound(q, kw["causal"])
+    library = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=causal),
+                      KERNEL_REPS)
+    bound, bound_by, nbytes, n_ops = flash_bound(q, causal)
     route = smoke.flash.flash_route(q.dtype, q.shape[2])
     print(f"flash_attn_bhsd ({route} route): {ms:.4f} ms per call at "
-          f"{list(q.shape)} bf16 causal (the {path} path: {launches} calls, "
+          f"{list(q.shape)} bf16 {'causal' if causal else 'full'} (the "
+          f"{path} path: {launches} calls, "
           f"{ms * launches:.2f} ms a pass; {n_ops / ms / 1e9:.4g} "
           f"TFLOP/s) vs plain twin {plain:.3f} ms, "
           f"scaled_dot_product_attention {library:.4f} ms (output within "
@@ -2192,6 +2241,43 @@ def train_phase(smoke, engine, result) -> dict:
         r["launches"]["flash_attn_bhsd"] for r in rec)}
 
 
+def flash_calls_vs_twin(smoke, calls, faulty, what) -> tuple:
+    """Each kept ``flash_attn_bhsd`` call of a forward held against its
+    twin (``flash_err``), and the planted fault shown to fail the same
+    bound on each.  Returns (max abs err, max err / tolerance, the
+    fault's err / tolerance per call)."""
+    err = over = 0.0
+    fault = []
+    for args, kw, (o,) in calls:
+        want, spread = smoke.twin("flash_attn_bhsd", args, kw)
+        e, ov = flash_err(o, want, spread, f"{what} flash call")
+        err, over = max(err, e), max(over, ov)
+        fault.append(flash_over(faulty(*args, **kw), want, spread))
+        del want, spread
+    check(min(fault) > 1.0, f"{what}: the kernel with KV tile {FAULT_TILE} "
+                            f"skipped passes the flash tolerance on a call "
+                            f"({min(fault):.3g}x)")
+    return err, over, fault
+
+
+def step_timing(step, batch, n_tokens) -> dict:
+    """The median host seconds of three runs of ``step(batch)`` (each
+    ending in a sync), tok/s over ``n_tokens``, and the runs' peak device
+    memory above what was allocated before them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    median = float(np.median(times))
+    return dict(step_s=median, step_s_all=times, tok_s=n_tokens / median,
+                peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+
 class RouteLog:
     """The port's router calls inside ``record()``: ([T, k] ids, [T] gap
     between the k-th and (k+1)-th probability), on the host, in call
@@ -2276,13 +2362,13 @@ def moe_load(arch, layers, result_key, result):
     return cfg, model
 
 
-def moe_serve(smoke, model, shape, out, what):
+def token_serve(smoke, model, shape, out, what, phase=10, seed=MOE_SEED):
     """``launch.serve.serve`` (no ``prefill``: the prompt fed token by
     token) with the counts of each phase: no kernel of the eight
     launched.  Returns the ServeResult."""
     from repro_torch.launch import serve as serve_mod
     b, s, gen = shape
-    prompts = serve_mod.make_prompts(model.cfg, b, s, MOE_SEED, "cuda")
+    prompts = serve_mod.make_prompts(model.cfg, b, s, seed, "cuda")
     counts = {}
 
     def on_phase(name, edge):
@@ -2307,8 +2393,8 @@ def moe_serve(smoke, model, shape, out, what):
                         prompt_s=res.prefill_s, decode_s=res.decode_s,
                         peak_bytes=res.peak_bytes)
     sv = out["serve"]
-    print(f"phase 10: {what} through launch.serve.serve, {b} prompts of {s} "
-          f"tokens fed token by token (no prefill, as repro) in "
+    print(f"phase {phase}: {what} through launch.serve.serve, {b} prompts "
+          f"of {s} tokens fed token by token (no prefill, as repro) in "
           f"{res.prefill_s:.2f} s = {sv['prompt_tok_s']:.5g} tok/s, then "
           f"{gen - 1} greedy steps in {res.decode_s:.2f} s = "
           f"{sv['decode_tok_s']:.5g} tok/s; no kernel of the eight launched; "
@@ -2351,17 +2437,8 @@ def mixtral_forward(smoke, cfg, model, faulty, out):
     check(bool(torch.isfinite(last).all()) and last.shape == (MOE_BATCH,
                                                               cfg.vocab),
           "mixtral forward: last logits not finite")
-    err = over = 0.0
-    fault = []
-    for args, kw, (o,) in calls:
-        want, spread = smoke.twin("flash_attn_bhsd", args, kw)
-        e, ov = flash_err(o, want, spread, "mixtral forward flash call")
-        err, over = max(err, e), max(over, ov)
-        fault.append(flash_over(faulty(*args), want, spread))
-        del want, spread
-    check(min(fault) > 1.0, f"mixtral forward: the kernel with KV tile "
-                            f"{FAULT_TILE} skipped passes the flash "
-                            f"tolerance on a call ({min(fault):.3g}x)")
+    err, over, fault = flash_calls_vs_twin(smoke, calls, faulty,
+                                           "mixtral forward")
     first = calls[:1]
     del cap, calls
     # The kernel's forward and the plain path's (flash's twin), the plain
@@ -2411,19 +2488,7 @@ def mixtral_forward(smoke, cfg, model, faulty, out):
           f"{MOE_BATCH * MOE_SEQ * cfg.top_k} choices at capacity "
           f"{f['capacity']}; lb_loss {klb:.6f} (plain {plb:.6f})")
     # Timing: tok/s of the step, peak memory, a profile by operator.
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        step({"tokens": toks})
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    f["step_s"] = float(np.median(times))
-    f["step_s_all"] = times
-    f["tok_s"] = MOE_BATCH * MOE_SEQ / f["step_s"]
-    f["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    f.update(step_timing(step, {"tokens": toks}, MOE_BATCH * MOE_SEQ))
     patches = [(moe, "_router", "router"),
                (moe, "plan_routes", "dispatch: plan (sort)"),
                (moe, "slot_tables", "dispatch: slot tables"),
@@ -2435,7 +2500,7 @@ def mixtral_forward(smoke, cfg, model, faulty, out):
     f["profile"] = p = profile_busy(lambda: step({"tokens": toks}), top=8,
                                     ranges=patches)
     print(f"phase 10: mixtral forward step {f['step_s'] * 1e3:.1f} ms "
-          f"(median of {[round(t * 1e3, 1) for t in times]}) = "
+          f"(median of {[round(t * 1e3, 1) for t in f['step_s_all']]}) = "
           f"{f['tok_s']:.5g} tok/s ({card_line()}); peak "
           f"{f['peak_bytes'] / 2**30:.2f} GiB above the weights; under "
           f"torch.profiler: wall {p['wall_ms']:.1f} ms, device "
@@ -2556,7 +2621,7 @@ def deepseek_path(smoke, out):
           f"{r['forward_peak_bytes'] / 2**30:.2f} GiB above the weights; "
           f"no kernel of the eight launched; dropped {r['forward_dropped']}, "
           f"lb_loss {r['forward_lb_loss']:.6f}")
-    moe_serve(smoke, model, DSV2_SERVE, r, cfg.name)
+    token_serve(smoke, model, DSV2_SERVE, r, cfg.name)
     del model, step
     torch.cuda.empty_cache()
 
@@ -2616,7 +2681,7 @@ def moe_phase(smoke, result, faulty) -> dict:
     timing = flash_row(smoke, first, cfg.n_layers, batch=MOE_BATCH,
                        path="mixtral forward")
     del first
-    res = moe_serve(smoke, model, MOE_SERVE, out["mixtral"], cfg.name)
+    res = token_serve(smoke, model, MOE_SERVE, out["mixtral"], cfg.name)
     from repro_torch.launch import serve as serve_mod
     prompts = serve_mod.make_prompts(cfg, MOE_SERVE[0], MOE_SERVE[1],
                                      MOE_SEED, "cuda")
@@ -2627,6 +2692,325 @@ def moe_phase(smoke, result, faulty) -> dict:
     deepseek_path(smoke, out)
     moe_train_check(smoke, out)
     return {"launches": cfg.n_layers, "timing": timing}
+
+
+# -- phase 11: the vlm and encdec families -----------------------------------
+def set_gates(model, gate=None) -> None:
+    """The vlm's gates (zero at init, as in ``repro``, which would hide the
+    whole image path) drawn from U(0.5, 1.5) with XATTN_SEED; ``gate``
+    then sets every attention gate to that value (the ffn gates stay)."""
+    gen = torch.Generator(device="cuda").manual_seed(XATTN_SEED + 1)
+    with torch.no_grad():
+        for group in model.groups:
+            cross = group["cross"]
+            for p in (cross.gate, cross.ffn_gate):
+                p.uniform_(0.5, 1.5, generator=gen)
+            if gate is not None:
+                cross.gate.fill_(gate)
+
+
+def xattn_load(arch, out, **changes):
+    """``arch``'s full config (with ``changes``) on the card, random
+    weights drawn leaf by leaf (``launch.serve.load_model``); the vlm's
+    gates then set non-zero (``set_gates``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = serve_mod.load_model(cfg, seed=XATTN_SEED, device="cuda")
+    if cfg.family == "vlm":
+        set_gates(model)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    out.update(layers=cfg.n_layers + cfg.enc_layers,
+               published_layers=get_config(arch).n_layers
+               + get_config(arch).enc_layers,
+               params=model.param_count(), weight_bytes=weights,
+               load_s=time.perf_counter() - t0,
+               load_peak_bytes=torch.cuda.max_memory_allocated() - base)
+    print(f"phase 11: {cfg.name} at full width, {out['layers']} of "
+          f"{out['published_layers']} layers (d {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, {cfg.n_kv_heads} KV heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}): {out['params']} params, "
+          f"{weights / 2**30:.2f} GiB on the card, drawn leaf by leaf in "
+          f"{out['load_s']:.2f} s (peak {out['load_peak_bytes'] / 2**30:.2f} "
+          f"GiB during the load)")
+    return cfg, model
+
+
+def xattn_batch(cfg, b, s) -> dict:
+    """Prompt tokens [b, s] (``make_prompts``) and the family's stub,
+    image tokens [b, n_img, d_vision] or frames [b, s, d], bf16 normals
+    from XATTN_SEED on the card."""
+    from repro_torch.launch import serve as serve_mod
+    gen = torch.Generator(device="cuda").manual_seed(XATTN_SEED)
+    batch = {"tokens": serve_mod.make_prompts(cfg, b, s, XATTN_SEED,
+                                              "cuda")}
+    if cfg.family == "vlm":
+        shape, name = (b, cfg.n_img_tokens, cfg.d_vision), "img"
+    else:
+        shape, name = (b, s, cfg.d_model), "frames"
+    batch[name] = torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return batch
+
+
+def xattn_forward(smoke, cfg, model, batch, faulty, want_calls, out, what):
+    """``make_prefill_step`` over ``batch``: ``flash_attn_bhsd`` launched
+    once for each of ``want_calls`` ((causal, [BH, S, D]), in order), all
+    on the tensor-core route, nothing else of the eight; each call held
+    against the twin and the planted fault shown to fail it; the
+    forward's logits within LOGIT_TOL of the plain path's (flash's twin);
+    then tok/s, peak memory and a profile by part.  Returns the first
+    call of each kind (causal, full) for the timing."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.steps import make_prefill_step
+    b, s = batch["tokens"].shape
+    run = serve_mod.run_config(s)
+    step = make_prefill_step(model, run)
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    with smoke.capture(keep=["flash_attn_bhsd"]) as cap:
+        last = step(batch)
+        torch.cuda.synchronize()
+    counts = dict(smoke.build.LAUNCHES)
+    routes = dict(smoke.build.ROUTE_LAUNCHES)
+    calls = cap.calls["flash_attn_bhsd"]
+    for kname, n in counts.items():
+        check((n > 0) == (kname == "flash_attn_bhsd"),
+              f"{what} forward: {kname} launched {n} times")
+    got = [(kw["causal"], tuple(a[0].shape)) for a, kw, _ in calls]
+    check(got == want_calls and counts["flash_attn_bhsd"] == len(want_calls)
+          and routes["flash_attn_bhsd:wgmma"] == len(want_calls)
+          and all(a[0].dtype == torch.bfloat16 for a, _, _ in calls),
+          f"{what} forward: flash calls {got} by route {routes}, not "
+          f"{want_calls} on wgmma")
+    check(bool(torch.isfinite(last).all()) and last.shape == (b, cfg.vocab),
+          f"{what} forward: last logits not finite")
+    err, over, fault = flash_calls_vs_twin(smoke, calls, faulty,
+                                           f"{what} forward")
+    first = {}
+    for call in calls:
+        first.setdefault(call[1]["causal"], [call])
+    del cap, calls
+    logits = {}
+    for name in ("kernel", "plain"):
+        with (twin_flash(smoke) if name == "plain"
+              else contextlib.nullcontext()), torch.inference_mode():
+            smoke.build.reset_launches()
+            logits[name] = model.forward(run, batch)[0]
+            torch.cuda.synchronize()
+            n = smoke.build.LAUNCHES["flash_attn_bhsd"]
+        check(n == (len(want_calls) if name == "kernel" else 0),
+              f"{what} {name} forward: {n} flash launches")
+    diff = float((logits["kernel"] - logits["plain"]).abs().max())
+    check(bool(torch.isfinite(logits["kernel"]).all()) and diff <= LOGIT_TOL,
+          f"{what} forward: logits differ from the plain path's by {diff}")
+    shape = tuple(logits["kernel"].shape)
+    del logits
+    n_full = sum(not c for c, _ in want_calls)
+    out["forward"] = dict(batch=b, seq=s, flash_launches=len(want_calls),
+                          flash_full=n_full,
+                          flash_causal=len(want_calls) - n_full,
+                          flash_max_abs_err=err, flash_over=over,
+                          fault_over=fault, logits_vs_plain=diff,
+                          logits_shape=shape)
+    f = out["forward"]
+    print(f"phase 11: {what} make_prefill_step over {b} x {s} tokens: "
+          f"flash_attn_bhsd launched {len(want_calls)} times ({n_full} full, "
+          f"{len(want_calls) - n_full} causal, all wgmma at "
+          f"{sorted({sh for _, sh in want_calls})}) and nothing else of the "
+          f"eight; each call == twin (max abs err {err:.3g}, {over:.3g}x the "
+          f"tolerance; the planted fault fails each, "
+          f"{min(fault):.3g}-{max(fault):.3g}x); forward's logits {shape} "
+          f"within {diff:.4g} of the plain path's (tol {LOGIT_TOL})")
+    f.update(step_timing(step, batch, b * s))
+    patches = [(ops, "flash_attn", "self attention (flash)"),
+               (tf, "blockwise_attn", "cross attention (blockwise, f32)"),
+               (model_mod, "blockwise_attn",
+                "cross attention (blockwise, f32)"),
+               (tf, "ffn", "FFN"), (model_mod, "ffn", "FFN"),
+               (model_mod, "unembed", "unembedding (f32)")]
+    f["profile"] = p = profile_busy(lambda: step(batch), top=8,
+                                    ranges=patches)
+    rest = p["device_ms"] - sum(ms for ms, _ in p["ranges"].values())
+    f["profile"]["rest_ms"] = rest
+    print(f"phase 11: {what} forward step {f['step_s'] * 1e3:.1f} ms "
+          f"(median of {[round(t * 1e3, 1) for t in f['step_s_all']]}) = "
+          f"{f['tok_s']:.5g} tok/s ({card_line()}); peak "
+          f"{f['peak_bytes'] / 2**30:.2f} GiB above the weights; under "
+          f"torch.profiler: wall {p['wall_ms']:.1f} ms, device "
+          f"{p['device_ms']:.1f} ms (busy {p['busy']:.1%}), {p['launches']} "
+          f"launches; by part "
+          + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n)
+                      in p["ranges"].items())
+          + f"; the rest (projections, norms, RoPE, residuals) {rest:.2f} ms"
+          + "; top kernels " + "; ".join(f"{k} {ms:.2f} ms x{n}"
+                                         for k, ms, n in p["top"]))
+    return first
+
+
+def vlm_teacher_forced(smoke, cfg, model, img, prompts, gen_tok, out):
+    """Phase 11a's decode against a teacher-forced ``forward`` over the
+    prompt and generated tokens, with every attention gate at 0: decode
+    never fills the image caches (``repro``'s ``build_vlm``), so only then
+    do the two compute the same function; the ffn gates stay non-zero,
+    so the cross blocks' FFN runs in both.  Logits within LOGIT_TOL at
+    every position, argmax equal where the forward's margin is clear."""
+    from repro_torch.launch import serve as serve_mod
+    full = torch.cat([prompts, gen_tok], dim=1)
+    b, n = full.shape
+    run = serve_mod.run_config(prompts.shape[1])
+    saved = [g["cross"].gate.detach().clone() for g in model.groups]
+    set_gates(model, gate=0.0)
+    try:
+        with torch.inference_mode():
+            pred = model.forward(run, {"tokens": full, "img": img})[0]
+            cache = model.init_cache(b, n)
+            dec = []
+            for i in range(n):
+                lg, cache = model.decode_step(run, full[:, i:i + 1], cache)
+                dec.append(lg[:, -1])
+            dec = torch.stack(dec, dim=1)
+            check(not cache["img_k"].any() and not cache["img_v"].any(),
+                  "vlm decode wrote the image caches")
+    finally:
+        with torch.no_grad():
+            for g, gate in zip(model.groups, saved):
+                g["cross"].gate.copy_(gate)
+    diff = float((dec - pred).abs().max())
+    check(bool(torch.isfinite(pred).all()) and diff <= LOGIT_TOL,
+          f"vlm decode (gate 0): logits differ from the forward's by {diff}")
+    top = pred.topk(2, dim=-1)
+    clear = (top.values[..., 0] - top.values[..., 1]) > LOGIT_TOL
+    check(bool((dec.argmax(-1) == top.indices[..., 0])[clear].all()),
+          "vlm decode (gate 0): argmax differs from the forward's where its "
+          "margin is clear")
+    out["teacher_forced"] = dict(positions=n, decode_vs_forward=diff,
+                                 argmax_checked=int(clear.sum()))
+    print(f"phase 11: vlm decode over {b} x {n} tokens with the attention "
+          f"gates at 0 (ffn gates not; the image caches stay zero, as in "
+          f"repro) within {diff:.4g} of a teacher-forced forward (tol "
+          f"{LOGIT_TOL}); argmax equal at all {int(clear.sum())} positions "
+          f"whose margin > {LOGIT_TOL}")
+
+
+def xattn_train_check(smoke, out):
+    """Phase 11c: both families' reduced configs trained XATTN_TRAIN_STEPS
+    steps on the card through ``launch.train.setup`` and ``train_loop``
+    over ``make_train_step`` (the pipeline draws the image / frames
+    stub): every loss finite, flash launched once a self layer a step,
+    and the loss on a batch the run never trains on lower after the
+    steps than before (each step's loss is on fresh data, so the held
+    batch is what shows the fall)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.driver import DriverConfig, train_loop
+    root = str(smoke.build.BUILD_ROOT.parent / "xattn_train_smoke")
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        cfg = get_reduced_config(arch)
+        model, params, opt = train_mod.setup(cfg, seed=XATTN_SEED,
+                                             device="cuda")
+        run = train_mod.run_config(arch, XATTN_TRAIN_STEPS, XATTN_TRAIN_SEQ)
+        src = SyntheticLM(cfg=cfg, batch=8, seq=XATTN_TRAIN_SEQ,
+                          seed=XATTN_SEED, device="cuda")
+        held = src.batch_at(10 * XATTN_TRAIN_STEPS)
+        loss_fn = steps.make_loss_fn(model, run)
+        with torch.no_grad():
+            before = float(loss_fn(held)[0])
+        inner = steps.make_train_step(model, run)
+        rec = []
+
+        def step(params, opt, batch, inner=inner, rec=rec):
+            smoke.build.reset_launches()
+            params, opt, m = inner(params, opt, batch)
+            rec.append(dict(loss=float(m["loss"]),
+                            flash=smoke.build.LAUNCHES["flash_attn_bhsd"]))
+            return params, opt, m
+
+        shutil.rmtree(root, ignore_errors=True)
+        dcfg = DriverConfig(total_steps=XATTN_TRAIN_STEPS,
+                            ckpt_every=XATTN_TRAIN_STEPS, ckpt_dir=root,
+                            keep=1, log_every=1)
+        _, _, hist = train_loop(step, params, opt, src, dcfg,
+                                log=lambda *_: None)
+        shutil.rmtree(root, ignore_errors=True)
+        with torch.no_grad():
+            after = float(loss_fn(held)[0])
+        n_self = (cfg.n_layers // cfg.cross_attn_every
+                  * (cfg.cross_attn_every - 1) if cfg.family == "vlm"
+                  else cfg.enc_layers + cfg.n_layers)
+        check(hist["steps_run"] == XATTN_TRAIN_STEPS
+              and len(rec) == XATTN_TRAIN_STEPS
+              and all(math.isfinite(r["loss"]) and r["flash"] == n_self
+                      for r in rec) and after < before,
+              f"{cfg.name} train_loop: {rec}, held-out loss {before} -> "
+              f"{after}")
+        out[arch] = dict(losses=[r["loss"] for r in rec], held_before=before,
+                         held_after=after, flash_per_step=n_self)
+        print(f"phase 11: {cfg.name} through train_loop over "
+              f"make_train_step on the card, {XATTN_TRAIN_STEPS} steps of 8 x "
+              f"{XATTN_TRAIN_SEQ} (flash {n_self} launches a step): losses "
+              f"{rec[0]['loss']:.4f} ... {rec[-1]['loss']:.4f}, all finite; "
+              f"held-out batch {before:.4f} -> {after:.4f}")
+        del model, params, opt
+
+
+def xattn_phase(smoke, result, faulty) -> dict:
+    """Phase 11 (see the module doc).  Returns the flash kernel's launches
+    on the two forwards and its timing at the encdec shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    out = result["xattn"] = {"vlm": {}, "encdec": {}, "train": {}}
+    # a. Llama-3.2-Vision-90B, VLM_GROUPS of its groups of k layers.
+    k = get_config(VLM_ARCH).cross_attn_every
+    cfg, model = xattn_load(VLM_ARCH, out["vlm"], n_layers=VLM_GROUPS * k)
+    batch = xattn_batch(cfg, VLM_BATCH, VLM_SEQ)
+    bhsd = (VLM_BATCH * cfg.n_heads, VLM_SEQ, cfg.hd)
+    vlm_launches = VLM_GROUPS * (k - 1)
+    xattn_forward(smoke, cfg, model, batch, faulty,
+                  [(True, bhsd)] * vlm_launches, out["vlm"],
+                  "llama-3.2-vision")
+    res = token_serve(smoke, model, XATTN_SERVE, out["vlm"], cfg.name, 11,
+                      XATTN_SEED)
+    b, s, _ = XATTN_SERVE
+    prompts = serve_mod.make_prompts(cfg, b, s, XATTN_SEED, "cuda")
+    vlm_teacher_forced(smoke, cfg, model, batch["img"][:b], prompts,
+                       res.tokens, out["vlm"])
+    del model, res, batch
+    torch.cuda.empty_cache()
+    # b. SeamlessM4T-medium whole.
+    cfg, model = xattn_load(ENCDEC_ARCH, out["encdec"])
+    batch = xattn_batch(cfg, ENCDEC_BATCH, ENCDEC_SEQ)
+    bhsd = (ENCDEC_BATCH * cfg.n_heads, ENCDEC_SEQ, cfg.hd)
+    first = xattn_forward(smoke, cfg, model, batch, faulty,
+                          [(False, bhsd)] * cfg.enc_layers
+                          + [(True, bhsd)] * cfg.n_layers,
+                          out["encdec"], "seamless-m4t")
+    timing = {}
+    for causal, calls in first.items():
+        timing["causal" if causal else "full"] = flash_row(
+            smoke, calls, cfg.n_layers if causal else cfg.enc_layers,
+            batch=ENCDEC_BATCH,
+            path=f"seamless-m4t {'decoder' if causal else 'encoder'}")
+    del first
+    token_serve(smoke, model, XATTN_SERVE, out["encdec"], cfg.name, 11,
+                XATTN_SEED)
+    del model, batch
+    torch.cuda.empty_cache()
+    # c. Training at the reduced configs.
+    xattn_train_check(smoke, out["train"])
+    return {"launches": {"vlm_forward": vlm_launches,
+                         "encdec_forward": cfg.enc_layers + cfg.n_layers},
+            "timing": timing}
 
 
 def host_map():
@@ -3264,20 +3648,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(smoke, result, faulty)
     phase_s["moe"] = time.perf_counter() - t_start
+    # -- 11. the vlm and encdec families --------------------------------------
+    torch.cuda.empty_cache()
+    xattn = xattn_phase(smoke, result, faulty)
+    phase_s["xattn"] = time.perf_counter() - t_start
     # Flash's launches: the training run (and, by path, the prefill's, a
-    # training step's and the Mixtral forward's); its time at the Mixtral
-    # forward's shape beside the prefill's.
+    # training step's, the Mixtral, vlm and encdec forwards'); its time at
+    # the Mixtral forward's shape (the vlm's too) and at the encdec
+    # encoder's (full) and decoder's (causal) beside the prefill's.
     flash_kernel["launches_by_path"] = {
         "lm_prefill": flash_kernel["launches"], **train_launches,
-        "moe_forward": moe["launches"]}
+        "moe_forward": moe["launches"], **xattn["launches"]}
     flash_kernel["launches"] = train_launches["train_run"]
-    flash_kernel["moe_forward_shape"] = {
-        k: moe["timing"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    flash_kernel["moe_forward_shape"] = {k: moe["timing"][k] for k in keys}
+    for kind, row in xattn["timing"].items():
+        flash_kernel[f"encdec_{kind}_shape"] = {k: row[k] for k in keys}
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = phase_s["moe"]
+    result["total_s"] = phase_s["xattn"]
     result["phase_end_s"] = phase_s
     print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")

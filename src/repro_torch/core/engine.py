@@ -285,11 +285,11 @@ class GeoEngine:
 
     def assign_sharded(self, points, mesh) -> AssignResult:
         """Not ported yet: the sharded lookup comes with the distributed
-        slice (ROADMAP queue 1, item 11)."""
+        slice (ROADMAP queue 1, item 7)."""
         raise NotImplementedError(
             "GeoEngine.assign_sharded is not ported to repro_torch yet; "
             "it comes with the distributed slice (ROADMAP queue 1, "
-            "item 11)")
+            "item 7)")
 
 
 __all__ = ["EngineConfig", "GeoEngine", "GeoIndexSet", "STRATEGIES",

@@ -58,6 +58,13 @@ class FastIndex:
     def device(self) -> torch.device:
         return self.cell_lo.device
 
+    def nbytes(self) -> int:
+        """Bytes of the cell lookup's arrays (``repro``'s ``nbytes``: the
+        cells, their candidate lists and the top grid)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cell_lo, self.cell_hi, self.cell_val,
+                             self.cand, self.top_start))
+
     @classmethod
     def from_covering(cls, cov: CellCovering, census: CensusMap,
                       gbits: int = 4, with_pool: bool = False, *,

@@ -23,7 +23,7 @@ COMPONENTS = ("simple", "fast", "covering")
 # Strategies of the JAX package that this port does not run yet, with
 # the ROADMAP slice that brings each.
 NOT_PORTED = {
-    "sharded": "the distributed slice (ROADMAP queue 1, item 11)",
+    "sharded": "the distributed slice (ROADMAP queue 1, item 7)",
 }
 
 

@@ -261,7 +261,7 @@ def _pip_two_phase(points, cand_ids, edges_table, need, backend, cap2,
 
 def resolve_candidates(points: torch.Tensor, cand_ids: Candidates,
                        edges_table: torch.Tensor, need: torch.Tensor, *,
-                       cap: int,
+                       cap: int, k: int | None = None,
                        backend: str | None = None,
                        prior: torch.Tensor | None = None,
                        fallback: str = "prior",
@@ -277,6 +277,8 @@ def resolve_candidates(points: torch.Tensor, cand_ids: Candidates,
       edges_table: [P, E, 4] edge table the candidate ids index into.
       need:        [N] bool — points requiring resolution.
       cap:         static compaction capacity (compact.capacity_for).
+      k:           optional truncation of the candidate list to its first
+                   k slots (after the compaction).
       backend:     kernel backend override (resolved once, here).
       prior:       [N] i32 assignment so far (default all -1).
       fallback:    "prior" or "first" (slot-0 candidate) for a needed
@@ -298,6 +300,8 @@ def resolve_candidates(points: torch.Tensor, cand_ids: Candidates,
     sub_need = need[idx] & slot_ok
     sub_cand = cand_ids(idx, sub_pts) if callable(cand_ids) \
         else cand_ids[idx]
+    if k is not None:
+        sub_cand = sub_cand[:, :k]
     if two_phase:
         if cap2 is None:
             cap2 = capacity_for(cap, 0.25, ceiling=cap)

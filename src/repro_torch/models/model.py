@@ -1,11 +1,13 @@
-"""Model assembly (port of the dense and MoE families of
+"""Model assembly (port of the dense, MoE, vlm and encdec families of
 src/repro/models/model.py).
 
 ``repro``'s ``Model`` is a record of pure functions over a param tree; the
 port's is an ``nn.Module`` that holds its parameters (one ``ParamTree``
 per layer of each stack in an ``nn.ModuleList``, named after ``repro``'s
 tree: ``blocks.{i}.attn.wq.w``, ``dense_blocks.{i}.ffn.w_up.w``,
-``embed.table``, ``unembed.w``) on an explicit device, and whose methods
+``embed.table``, ``unembed.w``; the vlm's nested stack is a ModuleList
+of groups, ``groups.{g}.selfs.{j}.attn.wq.w`` and
+``groups.{g}.cross.gate``) on an explicit device, and whose methods
 drop the params argument:
 
   * ``forward(run, batch) -> (logits [B, S, V] f32, aux)`` — the training
@@ -16,9 +18,9 @@ drop the params argument:
   * ``decode_step(run, tokens [B, 1], cache) -> (logits [B, 1, V], cache)``
     — the caches are written in place, one slot per layer;
   * ``prefill(run, tokens [B, S], max_len) -> (last logits [B, 1, V],
-    cache)`` — the dense family's serving entry point.  The MoE family
-    has none, as in ``repro``: its serving feeds the prompt through
-    ``decode_step`` (``launch.serve``).
+    cache)`` — the dense family's serving entry point.  The MoE, vlm
+    and encdec families have none, as in ``repro``: their serving feeds
+    the prompt through ``decode_step`` (``launch.serve``).
 
 The last three run under ``torch.inference_mode()``.  ``cache_specs`` /
 ``abstract_params`` are meta-device stand-ins (shapes, no memory), and
@@ -50,9 +52,10 @@ from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
-from repro_torch.models.attention import gqa_project_qkv, repeat_kv, \
-    self_attn
-from repro_torch.models.ffn import ffn
+from repro_torch.models.attention import blockwise_attn, decode_attn, \
+    gqa_decode_self_attn, gqa_project_qkv, gqa_self_attn, gqa_spec, \
+    repeat_kv, self_attn
+from repro_torch.models.ffn import ffn, ffn_spec
 from repro_torch.models.layers import ACT_DTYPE, dense, embed, embed_spec, \
     rmsnorm, rmsnorm_spec, rope_tables, unembed, unembed_spec
 from repro_torch.models.module import ParamTree, abstract_params, \
@@ -63,9 +66,7 @@ CACHE_DTYPE = tf.CACHE_DTYPE
 # The families still to port, and the ROADMAP (§1 item 6) slice that
 # ports each.
 _LATER = {
-    "vlm": "the vlm slice, after MoE and MLA",
-    "encdec": "the encdec slice, after vlm",
-    "ssm_hybrid": "the ssm_hybrid slice, after encdec",
+    "ssm_hybrid": "the ssm_hybrid slice, after vlm and encdec",
     "xlstm": "the xlstm slice, the last of the model stack",
 }
 
@@ -140,14 +141,20 @@ class Model(nn.Module):
         self.final_norm = head(specs["final_norm"])
         if "unembed" in specs:
             self.unembed = head(specs["unembed"])
+        if "enc_norm" in specs:
+            self.enc_norm = head(specs["enc_norm"])
+
+    def _block(self, block_spec: dict, device) -> ParamTree:
+        """One block's ``ParamTree`` (serving dtypes by use, or f32 with a
+        gradient when trainable)."""
+        return ParamTree(block_spec, device,
+                         None if self.trainable else _block_dtype,
+                         requires_grad=self.trainable)
 
     def _stack(self, block_spec: dict, n: int, device) -> nn.ModuleList:
         """One ``ParamTree`` per layer of a stack of ``n`` blocks."""
-        return nn.ModuleList(
-            ParamTree(block_spec, device,
-                      None if self.trainable else _block_dtype,
-                      requires_grad=self.trainable)
-            for _ in range(n))
+        return nn.ModuleList(self._block(block_spec, device)
+                             for _ in range(n))
 
     @property
     def device(self) -> torch.device:
@@ -327,7 +334,179 @@ class MoEModel(Model):
         return self._logits(x), dict(cache, pos=pos + 1)
 
 
-_BUILDERS = {"dense": DenseModel, "moe": MoEModel}
+class VLMModel(Model):
+    """G groups of (k-1) self blocks and one gated cross-attention block
+    over the image tokens (``repro``'s ``build_vlm``, llama-3.2-vision).
+    ``forward`` recomputes each group's image K / V from ``batch["img"]``
+    [B, n_img, d_vision] cast to bf16.  No ``prefill``, as in ``repro``.
+
+    Decode never fills the image caches: ``init_cache`` zeroes ``img_k``
+    / ``img_v`` and ``decode_step`` only reads them, as ``repro``'s do.
+    So decode's cross-attention adds nothing (zero values, ``wo`` has no
+    bias) while its gated FFN still runs, and a decode step agrees with a
+    teacher-forced ``forward`` only where the attention gate is 0."""
+
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
+        k = cfg.cross_attn_every
+        if cfg.n_layers % k:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are no "
+                             f"multiple of cross_attn_every {k}")
+        self.n_groups = cfg.n_layers // k
+        selfs, cross = tf.dense_block_spec(cfg), tf.cross_block_spec(cfg)
+        specs = dict(_head_specs(cfg))
+        specs["groups"] = stack({"selfs": stack(selfs, k - 1),
+                                 "cross": cross}, self.n_groups,
+                                axis_name="groups")
+        super().__init__(cfg, specs, device, trainable)
+        self.groups = nn.ModuleList(
+            nn.ModuleDict({"selfs": self._stack(selfs, k - 1, device),
+                           "cross": self._block(cross, device)})
+            for _ in range(self.n_groups))
+
+    def forward(self, run, batch):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        img = batch["img"].to(ACT_DTYPE)
+        x = embed(self.embed, tokens)
+        pos = _positions(tokens.shape[1], x.device)
+        sblk = _wrap_remat(
+            lambda p, x: tf.dense_block(p, cfg, run, x, pos), run)
+        for group in self.groups:
+            for p in group["selfs"]:
+                x = sblk(p, x)
+            kv = tf.cross_img_kv(group["cross"], cfg, img)
+            x = tf.cross_block(group["cross"], cfg, run, x, kv)
+        return self._logits(x), {}
+
+    @torch.inference_mode()
+    def init_cache(self, batch, max_len, device=None):
+        cfg = self.cfg
+        dev = device or self.device
+        g, k = self.n_groups, cfg.cross_attn_every
+        shape = (g, k - 1, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        ishape = (g, batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.hd)
+        c = {name: torch.zeros(sh, dtype=CACHE_DTYPE, device=dev)
+             for name, sh in (("k", shape), ("v", shape), ("img_k", ishape),
+                              ("img_v", ishape))}
+        c["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return c
+
+    @torch.inference_mode()
+    def decode_step(self, run, tokens, cache):
+        cfg = self.cfg
+        x = embed(self.embed, tokens)
+        pos = cache["pos"]
+        for g, group in enumerate(self.groups):
+            for j, p in enumerate(group["selfs"]):
+                x, _, _ = tf.dense_block_decode(p, cfg, x, cache["k"][g, j],
+                                                cache["v"][g, j], pos)
+            x = tf.cross_block_decode(group["cross"], cfg, x,
+                                      cache["img_k"][g], cache["img_v"][g])
+        return self._logits(x), dict(cache, pos=pos + 1)
+
+
+def _dec_spec(cfg):
+    """An encdec decoder block: causal self-attention, cross-attention
+    over the encoder's output, the FFN."""
+    return {"self_norm": rmsnorm_spec(cfg.d_model),
+            "self": gqa_spec(cfg),
+            "cross_norm": rmsnorm_spec(cfg.d_model),
+            "cross": gqa_spec(cfg),
+            "ffn_norm": rmsnorm_spec(cfg.d_model),
+            "ffn": ffn_spec(cfg.d_model, cfg.d_ff, cfg.act)}
+
+
+class EncDecModel(Model):
+    """``enc_layers`` bidirectional encoder blocks over ``batch["frames"]``
+    [B, S_enc, d] (cast to bf16) and ``enc_norm``, then ``n_layers``
+    decoder blocks (``repro``'s ``build_encdec``, seamless-m4t).  The
+    encoder's self-attention is flash's full route, the decoder's its
+    causal one; the cross-attention (no RoPE) stays ``blockwise_attn``.
+    No ``prefill``, as in ``repro``.
+
+    Decode never fills ``cross_k`` / ``cross_v``: ``init_cache`` zeroes
+    them and ``decode_step`` only reads them, as ``repro``'s do, so
+    decode's cross-attention adds nothing and decode does not agree with
+    a teacher-forced ``forward``."""
+
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
+        enc, dec = tf.dense_block_spec(cfg), _dec_spec(cfg)
+        specs = dict(_head_specs(cfg))
+        specs["enc_blocks"] = stack(enc, cfg.enc_layers)
+        specs["enc_norm"] = rmsnorm_spec(cfg.d_model)
+        specs["dec_blocks"] = stack(dec, cfg.n_layers)
+        super().__init__(cfg, specs, device, trainable)
+        self.enc_blocks = self._stack(enc, cfg.enc_layers, device)
+        self.dec_blocks = self._stack(dec, cfg.n_layers, device)
+
+    def encode(self, run, frames):
+        cfg = self.cfg
+        pos = _positions(frames.shape[1], frames.device)
+        blk = _wrap_remat(
+            lambda p, x: tf.dense_block_bidir(p, cfg, run, x, pos), run)
+        x = frames
+        for p in self.enc_blocks:
+            x = blk(p, x)
+        return rmsnorm(self.enc_norm, x, cfg.norm_eps)
+
+    def _dec_block(self, p, x, enc_out, pos, run):
+        cfg = self.cfg
+        x = x + gqa_self_attn(p["self"], cfg,
+                              rmsnorm(p["self_norm"], x, cfg.norm_eps),
+                              positions=pos, chunk_q=run.attn_chunk_q,
+                              chunk_kv=run.attn_chunk_kv)
+        h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        q, k, v = gqa_project_qkv(p["cross"], cfg, h, kv_x=enc_out)
+        o = blockwise_attn(q, k, v, causal=False, chunk_q=run.attn_chunk_q,
+                           chunk_kv=run.attn_chunk_kv)
+        b, s = x.shape[:2]
+        x = x + dense(p["cross"]["wo"], o.reshape(b, s, -1))
+        return x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
+                       cfg.act)
+
+    def forward(self, run, batch):
+        tokens = batch["tokens"]
+        enc_out = self.encode(run, batch["frames"].to(ACT_DTYPE))
+        x = embed(self.embed, tokens)
+        pos = _positions(tokens.shape[1], x.device)
+        blk = _wrap_remat(
+            lambda p, x: self._dec_block(p, x, enc_out, pos, run), run)
+        for p in self.dec_blocks:
+            x = blk(p, x)
+        return self._logits(x), {}
+
+    @torch.inference_mode()
+    def init_cache(self, batch, max_len, device=None):
+        dev = device or self.device
+        n = self.cfg.n_layers
+        k, v = self._kv(n, batch, max_len, dev)
+        ck, cv = self._kv(n, batch, max_len, dev)
+        return {"k": k, "v": v, "cross_k": ck, "cross_v": cv,
+                "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    @torch.inference_mode()
+    def decode_step(self, run, tokens, cache):
+        cfg = self.cfg
+        x = embed(self.embed, tokens)
+        pos = cache["pos"]
+        b = x.shape[0]
+        for i, p in enumerate(self.dec_blocks):
+            a, _, _ = gqa_decode_self_attn(
+                p["self"], cfg, rmsnorm(p["self_norm"], x, cfg.norm_eps),
+                cache["k"][i], cache["v"][i], pos)
+            x = x + a
+            h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+            q = dense(p["cross"]["wq"], h).reshape(b, 1, cfg.n_heads, cfg.hd)
+            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+            o = decode_attn(q, ck, cv, ck.shape[1])
+            x = x + dense(p["cross"]["wo"], o.reshape(b, 1, -1))
+            x = x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
+                        cfg.act)
+        return self._logits(x), dict(cache, pos=pos + 1)
+
+
+_BUILDERS = {"dense": DenseModel, "moe": MoEModel, "vlm": VLMModel,
+             "encdec": EncDecModel}
 
 
 def build_model(cfg: ModelConfig, device="cuda", *,

@@ -15,9 +15,10 @@ block stack).  From the spec tree come:
     path in ``repro``'s tree (``blocks.3.attn.wq.w``, ``embed.table``).
 
 ``params_from_numpy`` loads a tree in ``repro``'s layout (every stacked
-``[L, ...]`` array split per layer) into a model; ``init_params_into``
-draws a model's random weights straight into its parameters, one
-stacked leaf at a time.  The logical
+array split along each stacked axis of its path: ``blocks.*`` [L, ...]
+per layer, the vlm's ``groups.selfs.*`` [G, k-1, ...] per group and
+layer) into a model; ``init_params_into`` draws a model's random weights
+straight into its parameters, one stacked leaf at a time.  The logical
 sharding axes of ``repro``'s specs are kept for the distributed slice.
 """
 from __future__ import annotations
@@ -136,21 +137,27 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
-def _stacked(model: nn.Module) -> set:
-    """The model's stacks: its ``nn.ModuleList`` children (``blocks``,
-    ``dense_blocks``), one ``ParamTree`` per layer of ``repro``'s stacked
-    ``[L, ...]`` arrays."""
-    return {n for n, m in model.named_children()
-            if isinstance(m, nn.ModuleList)}
-
-
-def _per_layer(name: str, t: torch.Tensor, stacked: set) -> list:
+def _per_layer(name: str, t: torch.Tensor, model: nn.Module) -> list:
     """[(parameter name, tensor)] of the leaf ``name`` of ``repro``'s tree:
-    split along its first axis when it belongs to a stack."""
-    head, _, rest = name.partition(".")
-    if head in stacked:
-        return [(f"{head}.{i}.{rest}", t[i]) for i in range(t.shape[0])]
-    return [(name, t)]
+    split along its leading axis at each segment of its path that is an
+    ``nn.ModuleList`` of ``model`` (a stack: ``blocks`` [L, ...] gives
+    ``blocks.{i}.*``; the vlm's ``groups.selfs`` [G, k-1, ...] gives
+    ``groups.{g}.selfs.{j}.*``, its ``groups.cross`` [G, ...]
+    ``groups.{g}.cross.*``).  A path the model lacks is passed through
+    whole, for ``_check_names`` to report."""
+    out = [("", t, model)]
+    for seg in name.split("."):
+        nxt = []
+        for prefix, x, m in out:
+            path = f"{prefix}.{seg}" if prefix else seg
+            child = m._modules.get(seg) if m is not None else None
+            if isinstance(child, nn.ModuleList):
+                nxt += [(f"{path}.{i}", x[i], child[i])
+                        for i in range(x.shape[0])]
+            else:
+                nxt.append((path, x, child))
+        out = nxt
+    return [(path, x) for path, x, _ in out]
 
 
 def _check_names(params: dict, shapes: dict) -> None:
@@ -170,19 +177,19 @@ def params_from_numpy(model: nn.Module, tree) -> None:
 
     ``tree`` is ``repro``'s nested dict (``jax.tree.map(np.asarray,
     params)``); leaves may also be tensors (``init_params``).  The
-    stacked arrays (``blocks.*``, ``dense_blocks.*``: ``[L, ...]``) are
-    split per layer.  Every name must match and every shape must agree,
-    or ``KeyError`` / ``ValueError`` is raised before anything is
+    stacked arrays (``blocks.*``, ``dense_blocks.*``: ``[L, ...]``;
+    ``groups.selfs.*``: ``[G, k-1, ...]``) are split along every stacked
+    axis (``_per_layer``).  Every name must match and every shape must
+    agree, or ``KeyError`` / ``ValueError`` is raised before anything is
     written; each value is cast to its parameter's dtype (f32 -> bf16
     rounds to nearest even, as ``repro``'s per-call cast in ``dense``
     does).
     """
-    stacked = _stacked(model)
     flat = {}
     for name, arr in flatten(tree).items():
         t = arr if isinstance(arr, torch.Tensor) else torch.tensor(
             np.asarray(arr))
-        flat.update(_per_layer(name, t, stacked))
+        flat.update(_per_layer(name, t, model))
     params = dict(model.named_parameters())
     _check_names(params, {n: t.shape for n, t in flat.items()})
     with torch.no_grad():
@@ -198,18 +205,17 @@ def init_params_into(model: nn.Module, generator: torch.Generator) -> None:
     into its parameters (cast to their dtype) and freed before the next
     is drawn.  At Mixtral-8x7B's width the tree would hold 4 bytes a
     parameter beside the model's 2."""
-    stacked = _stacked(model)
     specs = flatten(model.specs)
     params = dict(model.named_parameters())
     shapes = {}
     for name, spec in specs.items():
         meta = torch.empty(spec.shape, device="meta")
         shapes.update((n, t.shape) for n, t in _per_layer(name, meta,
-                                                          stacked))
+                                                          model))
     _check_names(params, shapes)
     device = next(iter(params.values())).device
     for name, spec in specs.items():
         t = _init_one(spec, generator, device)
-        for pname, part in _per_layer(name, t, stacked):
+        for pname, part in _per_layer(name, t, model):
             params[pname].copy_(part)
         del t

@@ -1,15 +1,24 @@
-"""Transformer blocks (port of the dense and MoE blocks of
-src/repro/models/transformer.py; the other families come with their
-slices).  ``repro`` scans a stacked block over the layer axis; the port
-loops over one ``ParamTree`` per layer (``model.py``)."""
+"""Transformer blocks (port of the dense, MoE, encoder and gated
+cross-attention blocks of src/repro/models/transformer.py; the
+ssm_hybrid blocks come with their slice).  ``repro`` scans a stacked
+block over the layer axis; the port loops over one ``ParamTree`` per
+layer (``model.py``).
+
+Cross-attention (the vlm's image keys, the encdec decoder's encoder
+keys) has another key length than its queries, so it stays
+``blockwise_attn``, as in ``repro``: the flash kernel takes equal
+lengths only."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import gqa_decode_self_attn, \
-    gqa_self_attn, gqa_spec, mla_decode_self_attn, mla_self_attn, mla_spec
+from repro_torch.models.attention import blockwise_attn, decode_attn, \
+    gqa_decode_self_attn, gqa_self_attn, gqa_spec, mla_decode_self_attn, \
+    mla_self_attn, mla_spec
 from repro_torch.models.ffn import ffn, ffn_spec
-from repro_torch.models.layers import ACT_DTYPE, rmsnorm, rmsnorm_spec
+from repro_torch.models.layers import ACT_DTYPE, dense, rmsnorm, \
+    rmsnorm_spec
+from repro_torch.models.module import P
 from repro_torch.models.moe import moe_ffn, moe_spec
 
 CACHE_DTYPE = torch.bfloat16
@@ -33,6 +42,18 @@ def dense_block(p, cfg, run, x, positions):
                           chunk_kv=run.attn_chunk_kv)
     h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     x = x + ffn(p["ffn"], h, cfg.act)
+    return x
+
+
+def dense_block_bidir(p, cfg, run, x, positions):
+    """Encoder block: bidirectional self-attention (seamless-m4t's
+    encoder), on flash's full (non-causal) route where it applies."""
+    x = x.to(ACT_DTYPE)
+    x = x + gqa_self_attn(p["attn"], cfg, rmsnorm(p["attn_norm"], x,
+                                                  cfg.norm_eps),
+                          positions=positions, chunk_q=run.attn_chunk_q,
+                          chunk_kv=run.attn_chunk_kv, causal=False)
+    x = x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act)
     return x
 
 
@@ -80,3 +101,57 @@ def moe_block_decode(p, cfg, x, cache_slices, pos):
     x = x + a
     y, _ = moe_ffn(p["moe"], cfg, rmsnorm(p["ffn_norm"], x, cfg.norm_eps))
     return x + y, cache_slices
+
+
+# ============================================================== cross block
+def cross_block_spec(cfg):
+    """Both gates start at zero, as in ``repro``: at init ``tanh(gate)``
+    is 0 and nothing of the image path reaches the output."""
+    return {
+        "norm": rmsnorm_spec(cfg.d_model),
+        "attn": gqa_spec(cfg, kv_d_in=cfg.d_vision),
+        "gate": P((1,), (None,), init="zeros"),
+        "ffn_norm": rmsnorm_spec(cfg.d_model),
+        "ffn": ffn_spec(cfg.d_model, cfg.d_ff, cfg.act),
+        "ffn_gate": P((1,), (None,), init="zeros"),
+    }
+
+
+def _gated(p, cfg, x, o):
+    """The residual adds of a cross block: the attention output ``o``
+    and the FFN, each times ``tanh`` of its f32 gate cast to x's dtype."""
+    x = x + torch.tanh(p["gate"]).to(x.dtype) * o
+    return x + torch.tanh(p["ffn_gate"]).to(x.dtype) * ffn(
+        p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act)
+
+
+def cross_block(p, cfg, run, x, img_kv):
+    """Gated cross-attention (llama-3.2-vision style) over the image
+    keys and values ``img_kv`` ([B, T, KH, hd] each)."""
+    x = x.to(ACT_DTYPE)
+    k, v = img_kv
+    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    b, s, _ = x.shape
+    q = dense(p["attn"]["wq"], h).reshape(b, s, cfg.n_heads, cfg.hd)
+    o = blockwise_attn(q, k, v, causal=False, chunk_q=run.attn_chunk_q,
+                       chunk_kv=run.attn_chunk_kv)
+    return _gated(p, cfg, x, dense(p["attn"]["wo"], o.reshape(b, s, -1)))
+
+
+def cross_img_kv(p, cfg, img):
+    """Cross-attention K / V [B, T, KH, hd] from the vision embeddings
+    [B, T, dv]."""
+    b, t, _ = img.shape
+    k = dense(p["attn"]["wk"], img).reshape(b, t, cfg.n_kv_heads, cfg.hd)
+    v = dense(p["attn"]["wv"], img).reshape(b, t, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_block_decode(p, cfg, x, img_k, img_v):
+    """One token's cross block against the image caches [B, T, KH, hd]
+    (read only; see ``model.VLMModel``)."""
+    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    b = x.shape[0]
+    q = dense(p["attn"]["wq"], h).reshape(b, 1, cfg.n_heads, cfg.hd)
+    o = decode_attn(q, img_k, img_v, img_k.shape[1])
+    return _gated(p, cfg, x, dense(p["attn"]["wo"], o.reshape(b, 1, -1)))

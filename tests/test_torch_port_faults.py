@@ -26,6 +26,16 @@ Two more, found later:
   ``LAUNCHES`` outside any lock, and the async server's replica threads
   launch concurrently.  The increments now hold ``_build._count_lock``.
 
+Two more, found by comparing the packages' public signatures:
+
+* F6, ``FastIndex.nbytes()``: ``repro``'s sums the bytes of the cell
+  lookup's five arrays (the Table I bench calls it); the port's index
+  had no such method.  It now sums the same five, equal to ``repro``'s.
+* F7, ``resolve_candidates(k=...)``: ``repro``'s cuts each candidate
+  list to its first k slots right after the compaction; the port's
+  refused the keyword.  It now cuts at the same point: ids and
+  ``ResolveStats`` equal ``repro``'s at k = 1 and 2 on both schedules.
+
 The cases marked ``cuda`` repeat each on the card, against the twins,
 and skip here; chip_smoke.py runs the same on the H100.
 """
@@ -40,12 +50,16 @@ import pytest
 import torch
 
 from repro.core.cells import build_cell_covering
+from repro.core.compact import capacity_for
 from repro.core.engine import EngineConfig as JConfig
 from repro.core.engine import GeoEngine as JEngine
+from repro.core.fast import cell_values as j_cell_values
+from repro.core.resolve import resolve_candidates as j_resolve
 from repro.serving import GeoServer as JServer
 from repro.serving import ServeConfig as JServeConfig
 from repro_torch.core.cells import CellCovering
 from repro_torch.core.engine import EngineConfig, GeoEngine
+from repro_torch.core.resolve import resolve_candidates as t_resolve
 from repro_torch.kernels import _build, flash_attn, ops, ref
 from repro_torch.serving import GeoServer, ServeConfig
 
@@ -304,6 +318,65 @@ def test_misaligned_points_map_like_aligned(engines, points_small, name):
                          covering=cov).assign(jnp.asarray(xy))
     np.testing.assert_array_equal(np.asarray(want.block),
                                   got.block.numpy())
+
+
+# ------------------------------------------------------------ F6, F7
+@pytest.fixture(scope="module")
+def fast_pair(engines):
+    """``repro``'s ``fast`` engine and the port's over one covering."""
+    census, cov, _, eng = engines
+    return JEngine.build(census, "fast", JConfig(backend="ref", max_level=8),
+                         covering=cov), eng["fast"]
+
+
+def test_fast_index_nbytes_matches_repro(fast_pair):
+    j, t = fast_pair
+    jidx, tidx = j.fast_index, t.fast_index
+    want = jidx.nbytes()
+    assert tidx.nbytes() == want > 0
+    assert want == sum(np.asarray(getattr(jidx, f)).nbytes for f in (
+        "cell_lo", "cell_hi", "cell_val", "cand", "top_start"))
+
+
+@pytest.mark.parametrize("two_phase", [False, True])
+@pytest.mark.parametrize("k", [1, 2])
+def test_resolve_candidates_truncates_to_k(fast_pair, points_small, k,
+                                           two_phase):
+    """The boundary points' candidate lists (K slots) cut to k in both
+    packages: equal ids and counters, and equal to the port's call on
+    the lists cut beforehand.  The cut is not idle: at k = 1 some point
+    resolves otherwise than with the full list."""
+    j, t = fast_pair
+    jidx, tidx = j.fast_index, t.fast_index
+    points = points_small[0].astype(np.float32)
+    val = np.asarray(j_cell_values(jidx, jnp.asarray(points)))
+    need = (val < 0) & (val > -2**30)
+    table = np.asarray(jidx.cand)
+    assert table.shape[1] > k
+    cand = table[np.clip(-(val + 1), 0, len(table) - 1)]
+    prior = np.where(val >= 0, val, -1).astype(np.int32)
+    cap = capacity_for(len(points), 1.0)
+    kw = dict(cap=cap, fallback="prior", two_phase=two_phase)
+    aj, sj = j_resolve(jnp.asarray(points), jnp.asarray(cand),
+                       jidx.block_edges, jnp.asarray(need), k=k,
+                       backend="ref", prior=jnp.asarray(prior), **kw)
+    at, st = t_resolve(torch.from_numpy(points), torch.from_numpy(cand),
+                       tidx.block_edges, torch.from_numpy(need), k=k,
+                       prior=torch.from_numpy(prior), **kw)
+    np.testing.assert_array_equal(np.asarray(aj), at.numpy())
+    for f in ("n_need", "n_pip", "overflow", "phase2_miss"):
+        assert int(getattr(sj, f)) == int(getattr(st, f)), f
+    def port(cand_ids):
+        return t_resolve(torch.from_numpy(points), torch.from_numpy(
+            np.ascontiguousarray(cand_ids)), tidx.block_edges,
+            torch.from_numpy(need), prior=torch.from_numpy(prior), **kw)
+    cut, scut = port(cand[:, :k])
+    assert torch.equal(cut, at)
+    for f in ("n_need", "n_pip", "overflow", "phase2_miss"):
+        assert int(getattr(scut, f)) == int(getattr(st, f)), f
+    assert int(need.sum()) > 0
+    if k == 1:
+        assert not torch.equal(port(cand)[0], at)
 
 
 # ------------------------------------------------------- on the card
