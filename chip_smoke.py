@@ -212,7 +212,39 @@ card:
      c. both reduced configs trained XATTN_TRAIN_STEPS steps through
         ``launch.train.setup`` and ``train_loop``: losses finite, flash
         once a self layer a step, the loss on a held-out batch lower
-        after the steps than before.
+        after the steps than before;
+ 12. the ssm_hybrid and xlstm families (after phase 11; RECURRENT_*):
+     a. Zamba2-1.2B whole at its published widths (random weights drawn
+        leaf by leaf, ``a_log`` / ``dt_bias`` / ``b_q`` then drawn live:
+        ``live_ssm``): ``make_prefill_step`` over RECURRENT_BATCH x
+        RECURRENT_SEQ tokens launches ``flash_attn_bhsd`` once a group
+        (the shared block, causal, on the tensor-core route) and nothing
+        else of the eight; each call held against the twin and the
+        planted fault shown to fail it; each shared block's output
+        within RECURRENT_BLOCK_RTOL of the same block on the plain path
+        (flash's twin) fed the same input, the whole-model logits
+        against the plain path's reported; tok/s, peak memory and a
+        profile by part (Mamba2's in_proj, conv, SSD chunk scan, gated
+        norm + out_proj; the shared block, flash inside it; the
+        unembedding; the rest); flash timed at that shape beside its
+        bound and ``scaled_dot_product_attention``; the token-loop serve
+        of RECURRENT_SERVE (no kernel launched); decode over its prompt
+        and tokens against a teacher-forced forward, block by block
+        (each block fed the forward's input through ``decode_step``'s
+        caches, within RECURRENT_BLOCK_RTOL), the whole-model logits
+        reported;
+     b. xLSTM-1.3B whole: the forward over RECURRENT_BATCH x
+        RECURRENT_SEQ launches none of the eight (the sLSTM steps one
+        position at a time, host-bound: tok/s and peak memory of the
+        whole forward; launches, busy share and the profile split by
+        mLSTM, sLSTM and unembedding over RECURRENT_PROFILE_SEQ tokens a
+        row);
+        the token-loop serve; decode against the forward as in (a), from
+        the forward's start state (``repro``'s ``init_cache`` zeroes the
+        stabilizers, the forward starts them at -inf: decode starts
+        there too);
+     c. both reduced configs trained RECURRENT_TRAIN_STEPS steps as in
+        11c (flash once a group a step for zamba2, never for xLSTM).
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -362,6 +394,47 @@ XATTN_TRAIN_STEPS, XATTN_TRAIN_SEQ = 16, 64
 # 0.068-0.071 apart (the CPU tests see 0.05 between repro and the port
 # over two layers).
 LOGIT_TOL = 0.125
+# Phase 12, the ssm_hybrid and xlstm families, both whole at their
+# published widths: Zamba2-1.2B (38 layers: 6 groups of 6 Mamba2 blocks
+# and the shared attention block, a tail of 2) and xLSTM-1.3B (48: 6
+# groups of 7 mLSTMs and an sLSTM); forwards over RECURRENT_BATCH x
+# RECURRENT_SEQ tokens, served RECURRENT_SERVE through the token loop
+# (neither has a prefill, as in repro), the reduced configs trained
+# RECURRENT_TRAIN_STEPS steps.  RunConfig's ssm_chunk (256) is the
+# chunk.  Both families amplify bf16 rounding through their depth (the
+# decay is an exponential of a projection of the unnormalized residual
+# stream): repro's own jitted and op-by-op forwards of the reduced
+# zamba2 lie 0.189 apart at the logits, and on the CPU a 24-layer
+# zamba2 at d 512 moved 0.98 between flash and blockwise_attn, a
+# 16-layer xLSTM's decode 2.0 from its forward.  So two runs that round
+# apart (kernel and plain path, decode and forward) are held block by
+# block: each block fed the same input, its output within
+# RECURRENT_BLOCK_RTOL of its largest magnitude at every position: four
+# bf16 ulps at that magnitude (an ulp is at most 2^-7 of it), for the
+# two roundings of the residual adds and one ulp of each added term (the
+# shared block's x + attention + FFN; a Mamba2 block's output is one
+# rounded product).  On the CPU the reduced zamba2's decode came within
+# 0.0139 of the scale of the forward's (the shared block; Mamba2 0.0116),
+# the xLSTM's within 0.  The mLSTM's decode is fed the forward's
+# projections as well (q, k, v and the gates' pre-activations): its
+# input gate is exp of a bf16 projection of the unnormalized residual
+# stream, and the card's GEMMs round 4 rows and 640 otherwise, so one
+# ulp at |log i| ~ 17 moves the output by up to a quarter (on an H100
+# the mLSTM blocks came 0.197 of their scale apart without it; on the
+# CPU, one-ulp flips in 5 % of those pre-activations gave 0.24 at that
+# residual scale, 0.006 without them).  The whole-model logits are
+# reported beside it.
+SSM_ARCH, XLSTM_ARCH = "zamba2-1.2b", "xlstm-1.3b"
+RECURRENT_BATCH, RECURRENT_SEQ, RECURRENT_SERVE = 4, 2048, (4, 128, 32)
+RECURRENT_BLOCK_RTOL = 2.0 ** -5
+# The xLSTM forward is profiled over its first RECURRENT_PROFILE_SEQ
+# tokens a row: its 2,048 sLSTM steps launch ~3.7e5 kernels, whose
+# profiler events took ~140 s to collect on the card's host.  The
+# reduced configs train RECURRENT_TRAIN_STEPS steps: at 16 the reduced
+# zamba2's held-out loss moved by -0.04 to +0.13 over two seeds on the
+# CPU (and rose by 0.007 on an H100), at 64 it fell by 0.07-0.17 over
+# three.
+RECURRENT_PROFILE_SEQ, RECURRENT_TRAIN_STEPS = 512, 64
 SERVE_STAGES = ("queue_wait", "host_prepare", "device_assign", "merge",
                 "request", "analytics_observe")
 SPAN_NAMES = {"request", "submit", "queue_wait", "host_prepare", "route",
@@ -2709,10 +2782,11 @@ def set_gates(model, gate=None) -> None:
                 cross.gate.fill_(gate)
 
 
-def xattn_load(arch, out, **changes):
+def family_load(arch, out, phase=11, **changes):
     """``arch``'s full config (with ``changes``) on the card, random
-    weights drawn leaf by leaf (``launch.serve.load_model``); the vlm's
-    gates then set non-zero (``set_gates``)."""
+    weights drawn leaf by leaf (``launch.serve.load_model``); the leaves
+    ``repro`` starts at zero that would hide a path then drawn live: the
+    vlm's gates (``set_gates``), zamba2's decay (``live_ssm``)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
     cfg = dataclasses.replace(get_config(arch), **changes)
@@ -2723,6 +2797,8 @@ def xattn_load(arch, out, **changes):
     model = serve_mod.load_model(cfg, seed=XATTN_SEED, device="cuda")
     if cfg.family == "vlm":
         set_gates(model)
+    if cfg.family == "ssm_hybrid":
+        live_ssm(model)
     torch.cuda.synchronize()
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     out.update(layers=cfg.n_layers + cfg.enc_layers,
@@ -2731,7 +2807,7 @@ def xattn_load(arch, out, **changes):
                params=model.param_count(), weight_bytes=weights,
                load_s=time.perf_counter() - t0,
                load_peak_bytes=torch.cuda.max_memory_allocated() - base)
-    print(f"phase 11: {cfg.name} at full width, {out['layers']} of "
+    print(f"phase {phase}: {cfg.name} at full width, {out['layers']} of "
           f"{out['published_layers']} layers (d {cfg.d_model}, "
           f"{cfg.n_heads} heads of {cfg.hd}, {cfg.n_kv_heads} KV heads, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}): {out['params']} params, "
@@ -2758,13 +2834,19 @@ def xattn_batch(cfg, b, s) -> dict:
     return batch
 
 
-def xattn_forward(smoke, cfg, model, batch, faulty, want_calls, out, what):
+def family_forward(smoke, cfg, model, batch, faulty, want_calls, out, what,
+                   phase=11, patches=None, logits_tol=LOGIT_TOL,
+                   profile_seq=None):
     """``make_prefill_step`` over ``batch``: ``flash_attn_bhsd`` launched
     once for each of ``want_calls`` ((causal, [BH, S, D]), in order), all
     on the tensor-core route, nothing else of the eight; each call held
     against the twin and the planted fault shown to fail it; the
-    forward's logits within LOGIT_TOL of the plain path's (flash's twin);
-    then tok/s, peak memory and a profile by part.  Returns the first
+    forward's logits within ``logits_tol`` of the plain path's (flash's
+    twin; None: reported only, see RECURRENT_*); then tok/s, peak memory
+    and a profile by part (``patches``: ``profile_busy`` ranges, the
+    cross-attention families' by default; a label with "(inside" names
+    a range nested in another, left out of the rest's sum; over the
+    first ``profile_seq`` tokens of each row if given).  Returns the first
     call of each kind (causal, full) for the timing."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
@@ -2783,18 +2865,19 @@ def xattn_forward(smoke, cfg, model, batch, faulty, want_calls, out, what):
     routes = dict(smoke.build.ROUTE_LAUNCHES)
     calls = cap.calls["flash_attn_bhsd"]
     for kname, n in counts.items():
-        check((n > 0) == (kname == "flash_attn_bhsd"),
+        check(n == (len(want_calls) if kname == "flash_attn_bhsd" else 0),
               f"{what} forward: {kname} launched {n} times")
     got = [(kw["causal"], tuple(a[0].shape)) for a, kw, _ in calls]
     check(got == want_calls and counts["flash_attn_bhsd"] == len(want_calls)
-          and routes["flash_attn_bhsd:wgmma"] == len(want_calls)
+          and routes.get("flash_attn_bhsd:wgmma", 0) == len(want_calls)
           and all(a[0].dtype == torch.bfloat16 for a, _, _ in calls),
           f"{what} forward: flash calls {got} by route {routes}, not "
           f"{want_calls} on wgmma")
     check(bool(torch.isfinite(last).all()) and last.shape == (b, cfg.vocab),
           f"{what} forward: last logits not finite")
     err, over, fault = flash_calls_vs_twin(smoke, calls, faulty,
-                                           f"{what} forward")
+                                           f"{what} forward") \
+        if calls else (0.0, 0.0, [])
     first = {}
     for call in calls:
         first.setdefault(call[1]["causal"], [call])
@@ -2810,7 +2893,9 @@ def xattn_forward(smoke, cfg, model, batch, faulty, want_calls, out, what):
         check(n == (len(want_calls) if name == "kernel" else 0),
               f"{what} {name} forward: {n} flash launches")
     diff = float((logits["kernel"] - logits["plain"]).abs().max())
-    check(bool(torch.isfinite(logits["kernel"]).all()) and diff <= LOGIT_TOL,
+    mean_diff = float((logits["kernel"] - logits["plain"]).abs().mean())
+    check(bool(torch.isfinite(logits["kernel"]).all())
+          and (logits_tol is None or diff <= logits_tol),
           f"{what} forward: logits differ from the plain path's by {diff}")
     shape = tuple(logits["kernel"].shape)
     del logits
@@ -2820,37 +2905,47 @@ def xattn_forward(smoke, cfg, model, batch, faulty, want_calls, out, what):
                           flash_causal=len(want_calls) - n_full,
                           flash_max_abs_err=err, flash_over=over,
                           fault_over=fault, logits_vs_plain=diff,
+                          logits_vs_plain_mean=mean_diff,
                           logits_shape=shape)
     f = out["forward"]
-    print(f"phase 11: {what} make_prefill_step over {b} x {s} tokens: "
+    faults = (f"the planted fault fails each, {min(fault):.3g}-"
+              f"{max(fault):.3g}x" if fault else "no call")
+    print(f"phase {phase}: {what} make_prefill_step over {b} x {s} tokens: "
           f"flash_attn_bhsd launched {len(want_calls)} times ({n_full} full, "
           f"{len(want_calls) - n_full} causal, all wgmma at "
           f"{sorted({sh for _, sh in want_calls})}) and nothing else of the "
           f"eight; each call == twin (max abs err {err:.3g}, {over:.3g}x the "
-          f"tolerance; the planted fault fails each, "
-          f"{min(fault):.3g}-{max(fault):.3g}x); forward's logits {shape} "
-          f"within {diff:.4g} of the plain path's (tol {LOGIT_TOL})")
+          f"tolerance; {faults}); forward's logits {shape} within "
+          f"{diff:.4g} (mean {mean_diff:.3g}) of the plain path's (tol "
+          f"{logits_tol})")
     f.update(step_timing(step, batch, b * s))
-    patches = [(ops, "flash_attn", "self attention (flash)"),
-               (tf, "blockwise_attn", "cross attention (blockwise, f32)"),
-               (model_mod, "blockwise_attn",
-                "cross attention (blockwise, f32)"),
-               (tf, "ffn", "FFN"), (model_mod, "ffn", "FFN"),
-               (model_mod, "unembed", "unembedding (f32)")]
-    f["profile"] = p = profile_busy(lambda: step(batch), top=8,
+    if patches is None:
+        patches = [(ops, "flash_attn", "self attention (flash)"),
+                   (tf, "blockwise_attn", "cross attention (blockwise, f32)"),
+                   (model_mod, "blockwise_attn",
+                    "cross attention (blockwise, f32)"),
+                   (tf, "ffn", "FFN"), (model_mod, "ffn", "FFN"),
+                   (model_mod, "unembed", "unembedding (f32)")]
+    pbatch = {k: v[:, :profile_seq] for k, v in batch.items()} \
+        if profile_seq else batch
+    f["profile"] = p = profile_busy(lambda: step(pbatch), top=8,
                                     ranges=patches)
-    rest = p["device_ms"] - sum(ms for ms, _ in p["ranges"].values())
+    p["tokens"] = int(pbatch["tokens"].numel())
+    nested = {label for _, _, label in patches if "(inside" in label}
+    rest = p["device_ms"] - sum(ms for k, (ms, _) in p["ranges"].items()
+                                if k not in nested)
     f["profile"]["rest_ms"] = rest
-    print(f"phase 11: {what} forward step {f['step_s'] * 1e3:.1f} ms "
+    print(f"phase {phase}: {what} forward step {f['step_s'] * 1e3:.1f} ms "
           f"(median of {[round(t * 1e3, 1) for t in f['step_s_all']]}) = "
           f"{f['tok_s']:.5g} tok/s ({card_line()}); peak "
           f"{f['peak_bytes'] / 2**30:.2f} GiB above the weights; under "
-          f"torch.profiler: wall {p['wall_ms']:.1f} ms, device "
+          f"torch.profiler ({p['tokens']} tokens): wall {p['wall_ms']:.1f} "
+          f"ms, device "
           f"{p['device_ms']:.1f} ms (busy {p['busy']:.1%}), {p['launches']} "
           f"launches; by part "
           + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n)
                       in p["ranges"].items())
-          + f"; the rest (projections, norms, RoPE, residuals) {rest:.2f} ms"
+          + f"; the rest {rest:.2f} ms"
           + "; top kernels " + "; ".join(f"{k} {ms:.2f} ms x{n}"
                                          for k, ms, n in p["top"]))
     return first
@@ -2901,28 +2996,42 @@ def vlm_teacher_forced(smoke, cfg, model, img, prompts, gen_tok, out):
           f"whose margin > {LOGIT_TOL}")
 
 
-def xattn_train_check(smoke, out):
-    """Phase 11c: both families' reduced configs trained XATTN_TRAIN_STEPS
-    steps on the card through ``launch.train.setup`` and ``train_loop``
-    over ``make_train_step`` (the pipeline draws the image / frames
-    stub): every loss finite, flash launched once a self layer a step,
-    and the loss on a batch the run never trains on lower after the
-    steps than before (each step's loss is on fresh data, so the held
-    batch is what shows the fall)."""
+def flash_layers(cfg) -> int:
+    """The self-attention layers of a forward of ``cfg`` (flash launches
+    a forward or a training step)."""
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_attn_every * (cfg.cross_attn_every
+                                                      - 1)
+    if cfg.family == "ssm_hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "xlstm":
+        return 0
+    return cfg.enc_layers + cfg.n_layers
+
+
+def family_train_check(smoke, out, archs=(VLM_ARCH, ENCDEC_ARCH), phase=11,
+                       n_steps=XATTN_TRAIN_STEPS):
+    """Phase 11c / 12c: the reduced configs of ``archs`` trained
+    ``n_steps`` steps on the card through ``launch.train.setup`` and
+    ``train_loop`` over ``make_train_step`` (the pipeline draws the
+    image / frames stub): every loss finite, flash launched once a self
+    layer a step, and the loss on a batch the run never trains on lower
+    after the steps than before (each step's loss is on fresh data, so
+    the held batch is what shows the fall)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import train as train_mod
     from repro_torch.runtime import steps
     from repro_torch.runtime.driver import DriverConfig, train_loop
     root = str(smoke.build.BUILD_ROOT.parent / "xattn_train_smoke")
-    for arch in (VLM_ARCH, ENCDEC_ARCH):
+    for arch in archs:
         cfg = get_reduced_config(arch)
         model, params, opt = train_mod.setup(cfg, seed=XATTN_SEED,
                                              device="cuda")
-        run = train_mod.run_config(arch, XATTN_TRAIN_STEPS, XATTN_TRAIN_SEQ)
+        run = train_mod.run_config(arch, n_steps, XATTN_TRAIN_SEQ)
         src = SyntheticLM(cfg=cfg, batch=8, seq=XATTN_TRAIN_SEQ,
                           seed=XATTN_SEED, device="cuda")
-        held = src.batch_at(10 * XATTN_TRAIN_STEPS)
+        held = src.batch_at(10 * n_steps)
         loss_fn = steps.make_loss_fn(model, run)
         with torch.no_grad():
             before = float(loss_fn(held)[0])
@@ -2937,27 +3046,25 @@ def xattn_train_check(smoke, out):
             return params, opt, m
 
         shutil.rmtree(root, ignore_errors=True)
-        dcfg = DriverConfig(total_steps=XATTN_TRAIN_STEPS,
-                            ckpt_every=XATTN_TRAIN_STEPS, ckpt_dir=root,
+        dcfg = DriverConfig(total_steps=n_steps,
+                            ckpt_every=n_steps, ckpt_dir=root,
                             keep=1, log_every=1)
         _, _, hist = train_loop(step, params, opt, src, dcfg,
                                 log=lambda *_: None)
         shutil.rmtree(root, ignore_errors=True)
         with torch.no_grad():
             after = float(loss_fn(held)[0])
-        n_self = (cfg.n_layers // cfg.cross_attn_every
-                  * (cfg.cross_attn_every - 1) if cfg.family == "vlm"
-                  else cfg.enc_layers + cfg.n_layers)
-        check(hist["steps_run"] == XATTN_TRAIN_STEPS
-              and len(rec) == XATTN_TRAIN_STEPS
+        n_self = flash_layers(cfg)
+        check(hist["steps_run"] == n_steps
+              and len(rec) == n_steps
               and all(math.isfinite(r["loss"]) and r["flash"] == n_self
                       for r in rec) and after < before,
               f"{cfg.name} train_loop: {rec}, held-out loss {before} -> "
               f"{after}")
         out[arch] = dict(losses=[r["loss"] for r in rec], held_before=before,
                          held_after=after, flash_per_step=n_self)
-        print(f"phase 11: {cfg.name} through train_loop over "
-              f"make_train_step on the card, {XATTN_TRAIN_STEPS} steps of 8 x "
+        print(f"phase {phase}: {cfg.name} through train_loop over "
+              f"make_train_step on the card, {n_steps} steps of 8 x "
               f"{XATTN_TRAIN_SEQ} (flash {n_self} launches a step): losses "
               f"{rec[0]['loss']:.4f} ... {rec[-1]['loss']:.4f}, all finite; "
               f"held-out batch {before:.4f} -> {after:.4f}")
@@ -2972,13 +3079,13 @@ def xattn_phase(smoke, result, faulty) -> dict:
     out = result["xattn"] = {"vlm": {}, "encdec": {}, "train": {}}
     # a. Llama-3.2-Vision-90B, VLM_GROUPS of its groups of k layers.
     k = get_config(VLM_ARCH).cross_attn_every
-    cfg, model = xattn_load(VLM_ARCH, out["vlm"], n_layers=VLM_GROUPS * k)
+    cfg, model = family_load(VLM_ARCH, out["vlm"], n_layers=VLM_GROUPS * k)
     batch = xattn_batch(cfg, VLM_BATCH, VLM_SEQ)
     bhsd = (VLM_BATCH * cfg.n_heads, VLM_SEQ, cfg.hd)
     vlm_launches = VLM_GROUPS * (k - 1)
-    xattn_forward(smoke, cfg, model, batch, faulty,
-                  [(True, bhsd)] * vlm_launches, out["vlm"],
-                  "llama-3.2-vision")
+    family_forward(smoke, cfg, model, batch, faulty,
+                   [(True, bhsd)] * vlm_launches, out["vlm"],
+                   "llama-3.2-vision")
     res = token_serve(smoke, model, XATTN_SERVE, out["vlm"], cfg.name, 11,
                       XATTN_SEED)
     b, s, _ = XATTN_SERVE
@@ -2988,13 +3095,13 @@ def xattn_phase(smoke, result, faulty) -> dict:
     del model, res, batch
     torch.cuda.empty_cache()
     # b. SeamlessM4T-medium whole.
-    cfg, model = xattn_load(ENCDEC_ARCH, out["encdec"])
+    cfg, model = family_load(ENCDEC_ARCH, out["encdec"])
     batch = xattn_batch(cfg, ENCDEC_BATCH, ENCDEC_SEQ)
     bhsd = (ENCDEC_BATCH * cfg.n_heads, ENCDEC_SEQ, cfg.hd)
-    first = xattn_forward(smoke, cfg, model, batch, faulty,
-                          [(False, bhsd)] * cfg.enc_layers
-                          + [(True, bhsd)] * cfg.n_layers,
-                          out["encdec"], "seamless-m4t")
+    first = family_forward(smoke, cfg, model, batch, faulty,
+                           [(False, bhsd)] * cfg.enc_layers
+                           + [(True, bhsd)] * cfg.n_layers,
+                           out["encdec"], "seamless-m4t")
     timing = {}
     for causal, calls in first.items():
         timing["causal" if causal else "full"] = flash_row(
@@ -3007,10 +3114,263 @@ def xattn_phase(smoke, result, faulty) -> dict:
     del model, batch
     torch.cuda.empty_cache()
     # c. Training at the reduced configs.
-    xattn_train_check(smoke, out["train"])
+    family_train_check(smoke, out["train"])
     return {"launches": {"vlm_forward": vlm_launches,
                          "encdec_forward": cfg.enc_layers + cfg.n_layers},
             "timing": timing}
+
+
+# -- phase 12: the ssm_hybrid and xlstm families ------------------------------
+def live_ssm(model) -> None:
+    """zamba2's leaves that ``repro`` starts at zero and that would hide a
+    path, drawn with XATTN_SEED: ``a_log`` / ``dt_bias`` from U(-1, 1)
+    (the decay then varies across heads) and each LoRA's ``b_q`` from
+    N(0, 1 / rank) (at 0 the LoRA term is dead)."""
+    gen = torch.Generator(device="cuda").manual_seed(XATTN_SEED + 2)
+    rank = model.cfg.shared_lora_rank
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("a_log", "dt_bias"):
+                p.uniform_(-1.0, 1.0, generator=gen)
+            elif leaf == "b_q":
+                p.normal_(0.0, rank ** -0.5, generator=gen)
+
+
+@contextlib.contextmanager
+def patched(*swaps):
+    """``setattr(module, name, fn)`` for each (module, name, fn) inside
+    the block."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def row_ratio(got, want):
+    """max over rows (the last axis reduced) of max |got - want| / max
+    |want|, on the device: a block output's error in units of its
+    scale at each position."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp_min(1e-30)).max()
+
+
+def shared_vs_plain(smoke, model, batch) -> dict:
+    """Phase 12a's kernel against the plain path, block by block: each
+    shared block's output on the card's forward against the same block
+    on the same input with flash's twin, within RECURRENT_BLOCK_RTOL of
+    its scale at every position (see RECURRENT_BLOCK_RTOL)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer as tf
+    real = tf._shared_attn
+    seen = []
+
+    def rec(*a, **kw):
+        y = real(*a, **kw)
+        seen.append((a, y))
+        return y
+    run = serve_mod.run_config(batch["tokens"].shape[1])
+    with patched((tf, "_shared_attn", rec)), torch.inference_mode():
+        model.forward(run, batch)
+    with twin_flash(smoke), torch.inference_mode():
+        ratios = [row_ratio(real(*a), y) for a, y in seen]
+    worst = float(torch.stack(ratios).max())
+    check(len(seen) == model.n_groups and worst <= RECURRENT_BLOCK_RTOL,
+          f"zamba2 shared blocks on the plain path: {len(seen)} blocks, "
+          f"{worst:.3g} of their scale apart")
+    return dict(blocks=len(seen), worst_ratio=worst)
+
+
+def recurrent_pairs(family):
+    """[(module, forward block, its decode step, the index of x in the
+    forward's arguments, in the step's)] of ``family``'s blocks."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models import transformer as tf
+    if family == "ssm_hybrid":
+        return [(ssm, "mamba2", "mamba2_step", 2, 2),
+                (tf, "_shared_attn", "_shared_attn_decode", 4, 3)]
+    return [(xlstm, "mlstm", "mlstm_step", 2, 2),
+            (xlstm, "slstm", "slstm_step", 2, 2)]
+
+
+def decode_vs_forward(model, toks, what) -> dict:
+    """Phase 12's decode against a teacher-forced forward over ``toks``
+    [B, S] (from the forward's start state: the xLSTM stabilizers at
+    -inf, see the module doc).  Block by block: each block's decode step,
+    fed the forward's input to that block through ``decode_step``'s own
+    caches, within RECURRENT_BLOCK_RTOL of the forward's output scale at
+    every position (the mLSTM's fed the forward's projections too:
+    RECURRENT_BLOCK_RTOL's comment); then the whole model's decode logits
+    against the forward's (reported: see RECURRENT_BLOCK_RTOL)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import xlstm
+    b, s = toks.shape
+    run = serve_mod.run_config(s)
+    pairs = recurrent_pairs(model.cfg.family)
+    seen, worst, at = [], {}, {"i": 0, "t": 0}
+    proj, qkvif = [], xlstm._mlstm_qkvif
+
+    def rec(real, xi):
+        def fn(*a, **kw):
+            y = real(*a, **kw)
+            seen.append((a[xi], y))
+            return y
+        return fn
+
+    def rec_proj(*a):
+        out = qkvif(*a)
+        proj.append(out)
+        return out
+
+    def sub_proj(*a):
+        q, k, v, li, lf, dk = proj[at["j"]]
+        at["j"] += 1
+        t = at["t"]
+        return (*(x[:, t:t + 1] for x in (q, k, v, li, lf)), dk)
+
+    def sub(real, xi, name):
+        def fn(*a, **kw):
+            x_in, y_fwd = seen[at["i"]]
+            at["i"] += 1
+            t = at["t"]
+            a = list(a)
+            a[xi] = x_in[:, t:t + 1]
+            out = real(*a, **kw)
+            r = row_ratio(out[0], y_fwd[:, t:t + 1])
+            worst[name] = torch.maximum(worst[name], r) if name in worst \
+                else r
+            return out
+        return fn
+
+    def start(cache):
+        if model.cfg.family == "xlstm":
+            for k in ("m", "s"):
+                if k in cache:
+                    cache[k]["m"].fill_(float("-inf"))
+        return cache
+
+    with torch.inference_mode():
+        with patched(*[(mod, f, rec(getattr(mod, f), xi))
+                       for mod, f, _, xi, _ in pairs],
+                     (xlstm, "_mlstm_qkvif", rec_proj)):
+            fwd = model.forward(run, {"tokens": toks})[0]
+        with patched(*[(mod, st, sub(getattr(mod, st), xi, f))
+                       for mod, f, st, _, xi in pairs],
+                     (xlstm, "_mlstm_qkvif", sub_proj)):
+            cache = start(model.init_cache(b, s))
+            for t in range(s):
+                at["i"], at["j"], at["t"] = 0, 0, t
+                _, cache = model.decode_step(run, toks[:, t:t + 1], cache)
+                check(at["i"] == len(seen), f"{what} decode: {at['i']} "
+                                            f"blocks, forward {len(seen)}")
+        del seen, proj
+        cache = start(model.init_cache(b, s))
+        dec = []
+        for t in range(s):
+            lg, cache = model.decode_step(run, toks[:, t:t + 1], cache)
+            dec.append(lg[:, -1])
+        dec = torch.stack(dec, dim=1)
+    blocks = {k: float(v) for k, v in worst.items()}
+    check(all(v <= RECURRENT_BLOCK_RTOL for v in blocks.values())
+          and bool(torch.isfinite(dec).all()),
+          f"{what} decode vs forward by block: {blocks} of the block "
+          f"outputs' scale (tol {RECURRENT_BLOCK_RTOL})")
+    diff = (dec - fwd).abs()
+    top = fwd.topk(2, dim=-1)
+    clear = (top.values[..., 0] - top.values[..., 1]) > LOGIT_TOL
+    agree = (dec.argmax(-1) == top.indices[..., 0])
+    out = dict(positions=s, batch=b, block_ratio=blocks,
+               logits_max=float(diff.max()), logits_mean=float(diff.mean()),
+               argmax_equal=float(agree.float().mean()),
+               argmax_equal_clear=float(agree[clear].float().mean())
+               if bool(clear.any()) else None,
+               logits_max_by_position=[float(v) for v in
+                                       diff.amax(dim=(0, 2))[::16]])
+    print(f"phase 12: {what} decode over {b} x {s} tokens against a "
+          f"teacher-forced forward: block by block within "
+          + ", ".join(f"{k} {v:.3g}" for k, v in blocks.items())
+          + f" of the block outputs' scale (tol {RECURRENT_BLOCK_RTOL}); "
+          f"whole model (reported, not held: RECURRENT_BLOCK_RTOL's "
+          f"comment) logits {out['logits_max']:.4g} apart at most, "
+          f"{out['logits_mean']:.3g} on average, by position "
+          f"{[round(v, 3) for v in out['logits_max_by_position']]}; argmax "
+          f"equal at {out['argmax_equal']:.1%} of positions "
+          f"({out['argmax_equal_clear']} where the margin > {LOGIT_TOL})")
+    return out
+
+
+def recurrent_phase(smoke, result, faulty) -> dict:
+    """Phase 12 (see the module doc).  Returns flash's launches on the
+    zamba2 forward and its timing at that shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models import transformer as tf
+    out = result["recurrent"] = {"zamba2": {}, "xlstm": {}, "train": {}}
+    b, s, gen = RECURRENT_SERVE
+    # a. Zamba2-1.2B whole.
+    cfg, model = family_load(SSM_ARCH, out["zamba2"], phase=12)
+    batch = {"tokens": serve_mod.make_prompts(cfg, RECURRENT_BATCH,
+                                              RECURRENT_SEQ, XATTN_SEED,
+                                              "cuda")}
+    bhsd = (RECURRENT_BATCH * cfg.n_heads, RECURRENT_SEQ, cfg.hd)
+    n_flash = model.n_groups
+    patches = [(ssm, "_split_in_proj", "mamba in_proj"),
+               (ssm, "_causal_conv", "mamba conv"),
+               (ssm, "_ssd_chunks", "SSD chunk scan"),
+               (ssm, "_gated_out", "mamba gated norm + out_proj"),
+               (tf, "_shared_attn", "shared block"),
+               (ops, "flash_attn", "flash (inside the shared block)"),
+               (model_mod, "unembed", "unembedding (f32)")]
+    first = family_forward(smoke, cfg, model, batch, faulty,
+                           [(True, bhsd)] * n_flash, out["zamba2"],
+                           "zamba2", phase=12, patches=patches,
+                           logits_tol=None)
+    out["zamba2"]["shared_vs_plain"] = sv = shared_vs_plain(smoke, model,
+                                                            batch)
+    print(f"phase 12: zamba2's {sv['blocks']} shared blocks on the plain "
+          f"path (flash's twin), each on the kernel run's input: within "
+          f"{sv['worst_ratio']:.3g} of the output's scale at every position "
+          f"(tol {RECURRENT_BLOCK_RTOL})")
+    timing = flash_row(smoke, first[True], n_flash, batch=RECURRENT_BATCH,
+                       path="zamba2 shared block")
+    del first, batch
+    res = token_serve(smoke, model, RECURRENT_SERVE, out["zamba2"], cfg.name,
+                      12, XATTN_SEED)
+    prompts = serve_mod.make_prompts(cfg, b, s, XATTN_SEED, "cuda")
+    out["zamba2"]["teacher_forced"] = decode_vs_forward(
+        model, torch.cat([prompts, res.tokens], dim=1), "zamba2")
+    del model, res
+    torch.cuda.empty_cache()
+    # b. xLSTM-1.3B whole.
+    cfg, model = family_load(XLSTM_ARCH, out["xlstm"], phase=12)
+    batch = {"tokens": serve_mod.make_prompts(cfg, RECURRENT_BATCH,
+                                              RECURRENT_SEQ, XATTN_SEED,
+                                              "cuda")}
+    family_forward(smoke, cfg, model, batch, faulty, [], out["xlstm"],
+                   "xlstm", phase=12,
+                   patches=[(xlstm, "mlstm", "mLSTM"),
+                            (xlstm, "slstm", "sLSTM"),
+                            (model_mod, "unembed", "unembedding (f32)")],
+                   profile_seq=RECURRENT_PROFILE_SEQ)
+    del batch
+    res = token_serve(smoke, model, RECURRENT_SERVE, out["xlstm"], cfg.name,
+                      12, XATTN_SEED)
+    prompts = serve_mod.make_prompts(cfg, b, s, XATTN_SEED, "cuda")
+    out["xlstm"]["teacher_forced"] = decode_vs_forward(
+        model, torch.cat([prompts, res.tokens], dim=1), "xlstm")
+    del model, res
+    torch.cuda.empty_cache()
+    # c. Training at the reduced configs.
+    family_train_check(smoke, out["train"], (SSM_ARCH, XLSTM_ARCH), 12,
+                       RECURRENT_TRAIN_STEPS)
+    return {"launches": {"zamba2_forward": n_flash}, "timing": timing}
 
 
 def host_map():
@@ -3652,23 +4012,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     xattn = xattn_phase(smoke, result, faulty)
     phase_s["xattn"] = time.perf_counter() - t_start
+    # -- 12. the ssm_hybrid and xlstm families --------------------------------
+    torch.cuda.empty_cache()
+    recurrent = recurrent_phase(smoke, result, faulty)
+    phase_s["recurrent"] = time.perf_counter() - t_start
     # Flash's launches: the training run (and, by path, the prefill's, a
-    # training step's, the Mixtral, vlm and encdec forwards'); its time at
-    # the Mixtral forward's shape (the vlm's too) and at the encdec
-    # encoder's (full) and decoder's (causal) beside the prefill's.
+    # training step's, the Mixtral, vlm, encdec and zamba2 forwards'); its
+    # time at the Mixtral forward's shape (the vlm's too), at the encdec
+    # encoder's (full) and decoder's (causal) and at zamba2's beside the
+    # prefill's.
     flash_kernel["launches_by_path"] = {
         "lm_prefill": flash_kernel["launches"], **train_launches,
-        "moe_forward": moe["launches"], **xattn["launches"]}
+        "moe_forward": moe["launches"], **xattn["launches"],
+        **recurrent["launches"]}
     flash_kernel["launches"] = train_launches["train_run"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     flash_kernel["moe_forward_shape"] = {k: moe["timing"][k] for k in keys}
     for kind, row in xattn["timing"].items():
         flash_kernel[f"encdec_{kind}_shape"] = {k: row[k] for k in keys}
+    flash_kernel["zamba2_shape"] = {k: recurrent["timing"][k] for k in keys}
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = phase_s["xattn"]
+    result["total_s"] = phase_s["recurrent"]
     result["phase_end_s"] = phase_s
     print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import dense, dense_spec
+from repro_torch.models.layers import dense, dense_spec, sigmoid
 
 
 def ffn_spec(d, d_ff, act: str):
@@ -31,7 +31,7 @@ def ffn_spec(d, d_ff, act: str):
 
 def silu(x):
     """``jax.nn.silu``: x * (1 / (1 + exp(-x)))."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x):

@@ -88,6 +88,24 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
     return out.to(dt)
 
 
+def sigmoid(x):
+    """``jax.nn.sigmoid`` as XLA expands it: 1 / (1 + exp(-x)), each op in
+    x's dtype (in bf16 each rounds, as ``repro``'s do)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) (``F.softplus`` returns x above
+    its threshold of 20 instead)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
 def dense_spec(d_in, d_out, axes, bias=False, init="fanin"):
     s = {"w": P((d_in, d_out), axes, init=init, fan_in=d_in)}
     if bias:

@@ -1,14 +1,17 @@
-"""Model assembly (port of the dense, MoE, vlm and encdec families of
-src/repro/models/model.py).
+"""Model assembly (port of src/repro/models/model.py: the dense, MoE,
+vlm, encdec, ssm_hybrid and xlstm families).
 
 ``repro``'s ``Model`` is a record of pure functions over a param tree; the
 port's is an ``nn.Module`` that holds its parameters (one ``ParamTree``
 per layer of each stack in an ``nn.ModuleList``, named after ``repro``'s
 tree: ``blocks.{i}.attn.wq.w``, ``dense_blocks.{i}.ffn.w_up.w``,
-``embed.table``, ``unembed.w``; the vlm's nested stack is a ModuleList
-of groups, ``groups.{g}.selfs.{j}.attn.wq.w`` and
-``groups.{g}.cross.gate``) on an explicit device, and whose methods
-drop the params argument:
+``embed.table``, ``unembed.w``; a nested stack is a ModuleList of
+groups: the vlm's ``groups.{g}.selfs.{j}.attn.wq.w`` and
+``groups.{g}.cross.gate``, zamba2's ``groups.{g}.mambas.{j}.in_proj.w``
+and ``groups.{g}.lora.a_q`` beside one ``shared.*`` block and a
+``tail.{j}.*`` stack, xLSTM's ``groups.{g}.mlstms.{j}.wq.w`` and
+``groups.{g}.slstm.rz``) on an explicit device, and whose methods drop
+the params argument:
 
   * ``forward(run, batch) -> (logits [B, S, V] f32, aux)`` — the training
     and teacher-forced path, differentiable; ``run.remat`` wraps each
@@ -18,9 +21,9 @@ drop the params argument:
   * ``decode_step(run, tokens [B, 1], cache) -> (logits [B, 1, V], cache)``
     — the caches are written in place, one slot per layer;
   * ``prefill(run, tokens [B, S], max_len) -> (last logits [B, 1, V],
-    cache)`` — the dense family's serving entry point.  The MoE, vlm
-    and encdec families have none, as in ``repro``: their serving feeds
-    the prompt through ``decode_step`` (``launch.serve``).
+    cache)`` — the dense family's serving entry point.  The other
+    families have none, as in ``repro``: their serving feeds the prompt
+    through ``decode_step`` (``launch.serve``).
 
 The last three run under ``torch.inference_mode()``.  ``cache_specs`` /
 ``abstract_params`` are meta-device stand-ins (shapes, no memory), and
@@ -32,15 +35,20 @@ The last three run under ``torch.inference_mode()``.  ``cache_specs`` /
     biases, the 3-D expert weights) — the same bits as ``repro``'s
     per-call cast, once at load; f32 for a leaf ``repro`` reads in f32
     (norm scales, the router, MLA's ``wuk`` / ``wuv``, which decode reads
-    in f32); the embedding table and the unembedding stay f32; no
-    parameter has a gradient;
+    in f32: also the SSM's ``conv_w`` / ``conv_b`` / ``a_log`` /
+    ``d_skip`` / ``dt_bias``, zamba2's LoRA ``a_q`` / ``b_q`` and the
+    sLSTM's recurrent ``r*``, each cast per call as ``repro`` casts it);
+    the embedding table and the unembedding stay f32; no parameter has a
+    gradient;
   * training (``trainable=True``): every leaf in its spec's dtype (f32
     master weights, as ``repro``'s params are), with a gradient; ``dense``
     casts to bf16 on each call, as ``repro`` does.
 
-Self-attention goes through the flash kernel where its shape allows
-(``attention.self_attn``), where ``repro`` calls ``blockwise_attn``;
-under autograd through ``make_flash_attn_trainable``.
+Self-attention (zamba2's shared block's too) goes through the flash
+kernel where its shape allows (``attention.self_attn``), where ``repro``
+calls ``blockwise_attn``; under autograd through
+``make_flash_attn_trainable``.  The SSM, mLSTM and sLSTM blocks launch
+none of the port's kernels (``repro`` has no Pallas kernel for them).
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import ssm, xlstm
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import blockwise_attn, decode_attn, \
     gqa_decode_self_attn, gqa_project_qkv, gqa_self_attn, gqa_spec, \
@@ -62,13 +71,6 @@ from repro_torch.models.module import ParamTree, abstract_params, \
     param_count, stack
 
 CACHE_DTYPE = tf.CACHE_DTYPE
-
-# The families still to port, and the ROADMAP (§1 item 6) slice that
-# ports each.
-_LATER = {
-    "ssm_hybrid": "the ssm_hybrid slice, after vlm and encdec",
-    "xlstm": "the xlstm slice, the last of the model stack",
-}
 
 
 def _head_specs(cfg):
@@ -505,8 +507,197 @@ class EncDecModel(Model):
         return self._logits(x), dict(cache, pos=pos + 1)
 
 
+def _stacked_zeros(state: dict, lead: tuple) -> dict:
+    """Zeros of each state leaf's shape and dtype with the ``lead`` axes
+    prepended (``repro``'s ``jax.tree.map(jnp.zeros((g, k) + a.shape))``:
+    an -inf stabilizer of the one-layer state becomes 0 too)."""
+    return {k: torch.zeros(lead + tuple(a.shape), dtype=a.dtype,
+                           device=a.device) for k, a in state.items()}
+
+
+def _step_into(step, p, cfg, x, state: dict):
+    """``x + y`` of one recurrent block's decode step, its new state
+    copied into the cache slices ``state`` (the conv state's bf16 values
+    exact in the f32 cache)."""
+    y, new = step(p, cfg, x, state)
+    for k, t in state.items():
+        t.copy_(new[k])
+    return x + y
+
+
+class SSMHybridModel(Model):
+    """zamba2 (``repro``'s ``build_ssm_hybrid``): G groups of k Mamba2
+    blocks, each group followed by the one shared attention + FFN block
+    with the group's own LoRA on q, then ``n_layers % k`` more Mamba2
+    blocks (the tail).  The shared block's causal self-attention runs on
+    the flash kernel, once a group.  No ``prefill``, as in ``repro``.
+
+    ``init_cache`` holds the SSM states stacked [G, k, ...] (``ssm``) and
+    [tail, ...] (``tail_ssm``), all f32 as ``repro``'s are at init; the
+    conv state stays f32 after a step (``repro``'s turns bf16 there: the
+    same values), and ``attn_k`` / ``attn_v`` [G, B, T, KH, hd]."""
+
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
+        k = cfg.shared_attn_every
+        self.n_groups, self.n_tail = divmod(cfg.n_layers, k)
+        mamba, lora = ssm.mamba2_spec(cfg), tf.shared_lora_spec(cfg)
+        shared = tf.shared_attn_spec(cfg)
+        specs = dict(_head_specs(cfg))
+        specs["shared"] = shared
+        specs["groups"] = stack({"mambas": stack(mamba, k), "lora": lora},
+                                self.n_groups, axis_name="groups")
+        if self.n_tail:
+            specs["tail"] = stack(mamba, self.n_tail)
+        super().__init__(cfg, specs, device, trainable)
+        self.shared = self._block(shared, device)
+        self.groups = nn.ModuleList(
+            nn.ModuleDict({"mambas": self._stack(mamba, k, device),
+                           "lora": self._block(lora, device)})
+            for _ in range(self.n_groups))
+        if self.n_tail:
+            self.tail = self._stack(mamba, self.n_tail, device)
+
+    def _tail(self):
+        return self.tail if self.n_tail else ()
+
+    def forward(self, run, batch):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed(self.embed, tokens)
+        pos = _positions(tokens.shape[1], x.device)
+        mblk = _wrap_remat(
+            lambda p, x: x + ssm.mamba2(p, cfg, x, chunk=run.ssm_chunk), run)
+        for group in self.groups:
+            for p in group["mambas"]:
+                x = mblk(p, x)
+            x = tf._shared_attn(self.shared, group["lora"], cfg, run, x, pos)
+        for p in self._tail():
+            x = mblk(p, x)
+        return self._logits(x), {}
+
+    @torch.inference_mode()
+    def init_cache(self, batch, max_len, device=None):
+        cfg = self.cfg
+        dev = device or self.device
+        one = ssm.mamba2_init_state(cfg, batch, cfg.d_model, device=dev)
+        g, k = self.n_groups, cfg.shared_attn_every
+        ak, av = self._kv(g, batch, max_len, dev)
+        cache = {"ssm": _stacked_zeros(one, (g, k)), "attn_k": ak,
+                 "attn_v": av,
+                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+        if self.n_tail:
+            cache["tail_ssm"] = _stacked_zeros(one, (self.n_tail,))
+        return cache
+
+    @torch.inference_mode()
+    def decode_step(self, run, tokens, cache):
+        cfg = self.cfg
+        x = embed(self.embed, tokens)
+        pos = cache["pos"]
+        for g, group in enumerate(self.groups):
+            for j, p in enumerate(group["mambas"]):
+                x = _step_into(ssm.mamba2_step, p, cfg, x,
+                               {k: t[g, j] for k, t in cache["ssm"].items()})
+            x, _, _ = tf._shared_attn_decode(
+                self.shared, group["lora"], cfg, x, cache["attn_k"][g],
+                cache["attn_v"][g], pos)
+        for j, p in enumerate(self._tail()):
+            x = _step_into(ssm.mamba2_step, p, cfg, x,
+                           {k: t[j] for k, t in cache["tail_ssm"].items()})
+        return self._logits(x), dict(cache, pos=pos + 1)
+
+
+class XLSTMModel(Model):
+    """xLSTM (``repro``'s ``build_xlstm``): with ``slstm_every`` = k > 0,
+    G = n_layers / k groups of k-1 mLSTM blocks and one sLSTM block;
+    with k = 0, a flat ``blocks`` stack of mLSTMs.  No attention, so no
+    kernel of the port's; no ``prefill``, as in ``repro``.
+
+    ``init_cache`` is zeros, as ``repro``'s: the mLSTM states "m" ({C, n,
+    m} [G, k-1, B, ...], or [L, B, ...]) and the sLSTM's "s" ({c, n, h,
+    m} [G, B, h, dh]) in f32, the stabilizers m included (the one-layer
+    ``*_init_state`` start them at -inf, as the forward does; from 0 the
+    sLSTM's first steps normalize by max(|n|, 1) with n < 1, so decode
+    from ``init_cache`` departs from a teacher-forced forward, in
+    ``repro`` as here)."""
+
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
+        k = cfg.slstm_every
+        mblock, sblock = xlstm.mlstm_spec(cfg), xlstm.slstm_spec(cfg)
+        specs = dict(_head_specs(cfg))
+        if k:
+            if cfg.n_layers % k:
+                raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are no "
+                                 f"multiple of slstm_every {k}")
+            self.n_groups = cfg.n_layers // k
+            specs["groups"] = stack({"mlstms": stack(mblock, k - 1),
+                                     "slstm": sblock}, self.n_groups,
+                                    axis_name="groups")
+        else:
+            self.n_groups = 0
+            specs["blocks"] = stack(mblock, cfg.n_layers)
+        super().__init__(cfg, specs, device, trainable)
+        if k:
+            self.groups = nn.ModuleList(
+                nn.ModuleDict({"mlstms": self._stack(mblock, k - 1, device),
+                               "slstm": self._block(sblock, device)})
+                for _ in range(self.n_groups))
+        else:
+            self.blocks = self._stack(mblock, cfg.n_layers, device)
+
+    def forward(self, run, batch):
+        cfg = self.cfg
+        x = embed(self.embed, batch["tokens"])
+        mblk = _wrap_remat(
+            lambda p, x: x + xlstm.mlstm(p, cfg, x, chunk=run.ssm_chunk),
+            run)
+        if not self.n_groups:
+            for p in self.blocks:
+                x = mblk(p, x)
+        else:
+            for group in self.groups:
+                for p in group["mlstms"]:
+                    x = mblk(p, x)
+                x = x + xlstm.slstm(group["slstm"], cfg, x)
+        return self._logits(x), {}
+
+    @torch.inference_mode()
+    def init_cache(self, batch, max_len, device=None):
+        cfg = self.cfg
+        dev = device or self.device
+        m_one = xlstm.mlstm_init_state(cfg, batch, device=dev)
+        c = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+        if self.n_groups:
+            c["m"] = _stacked_zeros(m_one, (self.n_groups,
+                                            cfg.slstm_every - 1))
+            c["s"] = _stacked_zeros(xlstm.slstm_init_state(
+                cfg, batch, device=dev), (self.n_groups,))
+        else:
+            c["m"] = _stacked_zeros(m_one, (cfg.n_layers,))
+        return c
+
+    @torch.inference_mode()
+    def decode_step(self, run, tokens, cache):
+        cfg = self.cfg
+        x = embed(self.embed, tokens)
+        if not self.n_groups:
+            for i, p in enumerate(self.blocks):
+                x = _step_into(xlstm.mlstm_step, p, cfg, x,
+                               {k: t[i] for k, t in cache["m"].items()})
+        else:
+            for g, group in enumerate(self.groups):
+                for j, p in enumerate(group["mlstms"]):
+                    x = _step_into(xlstm.mlstm_step, p, cfg, x,
+                                   {k: t[g, j]
+                                    for k, t in cache["m"].items()})
+                x = _step_into(xlstm.slstm_step, group["slstm"], cfg, x,
+                               {k: t[g] for k, t in cache["s"].items()})
+        return self._logits(x), dict(cache, pos=cache["pos"] + 1)
+
+
 _BUILDERS = {"dense": DenseModel, "moe": MoEModel, "vlm": VLMModel,
-             "encdec": EncDecModel}
+             "encdec": EncDecModel, "ssm_hybrid": SSMHybridModel,
+             "xlstm": XLSTMModel}
 
 
 def build_model(cfg: ModelConfig, device="cuda", *,
@@ -515,13 +706,9 @@ def build_model(cfg: ModelConfig, device="cuda", *,
     initialized) on ``device``: load them with ``params_from_numpy`` or
     ``init_params_into``.  ``trainable`` builds it to train (see the
     module doc)."""
-    if cfg.family in _BUILDERS:
-        return _BUILDERS[cfg.family](cfg, device, trainable)
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP §1 item 6: {_LATER[cfg.family]})")
-    raise ValueError(f"unknown model family {cfg.family!r}")
+    if cfg.family not in _BUILDERS:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return _BUILDERS[cfg.family](cfg, device, trainable)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,

@@ -1,8 +1,7 @@
-"""Transformer blocks (port of the dense, MoE, encoder and gated
-cross-attention blocks of src/repro/models/transformer.py; the
-ssm_hybrid blocks come with their slice).  ``repro`` scans a stacked
-block over the layer axis; the port loops over one ``ParamTree`` per
-layer (``model.py``).
+"""Transformer blocks (port of src/repro/models/transformer.py: the
+dense, MoE, encoder and gated cross-attention blocks, and zamba2's
+shared attention block).  ``repro`` scans a stacked block over the layer
+axis; the port loops over one ``ParamTree`` per layer (``model.py``).
 
 Cross-attention (the vlm's image keys, the encdec decoder's encoder
 keys) has another key length than its queries, so it stays
@@ -13,11 +12,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.attention import blockwise_attn, decode_attn, \
-    gqa_decode_self_attn, gqa_self_attn, gqa_spec, mla_decode_self_attn, \
-    mla_self_attn, mla_spec
+    gqa_decode_self_attn, gqa_project_qkv, gqa_self_attn, gqa_spec, \
+    mla_decode_self_attn, mla_self_attn, mla_spec, repeat_kv, self_attn
 from repro_torch.models.ffn import ffn, ffn_spec
-from repro_torch.models.layers import ACT_DTYPE, dense, rmsnorm, \
-    rmsnorm_spec
+from repro_torch.models.layers import ACT_DTYPE, apply_rope, dense, \
+    rmsnorm, rmsnorm_spec, rope_tables
 from repro_torch.models.module import P
 from repro_torch.models.moe import moe_ffn, moe_spec
 
@@ -155,3 +154,71 @@ def cross_block_decode(p, cfg, x, img_k, img_v):
     q = dense(p["attn"]["wq"], h).reshape(b, 1, cfg.n_heads, cfg.hd)
     o = decode_attn(q, img_k, img_v, img_k.shape[1])
     return _gated(p, cfg, x, dense(p["attn"]["wo"], o.reshape(b, 1, -1)))
+
+
+# ======================================================== ssm hybrid blocks
+def shared_attn_spec(cfg):
+    """zamba2's shared attention + ffn block (one set of params for every
+    invocation; each invocation's LoRA on q is a ``shared_lora_spec``)."""
+    return {
+        "norm": rmsnorm_spec(cfg.d_model),
+        "attn": gqa_spec(cfg),
+        "ffn_norm": rmsnorm_spec(cfg.d_model),
+        "ffn": ffn_spec(cfg.d_model, cfg.d_ff, cfg.act),
+    }
+
+
+def shared_lora_spec(cfg):
+    r = cfg.shared_lora_rank
+    d = cfg.d_model
+    return {
+        "a_q": P((d, r), ("embed", None), init="fanin", fan_in=d),
+        "b_q": P((r, cfg.n_heads * cfg.hd), (None, "heads"), init="zeros"),
+    }
+
+
+def _shared_qkv(shared, lora, cfg, h, positions):
+    """q (with the invocation's LoRA term), k, v of the normed input h
+    [B, S, D], RoPE'd at ``positions`` [S]: the two LoRA products each
+    rounded to h's dtype, added to q before RoPE, as ``repro`` does."""
+    b, s, _ = h.shape
+    q_extra = (h @ lora["a_q"].to(h.dtype)) @ lora["b_q"].to(h.dtype)
+    q, k, v = gqa_project_qkv(shared["attn"], cfg, h, rope=None)
+    q = q + q_extra.reshape(b, s, cfg.n_heads, cfg.hd)
+    sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def _shared_out(shared, cfg, x, o):
+    """The residual adds of the shared block: ``wo`` of the attention
+    output o [B, S, H, hd], then the FFN."""
+    b, s = x.shape[:2]
+    x = x + dense(shared["attn"]["wo"], o.reshape(b, s, -1))
+    return x + ffn(shared["ffn"], rmsnorm(shared["ffn_norm"], x,
+                                          cfg.norm_eps), cfg.act)
+
+
+def _shared_attn(shared, lora, cfg, run, x, positions):
+    """The shared block over x [B, S, D]: causal self-attention on the
+    flash kernel (``self_attn``; trainable under autograd), where
+    ``repro`` calls ``blockwise_attn``."""
+    x = x.to(ACT_DTYPE)
+    h = rmsnorm(shared["norm"], x, cfg.norm_eps)
+    q, k, v = _shared_qkv(shared, lora, cfg, h, positions)
+    o = self_attn(q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+                  causal=True, window=None, chunk_q=run.attn_chunk_q,
+                  chunk_kv=run.attn_chunk_kv)
+    return _shared_out(shared, cfg, x, o)
+
+
+def _shared_attn_decode(shared, lora, cfg, x, kc, vc, pos):
+    """One token's shared block against its invocation's caches [B, T,
+    KH, hd], written in place at slot min(pos, T - 1).  Returns (x, kc,
+    vc)."""
+    h = rmsnorm(shared["norm"], x, cfg.norm_eps)
+    q, k, v = _shared_qkv(shared, lora, cfg, h, pos[None])
+    idx = torch.clamp(pos, max=kc.shape[1] - 1).reshape(1).long()
+    kc.index_copy_(1, idx, k.to(kc.dtype))
+    vc.index_copy_(1, idx, v.to(vc.dtype))
+    o = decode_attn(q, kc, vc, pos + 1)
+    return _shared_out(shared, cfg, x, o), kc, vc

@@ -2,7 +2,8 @@
 chip_smoke.py or the examples/torch_*.py twins, imports ``jax`` or the
 JAX package ``repro`` (an AST scan of every import statement), importing
 the port's engine, serving, front-end, artifact, enrichment, data,
-analytics, obs, model-stack (the MoE layer and its dispatch included) or
+analytics, obs, model-stack (the MoE layer and its dispatch, the SSM
+and xLSTM blocks included) or
 training modules (optimizer, checkpoint manager, driver, train launcher)
 loads neither, chip_smoke.py refuses to
 run without a CUDA device, and the serving launcher and the quickstart
@@ -49,7 +50,8 @@ def test_port_files_found():
                  "runtime/steps.py", "configs/qwen1_5_0_5b.py",
                  "optim/adamw.py", "checkpoint/manager.py",
                  "runtime/driver.py", "launch/train.py", "models/moe.py",
-                 "distributed/dispatch.py", "distributed/__init__.py"):
+                 "distributed/dispatch.py", "distributed/__init__.py",
+                 "models/ssm.py", "models/xlstm.py"):
         assert f"src/repro_torch/{path}" in PORT_FILES
     assert "examples/torch_train_lm.py" in PORT_FILES
 
@@ -91,7 +93,9 @@ def test_engine_import_loads_no_jax():
                                     "repro_torch.runtime.driver",
                                     "repro_torch.launch.train",
                                     "repro_torch.models.moe",
-                                    "repro_torch.distributed.dispatch"])
+                                    "repro_torch.distributed.dispatch",
+                                    "repro_torch.models.ssm",
+                                    "repro_torch.models.xlstm"])
 def test_slice_import_loads_no_jax(module):
     """The serving, analytics and obs packages, the model stack and the
     training modules load neither ``jax`` nor ``repro`` (the server pulls

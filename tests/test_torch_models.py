@@ -491,10 +491,14 @@ def test_window_prefill_skips_the_flash_kernel(monkeypatch):
         assert len(calls) == want
 
 
-@pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-1.3b"])
-def test_other_families_not_ported_yet(name):
-    cfg = configs.get_reduced_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_family_raises():
+    """``build_model`` takes every family of the configs and raises
+    ValueError for any other."""
+    for name in configs.ARCH_NAMES:
+        build_model(configs.get_reduced_config(name), "meta")
+    cfg = dataclasses.replace(configs.get_reduced_config("qwen1.5-0.5b"),
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown model family"):
         build_model(cfg, "meta")
 
 
