@@ -11,9 +11,11 @@ training and MoE paths through their public entry points
 ``enrich``, ``data.make_source``, ``repro_torch.launch.serve``,
 ``launch.train``'s ``setup`` / ``run_config`` with
 ``runtime.driver.train_loop`` over ``runtime.steps.make_train_step``,
-``checkpoint.manager``, and the MoE, vlm and encdec families through
-``make_prefill_step``, ``launch.serve`` and ``launch.train``) on the
-card:
+``checkpoint.manager``, the MoE, vlm, encdec and recurrent families
+through ``make_prefill_step``, ``launch.serve`` and ``launch.train``,
+and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
+``core.distributed.assign_fast_distributed`` over
+``launch.mesh.Mesh``) on the card:
 
   1. prints the card (nvidia-smi name and power limit), torch and nvcc
      versions, and builds the CUDA kernels from ``src/repro_torch/
@@ -244,7 +246,34 @@ card:
         stabilizers, the forward starts them at -inf: decode starts
         there too);
      c. both reduced configs trained RECURRENT_TRAIN_STEPS steps as in
-        11c (flash once a group a step for zamba2, never for xLSTM).
+        11c (flash once a group a step for zamba2, never for xLSTM);
+ 13. the Morton-sharded lookup (after phase 12; SHARDED_*), from phase
+     3's host map:
+     a. one NCCL rank (world size 1) and a (1, 1) mesh, whose
+        reductions are the identity: ``assign_sharded`` of the 2^24
+        points through the ``fast`` engine (only ``crossings_gathered``
+        launched) and the ``fast`` fused one (only
+        ``crossings_candidates``), ids equal to ``fast`` exact's, none
+        dropped, n_boundary equal; pts/s of TIMED_BATCHES batches
+        beside ``fast``'s and ``fast`` fused's;
+     b. SHARDED_RANKS gloo ranks spawned with torch.multiprocessing,
+        all on cuda:0 (four processes time-share the card: their pts/s
+        is no scaling figure), the host map handed over as a saved
+        ``GeoIndexSet``: ``assign_sharded`` of the first SHARDED_N
+        points on a (1, 4) mesh (gathered and fused) and a (2, 2) one,
+        on every rank ids equal to ``fast`` exact's, n_boundary and
+        n_pip equal to a (1, 1) run's on the same points, none dropped,
+        each run's kernel launched and no other; each rank's
+        coordinates row-major, its index bytes per shard, peak device
+        memory, and whether gloo took the CUDA buffers ("direct") or
+        ``Mesh`` staged them through the host ("host");
+     c. drops: cap_shard SHARDED_DROP_CAP on SHARDED_SKEW_N points, 3/4
+        of them in one Morton range, on the (1, 4) mesh: n_dropped
+        equal to the host's count over the owners, and the ids that
+        come back -1 exactly the points past the first ``capacity`` of
+        their shard's points in input order;
+     d. ``assign_fast_distributed`` on the (1, 4) mesh: ids equal to
+        (a)'s.
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -435,6 +464,23 @@ RECURRENT_BLOCK_RTOL = 2.0 ** -5
 # CPU (and rose by 0.007 on an H100), at 64 it fell by 0.07-0.17 over
 # three.
 RECURRENT_PROFILE_SEQ, RECURRENT_TRAIN_STEPS = 512, 64
+# Phase 13, the Morton-sharded lookup: SHARDED_RANKS gloo ranks sharing
+# the one card (NCCL refuses two ranks on one device), each joined within
+# SHARDED_TIMEOUT_S, drive SHARDED_RUNS on the first SHARDED_N of the
+# main path's points; the drop run sends 3/4 of SHARDED_SKEW_N of them
+# (drawn with SHARDED_SEED) into Morton shard SHARDED_SKEW_SHARD, with
+# cap_shard SHARDED_DROP_CAP (a capacity of N / 8 a shard).
+SHARDED_RANKS, SHARDED_N, SHARDED_TIMEOUT_S = 4, 1 << 22, 180
+SHARDED_SKEW_N, SHARDED_SKEW_SHARD, SHARDED_DROP_CAP, SHARDED_SEED = (
+    1 << 20, 1, 0.5, 13)
+# run -> (mesh shape, entry point, batch, EngineConfig changes)
+SHARDED_RUNS = {
+    "1x4": ((1, 4), "engine", "main", {}),
+    "1x4_fused": ((1, 4), "engine", "main", {"fused": True}),
+    "2x2": ((2, 2), "engine", "main", {}),
+    "1x4_drop": ((1, 4), "engine", "skew", {"cap_shard": SHARDED_DROP_CAP}),
+    "1x4_distributed": ((1, 4), "distributed", "main", {}),
+}
 SERVE_STAGES = ("queue_wait", "host_prepare", "device_assign", "merge",
                 "request", "analytics_observe")
 SPAN_NAMES = {"request", "submit", "queue_wait", "host_prepare", "route",
@@ -3373,6 +3419,301 @@ def recurrent_phase(smoke, result, faulty) -> dict:
     return {"launches": {"zamba2_forward": n_flash}, "timing": timing}
 
 
+def free_addr() -> str:
+    """A tcp://127.0.0.1 address on a free port (a process group's
+    rendezvous)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"tcp://127.0.0.1:{s.getsockname()[1]}"
+
+
+def sharded_rank(rank, addr, tmp):
+    """Phase 13b-d on one of SHARDED_RANKS gloo ranks sharing cuda:0 (a
+    spawned process): the host map loaded from ``tmp``, then each run of
+    SHARDED_RUNS, warmed up once and then driven with the launch counts
+    set to 0 just before and read just after.  Writes ``rank{rank}.json``:
+    per run, its ids against the expected ones in ``inputs.npz``, stats,
+    launches, seconds, peak device memory and the mesh's route."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core.artifact import GeoIndexSet
+    from repro_torch.core.distributed import assign_fast_distributed
+    from repro_torch.core.engine import EngineConfig, GeoEngine
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=addr, rank=rank,
+                            world_size=SHARDED_RANKS,
+                            timeout=timedelta(seconds=SHARDED_TIMEOUT_S))
+    try:
+        t0 = time.perf_counter()
+        idx = GeoIndexSet.load(os.path.join(tmp, "map"), device="cuda")
+        out = {"load_s": time.perf_counter() - t0, "runs": {}}
+        with np.load(os.path.join(tmp, "inputs.npz")) as z:
+            inp = {k: z[k] for k in z.files}
+        meshes = {}
+        for tag, (shape, kind, batch, changes) in SHARDED_RUNS.items():
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape, ("data", "model"))
+            mesh = meshes[shape]
+            cfg = EngineConfig(mode="exact", cap_boundary=0.5,
+                               max_level=MAX_LEVEL, **changes)
+            pts = torch.from_numpy(inp[f"{batch}_xy"]).cuda()
+            if kind == "engine":
+                eng = GeoEngine.from_index_set(idx, "fast", cfg)
+
+                def run():
+                    r = eng.assign_sharded(pts, mesh)
+                    return r.state, r.county, r.block, r.stats.as_dict()
+            else:
+                sidx = idx.sharded_index(shape[-1])
+
+                def run():
+                    *ids, st = assign_fast_distributed(sidx, pts, mesh,
+                                                       cfg.fast_cfg())
+                    return (*ids, {k: int(v) for k, v in st.items()})
+            run()                       # warm-up: the shard's copy to cuda
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            *ids, stats = run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            got = [t.cpu().numpy() for t in ids]
+            out["runs"][tag] = dict(
+                ids_equal=all(np.array_equal(g, inp[f"{batch}_{f}"])
+                              for g, f in zip(got, ("state", "county",
+                                                    "block"))),
+                minus1=int((got[2] < 0).sum()), stats=stats,
+                launches=launches, seconds=dt, pts_per_s=len(pts) / dt,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                index_bytes_per_shard=idx.sharded[
+                    shape[-1]].index_bytes_per_shard(),
+                coords=mesh.coords, route=mesh.route)
+        out["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_sharded(tmp) -> list:
+    """SHARDED_RANKS ``sharded_rank`` processes (torch.multiprocessing,
+    spawn), joined within SHARDED_TIMEOUT_S (a rank stuck in a collective
+    is killed, never waited on); their JSON results in rank order."""
+    import torch.multiprocessing as torch_mp
+    ctx = torch_mp.start_processes(sharded_rank, args=(free_addr(), tmp),
+                                 nprocs=SHARDED_RANKS, join=False,
+                                 start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"sharded: the {SHARDED_RANKS} gloo ranks did not finish "
+                  f"within {SHARDED_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    out = []
+    for r in range(SHARDED_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def sharded_ranges() -> tuple:
+    """``profile_busy`` ranges over the sharded path's parts: the routing
+    plan, its slot tables, the shard-local lookup and, inside it, the
+    candidate resolution."""
+    from repro_torch.core import distributed, strategies
+    return ((strategies, "plan_routes", "plan"),
+            (strategies, "slot_tables", "slot tables"),
+            (strategies, "local_lookup", "local lookup"),
+            (distributed, "resolve_candidates", "resolve (in the lookup)"))
+
+
+def sharded_phase(smoke, engines, census, cov, xy, pts, ids, result):
+    """Phase 13: the Morton-sharded lookup (see the module docstring)."""
+    import torch.distributed as dist
+    from repro_torch.core.artifact import GeoIndexSet
+    from repro_torch.core.compact import capacity_for
+    from repro_torch.core.distributed import shard_covering
+    from repro_torch.core.fast import np_quantize_codes
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    # -- a. one NCCL rank, a (1, 1) mesh, 2^24 points ------------------------
+    dist.init_process_group("nccl", init_method=free_addr(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        runs = {"sharded": engines["fast"],
+                "sharded_fused": engines["fast_fused"]}
+        out["one_rank"] = {}
+        for name, eng in runs.items():
+            kernels = ENGINE_KERNELS["fast_fused" if "fused" in name
+                                     else "fast"]
+            # Each kernel call held against its twin as it runs (the
+            # twins launch nothing, so the counts are the kernels').
+            with smoke.capture(keep=()) as cap:
+                smoke.build.reset_launches()
+                res = eng.assign_sharded(pts, mesh)
+                torch.cuda.synchronize()
+                launches = launched_only(smoke, name, kernels)
+            checked = {k: v for k, v in cap.checked.items() if v["calls"]}
+            for kname, c in checked.items():
+                check(c["max_abs_err"] == 0, f"{kname} differs from its "
+                      f"twin (max abs err {c['max_abs_err']}) on {name}")
+            same_ids(res, ids["fast"], f"{name} (1, 1) vs fast exact")
+            st = res.stats.as_dict()
+            check(st["n_dropped"] == 0 and st["overflow"] == 0,
+                  f"{name}: dropped or overflowed: {st}")
+            check(st["n_boundary"] == result["stats"]["fast"]["n_boundary"],
+                  f"{name}: n_boundary {st['n_boundary']} differs from "
+                  f"fast's")
+            ts, dev = [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(TIMED_BATCHES):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                eng.assign_sharded(pts, mesh)
+                end.record()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+                dev.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile_busy(lambda: eng.assign_sharded(pts, mesh),
+                                ranges=sharded_ranges())
+            out["one_rank"][name] = dict(
+                launches=launches, checked=checked, stats=st,
+                peak_bytes=peak,
+                pts_per_s=N_MAIN / float(np.median(ts)),
+                batch_device_ms=float(np.median(dev)), host_ms=ts,
+                profile=prof)
+            base = "fast_fused" if "fused" in name else "fast"
+            base_peak = result.get("peak_bytes", {}).get(base)
+            print(f"sharded (1, 1), one NCCL rank: {name}: "
+                  f"{out['one_rank'][name]['pts_per_s']:.4g} pts/s (median "
+                  f"of {TIMED_BATCHES} batches of {N_MAIN}: host "
+                  f"{[round(t * 1e3, 3) for t in ts]} ms, CUDA events "
+                  f"{[round(t, 3) for t in dev]} ms) vs {base} "
+                  f"{result['pts_per_s'][base]:.4g} pts/s; launches "
+                  f"{launches}, each call == twin as it ran ("
+                  + ", ".join(f"{k}: {c['calls']} calls, {c['rows']} rows"
+                              for k, c in checked.items())
+                  + f"); ids == fast exact; stats {st}; peak "
+                  f"{peak / 2**30:.2f} GiB (the {base} path's: "
+                  f"{base_peak / 2**30 if base_peak else float('nan'):.2f}"
+                  f" GiB); profiled: wall {prof['wall_ms']:.2f} ms, device "
+                  f"{prof['device_ms']:.2f} ms, busy {prof['busy']:.1%}, "
+                  f"{prof['launches']} launches; device ms by part "
+                  f"{ {k: round(v[0], 2) for k, v in prof['ranges'].items()} }"
+                  f"; top kernels "
+                  f"{[(k, round(ms, 2), n) for k, ms, n in prof['top']]}")
+        # The reference of the ranks' counters: (1, 1) on their points.
+        ref = engines["fast"].assign_sharded(pts[:SHARDED_N], mesh)
+        ref_stats = ref.stats.as_dict()
+    finally:
+        dist.destroy_process_group()
+    # -- inputs of the ranks: the host map, 2^22 points, a skewed batch -----
+    sidx = shard_covering(cov, census, SHARDED_RANKS, device="cpu")
+    owner = np.clip(np.searchsorted(
+        sidx.range_lo.numpy(), np_quantize_codes(sidx.quant.numpy(),
+                                                 MAX_LEVEL, xy),
+        side="right") - 1, 0, SHARDED_RANKS - 1)
+    rng = np.random.default_rng(SHARDED_SEED)
+    n = SHARDED_SKEW_N
+    pick = np.concatenate([
+        rng.choice(np.flatnonzero(owner == SHARDED_SKEW_SHARD), 3 * n // 4,
+                   replace=False),
+        rng.choice(np.flatnonzero(owner != SHARDED_SKEW_SHARD), n // 4,
+                   replace=False)])
+    rng.shuffle(pick)
+    capacity = capacity_for(n, SHARDED_DROP_CAP / SHARDED_RANKS)
+    rank_in_shard = np.zeros(n, np.int64)
+    for s in range(SHARDED_RANKS):
+        rows = np.flatnonzero(owner[pick] == s)
+        rank_in_shard[rows] = np.arange(len(rows))
+    dropped = rank_in_shard >= capacity
+    want = [t.cpu().numpy() for t in ids["fast"]]
+    inputs = {"main_xy": xy[:SHARDED_N], "skew_xy": xy[pick]}
+    for f, w in zip(("state", "county", "block"), want):
+        inputs[f"main_{f}"] = w[:SHARDED_N]
+        inputs[f"skew_{f}"] = np.where(dropped, -1, w[pick])
+    with tempfile.TemporaryDirectory(dir=smoke.build.BUILD_ROOT) as tmp:
+        GeoIndexSet(census=census, covering=cov, max_level=MAX_LEVEL,
+                    device="cpu").save(os.path.join(tmp, "map"))
+        np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+        t0 = time.perf_counter()
+        ranks = spawn_sharded(tmp)
+        out["spawn_s"] = time.perf_counter() - t0
+    # -- b-d. the ranks' checks ---------------------------------------------
+    for r, got in enumerate(ranks):
+        for tag, (shape, kind, batch, changes) in SHARDED_RUNS.items():
+            run = got["runs"][tag]
+            what = f"sharded rank {r} {tag}"
+            kernels = ENGINE_KERNELS["fast_fused" if changes.get("fused")
+                                     else "fast"]
+            check(set(run["launches"]) == set(kernels),
+                  f"{what}: launches {run['launches']}, expected only "
+                  f"{kernels}")
+            check(run["ids_equal"], f"{what}: ids differ from the expected "
+                                    f"(fast exact; -1 where dropped)")
+            check(run["coords"] == dict(zip(("data", "model"),
+                                            np.unravel_index(r, shape))),
+                  f"{what}: coordinates {run['coords']} not row-major")
+            st = run["stats"]
+            if batch == "skew":
+                check(st["n_dropped"] == int(dropped.sum()) > 0
+                      and run["minus1"] == int(dropped.sum()),
+                      f"{what}: n_dropped {st['n_dropped']}, -1 ids "
+                      f"{run['minus1']}, expected {int(dropped.sum())}")
+                continue
+            check(st.get("n_dropped", 0) == 0 and st["overflow"] == 0,
+                  f"{what}: dropped or overflowed: {st}")
+            for key in ("n_boundary", "n_pip"):
+                check(st[key] == ref_stats[key],
+                      f"{what}: {key} {st[key]} differs from the (1, 1) "
+                      f"run's {ref_stats[key]}")
+    out["ranks"] = ranks
+    out["reference_stats"] = ref_stats
+    out["dropped"] = int(dropped.sum())
+    result["sharded"] = out
+    print(f"sharded, {SHARDED_RANKS} gloo ranks time-sharing one card (the "
+          f"processes share cuda:0, so their pts/s is no scaling figure): "
+          f"spawn + runs {out['spawn_s']:.2f} s; route of the collectives: "
+          f"{ {r['runs'][t]['route'] for r in ranks for t in r['runs']} } "
+          f"('direct': CUDA tensors handed to gloo; 'host': staged through "
+          f"the host); n_boundary / n_pip == the (1, 1) run's on the same "
+          f"{SHARDED_N} points ({ref_stats['n_boundary']} / "
+          f"{ref_stats['n_pip']})")
+    for tag, (shape, kind, batch, changes) in SHARDED_RUNS.items():
+        per = [r["runs"][tag] for r in ranks]
+        print(f"  {tag} ({kind} on mesh {shape}, {batch} batch"
+              f"{', ' + str(changes) if changes else ''}): ids == expected "
+              f"on every rank; launches {per[0]['launches']}; stats "
+              f"{per[0]['stats']}; pts/s by rank "
+              f"{[round(p['pts_per_s']) for p in per]}; index bytes per "
+              f"shard {per[0]['index_bytes_per_shard']}; peak device memory "
+              f"by rank (GiB) "
+              f"{[round(p['peak_bytes'] / 2**30, 3) for p in per]}")
+    print(f"  drops: cap_shard {SHARDED_DROP_CAP} on {SHARDED_SKEW_N} points "
+          f"(3/4 in Morton shard {SHARDED_SKEW_SHARD}), capacity "
+          f"{capacity} a shard: n_dropped {out['dropped']} == the host's "
+          f"count, and the -1 ids are exactly the points past each shard's "
+          f"first {capacity} in input order")
+
+
 def host_map():
     """The census and its covering at SCALE, on the host (numpy; no card).
     Returns (census, covering, census s, covering s)."""
@@ -4016,6 +4357,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     recurrent = recurrent_phase(smoke, result, faulty)
     phase_s["recurrent"] = time.perf_counter() - t_start
+    # -- 13. the Morton-sharded lookup ----------------------------------------
+    torch.cuda.empty_cache()
+    sharded_phase(smoke, engines, census, cov, xy, pts, ids, result)
+    phase_s["sharded"] = time.perf_counter() - t_start
+    # The two PIP kernels' launches on the sharded path at (1, 1) beside
+    # their main path's.
+    for row in kernels:
+        name = {"crossings_gathered": "sharded",
+                "crossings_candidates": "sharded_fused"}.get(row["name"])
+        if name:
+            row["launches_by_path"] = {
+                ROW_PATH[row["name"]]: row["launches"],
+                name: result["sharded"]["one_rank"][name]["launches"][
+                    row["name"]]}
     # Flash's launches: the training run (and, by path, the prefill's, a
     # training step's, the Mixtral, vlm, encdec and zamba2 forwards'); its
     # time at the Mixtral forward's shape (the vlm's too), at the encdec
@@ -4035,7 +4390,7 @@ def main() -> int:
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = phase_s["recurrent"]
+    result["total_s"] = phase_s["sharded"]
     result["phase_end_s"] = phase_s
     print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")

@@ -3,9 +3,10 @@ src/repro/core/artifact.py; DESIGN.md §11).
 
 One object owns the host census and cell covering and the device indices
 derived from them (``SimpleIndex`` for the cascade, ``FastIndex`` for the
-cell lookup, each with or without its edge pools), all on one
-``device``.  Components build lazily through ``ensure``: strategies
-declare what they need and the engine ensures exactly that.
+cell lookup, each with or without its edge pools, and the Morton-sharded
+``ShardedFastIndex`` per shard count), all on one ``device``.
+Components build lazily through ``ensure``: strategies declare what they
+need and the engine ensures exactly that.
 ``capabilities()`` is the snapshot the registry's build-time validation
 and the planner read.
 
@@ -34,6 +35,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from repro_torch.core.cells import CellCovering, build_cell_covering
+from repro_torch.core.distributed import ShardedFastIndex, shard_covering
 from repro_torch.core.fast import FastIndex
 from repro_torch.core.geometry import CensusMap, PolygonSoup
 from repro_torch.core.simple import SimpleIndex
@@ -65,6 +67,10 @@ class GeoIndexSet:
     covering: Optional[CellCovering] = None
     simple: Optional[SimpleIndex] = None
     fast: Optional[FastIndex] = None
+    # Morton-sharded indices by shard count (built on demand by
+    # ``sharded_index``; never saved).
+    sharded: Dict[int, ShardedFastIndex] = dataclasses.field(
+        default_factory=dict)
     max_level: int = 9
     gbits: int = 4
     max_cand: int = 8
@@ -130,6 +136,27 @@ class GeoIndexSet:
         if self.census is None:
             raise ValueError(f"building {what} needs a census")
 
+    def sharded_index(self, n_shards: int,
+                      with_pool: bool = False) -> ShardedFastIndex:
+        """The Morton-sharded index for ``n_shards``, built once per shard
+        count (pool attached on demand at ``pool_be()``, like
+        ``ensure``)."""
+        if n_shards not in self.sharded:
+            if self.covering is None or self.census is None:
+                raise ValueError("assign_sharded needs the engine built "
+                                 "from a census with a cell covering "
+                                 "(strategy 'fast' or 'hybrid')")
+            self.sharded[n_shards] = shard_covering(
+                self.covering, self.census, n_shards, with_pool=False,
+                device=self.device)
+        sidx = self.sharded[n_shards]
+        if with_pool and sidx.edge_pool is None:
+            self.sharded[n_shards] = dataclasses.replace(
+                sidx, edge_pool=ops.build_edge_pool(
+                    sidx.block_edges.cpu().numpy(), be=self.pool_be(),
+                    device=self.device))
+        return self.sharded[n_shards]
+
     # -- autotune record ----------------------------------------------------
 
     def pool_be(self) -> int:
@@ -152,6 +179,10 @@ class GeoIndexSet:
                 self.simple = dataclasses.replace(
                     self.simple, state_pool=None, county_pool=None,
                     block_pool=None)
+            for n, sidx in list(self.sharded.items()):
+                if sidx.edge_pool is not None:
+                    self.sharded[n] = dataclasses.replace(sidx,
+                                                          edge_pool=None)
 
     def memory_footprint(self) -> Dict[str, int]:
         """Bytes of the built device index and its pool (plus the pool's
@@ -188,7 +219,7 @@ class GeoIndexSet:
                             and self.simple.state_pool is not None),
             "fast_pool": (self.fast is not None
                           and self.fast.edge_pool is not None),
-            "sharded": [],
+            "sharded": sorted(self.sharded),
         }
 
     # -- persistence --------------------------------------------------------

@@ -17,7 +17,12 @@ runs the hand-written CUDA kernels:
   * ``fast`` exact (§IV): candidate PIP on boundary cells;
   * ``hybrid``: the cell lookup, then the ``simple`` cascade on the
     boundary points;
-  * ``fast_onepass``: the one-pass cascade kernel.
+  * ``fast_onepass``: the one-pass cascade kernel;
+  * ``assign_sharded(points, mesh)``: the cell table Morton-sharded over
+    the mesh's "model" axis (a ``launch.mesh.Mesh`` over
+    ``torch.distributed``) through the registered ``sharded`` plugin,
+    points routed to their owning shard by the MoE dispatch primitive
+    (distributed/dispatch.py); its PIP runs the same two kernels.
 
 Candidate PIP runs the gathered PIP kernel with ``fused=False`` and the
 candidate PIP kernel over the edge pools with ``fused=True``; the
@@ -52,8 +57,8 @@ STRATEGIES = ("simple", "fast", "fast_onepass", "hybrid")
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static engine knobs (the JAX package's, less the sharded path's
-    ``cap_shard``).  The per-strategy configs derive from this one."""
+    """Static engine knobs (the JAX package's).  The per-strategy configs
+    derive from this one."""
 
     backend: str | None = None   # kernel backend override
     k_cand: int = 4              # cascade PIP candidates per level
@@ -65,6 +70,7 @@ class EngineConfig:
     max_level: int = 9           # covering depth
     gbits: int = 4               # top-grid bits
     max_cand: int = 8            # boundary candidate list width
+    cap_shard: float = 2.0       # sharded assign: capacity factor vs N/S
     fused: bool | str = False    # False | True | "onepass" (see module
     #                              doc); strategies other than fast take
     #                              "onepass" as True
@@ -284,12 +290,15 @@ class GeoEngine:
                 index.county_parent.cpu().numpy())
 
     def assign_sharded(self, points, mesh) -> AssignResult:
-        """Not ported yet: the sharded lookup comes with the distributed
-        slice (ROADMAP queue 1, item 7)."""
-        raise NotImplementedError(
-            "GeoEngine.assign_sharded is not ported to repro_torch yet; "
-            "it comes with the distributed slice (ROADMAP queue 1, "
-            "item 7)")
+        """Sharded lookup over ``mesh``'s "model" axis (every rank passes
+        the same whole batch and gets the whole result), routed through
+        the registered "sharded" plugin, or the engine's own strategy if
+        it declares ``supports_sharded`` — see core/strategies.py for
+        capacity and drop accounting."""
+        impl = self._impl if self._impl.caps.supports_sharded \
+            else get_strategy("sharded")
+        return impl.assign_sharded(self.indices, self._points(points), mesh,
+                                   self.cfg)
 
 
 __all__ = ["EngineConfig", "GeoEngine", "GeoIndexSet", "STRATEGIES",

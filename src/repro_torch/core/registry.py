@@ -20,18 +20,6 @@ from typing import Tuple
 
 COMPONENTS = ("simple", "fast", "covering")
 
-# Strategies of the JAX package that this port does not run yet, with
-# the ROADMAP slice that brings each.
-NOT_PORTED = {
-    "sharded": "the distributed slice (ROADMAP queue 1, item 7)",
-}
-
-
-def not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"strategy {name!r} is not ported to repro_torch yet; it comes "
-        f"with {NOT_PORTED[name]}")
-
 
 @dataclasses.dataclass(frozen=True)
 class StrategyCaps:
@@ -64,12 +52,16 @@ class Strategy:
     def validate(self, indices, cfg) -> None:
         """Raise ValueError if ``indices`` lacks a component or pool this
         strategy needs under ``cfg`` — at engine construction, never at
-        the first ``assign``."""
+        the first ``assign``.  A strategy with no single-mesh ``assign``
+        (the sharded-only plugin) is rejected here too."""
         if type(self).assign is Strategy.assign:
+            kind = ("sharded-only" if self.caps.supports_sharded
+                    else "abstract")
             raise ValueError(
                 f"strategy {self.name!r} implements no single-mesh "
-                f"assign — build the engine with an assign-capable "
-                f"strategy")
+                f"assign ({kind}) — build the engine with an "
+                f"assign-capable strategy; engine.assign_sharded routes "
+                f"to sharded plugins by itself")
         caps = indices.capabilities()
         for comp in self.required_components(cfg):
             if not caps.get(comp, False):
@@ -90,6 +82,11 @@ class Strategy:
         raise NotImplementedError(
             f"strategy {self.name!r} does not implement single-mesh "
             f"assign")
+
+    def assign_sharded(self, indices, points, mesh, cfg):
+        """Sharded lookup over ``mesh`` (only when supports_sharded)."""
+        raise NotImplementedError(
+            f"strategy {self.name!r} does not support sharded assign")
 
 
 _REGISTRY: dict[str, Strategy] = {}
@@ -120,16 +117,20 @@ def register_strategy(name: str, *, needs: Tuple[str, ...] = (),
 
 
 def get_strategy(name: str) -> Strategy:
-    """Resolve a registered strategy by name: NotImplementedError for a
-    JAX-package strategy not ported yet, ValueError for an unknown one."""
-    if name in _REGISTRY:
+    """Resolve a registered strategy by name (ValueError on unknown)."""
+    try:
         return _REGISTRY[name]
-    if name in NOT_PORTED:
-        raise not_ported(name)
-    raise ValueError(f"unknown strategy {name!r}; expected one of "
-                     f"{available_strategies()} (or 'auto')")
+    except KeyError:
+        raise ValueError(f"unknown strategy {name!r}; expected one of "
+                         f"{available_strategies()} (or 'auto')") from None
 
 
 def available_strategies() -> Tuple[str, ...]:
     """Registered strategy names, registration order."""
     return tuple(_REGISTRY)
+
+
+def sharded_strategies() -> Tuple[str, ...]:
+    """Names of strategies that implement ``assign_sharded``."""
+    return tuple(n for n, s in _REGISTRY.items()
+                 if s.caps.supports_sharded)

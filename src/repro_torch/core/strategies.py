@@ -2,8 +2,8 @@
 src/repro/core/strategies.py).
 
 The paper's simple cascade (§III), the fast cell index (§IV), its
-one-pass cascade variant, and the hybrid interior/cascade split; the
-``sharded`` strategy comes with a later slice (``registry.NOT_PORTED``).
+one-pass cascade variant, the hybrid interior/cascade split, and the
+dispatch-routed Morton-sharded lookup over a ``launch.mesh.Mesh``.
 Each plugin is a thin driver over ``core.resolve.resolve_candidates``.
 """
 from __future__ import annotations
@@ -16,10 +16,14 @@ from repro_torch.core import fast as fast_mod
 from repro_torch.core import simple as simple_mod
 from repro_torch.core.compact import (capacity_for, compact_indices,
                                       scatter_filled)
-from repro_torch.core.fast import FastIndex, cell_values, parents_of
+from repro_torch.core.distributed import ShardedFastIndex, local_lookup
+from repro_torch.core.fast import (FastConfig, FastIndex, cell_values,
+                                   parents_of, quantize_codes)
 from repro_torch.core.registry import Strategy, register_strategy
 from repro_torch.core.resolve import AssignResult, GeoStats
 from repro_torch.core.simple import SimpleConfig, SimpleIndex
+from repro_torch.distributed.dispatch import (plan_routes, scatter_to_buckets,
+                                              slot_tables)
 from repro_torch.kernels import ops
 
 
@@ -127,3 +131,83 @@ class HybridStrategy(Strategy):
         return _fast_result(*_assign_hybrid(
             indices.fast, indices.simple, points, cfg.hybrid_cascade_cfg(),
             cfg.cap_boundary))
+
+
+def _sharded_assign(sidx: ShardedFastIndex, points: torch.Tensor, mesh,
+                    cfg: FastConfig, capacity: int, cap_pip: int):
+    """Dispatch-routed sharded lookup: bucket points by owning Morton
+    shard, fill this rank's capacity bucket, look it up against this
+    rank's shard, and gather the results back by buffer slot.
+
+    Every rank computes the same plan from the same whole batch and makes
+    the same collectives in the same order, whatever its bucket holds."""
+    n = points.shape[0]
+    s = sidx.n_shards
+    m = mesh.coords["model"]
+    codes = quantize_codes(sidx.quant, sidx.max_level, points)
+    owner = (torch.searchsorted(sidx.range_lo, codes, right=True) - 1
+             ).clamp(0, s - 1).int()
+    plan = plan_routes(owner, s, capacity)
+    item_for_slot, _ = slot_tables(plan, s, capacity)        # [S*cap]
+    ok = item_for_slot >= 0
+    # Off-extent points carry border-clipped codes (see quantize_codes);
+    # deactivate their slots so they come back -1, not a border block.
+    ext = fast_mod.extent_mask(sidx.quant, sidx.max_level, points)
+    mine = item_for_slot.view(s, capacity)[m]
+    pts_loc = scatter_to_buckets(plan, points, 1, capacity,
+                                 item_for_slot=mine)
+    ok_loc = ok.view(s, capacity)[m] & ext[mine.clamp(0, n - 1)]
+    lo, hi, val, cand = sidx.shard(m)
+    bid_loc, rs = local_lookup(
+        sidx.block_edges, lo, hi, val, cand,
+        quantize_codes(sidx.quant, sidx.max_level, pts_loc), pts_loc,
+        cfg.mode, cap_pip, cfg.backend, active=ok_loc,
+        edge_pool=sidx.edge_pool if cfg.fused else None)
+    # The [S, capacity] buffer of every shard's answers: -1 but in this
+    # rank's row, so a pmax over "model" concatenates the rows.
+    bid_buf = torch.full((s, capacity), -1, dtype=torch.int32,
+                         device=points.device)
+    bid_buf[m] = bid_loc
+    bid_buf = mesh.pmax(bid_buf, ("model",))
+    n_need, n_pip, pip_of, p2_miss = mesh.psum(
+        torch.stack([rs.n_need, rs.n_pip, rs.overflow,
+                     rs.phase2_miss]).long(), ("model",)).unbind()
+
+    dest = torch.where(ok, item_for_slot, n).long()
+    bid = torch.full((n + 1,), -1, dtype=torch.int32, device=points.device)
+    bid[dest] = bid_buf.reshape(-1)
+    bid = bid[:n]
+    cid, sid = parents_of(sidx, bid)
+    stats = {"n_boundary": n_need, "n_pip": n_pip, "overflow": pip_of,
+             "phase2_miss": p2_miss, "n_dropped": plan.n_dropped}
+    return sid, cid, bid, stats
+
+
+@register_strategy("sharded", supports_sharded=True, supports_padded=False)
+class ShardedStrategy(Strategy):
+    """Morton-sharded cell lookup routed through the capacity-bucketed
+    dispatch shared with the MoE layer (DESIGN.md §6); every engine's
+    ``assign_sharded`` resolves to this plugin.
+
+    Capacity per shard is ``cap_shard * N / n_shards``: routing skew
+    beyond it is dropped to bid -1 and counted (``extra["n_dropped"]``),
+    as MoE drops tokens.  Ranks along "data" repeat the work (points
+    are replicated there), so the counters sum over "model" only.
+    """
+
+    def assign_sharded(self, indices, points, mesh, cfg) -> AssignResult:
+        if "model" not in mesh.axis_names:
+            raise ValueError("assign_sharded expects a mesh with a "
+                             "'model' axis")
+        n = points.shape[0]
+        n_shards = int(mesh.shape["model"])
+        sidx = indices.sharded_index(
+            n_shards, with_pool=bool(cfg.fused) and cfg.mode == "exact")
+        capacity = capacity_for(n, cfg.cap_shard / n_shards)
+        cap_pip = capacity_for(capacity, cfg.cap_boundary,
+                               ceiling=capacity)
+        sid, cid, bid, st = _sharded_assign(
+            sidx, points, mesh, cfg.fast_cfg(), capacity, cap_pip)
+        return AssignResult(sid, cid, bid, GeoStats(
+            n_need=st["n_boundary"], n_pip=st["n_pip"],
+            overflow=st["overflow"] + st["n_dropped"], extra=st))

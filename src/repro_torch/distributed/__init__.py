@@ -1,4 +1,6 @@
 """Distribution primitives (port of src/repro/distributed): the
-single-rank capacity-bucketed dispatch that the MoE layer runs without a
-mesh.  The ``torch.distributed`` half comes with the distributed slice
-(ROADMAP §1 item 7)."""
+capacity-bucketed dispatch that the MoE layer runs without a mesh and the
+sharded geo lookup routes points with (``core.strategies``).  The geo
+lookup's mesh is ``launch.mesh.Mesh`` over ``torch.distributed``; the
+model half (parameter sharding, the MoE layer's mesh) comes with ROADMAP
+§1 item 7."""

@@ -22,13 +22,17 @@ from repro.core.engine import EngineConfig as JConfig
 from repro.core.engine import GeoEngine as JEngine
 from repro.core.fast import cell_values as j_cell_values
 from repro.core.plan import plan_for as JPlanFor
+from repro.core.registry import sharded_strategies as j_sharded_strategies
 from repro.core.resolve import resolve_candidates as j_resolve
 from repro_torch.core import plan as t_plan
 from repro_torch.core.artifact import GeoIndexSet
 from repro_torch.core.cells import CellCovering
 from repro_torch.core.engine import EngineConfig, GeoEngine
 from repro_torch.core.registry import get_strategy
+from repro_torch.core.registry import \
+    sharded_strategies as t_sharded_strategies
 from repro_torch.core.resolve import resolve_candidates as t_resolve
+from repro_torch.launch.mesh import make_test_mesh
 
 CASES = {
     "simple": ("simple", dict()),
@@ -216,15 +220,19 @@ def test_resolve_candidates_matches_reference(engines, points, two_phase,
         assert int(st.overflow) > 0
 
 
-def test_unported_choices_raise(engines):
-    """The one strategy not ported yet, and the engine call that needs
-    it, raise NotImplementedError naming its slice — never a quiet
-    substitute."""
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        get_strategy("sharded")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        engines["exact"][1].assign_sharded(np.zeros((4, 2), np.float32),
-                                           mesh=None)
+def test_unported_choices_raise(engines, points):
+    """The choices that raised NotImplementedError before the sharded
+    lookup was ported now resolve as in ``repro``: the ``sharded``
+    strategy, ``sharded_strategies()``, and ``assign_sharded`` on a
+    (1, 1) mesh, whose ids equal the engine's own exact ``assign``."""
+    assert get_strategy("sharded").caps.supports_sharded
+    assert t_sharded_strategies() == j_sharded_strategies() == ("sharded",)
+    eng = engines["exact"][1]
+    res = eng.assign_sharded(points, make_test_mesh((1, 1)))
+    want = eng.assign(points)
+    for a, b in zip(_ids(res), _ids(want)):
+        np.testing.assert_array_equal(a, b)
+    assert int(res.stats.extra["n_dropped"]) == 0
 
 
 def test_default_strategy_matches_reference(synth_small, points):
