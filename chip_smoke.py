@@ -274,6 +274,42 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         their shard's points in input order;
      d. ``assign_fast_distributed`` on the (1, 4) mesh: ids equal to
         (a)'s.
+ 14. the model half of distributed (after phase 13; MESH_*): one
+     process first runs the references (Mixtral-8x7B at its published
+     widths, MESH_MOE_LAYERS layers, random weights from MOE_SEED: its
+     forward over the whole batch and over each half, each forward's
+     routing recorded, and its token loop with each step's fed token,
+     routing and what ``op_log`` records;
+     Qwen1.5-0.5B's steps on a (1,) mesh, which casts as the ranks'
+     mesh does), then MESH_RANKS gloo ranks spawned on cuda:0 (time-
+     shared: no scaling figure) draw their blocks of the same weights
+     (``sharding.rules.init_sharded``) and run:
+     a. ``make_prefill_step`` over MESH_MOE_BATCH x MESH_MOE_SEQ on a
+        (1, 4) and a (2, 2) mesh, routed as one process routed the same
+        rows (each choice of their own that differs must be a near tie):
+        flash_attn_bhsd launched once a layer a rank (wgmma, each call
+        against the twin) and nothing else, the last logits within
+        LOGIT_TOL of one process's, dropped equal to one process's at
+        the same per-shard capacity; ms a forward, the weights' gather,
+        peak memory and the collectives' routes per rank; then the token
+        loop (MESH_SERVE) on (1, 4) through ``make_serve_step``, no
+        kernel launched, fed one process's tokens and routed as it
+        routed: every step's last logits within LOGIT_TOL of its own
+        (where they are not bit-equal, ``op_log`` names the first value
+        that differs after equal ones: an attention output, the expert
+        buckets or outputs, the MoE output, the final hidden state or
+        the logits);
+     b. Qwen1.5-0.5B at its published width through
+        ``launch.train.setup_mesh`` on the (MESH_RANKS,) ("data",) mesh,
+        MESH_TRAIN_STEPS steps of ``make_train_step`` (remat "full"; 48
+        wgmma flash launches a step a rank, the first step's each
+        against the twin): step 0's loss, ce and grad norm within
+        phase 9's bounds of one process's;
+     c. that state saved from the mesh (``CheckpointManager.save(...,
+        shardings=)``: rank 0 writes whole arrays), restored on a (2, 2)
+        mesh (each rank its blocks) and in one process, all three equal
+        bit for bit (position-weighted integer checksums of the f32
+        bits, summed over the blocks).
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -481,6 +517,28 @@ SHARDED_RUNS = {
     "1x4_drop": ((1, 4), "engine", "skew", {"cap_shard": SHARDED_DROP_CAP}),
     "1x4_distributed": ((1, 4), "distributed", "main", {}),
 }
+# Phase 14, the model half of distributed (ROADMAP item 7): MESH_RANKS
+# gloo ranks sharing cuda:0 (NCCL refuses two ranks on one device; their
+# times are time-shared, no scaling figure), each joined within
+# MESH_TIMEOUT_S.  (a) Mixtral-8x7B at its published widths cut to
+# MESH_MOE_LAYERS of 32 layers, random weights from MOE_SEED: a
+# make_prefill_step forward over MESH_MOE_BATCH x MESH_MOE_SEQ tokens on a
+# (1, 4) mesh (2 experts a rank) and a (2, 2) one (4 experts a rank, their
+# weights gathered over "data"), each routed as the one-process forward of
+# the same rows routed (its own differing choices must be near ties), then
+# the token loop serving MESH_SERVE on (1, 4).  (b) Qwen1.5-0.5B at its
+# published width trained MESH_TRAIN_STEPS steps of MESH_TRAIN_BATCH x
+# MESH_TRAIN_SEQ tokens on launch/train.py's (4,) ("data",) mesh, remat
+# "full", against one process's step on a (1,) mesh (which casts alike).
+# (c) Its state after them saved from that mesh and restored on a (2, 2)
+# mesh and in one process, held bit for bit by integer checksums of the
+# f32 bits (position-weighted, summed over the blocks: integer sums do
+# not depend on the order).
+MESH_RANKS, MESH_TIMEOUT_S = 4, 900
+MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 4, 2048
+MESH_SERVE = (4, 128, 32)
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4, 1024
+MESH_SHAPES = ((1, 4), (2, 2))
 SERVE_STAGES = ("queue_wait", "host_prepare", "device_assign", "merge",
                 "request", "analytics_observe")
 SPAN_NAMES = {"request", "submit", "queue_wait", "host_prepare", "route",
@@ -2452,6 +2510,59 @@ def route_flips(ref_calls, calls, what) -> int:
     return flips
 
 
+@contextlib.contextmanager
+def op_log(model):
+    """What ``model``'s decode steps compute inside, in call order, kept on
+    the card: each ``moe_ffn`` call's input and output ("moe_in",
+    "moe_out"), each ``moe._expert_ffn`` call's (weights held, buf, h)
+    ("experts"), each step's hidden state before the final norm
+    ("final"), the unembedding's (normed input, weight held) ("unembed")
+    and its last logits in f32 ("logits")."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    ops = {k: [] for k in ("moe_in", "moe_out", "experts", "final",
+                           "unembed", "logits")}
+    real_ffn, real_moe, real_logits = moe._expert_ffn, tf.moe_ffn, \
+        model._logits
+    real_unembed = model_mod.unembed
+
+    def experts(w_gate, w_up, w_down, buf):
+        h = real_ffn(w_gate, w_up, w_down, buf)
+        ops["experts"].append(((w_gate, w_up, w_down), buf.clone(),
+                               h.clone()))
+        return h
+
+    def moe_ffn(params, cfg, x, mesh=None):
+        y, aux = real_moe(params, cfg, x, mesh)
+        ops["moe_in"].append(x.clone())
+        ops["moe_out"].append(y.clone())
+        return y, aux
+
+    def unembed(params, x):
+        ops["unembed"].append((x.clone(), params["w"]))
+        return real_unembed(params, x)
+
+    def logits(x):
+        out = real_logits(x)
+        ops["final"].append(x.clone())
+        ops["logits"].append(out[:, -1].float())
+        return out
+    moe._expert_ffn, tf.moe_ffn, model._logits = experts, moe_ffn, logits
+    model_mod.unembed = unembed
+    try:
+        yield ops
+    finally:
+        moe._expert_ffn, tf.moe_ffn = real_ffn, real_moe
+        model_mod.unembed = real_unembed
+        del model._logits
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's bits as an int16 array (npz has no bf16)."""
+    return t.contiguous().view(torch.int16).cpu().numpy()
+
+
 def moe_load(arch, layers, result_key, result):
     """``arch``'s full config cut to ``layers`` layers, on the card with
     random weights (``launch.serve.load_model``, drawn leaf by leaf)."""
@@ -3503,29 +3614,9 @@ def sharded_rank(rank, addr, tmp):
 
 
 def spawn_sharded(tmp) -> list:
-    """SHARDED_RANKS ``sharded_rank`` processes (torch.multiprocessing,
-    spawn), joined within SHARDED_TIMEOUT_S (a rank stuck in a collective
-    is killed, never waited on); their JSON results in rank order."""
-    import torch.multiprocessing as torch_mp
-    ctx = torch_mp.start_processes(sharded_rank, args=(free_addr(), tmp),
-                                 nprocs=SHARDED_RANKS, join=False,
-                                 start_method="spawn")
-    deadline = time.monotonic() + SHARDED_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-            check(time.monotonic() < deadline,
-                  f"sharded: the {SHARDED_RANKS} gloo ranks did not finish "
-                  f"within {SHARDED_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-    out = []
-    for r in range(SHARDED_RANKS):
-        with open(os.path.join(tmp, f"rank{r}.json")) as f:
-            out.append(json.load(f))
-    return out
+    """SHARDED_RANKS ``sharded_rank`` processes (``spawn_ranks``)."""
+    return spawn_ranks(sharded_rank, SHARDED_RANKS, SHARDED_TIMEOUT_S, tmp,
+                       "sharded")
 
 
 def sharded_ranges() -> tuple:
@@ -3712,6 +3803,619 @@ def sharded_phase(smoke, engines, census, cov, xy, pts, ids, result):
           f"{capacity} a shard: n_dropped {out['dropped']} == the host's "
           f"count, and the -1 ids are exactly the points past each shard's "
           f"first {capacity} in input order")
+
+
+# -- phase 14: the model half of distributed ----------------------------------
+@contextlib.contextmanager
+def moe_dropped():
+    """Each MoE layer's ``dropped`` (its ``aux``, the whole batch's) inside
+    the block, in call order."""
+    from repro_torch.models import transformer as tf
+    seen, real = [], tf.moe_ffn
+
+    def rec(*args, **kw):
+        y, aux = real(*args, **kw)
+        seen.append(int(aux["dropped"]))
+        return y, aux
+    tf.moe_ffn = rec
+    try:
+        yield seen
+    finally:
+        tf.moe_ffn = real
+
+
+def checksums(tensors: dict, shardings=None) -> dict:
+    """{name: an int64 checksum of the tensor's f32 bits}: the sum over its
+    elements of bits * (1 + index along dim 0) * (1 + index along the last
+    dim), wrapping mod 2^64.  With ``shardings`` the tensors are this
+    rank's blocks: each sums its elements at their global indices and the
+    sums are added over the axes the tensor is split on (integer sums: the
+    same whatever the split)."""
+    from repro_torch.sharding.rules import shard_slices
+    out = {}
+    for name, t in tensors.items():
+        bits = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        if bits.dim():
+            sh = shardings[name] if shardings else None
+            if sh is not None:
+                full = [d * math.prod(sh.mesh.shape[a] for a in (
+                    () if p is None else (p,) if isinstance(p, str) else p))
+                    for d, p in zip(bits.shape, tuple(sh.spec) + (None,) * (
+                        bits.dim() - len(sh.spec)))]
+                sl = shard_slices(full, sh.spec, sh.mesh)
+            else:
+                sl = [slice(0, d) for d in bits.shape]
+            dev = bits.device
+
+            def weight(dim):
+                w = torch.arange(bits.shape[dim], dtype=torch.int64,
+                                 device=dev) + (sl[dim].start or 0) + 1
+                return w.reshape([-1] + [1] * (bits.dim() - 1 - dim))
+            bits = bits * weight(0)
+            if bits.dim() > 1:
+                bits = bits * weight(bits.dim() - 1)
+        total = bits.sum().reshape(1)
+        if shardings and shardings[name] is not None:
+            sh = shardings[name]
+            axes = tuple(a for p in sh.spec if p is not None
+                         for a in ((p,) if isinstance(p, str) else p))
+            if axes:
+                total = sh.mesh.psum(total, axes)
+        out[name] = int(total.item())
+    return out
+
+
+def state_checksums(params, opt, shardings=None) -> dict:
+    """``checksums`` of a training state (params, AdamW's m / v, step)."""
+    sh = shardings or {}
+    out = {f"params/{k}": v for k, v in checksums(
+        params, sh.get("params")).items()}
+    for tag in ("m", "v"):
+        out.update({f"opt/{tag}/{k}": v for k, v in checksums(
+            getattr(opt, tag), sh.get("params")).items()})
+    out["opt/step"] = int(opt.step)
+    return out
+
+
+def mesh_moe_rank(smoke, ref, rank):
+    """Phase 14a on one rank: Mixtral's prefill on each of MESH_SHAPES and
+    the token loop on (1, 4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import init_sharded, model_shardings
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    model = build_model(cfg, "meta")
+    run = serve_mod.run_config(MESH_MOE_SEQ)
+    toks = torch.from_numpy(ref["moe_tokens"]).cuda()
+    out = {}
+    for shape in MESH_SHAPES:
+        tag = "x".join(map(str, shape))
+        mesh = make_mesh(shape, ("data", "model"))
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_sharded(model, model_shardings(model, mesh),
+                              torch.Generator(device="cuda")
+                              .manual_seed(MOE_SEED), "cuda")
+        block_bytes = sum(p.numel() * p.element_size()
+                          for p in params.values())
+        t0 = time.perf_counter()
+        tree = steps.compute_params(model, params, mesh)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        step = steps.make_prefill_step(model, run, mesh)
+        # The rows this rank routes: the whole batch on (1, 4), its half
+        # on (2, 2); routed as the one-process forward of those rows.
+        rows = "full" if shape[0] == 1 else f"half{mesh.coords['data']}"
+        force = [(torch.from_numpy(ref[f"moe_{rows}_ids{i}"]),
+                  torch.from_numpy(ref[f"moe_{rows}_gap{i}"]))
+                 for i in range(cfg.n_layers)]
+        log = RouteLog()
+        torch.cuda.synchronize()
+        smoke.build.reset_launches()
+        with smoke.capture(keep=["flash_attn_bhsd"]) as cap, \
+                log.record(force) as rc, moe_dropped() as dropped:
+            last = step(tree, {"tokens": toks})
+            torch.cuda.synchronize()
+        counts = dict(smoke.build.LAUNCHES)
+        routes = dict(smoke.build.ROUTE_LAUNCHES)
+        b_loc = MESH_MOE_BATCH // shape[0]
+        bhsd = (b_loc * cfg.n_heads, MESH_MOE_SEQ, cfg.hd)
+        calls = cap.calls["flash_attn_bhsd"]
+        for kname, n in counts.items():
+            check((n > 0) == (kname == "flash_attn_bhsd"),
+                  f"mesh {tag} prefill: {kname} launched {n} times")
+        check(counts["flash_attn_bhsd"] == cfg.n_layers == len(calls)
+              and routes.get("flash_attn_bhsd:wgmma") == cfg.n_layers
+              and all(a[0].shape == bhsd and a[0].dtype == torch.bfloat16
+                      for a, _, _ in calls),
+              f"mesh {tag} prefill: flash launches {routes}, not "
+              f"{cfg.n_layers} wgmma calls at {bhsd}")
+        err = over = 0.0
+        for args, kw, (o,) in calls:
+            want, spread = smoke.twin("flash_attn_bhsd", args, kw)
+            e, ov = flash_err(o, want, spread, f"mesh {tag} flash call")
+            err, over = max(err, e), max(over, ov)
+            del want, spread
+        del cap, calls
+        flips = route_flips(force, rc, f"mesh {tag} vs one process")
+        check(bool(torch.isfinite(last).all())
+              and last.shape == (MESH_MOE_BATCH, cfg.vocab),
+              f"mesh {tag} prefill: last logits {tuple(last.shape)} not "
+              f"finite")
+        timing = step_timing(lambda b: step(tree, b), {"tokens": toks},
+                             MESH_MOE_BATCH * MESH_MOE_SEQ)
+        out[tag] = dict(
+            coords=mesh.coords, routes=dict(mesh.routes),
+            flash_launches=counts["flash_attn_bhsd"], flash_shape=bhsd,
+            flash_max_abs_err=err, flash_over=over, near_tie_flips=flips,
+            dropped=sum(dropped), block_bytes=block_bytes,
+            gather_s=gather_s, peak_total_bytes=torch.cuda
+            .max_memory_allocated() - base, last=last.float().cpu().numpy().tolist()
+            if rank == 0 else None, **timing)
+        if shape == (1, 4):
+            out["serve"] = mesh_serve(smoke, model, run, mesh, tree, ref)
+        del params, tree, last
+    return out
+
+
+def mesh_serve(smoke, model, run, mesh, tree, ref):
+    """Phase 14a's token loop on this rank through ``make_serve_step`` (no
+    kernel of the eight launched), fed the tokens one process was fed
+    (its prompts, then its greedy tokens): once timed, then once routed
+    as one process routed, each step's last logits held against its own.
+    ``first_difference`` is the first value of that second pass that is
+    not one process's bit for bit, in the order a step computes them
+    (per layer: ``moe_ffn``'s input, i.e. after the attention; this
+    rank's expert buckets; their SwiGLU outputs; ``moe_ffn``'s output
+    after the psum; then the hidden state before the final norm, and the
+    logits).  Where it is an expert output from equal buckets, the same
+    products are rerun batched over all E experts, as one process runs
+    them, and compared with one process's bits.  ``first_logits`` is the
+    first step whose logits differ though every value before them is
+    equal; there the unembedding is rerun on a contiguous copy of its
+    weight (under a mesh it is a gathered, permuted view)."""
+    from repro_torch.models import moe
+    from repro_torch.runtime import steps
+    b, s, gen = MESH_SERVE
+    n_steps = s + gen - 1
+    feed = torch.from_numpy(ref["serve_feed"]).cuda()
+    force = list(zip(torch.from_numpy(ref["serve_ids"]),
+                     torch.from_numpy(ref["serve_gaps"])))
+    step = steps.make_serve_step(model, run, mesh)
+
+    def loop():
+        cache = steps.local_cache(model, mesh, b, s + gen, "cuda")
+        toks = []
+        for t in range(n_steps):
+            nxt, cache = step(tree, feed[:, t:t + 1], cache)
+            if t + 1 >= s:
+                toks.append(nxt)
+        return torch.cat(toks, 1)
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    t0 = time.perf_counter()
+    toks = loop()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {k: v for k, v in smoke.build.LAUNCHES.items() if v}
+    check(not launched, f"mesh serve: kernels launched {launched}")
+    with RouteLog().record(force) as rc, op_log(model) as ops:
+        loop()
+    flips = route_flips(force, rc, "mesh serve vs one process")
+    got = torch.stack(ops["logits"])
+    want_logits = torch.from_numpy(ref["serve_logits"]).cuda()
+    step_err = (got - want_logits).abs().amax(dim=(1, 2)).cpu().numpy()
+    want = {k: torch.from_numpy(ref[f"serve_{k}"]).view(torch.bfloat16)
+            for k in ("moe_in", "moe_out", "buf", "h", "final")}
+    n_layers = len(ops["moe_in"]) // n_steps
+    e_loc = ops["experts"][0][1].shape[0]
+    lo = mesh.coords["model"] * e_loc
+    first = first_logits = None
+    for t in range(n_steps):
+        stages = []
+        for layer in range(n_layers):
+            c = t * n_layers + layer
+            _, buf, h = ops["experts"][c]
+            stages += [
+                ("moe_in", layer, ops["moe_in"][c], want["moe_in"][c]),
+                ("expert_buckets", layer, buf,
+                 want["buf"][c, lo:lo + e_loc]),
+                ("expert_outputs", layer, h, want["h"][c, lo:lo + e_loc]),
+                ("moe_out", layer, ops["moe_out"][c], want["moe_out"][c])]
+        stages += [("final", None, ops["final"][t], want["final"][t]),
+                   ("logits", None, got[t], want_logits[t])]
+        for op, layer, a, w in stages:
+            w = w.to(a.device)
+            if torch.equal(a, w):
+                continue
+            err = float((a.float() - w.float()).abs().max())
+            if op == "logits":
+                if first_logits is None:
+                    xn, wu = ops["unembed"][t]
+                    redo = (xn.float() @ wu.contiguous().float())[:, -1]
+                    first_logits = dict(
+                        step=t, max_abs_err=err,
+                        weight_stride=list(wu.stride()),
+                        contiguous_equals_one_process=bool(
+                            torch.equal(redo, w)))
+                break
+            first = dict(step=t, layer=layer, op=op, max_abs_err=err)
+            if op == "expert_outputs":
+                wts, buf, _ = ops["experts"][t * n_layers + layer]
+                n = want["buf"].shape[1] // e_loc
+                batched = moe._expert_ffn(
+                    *(torch.cat([x] * n) for x in wts),
+                    torch.cat([buf] * n))[:e_loc]
+                first["batched_equals_one_process"] = bool(
+                    torch.equal(batched, w))
+            break
+        if first is not None:
+            break
+    del ops
+    return dict(tokens=toks.cpu().numpy().tolist(),
+                step_max_abs_err=step_err.tolist(),
+                first_logit_step=int(np.flatnonzero(step_err)[0])
+                if step_err.any() else None,
+                first_logits=first_logits, first_difference=first,
+                near_tie_flips=flips,
+                steps=n_steps, ms_a_step=dt * 1e3 / n_steps,
+                tok_s=b * n_steps / dt)
+
+
+def mesh_train_rank(smoke, ref, rank, tmp):
+    """Phase 14b-c on one rank: Qwen's training steps on the (4,) data
+    mesh, the state saved, its checksums, and its restore on (2, 2)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import local_shard, model_shardings
+    cfg = get_config(LM_ARCH)
+    run = train_mod.run_config(LM_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_SEQ,
+                               remat="full")
+    mesh = make_mesh((MESH_RANKS,), ("data",))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, opt, shardings = train_mod.setup_mesh(
+        cfg, mesh, seed=TRAIN_SEED, device="cuda")
+    step = steps.make_train_step(model, run, mesh)
+    out = {"steps": []}
+    for i in range(MESH_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(ref[f"train_{k}"][i]).cuda()
+                 for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        smoke.build.reset_launches()
+        t0 = time.perf_counter()
+        with (smoke.capture(keep=[]) if i == 0
+              else contextlib.nullcontext()) as cap:
+            params, opt, m = step(params, opt, batch)
+            loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        launches = dict(smoke.build.LAUNCHES)
+        routes = dict(smoke.build.ROUTE_LAUNCHES)
+        n_flash = 2 * cfg.n_layers       # forward + the remat recompute
+        check(launches["flash_attn_bhsd"] == n_flash
+              == routes.get("flash_attn_bhsd:wgmma")
+              and sum(launches.values()) == n_flash,
+              f"mesh train step {i}: launches {launches} {routes}, not "
+              f"{n_flash} wgmma flash calls")
+        rec = dict(step_s=dt, loss=loss, ce=float(m["ce"]),
+                   grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                   flash_launches=launches["flash_attn_bhsd"])
+        if cap is not None:
+            c = cap.checked["flash_attn_bhsd"]
+            check(c["calls"] == n_flash, f"mesh train: {c['calls']} flash "
+                                         f"calls held against the twin")
+            rec["flash_max_abs_err"] = c["max_abs_err"]
+        out["steps"].append(rec)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["routes"] = dict(mesh.routes)
+    # (c) the state saved from this mesh (rank 0 writes whole arrays).
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), async_save=False)
+    t0 = time.perf_counter()
+    mgr.save(MESH_TRAIN_STEPS, {"params": params, "opt": opt},
+             shardings=shardings)
+    mgr.wait()
+    out["save_s"] = time.perf_counter() - t0
+    out["sums"] = state_checksums(params, opt, shardings)
+    del params, opt
+    torch.cuda.empty_cache()
+    # ... and restored on a (2, 2) mesh: each rank reads its blocks.
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    sh22 = model_shardings(model, mesh22)
+    meta = dict(model.named_parameters())
+    blocks = {k: torch.empty(local_shard(meta[k], s.spec, mesh22).shape,
+                             dtype=torch.float32, device="cuda")
+              for k, s in sh22.items()}
+    opt22 = adamw.init(blocks)
+    t0 = time.perf_counter()
+    mgr.restore(MESH_TRAIN_STEPS, {"params": blocks, "opt": opt22},
+                {"params": sh22, "opt": adamw.state_shardings(sh22)})
+    torch.cuda.synchronize()
+    out["restore_2x2_s"] = time.perf_counter() - t0
+    out["sums_2x2"] = state_checksums(blocks, opt22, {"params": sh22})
+    return out
+
+
+def mesh_rank(rank, addr, tmp):
+    """Phase 14 on one of MESH_RANKS gloo ranks sharing cuda:0 (a spawned
+    process); writes ``rank{rank}.json``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=addr, rank=rank,
+                            world_size=MESH_RANKS,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        smoke = Smoke()
+        with np.load(os.path.join(tmp, "ref.npz")) as z:
+            ref = {k: z[k] for k in z.files}
+        out = {"moe": mesh_moe_rank(smoke, ref, rank)}
+        out["train"] = mesh_train_rank(smoke, ref, rank, tmp)
+        out["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, n, timeout, tmp, what) -> list:
+    """``n`` ``fn(rank, addr, tmp)`` processes (torch.multiprocessing,
+    spawn), joined within ``timeout`` (a rank stuck in a collective is
+    killed, never waited on); their ``rank{r}.json`` in rank order."""
+    import torch.multiprocessing as torch_mp
+    ctx = torch_mp.start_processes(fn, args=(free_addr(), tmp), nprocs=n,
+                                   join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"{what}: the {n} gloo ranks did not finish within "
+                  f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    out = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_references(smoke, tmp) -> dict:
+    """Phase 14's one-process runs before the spawn: Mixtral's forward of
+    the whole batch and of each half (logits, routing, dropped), its
+    token loop (tokens and each step's top-2 margin), Qwen's step on a
+    (1,) mesh; the inputs and references the ranks read, to
+    ``tmp/ref.npz``.  Returns the numbers the checks need."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import make_source
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime import steps
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    model = serve_mod.load_model(cfg, seed=MOE_SEED, device="cuda")
+    run = serve_mod.run_config(MESH_MOE_SEQ)
+    toks = serve_mod.make_prompts(cfg, MESH_MOE_BATCH, MESH_MOE_SEQ,
+                                  MOE_SEED, "cuda")
+    ref, out = {"moe_tokens": toks.cpu().numpy()}, {}
+    log = RouteLog()
+    half = MESH_MOE_BATCH // 2
+    for rows, sl in (("full", slice(None)), ("half0", slice(0, half)),
+                     ("half1", slice(half, None))):
+        with log.record() as rc, torch.inference_mode():
+            logits, aux = model.forward(run, {"tokens": toks[sl]})
+            out[f"{rows}_last"] = logits[:, -1].float().cpu().numpy()
+            out[f"{rows}_dropped"] = int(aux["dropped"])
+        del logits
+        for i, (ids, gap) in enumerate(rc):
+            ref[f"moe_{rows}_ids{i}"] = ids.numpy()
+            ref[f"moe_{rows}_gap{i}"] = gap.numpy()
+    b, s, gen = MESH_SERVE
+    prompts = serve_mod.make_prompts(cfg, b, s, MOE_SEED + 1, "cuda")
+    ref["serve_prompts"] = prompts.cpu().numpy()
+    with torch.inference_mode(), log.record() as rc, \
+            op_log(model) as ops:
+        cache = model.init_cache(b, s + gen)
+        tok, feed = prompts[:, :1], []
+        for t in range(s + gen - 1):
+            feed.append(tok)
+            logits, cache = model.decode_step(run, tok, cache)
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            tok = prompts[:, t + 1:t + 2] if t + 1 < s else nxt
+    # What the ranks' loop is fed and held against: the tokens, each
+    # router call (to route alike) and what ``op_log`` records.
+    ref["serve_feed"] = torch.cat(feed, 1).cpu().numpy()
+    ref["serve_ids"] = torch.stack([ids for ids, _ in rc]).numpy()
+    ref["serve_gaps"] = torch.stack([gap for _, gap in rc]).numpy()
+    ref["serve_logits"] = torch.stack(ops["logits"]).cpu().numpy()
+    for k in ("moe_in", "moe_out", "final"):
+        ref[f"serve_{k}"] = bf16_bits(torch.stack(ops[k]))
+    ref["serve_buf"] = bf16_bits(torch.stack([x for _, x, _ in
+                                              ops["experts"]]))
+    ref["serve_h"] = bf16_bits(torch.stack([h for _, _, h in
+                                            ops["experts"]]))
+    out["serve_tokens"] = ref["serve_logits"][s - 1:].argmax(-1).T
+    del model, cache, ops, logits
+    torch.cuda.empty_cache()
+    # Qwen: the global batches, and one process's first step on a (1,)
+    # mesh (no process group; cast_params as the ranks' mesh casts).
+    qcfg = get_config(LM_ARCH)
+    src = make_source(qcfg, ShapeConfig("mesh_train", MESH_TRAIN_SEQ,
+                                        MESH_TRAIN_BATCH, "train"),
+                      seed=TRAIN_SEED, device="cpu")
+    batches = [src.batch_at(i) for i in range(MESH_TRAIN_STEPS)]
+    for k in ("tokens", "labels"):
+        ref[f"train_{k}"] = np.stack([bt[k].numpy() for bt in batches])
+    qrun = train_mod.run_config(LM_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_SEQ,
+                                remat="full")
+    one = Mesh((1,), ("data",))
+    qmodel, params, opt, _ = train_mod.setup_mesh(qcfg, one, seed=TRAIN_SEED,
+                                                  device="cuda")
+    step = steps.make_train_step(qmodel, qrun, one)
+    times = []
+    for i in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, {k: batches[i][k].cuda()
+                                     for k in ("tokens", "labels")})
+        if i == 0:
+            out["train_one"] = {k: float(m[k])
+                                for k in ("loss", "ce", "grad_norm")}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["train_one"]["step_s"] = times
+    del qmodel, params, opt, m
+    torch.cuda.empty_cache()
+    np.savez(os.path.join(tmp, "ref.npz"), **ref)
+    return out
+
+
+def mesh_phase(smoke, result) -> dict:
+    """Phase 14: the model half of distributed (see the module docstring).
+    Returns the flash kernel's launches a rank on its paths."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    out = result["mesh"] = {}
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=smoke.build.BUILD_ROOT) as tmp:
+        ref = mesh_references(smoke, tmp)
+        out["references_s"] = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_rank, MESH_RANKS, MESH_TIMEOUT_S, tmp,
+                            "mesh")
+        out["spawn_s"] = time.perf_counter() - t0
+        # (c) one process restores the checkpoint whole.
+        t0 = time.perf_counter()
+        model = build_model(get_config(LM_ARCH), "cuda", trainable=True)
+        params = dict(model.named_parameters())
+        opt = adamw.init(params)
+        CheckpointManager(os.path.join(tmp, "ckpt")).restore(
+            MESH_TRAIN_STEPS, {"params": params, "opt": opt})
+        torch.cuda.synchronize()
+        out["restore_one_s"] = time.perf_counter() - t0
+        sums_one = state_checksums(params, opt)
+        del model, params, opt
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    # (a) Mixtral's prefill on each mesh.
+    for shape in MESH_SHAPES:
+        tag = "x".join(map(str, shape))
+        runs = [r["moe"][tag] for r in ranks]
+        check([tuple(r["coords"].values()) for r in runs]
+              == [tuple(int(c) for c in np.unravel_index(i, shape))
+                  for i in range(MESH_RANKS)],
+              f"mesh {tag}: rank coordinates {[r['coords'] for r in runs]}")
+        want_last = ref["full_last"] if shape[0] == 1 else np.concatenate(
+            [ref["half0_last"], ref["half1_last"]])
+        diff = float(np.abs(np.asarray(runs[0]["last"]) - want_last).max())
+        check(diff <= LOGIT_TOL, f"mesh {tag}: last logits {diff} from the "
+                                 f"one-process forward's")
+        want_drop = ref["full_dropped"] if shape[0] == 1 else \
+            ref["half0_dropped"] + ref["half1_dropped"]
+        check(all(r["dropped"] == want_drop for r in runs),
+              f"mesh {tag}: dropped {[r['dropped'] for r in runs]} vs one "
+              f"process's {want_drop}")
+        out[tag] = dict(logits_vs_one=diff, dropped=runs[0]["dropped"],
+                        dropped_one=want_drop, ranks=[
+                            {k: v for k, v in r.items() if k != "last"}
+                            for r in runs])
+        print(f"phase 14: mixtral {MESH_MOE_LAYERS} of 32 layers on a {tag} "
+              f"mesh ({MESH_RANKS} gloo ranks on cuda:0), make_prefill_step "
+              f"over {MESH_MOE_BATCH} x {MESH_MOE_SEQ}: last logits within "
+              f"{diff:.4g} of one process's (tol {LOGIT_TOL}), dropped "
+              f"{runs[0]['dropped']} = one process's at per-shard capacity "
+              f"{want_drop}; per rank flash_attn_bhsd x"
+              f"{runs[0]['flash_launches']} at {runs[0]['flash_shape']} "
+              f"(wgmma, each == twin, max {max(r['flash_over'] for r in runs):.3g}x "
+              f"the tolerance), near-tie flips "
+              f"{[r['near_tie_flips'] for r in runs]}, ms a forward "
+              f"{[round(r['step_s'] * 1e3, 1) for r in runs]}, peak GiB "
+              f"{[round(r['peak_total_bytes'] / 2**30, 2) for r in runs]}, "
+              f"blocks "
+              f"GiB {[round(r['block_bytes'] / 2**30, 2) for r in runs]}, "
+              f"gather s {[round(r['gather_s'], 2) for r in runs]}, routes "
+              f"{runs[0]['routes']}")
+    # (a) the token loop on (1, 4), fed one process's tokens and routed
+    # as it routed: every step's logits within LOGIT_TOL of its own.
+    b, s, gen = MESH_SERVE
+    serves = [r["moe"]["serve"] for r in ranks]
+    got = np.asarray(serves[0]["tokens"])
+    check(all(np.array_equal(np.asarray(x["tokens"]), got) for x in serves),
+          "mesh serve: the ranks generated different tokens")
+    err = max(max(x["step_max_abs_err"]) for x in serves)
+    check(err <= LOGIT_TOL, f"mesh serve: a step's logits {err} from one "
+                            f"process's (tol {LOGIT_TOL})")
+    same = int((got == ref["serve_tokens"]).sum())
+    firsts = [(x["first_logits"], x["first_difference"]) for x in serves]
+    out["serve"] = dict(max_abs_err=err, tokens_equal=same, ranks=serves)
+    print(f"phase 14: mixtral token loop on (1, 4), {b} prompts of {s} + "
+          f"{gen} generated, fed one process's tokens and routed alike "
+          f"(near-tie flips {[x['near_tie_flips'] for x in serves]}): "
+          f"every step's logits within {err:.4g} of one process's (tol "
+          f"{LOGIT_TOL}), first unequal step "
+          f"{[x['first_logit_step'] for x in serves]}; by rank, the first "
+          f"logits that differ after equal values and the first hidden "
+          f"value that differs {firsts}; {same} of {got.size} greedy "
+          f"tokens equal "
+          f"one process's, no kernel launched, ms a step "
+          f"{[round(x['ms_a_step'], 2) for x in serves]}")
+    # (b) Qwen's training steps on the (4,) data mesh.
+    trains = [r["train"] for r in ranks]
+    one = ref["train_one"]
+    first = trains[0]["steps"][0]
+    for key in ("loss", "ce"):
+        check(all(abs(t["steps"][0][key] - one[key]) <= TRAIN_LOSS_ATOL
+                  for t in trains),
+              f"mesh train: {key} {first[key]} vs one process's {one[key]}")
+    check(all(abs(t["steps"][0]["grad_norm"] - one["grad_norm"])
+              <= TRAIN_GNORM_RTOL * one["grad_norm"] for t in trains),
+          f"mesh train: grad norm {first['grad_norm']} vs one process's "
+          f"{one['grad_norm']}")
+    check(all(math.isfinite(x["loss"]) for t in trains for x in t["steps"]),
+          "mesh train: loss not finite")
+    # (c) the checkpoint, bit for bit.
+    sums = trains[0]["sums"]
+    check(all(t["sums"] == sums and t["sums_2x2"] == sums for t in trains)
+          and sums_one == sums,
+          "mesh checkpoint: restored state differs from the saved one")
+    out["train"] = dict(one=one, ranks=trains, checksums=len(sums))
+    print(f"phase 14: {LM_ARCH} at full width on launch/train.py's "
+          f"({MESH_RANKS},) data mesh, {MESH_TRAIN_STEPS} steps of "
+          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, remat full: step 0 loss "
+          f"{first['loss']:.5f} / ce {first['ce']:.5f} / grad norm "
+          f"{first['grad_norm']:.5f} vs one process's (1,) mesh "
+          f"{one['loss']:.5f} / {one['ce']:.5f} / {one['grad_norm']:.5f}; "
+          f"per rank flash x{first['flash_launches']} a step (wgmma, the "
+          f"first step's each == twin), ms a step "
+          f"{[[round(x['step_s'] * 1e3, 1) for x in t['steps']] for t in trains]}"
+          f" (one process {[round(x * 1e3, 1) for x in one['step_s']]}), "
+          f"peak GiB "
+          f"{[round(t['peak_bytes'] / 2**30, 2) for t in trains]}, routes "
+          f"{trains[0]['routes']}; checkpoint saved from the mesh in "
+          f"{trains[0]['save_s']:.2f} s, restored on (2, 2) in "
+          f"{max(t['restore_2x2_s'] for t in trains):.2f} s and in one "
+          f"process in {out['restore_one_s']:.2f} s, {len(sums)} tensors "
+          f"bit-identical (checksums)")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 14: {out['seconds']:.1f} s ({out['references_s']:.1f} s "
+          f"one-process references, {out['spawn_s']:.1f} s the spawn)")
+    return {"mesh_prefill_1x4": ranks[0]["moe"]["1x4"]["flash_launches"],
+            "mesh_prefill_2x2": ranks[0]["moe"]["2x2"]["flash_launches"],
+            "mesh_train_step": first["flash_launches"]}
 
 
 def host_map():
@@ -4361,6 +5065,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded_phase(smoke, engines, census, cov, xy, pts, ids, result)
     phase_s["sharded"] = time.perf_counter() - t_start
+    # -- 14. the model half of distributed ------------------------------------
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(smoke, result)
+    phase_s["mesh"] = time.perf_counter() - t_start
     # The two PIP kernels' launches on the sharded path at (1, 1) beside
     # their main path's.
     for row in kernels:
@@ -4379,7 +5087,7 @@ def main() -> int:
     flash_kernel["launches_by_path"] = {
         "lm_prefill": flash_kernel["launches"], **train_launches,
         "moe_forward": moe["launches"], **xattn["launches"],
-        **recurrent["launches"]}
+        **recurrent["launches"], **mesh_launches}
     flash_kernel["launches"] = train_launches["train_run"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4390,7 +5098,7 @@ def main() -> int:
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = phase_s["sharded"]
+    result["total_s"] = phase_s["mesh"]
     result["phase_end_s"] = phase_s
     print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")

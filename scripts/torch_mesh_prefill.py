@@ -1,0 +1,153 @@
+"""Mixtral-8x7B's prefill at its published widths on a ("data", "model")
+mesh, one NCCL rank a GPU: the multi-card record of PERF.md.
+
+  python3 scripts/torch_mesh_prefill.py --layers 32 --mesh 1 4
+
+Each rank draws its own blocks of random weights (each block from a seed
+and the rank: no single process could hold the 32 layers, 93 GB in
+bf16), gathers its compute tree once (``runtime.steps.compute_params``),
+and runs ``make_prefill_step`` over BATCH x SEQ tokens: the median host
+milliseconds of REPS forwards after a warm-up (each ending in a sync),
+tok/s, the flash launches of one forward, peak device memory, the
+gather's seconds and the collectives' routes, per rank.  Rank 0 prints
+them, with the card's name and power limit, as one JSON line and writes
+``--out``.
+"""
+import argparse
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src"))
+
+ARCH, BATCH, SEQ, REPS, SEED = "mixtral-8x7b", 8, 2048, 3, 0
+
+
+def random_blocks(model, shardings, seed: int, device) -> dict:
+    """{parameter name: this rank's block}, each drawn with the
+    initializer of its spec at the block's shape (scaled by the spec's
+    fan-in) from one generator seeded by ``seed``."""
+    from repro_torch.models.module import _init_one, _per_layer, flatten
+    from repro_torch.sharding.rules import local_shard
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtypes = {k: p.dtype for k, p in model.named_parameters()}
+    out = {}
+    for name, spec in flatten(model.specs).items():
+        meta = torch.empty(spec.shape, device="meta")
+        for pname, part in _per_layer(name, meta, model):
+            sh = shardings[pname]
+            shape = tuple(local_shard(part, sh.spec, sh.mesh).shape)
+            fan = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
+                                  else spec.shape[-1])
+            out[pname] = _init_one(dataclasses.replace(
+                spec, shape=shape, axes=(None,) * len(shape), fan_in=fan),
+                gen, device).to(dtypes[pname])
+    return out
+
+
+def rank_main(rank, args, addr, out_file):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import model_shardings
+    world = int(np.prod(args.mesh))
+    device = f"cuda:{rank}"
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=addr, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(minutes=10))
+    try:
+        cfg = get_config(ARCH)
+        cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
+        mesh = make_mesh(tuple(args.mesh), ("data", "model"))
+        model = build_model(cfg, "meta")
+        t0 = time.perf_counter()
+        params = random_blocks(model, model_shardings(model, mesh),
+                               SEED * 1000 + rank, device)
+        block_bytes = sum(p.numel() * p.element_size()
+                          for p in params.values())
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = steps.compute_params(model, params, mesh)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        run = serve_mod.run_config(SEQ)
+        step = steps.make_prefill_step(model, run, mesh)
+        toks = serve_mod.make_prompts(cfg, BATCH, SEQ, SEED,
+                                      device)
+        step(tree, {"tokens": toks})            # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        last = step(tree, {"tokens": toks})
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if not bool(torch.isfinite(last).all()):
+            raise RuntimeError("prefill logits not finite")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(tree, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        rec = dict(rank=rank, coords=mesh.coords, ms=ms,
+                   ms_all=[t * 1e3 for t in times],
+                   tok_s=BATCH * SEQ / (ms / 1e3),
+                   launches=launches, block_bytes=block_bytes,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   draw_s=draw_s, gather_s=gather_s,
+                   routes=dict(mesh.routes))
+        recs = [None] * world
+        dist.all_gather_object(recs, rec)
+        if rank == 0:
+            card = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip().splitlines()
+            summary = dict(arch=cfg.name, layers=cfg.n_layers,
+                           params=model.param_count(), mesh=args.mesh,
+                           backend="nccl", batch=BATCH, seq=SEQ, cards=card, ranks=recs)
+            print(json.dumps(summary))
+            if out_file:
+                with open(out_file, "w") as f:
+                    json.dump(summary, f, indent=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=0,
+                    help="layers (default: the config's)")
+    ap.add_argument("--mesh", type=int, nargs=2, default=[1, 4])
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    world = int(np.prod(args.mesh))
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"a {args.mesh} mesh needs {world} GPUs, "
+                         f"{torch.cuda.device_count()} visible")
+    with socket.socket() as s:              # a free port for the rendezvous
+        s.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    mp.spawn(rank_main, args=(args, addr, args.out), nprocs=world)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Distribution primitives (port of src/repro/distributed): the
-capacity-bucketed dispatch that the MoE layer runs without a mesh and the
-sharded geo lookup routes points with (``core.strategies``).  The geo
-lookup's mesh is ``launch.mesh.Mesh`` over ``torch.distributed``; the
-model half (parameter sharding, the MoE layer's mesh) comes with ROADMAP
-§1 item 7."""
+capacity-bucketed dispatch that the MoE layer runs on each rank's experts
+and the sharded geo lookup routes points with (``core.strategies``).
+The mesh is ``launch.mesh.Mesh`` over ``torch.distributed``; parameter
+placement is ``sharding.rules``, the MoE layer's mesh path
+``models.moe``."""

@@ -172,7 +172,8 @@ def attend_bshd(fn, q, k, v, *, causal: bool):
         v = v.repeat_interleave(g, dim=2)
 
     def bhsd(x):
-        return x.transpose(1, 2).reshape(b * h, s, d)
+        # contiguous(): at B = 1 the reshape is a strided view (F10).
+        return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
     o = fn(bhsd(q), bhsd(k), bhsd(v), causal=causal)
     return o.reshape(b, h, s, d).transpose(1, 2)

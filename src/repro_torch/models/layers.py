@@ -6,9 +6,9 @@ The upcasts are ``repro``'s, op for op: ``rmsnorm`` / ``layernorm`` and
 logits, ``dense`` casts ``w`` and ``b`` to the activation dtype.  A
 product that ``repro`` takes in bf16 with an f32 result
 (``preferred_element_type``) is taken here on f32 copies of the bf16
-operands, which is the same arithmetic.  ``repro``'s ``shard_act`` /
-``act_spec`` are no-ops without a mesh; they come with the distributed
-slice.  ``params`` is a ``ParamTree`` or a plain dict of tensors.
+operands, which is the same arithmetic.  ``act_spec`` is ``repro``'s
+(the spec ``shard_act`` would pin); ``shard_act`` is the identity (see
+its doc).  ``params`` is a ``ParamTree`` or a plain dict of tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +17,51 @@ import torch
 from repro_torch.models.module import P
 
 ACT_DTYPE = torch.bfloat16
+
+BATCH = ("pod", "data")
+
+
+def act_spec(shape, parts, mesh):
+    """The PartitionSpec ``repro``'s ``shard_act`` would apply to ``shape``
+    on ``mesh``.
+
+    Axis names absent from the mesh are dropped; entries whose dimension
+    is not divisible by the assigned mesh extent are replicated (e.g. 4
+    kv heads on a 16-way model axis).  ``mesh`` only needs ``axis_names``
+    and a name->size ``shape`` mapping (Mesh, AbstractMesh, or a test
+    stub).
+    """
+    from repro_torch.sharding.rules import PartitionSpec
+    names = set(mesh.axis_names)
+
+    def extent(axes):
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        return n
+
+    spec = []
+    for dim, p in zip(shape, parts):
+        if p is None:
+            spec.append(None)
+            continue
+        axes = tuple(a for a in ((p,) if isinstance(p, str) else p)
+                     if a in names)
+        if axes and dim % extent(axes) == 0:
+            spec.append(axes if len(axes) > 1 else axes[0])
+        else:
+            spec.append(None)
+    return PartitionSpec(*spec)
+
+
+def shard_act(x, *parts):
+    """The identity.  In ``repro`` a sharding constraint for GSPMD, which
+    changes no value; the port's activations are already this rank's
+    rows (``runtime.steps`` splits the batch over ``BATCH``), and what
+    GSPMD would shard further (heads, mlp, vocab over "model") the port
+    computes whole on every rank of the model axis until tensor-parallel
+    compute is ported (ROADMAP §1 item 7)."""
+    return x
 
 
 def rmsnorm_spec(d):

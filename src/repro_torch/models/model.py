@@ -13,19 +13,25 @@ and ``groups.{g}.lora.a_q`` beside one ``shared.*`` block and a
 ``groups.{g}.slstm.rz``) on an explicit device, and whose methods drop
 the params argument:
 
-  * ``forward(run, batch) -> (logits [B, S, V] f32, aux)`` — the training
-    and teacher-forced path, differentiable; ``run.remat`` wraps each
-    block in ``torch.utils.checkpoint`` as ``repro``'s ``_wrap_remat``
-    wraps it in ``jax.checkpoint`` (when grad is enabled);
+  * ``forward(run, batch, mesh=None) -> (logits [B, S, V] f32, aux)`` —
+    the training and teacher-forced path, differentiable; ``run.remat``
+    wraps each block in ``torch.utils.checkpoint`` as ``repro``'s
+    ``_wrap_remat`` wraps it in ``jax.checkpoint`` (when grad is
+    enabled);
   * ``init_cache(batch, max_len) -> cache`` (zeros);
-  * ``decode_step(run, tokens [B, 1], cache) -> (logits [B, 1, V], cache)``
-    — the caches are written in place, one slot per layer;
+  * ``decode_step(run, tokens [B, 1], cache, mesh=None) -> (logits
+    [B, 1, V], cache)`` — the caches are written in place, one slot per
+    layer;
   * ``prefill(run, tokens [B, S], max_len) -> (last logits [B, 1, V],
     cache)`` — the dense family's serving entry point.  The other
     families have none, as in ``repro``: their serving feeds the prompt
     through ``decode_step`` (``launch.serve``).
 
-The last three run under ``torch.inference_mode()``.  ``cache_specs`` /
+The last three run under ``torch.inference_mode()``.  ``mesh`` (a
+``launch.mesh.Mesh`` view naming the batch axes) reaches the MoE layers,
+as in ``repro``; with it the batch is this rank's rows and the MoE
+family's ``aux`` the whole batch's (``runtime.steps`` under a mesh).
+The other families take it and ignore it, as ``repro``'s do.  ``cache_specs`` /
 ``abstract_params`` are meta-device stand-ins (shapes, no memory), and
 ``input_specs`` those of a cell's inputs.  Two builds:
 
@@ -200,7 +206,7 @@ class DenseModel(Model):
         super().__init__(cfg, specs, device, trainable)
         self.blocks = self._stack(block, cfg.n_layers, device)
 
-    def forward(self, run, batch):
+    def forward(self, run, batch, mesh=None):
         tokens = batch["tokens"]
         x = embed(self.embed, tokens)
         pos = _positions(tokens.shape[1], x.device)
@@ -219,7 +225,7 @@ class DenseModel(Model):
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.inference_mode()
-    def decode_step(self, run, tokens, cache):
+    def decode_step(self, run, tokens, cache, mesh=None):
         x = embed(self.embed, tokens)
         pos = cache["pos"]
         for i, p in enumerate(self.blocks):
@@ -279,7 +285,7 @@ class MoEModel(Model):
     def _dense(self):
         return self.dense_blocks if self.cfg.first_dense_layers else ()
 
-    def forward(self, run, batch):
+    def forward(self, run, batch, mesh=None):
         """(logits, aux): aux["lb_loss"] the mean of the MoE layers'
         load-balance losses, aux["dropped"] the sum of their dropped
         (token, choice) pairs (i32)."""
@@ -292,7 +298,7 @@ class MoEModel(Model):
         for p in self._dense():
             x = dblk(p, x)
         mblk = _wrap_remat(
-            lambda p, x: tf.moe_block(p, cfg, run, x, pos), run)
+            lambda p, x: tf.moe_block(p, cfg, run, x, pos, mesh), run)
         lb, dropped = [], []
         for p in self.blocks:
             x, aux = mblk(p, x)
@@ -322,7 +328,7 @@ class MoEModel(Model):
         return c
 
     @torch.inference_mode()
-    def decode_step(self, run, tokens, cache):
+    def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
         x = embed(self.embed, tokens)
         pos = cache["pos"]
@@ -332,7 +338,8 @@ class MoEModel(Model):
         names = ("ckv", "kr") if cfg.mla else ("k", "v")
         for i, p in enumerate(self.blocks):
             x, _ = tf.moe_block_decode(p, cfg, x,
-                                       {k: cache[k][i] for k in names}, pos)
+                                       {k: cache[k][i] for k in names}, pos,
+                                       mesh)
         return self._logits(x), dict(cache, pos=pos + 1)
 
 
@@ -365,7 +372,7 @@ class VLMModel(Model):
                            "cross": self._block(cross, device)})
             for _ in range(self.n_groups))
 
-    def forward(self, run, batch):
+    def forward(self, run, batch, mesh=None):
         cfg = self.cfg
         tokens = batch["tokens"]
         img = batch["img"].to(ACT_DTYPE)
@@ -394,7 +401,7 @@ class VLMModel(Model):
         return c
 
     @torch.inference_mode()
-    def decode_step(self, run, tokens, cache):
+    def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
         x = embed(self.embed, tokens)
         pos = cache["pos"]
@@ -466,7 +473,7 @@ class EncDecModel(Model):
         return x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
                        cfg.act)
 
-    def forward(self, run, batch):
+    def forward(self, run, batch, mesh=None):
         tokens = batch["tokens"]
         enc_out = self.encode(run, batch["frames"].to(ACT_DTYPE))
         x = embed(self.embed, tokens)
@@ -487,7 +494,7 @@ class EncDecModel(Model):
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.inference_mode()
-    def decode_step(self, run, tokens, cache):
+    def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
         x = embed(self.embed, tokens)
         pos = cache["pos"]
@@ -560,7 +567,7 @@ class SSMHybridModel(Model):
     def _tail(self):
         return self.tail if self.n_tail else ()
 
-    def forward(self, run, batch):
+    def forward(self, run, batch, mesh=None):
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed(self.embed, tokens)
@@ -590,7 +597,7 @@ class SSMHybridModel(Model):
         return cache
 
     @torch.inference_mode()
-    def decode_step(self, run, tokens, cache):
+    def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
         x = embed(self.embed, tokens)
         pos = cache["pos"]
@@ -645,7 +652,7 @@ class XLSTMModel(Model):
         else:
             self.blocks = self._stack(mblock, cfg.n_layers, device)
 
-    def forward(self, run, batch):
+    def forward(self, run, batch, mesh=None):
         cfg = self.cfg
         x = embed(self.embed, batch["tokens"])
         mblk = _wrap_remat(
@@ -677,7 +684,7 @@ class XLSTMModel(Model):
         return c
 
     @torch.inference_mode()
-    def decode_step(self, run, tokens, cache):
+    def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
         x = embed(self.embed, tokens)
         if not self.n_groups:

@@ -19,7 +19,8 @@ array split along each stacked axis of its path: ``blocks.*`` [L, ...]
 per layer, the vlm's ``groups.selfs.*`` [G, k-1, ...] per group and
 layer) into a model; ``init_params_into`` draws a model's random weights
 straight into its parameters, one stacked leaf at a time.  The logical
-sharding axes of ``repro``'s specs are kept for the distributed slice.
+sharding axes of ``repro``'s specs are kept: ``sharding.rules`` resolves
+them against a mesh.
 """
 from __future__ import annotations
 

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts (port of src/repro/models/moe.py, its single-rank
-path).
+"""Mixture-of-Experts (port of src/repro/models/moe.py).
 
 ``moe_ffn`` routes each token to its top-k experts (router in f32),
 capacity-buckets the (token, choice) pairs (``distributed.dispatch``),
@@ -11,11 +10,45 @@ pairs (i32).  Capacity is ``ceil(T * k / E * capacity_factor)`` for the
 T tokens of the call, as in ``repro``: a decode step (T = B) can drop
 pairs that a forward over the same positions keeps.
 
-``repro``'s mesh path (experts over "model", weights FSDP-gathered over
-"data") comes with the distributed slice: ``moe_ffn(..., mesh=...)``
-raises.  Top-k is a stable descending sort cut at k: the order of
+Top-k is a stable descending sort cut at k: the order of
 ``jax.lax.top_k`` (values descending, the lower index first on a tie),
 which ``torch.topk`` does not promise.
+
+With a mesh that has a "model" axis, ``moe_ffn`` is ``repro``'s
+``shard_map`` body on this rank (``_moe_mesh``): the activations are
+this rank's rows (split on ``mesh.batch_axes``) and the same on every
+rank of the model axis, the experts are split over "model", and each
+rank routes its rows to its own experts, so one ``psum`` over "model"
+of the bf16 partial outputs combines them.  As in ``repro``:
+
+  * capacity is counted per data shard (``b_loc`` rows), so drops differ
+    from the one-rank path's;
+  * the expert weights arrive cast to bf16 and split over "data" (FSDP)
+    and are all-gathered over it here;
+  * when the model axis is a multiple of E, each expert's hidden
+    dimension is cut into tp = n_model / E virtual experts (SwiGLU
+    factorizes over it; the down projection's halves are partial sums
+    that the psum adds), and each drop is counted tp times, so
+    ``dropped // tp``;
+  * ``me`` / ``ce`` are averaged over the batch axes and ``dropped``
+    summed over every axis; a batch the data extent does not divide is
+    replicated.
+
+Gradients follow JAX's transposes under ``shard_map``: the tokens and
+the top-k weights that enter this rank's experts are the same on every
+model rank and feed rank-specific work, so their gradient is summed
+over "model" (``psum_bwd``); the output psum passes its gradient on as
+it is (``psum_fwd``), and so do ``me`` / ``ce``'s means over the data
+axes; the expert weights' gather over "data" reduce-scatters their
+gradient where the batch is split on "data" and slices it where it is
+replicated.  Virtual experts come from weights every model rank holds
+whole, so their slice's gradient is summed over "model" too.
+
+With a mesh that has no "model" axis, ``repro`` runs the one-rank path
+over the whole batch (capacity from all B rows, routing across the data
+shards).  The port gathers the rows over the batch axes, runs that path
+on every rank and keeps its own rows; the load-balance loss, which every
+rank then computes whole, passes 1 / n of its gradient on each rank.
 """
 from __future__ import annotations
 
@@ -25,9 +58,11 @@ import torch
 
 from repro_torch.distributed.dispatch import gather_from_buckets, \
     plan_routes, scatter_to_buckets, slot_tables
+from repro_torch.launch.mesh import gather_fwd, psum_bwd, psum_fwd
 from repro_torch.models.ffn import ffn, ffn_spec, silu
 from repro_torch.models.layers import dense_spec
 from repro_torch.models.module import P
+from repro_torch.sharding.rules import mesh_extent
 
 
 def moe_spec(cfg):
@@ -69,13 +104,18 @@ def _expert_ffn(w_gate, w_up, w_down, buf):
     return torch.bmm(silu(g) * u, w_down.to(buf.dtype))
 
 
-def _moe_local(params, cfg, x2d, e_lo: int, e_loc: int, capacity: int):
+def _moe_local(params, cfg, x2d, e_lo: int, e_loc: int, capacity: int,
+               enter=None):
     """Route the tokens to the ``e_loc`` experts from ``e_lo``; return the
     partial output (zero rows for tokens whose experts live elsewhere),
-    the aux terms and the dropped-pair count."""
+    the aux terms and the dropped-pair count.  ``enter`` wraps the
+    tokens and the top-k weights where they enter these experts (the
+    mesh path's ``psum_bwd`` over "model")."""
     t, d = x2d.shape
     k = cfg.top_k
     top_p, top_i, (me, ce) = _router(params, cfg, x2d)
+    if enter is not None:
+        x2d, top_p = enter(x2d), enter(top_p)
     flat_e = top_i.reshape(-1)
     local = (flat_e >= e_lo) & (flat_e < e_lo + e_loc)
     bucket = torch.where(local, flat_e - e_lo, e_loc).to(torch.int32)
@@ -98,18 +138,128 @@ def capacity_of(cfg, tokens: int) -> int:
                                 * cfg.capacity_factor)))
 
 
-def moe_ffn(params, cfg, x, mesh=None):
-    """x [B, S, D] -> ([B, S, D], aux dict)."""
-    if mesh is not None:
+def _grad_share(v: torch.Tensor, n: int) -> torch.Tensor:
+    """``v``'s value with 1 / ``n`` of its gradient."""
+    return v if n == 1 else v / n + (v - v / n).detach()
+
+
+def _dp_axes(mesh, b_loc: int) -> tuple:
+    """``repro``'s data axes for a batch whose rows this rank holds
+    ``b_loc`` of: ("pod", "data") on the mesh, or () when the global
+    batch does not divide over them (``moe.py:116-119``).  The port's
+    rows are split on ``mesh.batch_axes``; the two must agree."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    split = tuple(mesh.batch_axes)
+    b = b_loc * mesh_extent(mesh, split)
+    if b % mesh_extent(mesh, dp):
+        dp = ()
+    if set(a for a in dp if mesh.shape[a] > 1) != \
+            set(a for a in split if mesh.shape[a] > 1):
         raise NotImplementedError(
-            "moe_ffn over a mesh (experts sharded over ranks) is not ported "
-            "yet (ROADMAP §1 item 7, distributed)")
+            f"moe_ffn: the rows are split on {split}, repro's MoE layer "
+            f"splits a batch of {b} on {dp}")
+    return dp
+
+
+def _gathered_experts(wg, wu, wd, mesh, d: int, reduce: bool) -> dict:
+    """The expert weights in bf16 (cast first, as ``repro`` does),
+    all-gathered over "data" where the step handed them split (FSDP);
+    ``reduce``: the batch is split on "data", so each rank's gradient is
+    a share (``gather_fwd``)."""
+    def one(w, dim):
+        w = w.to(torch.bfloat16)
+        if w.shape[dim] == d:
+            return w
+        return gather_fwd(w, mesh, "data", dim, reduce=reduce)
+    return {"w_gate": one(wg, 1), "w_up": one(wu, 1), "w_down": one(wd, 2)}
+
+
+def _moe_mesh(params, cfg, x, mesh):
+    """``repro``'s shard_map body on this rank (see the module doc)."""
     b, s, d = x.shape
     e = cfg.n_experts
-    out, me, ce, dropped = _moe_local(params, cfg, x.reshape(b * s, d), 0,
-                                      e, capacity_of(cfg, b * s))
-    aux = {"lb_loss": e * torch.sum(me * ce), "dropped": dropped}
-    y = out.reshape(b, s, d)
+    n_model = mesh.shape["model"]
+    dp = _dp_axes(mesh, b)
+    rank = mesh.coords["model"]
+
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if e % n_model == 0:
+        tp, e_loc = 1, e // n_model
+        if wg.shape[0] != e_loc:
+            raise ValueError(f"moe_ffn: {wg.shape[0]} experts on this rank, "
+                             f"the rules place {e_loc}")
+    elif n_model % e == 0:
+        # Virtual experts: each expert's hidden dim in tp slices, so
+        # E * tp == n_model; this rank holds virtual expert ``rank``.
+        tp, e_loc = n_model // e, 1
+        f = cfg.d_ff_expert
+        assert f % tp == 0, (f, tp)
+        wg, wu, wd = (psum_bwd(w, mesh, "model") for w in (wg, wu, wd))
+        dl = wg.shape[1]
+        wg = wg.reshape(e, dl, tp, f // tp).transpose(1, 2) \
+            .reshape(e * tp, dl, f // tp)[rank:rank + 1]
+        wu = wu.reshape(e, dl, tp, f // tp).transpose(1, 2) \
+            .reshape(e * tp, dl, f // tp)[rank:rank + 1]
+        wd = wd.reshape(e, tp, f // tp, wd.shape[2]) \
+            .reshape(e * tp, f // tp, wd.shape[2])[rank:rank + 1]
+    else:
+        raise ValueError(f"n_experts={e} vs model axis {n_model}: "
+                         "need one to divide the other")
+    lp = {"router": params["router"],
+          **_gathered_experts(wg, wu, wd, mesh, d, "data" in dp)}
+    capacity = capacity_of(cfg, b * s)
+    out, me, ce, dropped = _moe_local(
+        lp, cfg, x.reshape(b * s, d), (rank // tp) * e_loc, e_loc, capacity,
+        enter=lambda t: psum_bwd(t, mesh, "model"))
+    if tp > 1:
+        dropped = dropped // tp             # each drop counted tp times
+    # Combine in bf16: halves the per-layer [T_loc, D] all-reduce.
+    y = psum_fwd(out.to(torch.bfloat16), mesh, "model")
+    if dp:
+        n = mesh_extent(mesh, dp)
+        me = psum_fwd(me, mesh, dp) / n
+        ce = mesh.psum(ce, dp) / n
+    dropped = mesh.psum(dropped, "model")
+    if dp:
+        dropped = mesh.psum(dropped, dp)
+    return y.reshape(b, s, d), e * torch.sum(me * ce), dropped
+
+
+def _moe_gathered(params, cfg, x, mesh):
+    """A mesh without "model": ``repro``'s one-rank path over the whole
+    batch, on every rank (see the module doc)."""
+    b, s, d = x.shape
+    axes = tuple(mesh.batch_axes)
+    n = mesh_extent(mesh, axes)
+    xg = gather_fwd(x, mesh, axes, 0, reduce=True) if axes else x
+    bg = xg.shape[0]
+    params = {"router": params["router"], **_gathered_experts(
+        params["w_gate"], params["w_up"], params["w_down"], mesh, d,
+        "data" in axes)}
+    out, me, ce, dropped = _moe_local(params, cfg, xg.reshape(bg * s, d), 0,
+                                      cfg.n_experts,
+                                      capacity_of(cfg, bg * s))
+    i = mesh.index(axes) if axes else 0
+    y = out.reshape(bg, s, d)[i * b:(i + 1) * b]
+    lb = _grad_share(cfg.n_experts * torch.sum(me * ce), n)
+    return y, lb, dropped
+
+
+def moe_ffn(params, cfg, x, mesh=None):
+    """x [B, S, D] -> ([B, S, D], aux dict).  With a mesh, ``x`` is this
+    rank's rows (see the module doc) and ``aux`` holds the whole batch's
+    load-balance loss and dropped count."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    if mesh is not None and "model" in mesh.axis_names:
+        y, lb, dropped = _moe_mesh(params, cfg, x, mesh)
+    elif mesh is not None and mesh.size > 1:
+        y, lb, dropped = _moe_gathered(params, cfg, x, mesh)
+    else:
+        out, me, ce, dropped = _moe_local(params, cfg, x.reshape(b * s, d),
+                                          0, e, capacity_of(cfg, b * s))
+        y, lb = out.reshape(b, s, d), e * torch.sum(me * ce)
+    aux = {"lb_loss": lb, "dropped": dropped}
     if cfg.n_shared_experts:
         y = y + ffn(params["shared"], x, "swiglu")
     return y, aux

@@ -24,7 +24,7 @@ Where the port differs from ``repro``, and why:
 * the carried state's update ``"bsn,bshp,bsh->bhnp"`` folds the decay
   into the values first and contracts two operands, so no installation
   builds the [B, Lc, H, N, P] product first;
-* no ``shard_act`` (no mesh in the port yet).
+* no ``shard_act``: it is the identity in the port (``layers.shard_act``).
 
 ``repro``'s bf16 roundings are kept: the chunked form takes dt * x in
 bf16 (dt rounded first), the step in f32; the depthwise conv sums its

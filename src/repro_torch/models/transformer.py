@@ -76,18 +76,20 @@ def moe_block_spec(cfg):
     }
 
 
-def moe_block(p, cfg, run, x, positions):
-    """Returns (x, aux) with aux = {"lb_loss", "dropped"} of the layer."""
+def moe_block(p, cfg, run, x, positions, mesh=None):
+    """Returns (x, aux) with aux = {"lb_loss", "dropped"} of the layer
+    (``mesh``: ``moe_ffn``'s)."""
     x = x.to(ACT_DTYPE)
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     attn = mla_self_attn if cfg.mla else gqa_self_attn
     x = x + attn(p["attn"], cfg, h, positions=positions,
                  chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv)
-    y, aux = moe_ffn(p["moe"], cfg, rmsnorm(p["ffn_norm"], x, cfg.norm_eps))
+    y, aux = moe_ffn(p["moe"], cfg, rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
+                     mesh)
     return x + y, aux
 
 
-def moe_block_decode(p, cfg, x, cache_slices, pos):
+def moe_block_decode(p, cfg, x, cache_slices, pos, mesh=None):
     """``cache_slices``: {"ckv", "kr"} (MLA) or {"k", "v"}, one layer's,
     written in place.  Returns (x, cache_slices)."""
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
@@ -98,7 +100,8 @@ def moe_block_decode(p, cfg, x, cache_slices, pos):
         a, _, _ = gqa_decode_self_attn(p["attn"], cfg, h, cache_slices["k"],
                                        cache_slices["v"], pos)
     x = x + a
-    y, _ = moe_ffn(p["moe"], cfg, rmsnorm(p["ffn_norm"], x, cfg.norm_eps))
+    y, _ = moe_ffn(p["moe"], cfg, rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
+                   mesh)
     return x + y, cache_slices
 
 

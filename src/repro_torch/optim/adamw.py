@@ -12,6 +12,13 @@ by the parameter's dotted name (``blocks.3.attn.wq.w``: the model's
 per-layer layout) and updates the parameters and the moments in place.
 The step, the learning rate, the clip scale and the grad norm stay 0-d
 tensors on the parameters' device: nothing here waits for the card.
+
+Under a mesh (``shardings``: {name: ``NamedSharding``}) the parameters,
+gradients and moments are this rank's blocks, as ``repro``'s state
+inherits the params' shardings; the update is elementwise, so it runs on
+the blocks as they are, and only the norm is collective: each leaf's
+local sum of squares is summed over exactly the axes that leaf is split
+on, so a leaf every rank holds whole is counted once.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.sharding.rules import NamedSharding, PartitionSpec
 
 
 class OptState(NamedTuple):
@@ -39,19 +47,43 @@ def init(params: dict) -> OptState:
                     m=zeros, v={k: z.clone() for k, z in zeros.items()})
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum over the leaves (a dict's values, in order) of each
-    leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+    leaf's f32 sum of squares; with ``shardings`` (the leaves are blocks)
+    the sums of the leaves split on the same axes are added locally and
+    then summed over those axes, one ``psum`` per set of axes."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree.values()))
+    groups: dict = {}
+    for k, g in tree.items():
+        sh = shardings[k]
+        axes = tuple(a for part in sh.spec if part is not None
+                     for a in ((part,) if isinstance(part, str) else part))
+        key = tuple(a for a in sh.mesh.axis_names if a in axes)
+        sq = torch.sum(torch.square(g.float()))
+        groups[key] = groups[key] + sq if key in groups else sq
+    mesh = next(iter(shardings.values())).mesh
+    return torch.sqrt(sum(mesh.psum(v, key) if key else v
+                          for key, v in groups.items()))
+
+
+def state_shardings(shardings: dict) -> OptState:
+    """The ``OptState`` tree of shardings for params placed by
+    ``shardings``: the moments as their parameters, the step whole."""
+    mesh = next(iter(shardings.values())).mesh
+    return OptState(step=NamedSharding(mesh, PartitionSpec()),
+                    m=dict(shardings), v=dict(shardings))
 
 
 @torch.no_grad()
-def update(grads: dict, state: OptState, params: dict, run: RunConfig, lr):
+def update(grads: dict, state: OptState, params: dict, run: RunConfig, lr,
+           shardings=None):
     """One AdamW step, in place on ``params`` and ``state``'s moments;
     returns (params, new state, grad_norm).  ``grads``, ``state.m`` /
-    ``state.v`` and ``params`` share their keys."""
-    gnorm = global_norm(grads)
+    ``state.v`` and ``params`` share their keys (and ``shardings``'s,
+    when they are this rank's blocks)."""
+    gnorm = global_norm(grads, shardings)
     # torch.div, not ``clip / t`` (torch computes that as t.reciprocal()
     # * clip, another rounding than repro's division).
     scale = torch.clamp(torch.div(torch.full_like(gnorm, run.grad_clip),

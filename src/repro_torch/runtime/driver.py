@@ -17,8 +17,15 @@ Designed for fleets where steps fail (preemption, flaky hosts, data blips):
 ``train_step(params, opt, batch) -> (params, opt, metrics)`` is
 ``runtime.steps.make_train_step``'s; the step's wall time ends where the
 host reads the loss (``float``), which waits for the device, where
-``repro`` blocks on it.  The mesh (``shardings``) comes with the
-distributed slice.
+``repro`` blocks on it.
+
+Under a mesh, ``params`` / ``opt`` are this rank's blocks and
+``shardings`` is the tree of ``NamedSharding`` shaped like
+``{"params": params, "opt": opt}`` (``adamw.state_shardings`` for the
+optimizer's part): every rank runs the loop in step (the same batches,
+the same injected failures), checkpoints are saved whole by rank 0 and
+each rank restores its own blocks, as ``repro``'s restore re-places
+arrays onto the live params' shardings.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ class InjectedFailure(RuntimeError):
 
 
 def train_loop(train_step, params, opt, source, dcfg: DriverConfig,
-               fail_at: Optional[set] = None,
+               shardings=None, fail_at: Optional[set] = None,
                on_straggler: Optional[Callable[[int, float], None]] = None,
                log: Callable[[str], None] = print):
     """Run to dcfg.total_steps with checkpoint/restart. Returns
@@ -62,14 +69,14 @@ def train_loop(train_step, params, opt, source, dcfg: DriverConfig,
     start = mgr.latest_step()
     step = 0
     if start is not None:
-        mgr.restore(start, {"params": params, "opt": opt})
+        mgr.restore(start, {"params": params, "opt": opt}, shardings)
         step = start
         log(f"[driver] resumed from checkpoint step {start}")
     else:
         # Initial checkpoint: a failure before the first periodic save must
         # restart from the true initial state, not silently re-train on
         # already-stepped params.
-        mgr.save(0, {"params": params, "opt": opt})
+        mgr.save(0, {"params": params, "opt": opt}, shardings=shardings)
         mgr.wait()
 
     while step < dcfg.total_steps:
@@ -101,7 +108,8 @@ def train_loop(train_step, params, opt, source, dcfg: DriverConfig,
                     f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
             step += 1
             if step % dcfg.ckpt_every == 0 or step == dcfg.total_steps:
-                mgr.save(step, {"params": params, "opt": opt})
+                mgr.save(step, {"params": params, "opt": opt},
+                         shardings=shardings)
         except Exception as e:  # noqa: BLE001 — the whole point
             restarts += 1
             hist["restarts"] = restarts
@@ -109,9 +117,13 @@ def train_loop(train_step, params, opt, source, dcfg: DriverConfig,
                 f"restart {restarts}/{dcfg.max_restarts}")
             if restarts > dcfg.max_restarts:
                 raise
+            # Every rank sees the same committed steps (a write in flight
+            # on rank 0 is waited for).
+            mgr.wait()
             latest = mgr.latest_step()
             if latest is not None:
-                mgr.restore(latest, {"params": params, "opt": opt})
+                mgr.restore(latest, {"params": params, "opt": opt},
+                            shardings)
                 step = latest
                 log(f"[driver] restored step {latest}")
             else:

@@ -16,39 +16,172 @@ take none, and the train step updates the model's parameters in place:
     ``serve_step(tokens [B, 1], cache) -> (next tokens [B, 1] i32,
     cache)``, both under ``torch.inference_mode()``.
 
-``repro``'s ``cast_params`` and ``constrain_grads`` are identities without
-a mesh, so the one-device port has neither; their sharded form comes with
-the distributed slice.
+With a mesh (``launch.mesh.Mesh``) the steps are ``repro``'s under
+GSPMD, run on this rank.  The model is a template (build it on the
+"meta" device: it holds no weights) and every step takes the rank's
+parameter blocks first, as ``repro``'s steps take params:
+
+  * ``train_step(params, opt, batch)``: ``params`` and ``opt``'s moments
+    are this rank's blocks ({name: tensor} placed by
+    ``sharding.rules.model_shardings``; ``init_sharded`` or
+    ``shard_params`` make them), updated in place; ``batch`` is the
+    global batch (every rank holds it; each takes its rows,
+    ``split_batch``);
+  * ``prefill_step(params, batch) -> [B, V]`` and ``serve_step(params,
+    tokens [B, 1], cache) -> (next tokens [B, 1], cache)``: the global
+    batch in and out (the rows gathered back), the cache this rank's
+    rows (``local_cache``); ``params`` may also be ``compute_params``'s
+    tree, gathered once for many steps.
+
+The forward reads the compute tree: ``cast_params`` (every >= 2-D f32
+block cast to bf16, as ``repro`` casts before GSPMD's gathers, so the
+f32 unembedding reads bf16-rounded weights with a mesh and f32 ones
+without), then each block all-gathered over the axes it is split on
+(``launch.mesh.gather_fwd``), except the expert weights, which
+``moe_ffn`` takes as they are placed.  The tree is put in place of the
+template's parameters for the forward and its backward (a remat block's
+backward recomputes from it) and taken out after.  Gradients land on
+each parameter's own block (``repro``'s ``constrain_grads``), by the
+collectives' backward: summed over the axes the batch is split on
+(each rank's loss is its share of the global one: ``cross_entropy``
+averages over the batch axes with ``psum_fwd``), taken as this rank's
+slice over the axes every rank computes alike ("model" outside the
+experts).  The cache's kv heads and tensor-parallel compute over "model"
+are not ported (ROADMAP §1 item 7): every rank of a model slice
+computes attention, the FFNs and the unembedding whole.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.launch.mesh import gather_fwd, psum_bwd, psum_fwd
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
+from repro_torch.sharding.rules import batch_axes, gather_rows, \
+    mesh_extent, model_shardings, split_batch
+
+# The expert weights: ``moe_ffn`` gathers them over "data" itself and
+# keeps their "model" blocks local.
+_EXPERT_LEAVES = ("moe.w_gate", "moe.w_up", "moe.w_down")
 
 
-def cross_entropy(logits, labels, z_loss_coef: float):
+class ComputeParams(dict):
+    """{parameter name: the tensor the forward reads} (``compute_params``)."""
+
+
+def cast_params(params: dict) -> dict:
+    """``repro``'s compute cast under a mesh: every >= 2-D f32 leaf to
+    bf16 (norm scales and biases stay f32)."""
+    return {k: p.to(torch.bfloat16) if p.dtype == torch.float32
+            and p.dim() >= 2 else p for k, p in params.items()}
+
+
+def _compute_tree(params: dict, shardings: dict, axes: tuple
+                  ) -> ComputeParams:
+    """Each block gathered over the axes it is split on: the gradient
+    summed over those of ``axes`` (the batch's) and sliced over the
+    others; a block whole along a batch axis sums its gradient over it
+    (``psum_bwd``).  The expert weights stay as placed."""
+    out = ComputeParams()
+    for name, x in params.items():
+        sh = shardings[name]
+        split = set()
+        for dim, part in enumerate(sh.spec):
+            if part is None:
+                continue
+            parts = (part,) if isinstance(part, str) else tuple(part)
+            split.update(parts)
+            if name.endswith(_EXPERT_LEAVES):
+                continue
+            red = {a in axes for a in parts}
+            if len(red) > 1:
+                raise ValueError(f"{name}: {parts} mixes batch and other "
+                                 f"axes")
+            x = gather_fwd(x, sh.mesh, parts, dim, reduce=red.pop())
+        rest = tuple(a for a in axes if a not in split)
+        out[name] = psum_bwd(x, sh.mesh, rest) if rest else x
+    return out
+
+
+def compute_params(model: Model, params: dict, mesh) -> ComputeParams:
+    """The serving steps' compute tree of this rank's blocks (no cast, as
+    ``repro``'s prefill and serve steps do none): gather it once and hand
+    it to many steps."""
+    return _compute_tree(params, model_shardings(model, mesh), ())
+
+
+def _bind(model: Model, tree: dict) -> None:
+    """Put ``tree``'s tensors in place of the model's parameters (the
+    originals kept until ``_release``)."""
+    saved = model.__dict__.setdefault("_unbound", {})
+    for name, t in tree.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        saved.setdefault(name, mod._parameters[leaf])
+        mod._parameters[leaf] = t
+
+
+def _release(model: Model) -> None:
+    for name, p in model.__dict__.pop("_unbound", {}).items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        mod._parameters[leaf] = p
+
+
+@contextlib.contextmanager
+def bound(model: Model, tree: dict):
+    """``model`` reading ``tree`` in place of its parameters."""
+    _bind(model, tree)
+    try:
+        yield model
+    finally:
+        _release(model)
+
+
+def local_cache(model: Model, mesh, batch: int, max_len: int, device):
+    """``model.init_cache`` for this rank's rows of a ``batch``-row decode
+    under ``mesh`` (the cache stays whole over "model")."""
+    n = mesh_extent(mesh, batch_axes(mesh, batch))
+    return model.init_cache(batch // n, max_len, device=device)
+
+
+def cross_entropy(logits, labels, z_loss_coef: float, mesh=None):
     """Token-mean CE over f32 logits [..., V]; returns (ce + z-loss, ce).
 
     ``repro`` takes the gold logit as a masked sum over the one-hot of
     the label (it partitions over a sharded vocab); here it is a
     ``gather``, the same value without a second [B, S, V] f32 tensor.
+    With a mesh (a view naming the batch axes) the logits are this
+    rank's rows: the means are the global batch's (``psum_fwd`` over the
+    batch axes), and their gradient on each rank its share.
     """
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    ce = torch.mean(lse - gold)
-    zl = z_loss_coef * torch.mean(torch.square(lse)) if z_loss_coef else 0.0
+    axes = tuple(mesh.batch_axes) if mesh is not None else ()
+    n = mesh_extent(mesh, axes) if axes else 1
+
+    def mean(t):
+        t = torch.mean(t)
+        return psum_fwd(t, mesh, axes) / n if axes else t
+    ce = mean(lse - gold)
+    zl = z_loss_coef * mean(torch.square(lse)) if z_loss_coef else 0.0
     return ce + zl, ce
 
 
-def make_loss_fn(model: Model, run: RunConfig):
+def make_loss_fn(model: Model, run: RunConfig, mesh=None):
+    """``loss_fn(batch) -> (loss, metrics)``; with a mesh,
+    ``loss_fn(params, batch)``: this rank's blocks and the global batch,
+    the forward on ``cast_params``' compute tree (see the module doc),
+    which stays bound to the model (its backward recomputes remat blocks
+    from it) until the caller's ``_release(model)``."""
     cfg = model.cfg
 
-    def loss_fn(batch):
-        logits, aux = model(run, batch)
-        loss, ce = cross_entropy(logits, batch["labels"], run.z_loss)
+    def forward_loss(batch, view):
+        logits, aux = model(run, batch, mesh=view)
+        loss, ce = cross_entropy(logits, batch["labels"], run.z_loss, view)
         metrics = {"ce": ce}
         if "lb_loss" in aux:
             loss = loss + cfg.router_aux_coef * aux["lb_loss"]
@@ -57,20 +190,41 @@ def make_loss_fn(model: Model, run: RunConfig):
         metrics["loss"] = loss
         return loss, metrics
 
+    if mesh is None:
+        return lambda batch: forward_loss(batch, None)
+    shardings = model_shardings(model, mesh)
+
+    def loss_fn(params, batch):
+        view, rows = split_batch(mesh, batch)
+        _bind(model, _compute_tree(cast_params(params), shardings,
+                                   view.batch_axes))
+        return forward_loss(rows, view)
+
+    loss_fn.shardings = shardings
     return loss_fn
 
 
-def make_grad_fn(model: Model, run: RunConfig):
+def make_grad_fn(model: Model, run: RunConfig, mesh=None):
     """``grad_fn(params, batch) -> (grads, metrics)``: the gradients of
-    the loss with respect to ``params`` ({name: parameter}), f32 sums of
-    ``g / nmb`` over ``run.microbatch`` microbatches when it is above 1
-    (``repro``'s scan, in its order), and the metrics (detached) averaged
-    the same way.  ``make_train_step``'s gradient half."""
-    loss_fn = make_loss_fn(model, run)
+    the loss with respect to ``params`` ({name: parameter}, or this
+    rank's blocks under a mesh: their gradients are the blocks of the
+    global loss's), f32 sums of ``g / nmb`` over ``run.microbatch``
+    microbatches of the global batch when it is above 1 (``repro``'s
+    scan, in its order; each microbatch split over the batch axes), and
+    the metrics (detached) averaged the same way.  ``make_train_step``'s
+    gradient half."""
+    loss_fn = make_loss_fn(model, run, mesh)
 
     def one(params, batch):
-        loss, metrics = loss_fn(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        if mesh is None:
+            loss, metrics = loss_fn(batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        else:
+            try:
+                loss, metrics = loss_fn(params, batch)
+                grads = torch.autograd.grad(loss, list(params.values()))
+            finally:
+                _release(model)
         return (dict(zip(params, grads)),
                 {k: m.detach() for k, m in metrics.items()})
 
@@ -96,16 +250,18 @@ def make_grad_fn(model: Model, run: RunConfig):
             macc = {k: a + metrics[k] / nmb for k, a in macc.items()}
         return gacc, macc
 
+    grad_fn.shardings = getattr(loss_fn, "shardings", None)
     return grad_fn
 
 
-def make_train_step(model: Model, run: RunConfig):
-    grad_fn = make_grad_fn(model, run)
+def make_train_step(model: Model, run: RunConfig, mesh=None):
+    grad_fn = make_grad_fn(model, run, mesh)
 
     def train_step(params, opt: adamw.OptState, batch):
         grads, metrics = grad_fn(params, batch)
         lr = adamw.schedule(run, opt.step)
-        params, opt, gnorm = adamw.update(grads, opt, params, run, lr)
+        params, opt, gnorm = adamw.update(grads, opt, params, run, lr,
+                                          grad_fn.shardings)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
@@ -114,25 +270,58 @@ def make_train_step(model: Model, run: RunConfig):
     return train_step
 
 
-def make_prefill_step(model: Model, run: RunConfig):
-    """Forward-only step over a full sequence (the inference-prefill cell)."""
+def _tree_for(params, shardings):
+    return params if isinstance(params, ComputeParams) \
+        else _compute_tree(params, shardings, ())
+
+
+def make_prefill_step(model: Model, run: RunConfig, mesh=None):
+    """Forward-only step over a full sequence (the inference-prefill cell):
+    ``prefill_step(batch)``, or ``prefill_step(params, batch)`` under a
+    mesh (see the module doc)."""
+
+    if mesh is None:
+        @torch.inference_mode()
+        def prefill_step(batch):
+            logits, _ = model.forward(run, batch)
+            # Next-token logits for the last position only.
+            return logits[:, -1, :]
+
+        return prefill_step
+    shardings = model_shardings(model, mesh)
 
     @torch.inference_mode()
-    def prefill_step(batch):
-        logits, _ = model.forward(run, batch)
-        # Next-token logits for the last position only.
-        return logits[:, -1, :]
+    def prefill_mesh(params, batch):
+        view, rows = split_batch(mesh, batch)
+        with bound(model, _tree_for(params, shardings)):
+            logits, _ = model.forward(run, rows, mesh=view)
+        return gather_rows(view, logits[:, -1, :])
 
-    return prefill_step
+    return prefill_mesh
 
 
-def make_serve_step(model: Model, run: RunConfig):
-    """One greedy decode step against a KV cache."""
+def make_serve_step(model: Model, run: RunConfig, mesh=None):
+    """One greedy decode step against a KV cache: ``serve_step(tokens,
+    cache)``, or ``serve_step(params, tokens, cache)`` under a mesh (see
+    the module doc)."""
+
+    if mesh is None:
+        @torch.inference_mode()
+        def serve_step(tokens, cache):
+            logits, cache = model.decode_step(run, tokens, cache)
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            return nxt[:, None], cache
+
+        return serve_step
+    shardings = model_shardings(model, mesh)
 
     @torch.inference_mode()
-    def serve_step(tokens, cache):
-        logits, cache = model.decode_step(run, tokens, cache)
+    def serve_mesh(params, tokens, cache):
+        view, rows = split_batch(mesh, {"tokens": tokens})
+        with bound(model, _tree_for(params, shardings)):
+            logits, cache = model.decode_step(run, rows["tokens"], cache,
+                                              mesh=view)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return nxt[:, None], cache
+        return gather_rows(view, nxt)[:, None], cache
 
-    return serve_step
+    return serve_mesh

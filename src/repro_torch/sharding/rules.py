@@ -1,0 +1,306 @@
+"""Logical-axis -> mesh-axis sharding rules (port of
+src/repro/sharding/rules.py), and the placement of parameters and batches
+on a ``launch.mesh.Mesh``.
+
+Parameters declare logical axes in their ``P`` spec; the rules resolve
+them against a mesh, as ``repro``'s do.  A rule is silently dropped
+(replicated) when the dimension is not divisible by the assigned mesh
+extent, e.g. GQA kv-head counts smaller than the model axis.
+
+Weight strategy (DESIGN.md §5):
+  tensor-parallel axes (vocab, heads, mlp, experts, q_lora) -> "model"
+  FSDP axis (embed / the non-TP matmul dim)                 -> "data"
+The batch is split on ("pod", "data").
+
+The port has no GSPMD to place arrays, so the rules return the port's
+own ``PartitionSpec`` (a tuple holding, per dimension, None, an axis name
+or a tuple of names) inside a ``NamedSharding(mesh, spec)``, and this
+module places tensors by them: ``local_shard`` is this rank's block of a
+full tensor (``NamedSharding.devices_indices_map``'s slice for its
+device), ``shard_params`` / ``gather_params`` map a tree to its blocks and
+back, ``split_batch`` takes this rank's rows of a batch.  A mesh here is
+anything with ``axis_names`` and a name -> size ``shape`` (``Mesh``,
+``AbstractMesh``, a test stub); placing a tensor also reads ``coords``.
+
+The port's models hold one parameter per layer (``blocks.3.attn.wq.w``)
+where ``repro`` stacks the layers (``blocks/attn/wq/w`` [L, ...]);
+``model_shardings`` gives each the spec of its stacked leaf less the
+stacked dimensions, which the rules never shard ("layers" and "groups"
+map to no mesh axis).  Weights are carried across as
+``params_from_numpy`` (or ``init_params_into``) on a full model, then
+``shard_params``; ``init_sharded`` draws them leaf by leaf straight into
+the shards.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.module import P, _per_layer, _init_one, flatten, \
+    tree_map
+
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "vocab": ("model",),
+    "heads": ("model",),
+    "mlp": ("model",),
+    "expert": ("model",),
+    "q_lora": ("model",),
+    "embed": ("data",),          # FSDP / ZeRO-3 weight sharding
+    "moe_mlp": (),
+    "kv_lora": (),
+    "layers": (),
+    "groups": (),
+}
+
+BATCH_AXES = ("pod", "data")
+
+
+class PartitionSpec(tuple):
+    """Per dimension: None (replicated), an axis name, or a tuple of axis
+    names (the dimension split over their product, row-major)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class NamedSharding(NamedTuple):
+    mesh: object
+    spec: PartitionSpec
+
+
+def mesh_extent(mesh, axes: tuple[str, ...]) -> int:
+    return int(math.prod(mesh.shape[a] for a in axes))
+
+
+def spec_pspec(p: P, mesh, rules=None) -> PartitionSpec:
+    rules = rules or DEFAULT_RULES
+    used: set[str] = set()
+    parts = []
+    for dim, ax in zip(p.shape, p.axes):
+        assign = tuple(rules.get(ax, ())) if ax else ()
+        assign = tuple(a for a in assign
+                       if a in mesh.axis_names and a not in used)
+        if assign and mesh_extent(mesh, assign) > 1 \
+                and dim % mesh_extent(mesh, assign) == 0:
+            parts.append(assign if len(assign) > 1 else assign[0])
+            used.update(assign)
+        else:
+            parts.append(None)
+    return PartitionSpec(*parts)
+
+
+def param_shardings(specs, mesh, rules=None):
+    """``NamedSharding`` tree for a spec tree (``repro``'s layout, the
+    stacks unsplit).  The port has no ambient mesh: ``mesh`` is
+    required."""
+    if mesh is None:
+        raise ValueError("param_shardings: no mesh (the port has no "
+                         "ambient mesh)")
+    return tree_map(lambda p: NamedSharding(mesh, spec_pspec(p, mesh,
+                                                             rules)), specs)
+
+
+def model_shardings(model, mesh, rules=None) -> dict:
+    """{parameter name: NamedSharding} of a port model (one parameter per
+    layer): each stacked leaf's spec less its stacked dimensions."""
+    out = {}
+    for name, p in flatten(model.specs).items():
+        spec = spec_pspec(p, mesh, rules)
+        meta = torch.empty(p.shape, device="meta")
+        for pname, part in _per_layer(name, meta, model):
+            lead = len(p.shape) - part.dim()
+            if any(spec[:lead]):
+                raise ValueError(f"{name}: a stacked dimension is sharded "
+                                 f"({spec})")
+            out[pname] = NamedSharding(mesh, PartitionSpec(*spec[lead:]))
+    return out
+
+
+def batch_pspec(mesh, batch: int, ndim: int) -> PartitionSpec:
+    axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    if not axes or batch % mesh_extent(mesh, axes) != 0:
+        # Try the data axis alone before giving up.
+        axes = tuple(a for a in ("data",) if a in mesh.axis_names)
+        if not axes or batch % mesh_extent(mesh, axes) != 0:
+            return PartitionSpec(*([None] * ndim))
+    return PartitionSpec(axes if len(axes) > 1 else axes[0],
+                         *([None] * (ndim - 1)))
+
+
+def input_shardings(mesh, batch_specs) -> dict:
+    """Shardings for a train/prefill input tree: batch on ("pod","data")."""
+    return tree_map(lambda s: NamedSharding(
+        mesh, batch_pspec(mesh, s.shape[0], len(s.shape))), batch_specs)
+
+
+# KV-cache leaves that carry kv-heads on axis -2.
+_KV_KEYS = ("k", "v", "attn_k", "attn_v", "cross_k", "cross_v",
+            "dense_k", "dense_v", "img_k", "img_v")
+
+
+def cache_shardings(mesh, cache_specs, batch: int):
+    """Shardings for a decode cache tree (``repro``'s rule: the first
+    axis of size ``batch`` on ("pod","data"); kv heads (axis -2) of a KV
+    cache, and the widest divisible trailing axis of an SSM / xLSTM
+    state, on "model").  The port's steps keep the cache whole on every
+    rank of a batch slice (kv heads over "model" come later); these specs
+    say where ``repro`` puts it."""
+    model = mesh.shape.get("model", 1)
+    dp = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    dp_size = mesh_extent(mesh, dp) if dp else 1
+
+    def one(key, s):
+        parts: list = [None] * len(s.shape)
+        for i, d in enumerate(s.shape):
+            if d == batch and dp and batch % dp_size == 0:
+                parts[i] = dp if len(dp) > 1 else dp[0]
+                break
+        if key in _KV_KEYS and len(s.shape) >= 4 \
+                and s.shape[-2] % model == 0 and model > 1:
+            parts[-2] = "model"
+        elif key in ("S", "C", "conv") and len(s.shape) >= 4 and model > 1:
+            # ssm state [.., B, H, N, P] / conv [.., B, K-1, C] — shard the
+            # widest trailing axis divisible by model.
+            for i in range(len(s.shape) - 1, 1, -1):
+                if parts[i] is None and s.shape[i] % model == 0 \
+                        and s.shape[i] >= model:
+                    parts[i] = "model"
+                    break
+        return NamedSharding(mesh, PartitionSpec(*parts))
+
+    def walk(tree, key):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return one(key, tree)
+
+    return walk(cache_specs, None)
+
+
+# ------------------------------------------------------------ placement
+def shard_slices(shape, spec, mesh) -> tuple:
+    """This rank's block of a ``shape`` array under ``spec``: one slice
+    per dimension (a dimension over several axes splits row-major in the
+    spec's order, as jax's ``devices_indices_map``)."""
+    out = []
+    for i, dim in enumerate(shape):
+        part = spec[i] if i < len(spec) else None
+        if part is None:
+            out.append(slice(None))
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        n, pos = 1, 0
+        for a in axes:
+            n *= mesh.shape[a]
+            pos = pos * mesh.shape[a] + mesh.coords[a]
+        if dim % n:
+            raise ValueError(f"dimension {i} of {tuple(shape)} does not "
+                             f"split {n} ways ({spec})")
+        out.append(slice(pos * (dim // n), (pos + 1) * (dim // n)))
+    return tuple(out)
+
+
+def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the full tensor ``x`` (a view)."""
+    return x[shard_slices(x.shape, spec, mesh)]
+
+
+def _spec_axes(part) -> tuple:
+    return () if part is None else (part,) if isinstance(part, str) \
+        else tuple(part)
+
+
+def gather_full(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The full tensor of which ``x`` is this rank's block (every rank of
+    the mesh must call it)."""
+    for dim, part in enumerate(sharding.spec):
+        if part is not None:
+            x = sharding.mesh.all_gather(x, _spec_axes(part), dim)
+    return x
+
+
+def _zip_map(fn, tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_map(fn, getattr(tree, f),
+                                     getattr(shardings, f))
+                            for f in tree._fields))
+    return fn(tree, shardings)
+
+
+def shard_params(tree, shardings):
+    """Each leaf's block on this rank (a contiguous copy), for a tree (a
+    dict, possibly nested, or an ``OptState``) and the matching tree of
+    ``NamedSharding``."""
+    return _zip_map(lambda x, sh: local_shard(x, sh.spec, sh.mesh)
+                    .contiguous().clone(), tree, shardings)
+
+
+def gather_params(tree, shardings):
+    """The full leaves of a tree of blocks (collective: every rank calls
+    it, in one order)."""
+    return _zip_map(gather_full, tree, shardings)
+
+
+@torch.no_grad()
+def init_sharded(model, shardings: dict, generator: torch.Generator,
+                 device) -> dict:
+    """{parameter name: this rank's block} of ``model``'s random weights:
+    each leaf of ``model.specs`` drawn whole from ``generator`` in leaf
+    order (the draws ``init_params_into`` makes, so every rank holds
+    blocks of the same weights), split per layer, cut to the block and
+    cast to the parameter's dtype (``model`` may live on the meta device),
+    the whole leaf freed before the next is drawn."""
+    params = dict(model.named_parameters())
+    out = {}
+    for name, spec in flatten(model.specs).items():
+        t = _init_one(spec, generator, device)
+        for pname, part in _per_layer(name, t, model):
+            sh = shardings[pname]
+            out[pname] = local_shard(part, sh.spec, sh.mesh).to(
+                params[pname].dtype).clone()
+        del t
+    return out
+
+
+def batch_axes(mesh, batch: int) -> tuple:
+    """The mesh axes ``batch_pspec`` splits a batch of ``batch`` rows on
+    (() when it is replicated)."""
+    return _spec_axes(batch_pspec(mesh, batch, 1)[0])
+
+
+def split_batch(mesh, batch: dict):
+    """(a view of ``mesh`` naming the batch axes, this rank's rows of
+    every leaf of ``batch``): the rows ``batch_pspec`` gives this rank."""
+    b = next(iter(batch.values())).shape[0]
+    axes = batch_axes(mesh, b)
+    spec = PartitionSpec(axes if len(axes) > 1 else axes[0]) if axes \
+        else PartitionSpec()
+    return mesh.with_batch(axes), {k: local_shard(v, spec, mesh)
+                                   for k, v in batch.items()}
+
+
+def gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """All ranks' rows of ``x`` (split on ``mesh.batch_axes``), in batch
+    order."""
+    return mesh.all_gather(x, mesh.batch_axes, 0) if mesh.batch_axes else x
+
+
+def mesh_of(shardings) -> Optional[object]:
+    """The mesh of the first ``NamedSharding`` in a tree (None for none)."""
+    if shardings is None:
+        return None
+    if isinstance(shardings, NamedSharding):
+        return shardings.mesh
+    vals = shardings.values() if isinstance(shardings, dict) \
+        else list(shardings)
+    for v in vals:
+        m = mesh_of(v)
+        if m is not None:
+            return m
+    return None

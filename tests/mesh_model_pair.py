@@ -1,0 +1,723 @@
+"""Shared harness of tests/test_torch_mesh_model.py (no test file): the
+model-side mesh cases both packages run on a (2, 4) ("data", "model")
+mesh, the JAX package's run of them on 8 fake devices (jitted, in a
+child interpreter), the port's run on gloo CPU ranks, and the spawn
+that runs those ranks under a time limit.
+
+``make_inputs`` writes the weights (``repro``'s ``init_params``) and
+inputs both sides read ("w/..." and "in/..." keys); each side writes
+{"{case}/{field}": array} to an npz of its own.  Only numpy is imported
+at the top: the JAX child imports this module too.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+
+import numpy as np
+
+XLA_FLAGS = "--xla_force_host_platform_device_count=8"
+RANK_TIMEOUT_S = 120
+MESH = (2, 4)
+AXES = ("data", "model")
+# moe_ffn cases: name -> (n_experts, batch rows).  E 8 splits the experts
+# 2 a rank over "model"; E 2 cuts each into 2 virtual experts; a batch of
+# 1 row does not divide over "data" and is replicated.
+MOE_CASES = {"ep": (8, 4), "virtual": (2, 4), "replicated": (8, 1)}
+MOE_SEQ = 16
+MOE_CAPACITY = 0.5            # per-shard capacity drops choices
+LB_COEF = 0.01                # the lb loss's weight in moe_ffn's objective
+TRAIN_ARCHS = ("qwen1.5-0.5b", "mixtral-8x7b")
+TRAIN_B, TRAIN_S = 8, 32
+OPT_STEP0 = 5                 # lr > 0 on the first step (warmup from 0)
+RUN_KNOBS = dict(remat="none", attn_chunk_q=16, attn_chunk_kv=16,
+                 learning_rate=1e-3, warmup_steps=2, total_steps=100)
+DECODE_STEPS, DECODE_LEN = 4, 8
+DATA_MESH = (8,)              # launch/train.py's ("data",) mesh
+LOOP_STEPS, LOOP_EVERY, LOOP_FAIL = 3, 2, 2
+
+
+class ArraySource:
+    """``batch_at(step)`` over fixed global batches (numpy), turned into
+    arrays by ``as_array``."""
+
+    def __init__(self, tokens, labels, as_array):
+        self.tokens, self.labels, self.as_array = tokens, labels, as_array
+
+    def batch_at(self, step: int) -> dict:
+        return {"tokens": self.as_array(self.tokens[step]),
+                "labels": self.as_array(self.labels[step])}
+
+
+@contextlib.contextmanager
+def routes(force=None):
+    """The port's router calls inside the block, in order ([T, k] ids,
+    recorded); with ``force`` (another run's calls), each call routes as
+    that run's did, weighted by this run's probabilities at those ids
+    (renormalized, as the router does)."""
+    import torch
+
+    from repro_torch.models import moe
+    calls, real = [], moe._router
+
+    def rec(params, cfg, x2d):
+        out = real(params, cfg, x2d)
+        calls.append(out[1].detach().clone())
+        if force is None:
+            return out
+        ids = force[len(calls) - 1]
+        probs = torch.softmax(x2d.float() @ params["router"]["w"].float(),
+                              dim=-1)
+        p = probs.gather(1, ids.long())
+        return p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-9), ids, \
+            out[2]
+    moe._router = rec
+    try:
+        yield calls
+    finally:
+        moe._router = real
+
+
+def flat(tree, pre=()) -> dict:
+    """{"a/b/c": leaf} of a nested dict (repro's path keys)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, pre + (k,)))
+        else:
+            out["/".join(pre + (k,))] = v
+    return out
+
+
+def nest(flat_tree: dict) -> dict:
+    out: dict = {}
+    for key, v in flat_tree.items():
+        *path, leaf = key.split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
+
+
+def moe_cfg(configs_mod, n_experts):
+    return dataclasses.replace(configs_mod.get_reduced_config("mixtral-8x7b"),
+                               n_experts=n_experts,
+                               capacity_factor=MOE_CAPACITY)
+
+
+def moe_inputs(cfg, b, seed=1):
+    """x [b, MOE_SEQ, d] (bf16 values as f32) and an f32 cotangent."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, MOE_SEQ, cfg.d_model)).astype(np.float32)
+    cot = rng.normal(size=(b, MOE_SEQ, cfg.d_model)).astype(np.float32)
+    return x, cot
+
+
+def train_batch(cfg, seed=0):
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S + 1)).astype(np.int32)
+    return toks[:, :-1].copy(), toks[:, 1:].copy()
+
+
+@contextlib.contextmanager
+def vma_unchecked():
+    """``repro``'s MoE ``shard_map`` with ``check_vma=False`` (a patch of
+    the module's name in this process; no file changes).  Forward values
+    are the same; the gradient is then the derivative of that forward,
+    which with a batch split over "data" (``check_vma=True`` in
+    ``repro``) it is not on the router's path (ROADMAP §3, F9)."""
+    from repro.models import moe as j_moe
+    orig = j_moe.shard_map
+    j_moe.shard_map = lambda *a, **k: orig(*a, **{**k, "check_vma": False})
+    try:
+        yield
+    finally:
+        j_moe.shard_map = orig
+
+
+def make_inputs(path: str) -> None:
+    """The weights (``repro``'s ``init_params``, keys 0 and 3) and inputs
+    of every case, to ``path``."""
+    import jax
+
+    from repro import configs
+    from repro.models import moe as j_moe
+    from repro.models.model import build_model
+    from repro.models.module import init_params
+    out = {}
+    for name, (e, b) in MOE_CASES.items():
+        cfg = moe_cfg(configs, e)
+        params = init_params(j_moe.moe_spec(cfg), jax.random.key(3))
+        for k, v in flat(params).items():
+            out[f"w/moe_{name}/{k}"] = np.asarray(v)
+        out[f"in/moe_{name}/x"], out[f"in/moe_{name}/cot"] = \
+            moe_inputs(cfg, b)
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        params = init_params(build_model(cfg).specs, jax.random.key(0))
+        for k, v in flat(params).items():
+            out[f"w/{arch}/{k}"] = np.asarray(v)
+        out[f"in/{arch}/tokens"], out[f"in/{arch}/labels"] = \
+            train_batch(cfg)
+        loop = [train_batch(cfg, seed=10 + i) for i in range(LOOP_STEPS)]
+        out[f"in/{arch}/loop_tokens"] = np.stack([t for t, _ in loop])
+        out[f"in/{arch}/loop_labels"] = np.stack([lb for _, lb in loop])
+        # Gradients for AdamW on equal inputs.
+        rng = np.random.default_rng(2)
+        for k, v in flat(params).items():
+            out[f"in/{arch}/grads/{k}"] = (rng.normal(size=v.shape) * 0.01
+                                           ).astype(np.float32)
+    np.savez(path, **out)
+
+
+def jax_reference(inputs: str, out_file: str) -> None:
+    """Every case through ``repro`` on the (2, 4) mesh, jitted, with
+    ``backend="ref"`` kernels (none of the cases reaches a Pallas kernel:
+    ``repro``'s attention is ``blockwise_attn``).  ``moe_ffn``'s gradients
+    both as ``repro`` computes them ("g_vma") and under
+    ``vma_unchecked`` ("g"); the train steps under ``vma_unchecked``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    from repro import configs
+    from repro.configs.base import RunConfig
+    from repro.launch.mesh import make_test_mesh, use_mesh
+    from repro.models import moe as j_moe
+    from repro.models.model import build_model
+    from repro.optim import adamw
+    from repro.runtime import steps
+    from repro.sharding.rules import param_shardings, spec_pspec
+
+    assert jax.device_count() == 8, jax.devices()
+    mesh = make_test_mesh(MESH)
+    ranks = [d.id for d in mesh.devices.flat]
+    with np.load(inputs) as z:
+        ref = {k: z[k] for k in z.files}
+    out = {}
+    run = RunConfig(**RUN_KNOBS)
+
+    def put(tree, sh):
+        return jax.device_put(tree, sh)
+
+    def weights(tag):
+        pre = f"w/{tag}/"
+        return nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
+                     if k.startswith(pre)})
+
+    # -- moe_ffn --------------------------------------------------------
+    for name, (e, b) in MOE_CASES.items():
+        cfg = moe_cfg(configs, e)
+        spec = j_moe.moe_spec(cfg)
+        params = weights(f"moe_{name}")
+        cot = ref[f"in/moe_{name}/cot"]
+        xb = jnp.asarray(ref[f"in/moe_{name}/x"]).astype(jnp.bfloat16)
+
+        def obj(p, xx):
+            y, aux = j_moe.moe_ffn(p, cfg, xx, mesh)
+            return (jnp.sum(y.astype(jnp.float32) * cot)
+                    + LB_COEF * aux["lb_loss"]), (y, aux)
+
+        for tag, ctx in (("g_vma", contextlib.nullcontext),
+                         ("g", vma_unchecked)):
+            with use_mesh(mesh), ctx():
+                p_s = put(params, param_shardings(spec, mesh))
+                (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+                    obj, argnums=(0, 1), has_aux=True))(p_s, xb)
+            out[f"moe_{name}/y"] = np.asarray(y.astype(jnp.float32))
+            out[f"moe_{name}/lb"] = np.asarray(aux["lb_loss"])
+            out[f"moe_{name}/dropped"] = np.asarray(aux["dropped"])
+            out[f"moe_{name}/{tag}/x"] = np.asarray(gx.astype(jnp.float32))
+            for k, v in flat(gp).items():
+                out[f"moe_{name}/{tag}/{k}"] = np.asarray(v, np.float32)
+
+    # -- one train step -------------------------------------------------
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        model = build_model(cfg)
+        params = weights(arch)
+        batch = {"tokens": jnp.asarray(ref[f"in/{arch}/tokens"]),
+                 "labels": jnp.asarray(ref[f"in/{arch}/labels"])}
+        p_sh = param_shardings(model.specs, mesh)
+        # Each device's block of every leaf (rank = position in the mesh).
+        for k, p in flat(model.specs).items():
+            idx = NamedSharding(mesh, spec_pspec(p, mesh)) \
+                .devices_indices_map(p.shape)
+            dev = {d.id: s for d, s in idx.items()}
+            out[f"{arch}/blocks/{k}"] = np.array(
+                [[[sl.start or 0, p.shape[i] if sl.stop is None else sl.stop]
+                  for i, sl in enumerate(dev[r])] for r in ranks])
+        grad_fn = jax.value_and_grad(steps.make_loss_fn(model, run, mesh),
+                                     has_aux=True)
+        train_step = steps.make_train_step(model, run, mesh)
+
+        def both(p, o, bt):
+            (_, metrics), grads = grad_fn(p, bt)
+            return (metrics, grads) + tuple(train_step(p, o, bt))
+
+        with use_mesh(mesh), vma_unchecked():
+            params_s = put(params, p_sh)
+            opt = adamw.init(params_s)._replace(step=jnp.int32(OPT_STEP0))
+            metrics, grads, p2, o2, m2 = jax.jit(both)(params_s, opt, batch)
+        # AdamW alone on the input gradients, under the mesh.
+        pre = f"in/{arch}/grads/"
+        g_in = nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
+                     if k.startswith(pre)})
+        with use_mesh(mesh):
+            upd_p, _, upd_gn = jax.jit(lambda g, o, p: adamw.update(
+                g, o, p, run, adamw.schedule(run, o.step)))(
+                    put(g_in, p_sh), opt, params_s)
+        out[f"{arch}/upd/grad_norm"] = np.asarray(upd_gn)
+        for k, v in flat(upd_p).items():
+            out[f"{arch}/upd/{k}"] = np.asarray(v, np.float32)
+        for k, v in metrics.items():
+            out[f"{arch}/metrics/{k}"] = np.asarray(v, np.float32)
+        for k, v in m2.items():
+            out[f"{arch}/step/{k}"] = np.asarray(v, np.float32)
+        for tag, tree in (("g", grads), ("p2", p2), ("m2", o2.m),
+                          ("v2", o2.v)):
+            for k, v in flat(tree).items():
+                out[f"{arch}/{tag}/{k}"] = np.asarray(v, np.float32)
+    np.savez(out_file, **out)
+    print("jax reference done")
+
+
+def jax_reference_steps(inputs: str, out_file: str, tmp: str) -> None:
+    """The serving steps and the other training entry points through
+    ``repro`` on 8 fake devices, jitted (a second child beside
+    ``jax_reference``): ``make_prefill_step`` and DECODE_STEPS of
+    ``decode_step`` / ``make_serve_step`` on (2, 4); a train step on the
+    (8,) ("data",) mesh and one with 2 microbatches on (2, 4) (mixtral);
+    ``train_loop`` on (2, 4) with a failure at LOOP_FAIL (qwen)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs
+    from repro.configs.base import RunConfig
+    from repro.launch.mesh import make_mesh, make_test_mesh, use_mesh
+    from repro.models.model import build_model
+    from repro.optim import adamw
+    from repro.runtime import steps
+    from repro.runtime.driver import DriverConfig, train_loop
+    from repro.sharding.rules import param_shardings
+
+    assert jax.device_count() == 8, jax.devices()
+    with np.load(inputs) as z:
+        ref = {k: z[k] for k in z.files}
+    mesh = make_test_mesh(MESH)
+    out = {}
+    run = RunConfig(**RUN_KNOBS)
+
+    def weights(tag):
+        pre = f"w/{tag}/"
+        return nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
+                     if k.startswith(pre)})
+
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        model = build_model(cfg)
+        toks = jnp.asarray(ref[f"in/{arch}/tokens"])
+        with use_mesh(mesh):
+            params = jax.device_put(weights(arch),
+                                    param_shardings(model.specs, mesh))
+            out[f"{arch}/prefill"] = np.asarray(jax.jit(
+                steps.make_prefill_step(model, run, mesh))(
+                    params, {"tokens": toks}))
+            dec = jax.jit(lambda p, t, c: model.decode_step(p, run, t, c,
+                                                            mesh=mesh))
+            serve = jax.jit(steps.make_serve_step(model, run, mesh))
+            cache = model.init_cache(TRAIN_B, DECODE_LEN)
+            cache2 = model.init_cache(TRAIN_B, DECODE_LEN)
+            for t in range(DECODE_STEPS):
+                logits, cache = dec(params, toks[:, t:t + 1], cache)
+                nxt, cache2 = serve(params, toks[:, t:t + 1], cache2)
+                out[f"{arch}/decode{t}"] = np.asarray(logits[:, -1],
+                                                      np.float32)
+                out[f"{arch}/serve{t}"] = np.asarray(nxt)
+    arch = TRAIN_ARCHS[1]
+    cfg = configs.get_reduced_config(arch)
+    model = build_model(cfg)
+    batch = {"tokens": jnp.asarray(ref[f"in/{arch}/tokens"]),
+             "labels": jnp.asarray(ref[f"in/{arch}/labels"])}
+    dmesh = make_mesh(DATA_MESH, ("data",))
+    for tag, m, r in (("data_mesh", dmesh, run),
+                      ("microbatch", mesh, RunConfig(**RUN_KNOBS,
+                                                     microbatch=2))):
+        grad_fn = jax.value_and_grad(steps.make_loss_fn(model, r, m),
+                                     has_aux=True)
+        train_step = steps.make_train_step(model, r, m)
+
+        def both(p, o, bt):
+            (_, metrics), grads = grad_fn(p, bt)
+            return (metrics, grads) + tuple(train_step(p, o, bt))
+
+        with use_mesh(m), vma_unchecked():
+            p = jax.device_put(weights(arch), param_shardings(model.specs, m))
+            o = adamw.init(p)._replace(step=jnp.int32(OPT_STEP0))
+            _, grads, _, _, m2 = jax.jit(both)(p, o, batch)
+        for k, v in m2.items():
+            out[f"{tag}/step/{k}"] = np.asarray(v, np.float32)
+        if tag == "data_mesh":
+            for k, v in flat(grads).items():
+                out[f"{tag}/g/{k}"] = np.asarray(v, np.float32)
+    arch = TRAIN_ARCHS[0]
+    model = build_model(configs.get_reduced_config(arch))
+    src = ArraySource(ref[f"in/{arch}/loop_tokens"],
+                      ref[f"in/{arch}/loop_labels"], jnp.asarray)
+    dcfg = DriverConfig(total_steps=LOOP_STEPS, ckpt_every=LOOP_EVERY,
+                        ckpt_dir=os.path.join(tmp, "jax_loop"))
+    with use_mesh(mesh), vma_unchecked():
+        p = jax.device_put(weights(arch), param_shardings(model.specs, mesh))
+        p, _, hist = train_loop(jax.jit(steps.make_train_step(model, run,
+                                                              mesh)),
+                                p, adamw.init(p), src, dcfg,
+                                fail_at={LOOP_FAIL}, log=lambda *_: None)
+    out["loop/loss"] = np.asarray(hist["loss"], np.float32)
+    out["loop/restarts"] = np.asarray(hist["restarts"])
+    for k, v in flat(p).items():
+        out[f"loop/p/{k}"] = np.asarray(v, np.float32)
+    np.savez(out_file, **out)
+    print("jax reference done")
+
+
+# ------------------------------------------------------------- the port
+def port_model(arch, ref, device="cpu", trainable=True):
+    """The port's full model carrying ``repro``'s weights from ``ref``."""
+    from repro_torch import configs
+    from repro_torch.models import module
+    from repro_torch.models.model import build_model
+    cfg = configs.get_reduced_config(arch)
+    model = build_model(cfg, device, trainable=trainable)
+    pre = f"w/{arch}/"
+    module.params_from_numpy(model, nest({k[len(pre):]: v
+                                          for k, v in ref.items()
+                                          if k.startswith(pre)}))
+    return model
+
+
+def _moe_rank(mesh, ref, out):
+    """moe_ffn on this rank: the objective's share and gradients, the
+    outputs and gradients gathered whole (``out`` on rank 0)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.runtime.steps import _compute_tree
+    from repro_torch.models.module import flatten
+    from repro_torch.sharding.rules import (NamedSharding, gather_full,
+                                            gather_rows, local_shard,
+                                            spec_pspec, split_batch)
+    for name, (e, b) in MOE_CASES.items():
+        cfg = moe_cfg(configs, e)
+        specs = flatten(moe.moe_spec(cfg))
+        pre = f"w/moe_{name}/"
+        x = torch.from_numpy(ref[f"in/moe_{name}/x"]).to(torch.bfloat16)
+        cot = torch.from_numpy(ref[f"in/moe_{name}/cot"])
+        view, rows = split_batch(mesh, {"x": x, "cot": cot})
+        shard = {k: NamedSharding(mesh, spec_pspec(p, mesh))
+                 for k, p in specs.items()}
+        local = {k: local_shard(torch.from_numpy(
+            ref[pre + k.replace(".", "/")]), shard[k].spec, mesh)
+            .clone().requires_grad_(True) for k in specs}
+        xr = rows["x"].clone().requires_grad_(True)
+        # The router as the train step hands it over (gathered over
+        # "data", its gradient summed where the batch is split); the
+        # expert weights as placed.
+        router = _compute_tree({"router.w": local["router.w"]},
+                               {"router.w": shard["router.w"]},
+                               view.batch_axes)["router.w"]
+        p = {"router": {"w": router}, "w_gate": local["w_gate"],
+             "w_up": local["w_up"], "w_down": local["w_down"]}
+        y, aux = moe.moe_ffn(p, cfg, xr, view)
+        obj = torch.sum(y.float() * rows["cot"]) + LB_COEF * aux["lb_loss"]
+        grads = torch.autograd.grad(obj, [xr] + list(local.values()))
+        out[f"moe_{name}/y"] = gather_rows(view, y.detach().float()).numpy()
+        out[f"moe_{name}/lb"] = aux["lb_loss"].detach().numpy()
+        out[f"moe_{name}/dropped"] = aux["dropped"].numpy()
+        out[f"moe_{name}/g/x"] = gather_rows(view, grads[0].float()).numpy()
+        for k, g in zip(local, grads[1:]):
+            out[f"moe_{name}/g/{k.replace('.', '/')}"] = \
+                gather_full(g, shard[k]).numpy()
+
+
+def _train_rank(mesh, ref, out, ckpt_dir):
+    """One train step of each arch on this rank; each device's block
+    slices; the step's update on ``repro``'s own gradients; a checkpoint
+    of qwen's state after the step (saved from this mesh)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import flatten
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (gather_params, model_shardings,
+                                            shard_params, shard_slices,
+                                            spec_pspec)
+    run = RunConfig(**RUN_KNOBS)
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        full = port_model(arch, ref)
+        model = build_model(cfg, "meta", trainable=True)
+        sh = model_shardings(model, mesh)
+        params = shard_params({k: p.detach()
+                               for k, p in full.named_parameters()}, sh)
+        for p in params.values():
+            p.requires_grad_(True)
+        for k, p in flatten(model.specs).items():
+            sl = shard_slices(p.shape, spec_pspec(p, mesh), mesh)
+            out[f"{arch}/blocks/{k.replace('.', '/')}/rank{mesh.rank}"] = \
+                np.array(
+                [[s.start or 0, d if s.stop is None else s.stop]
+                 for s, d in zip(sl, p.shape)])
+        batch = {"tokens": torch.from_numpy(ref[f"in/{arch}/tokens"]),
+                 "labels": torch.from_numpy(ref[f"in/{arch}/labels"])}
+        grads, metrics = steps.make_grad_fn(model, run, mesh)(params, batch)
+        for k, v in metrics.items():
+            out[f"{arch}/metrics/{k}"] = v.numpy()
+        for k, g in gather_params(grads, sh).items():
+            out[f"{arch}/g/{k}"] = g.numpy()
+        opt = adamw.init(params)._replace(step=torch.tensor(
+            OPT_STEP0, dtype=torch.int32))
+        _, opt, m2 = steps.make_train_step(model, run, mesh)(params, opt,
+                                                             batch)
+        for k, v in m2.items():
+            out[f"{arch}/step/{k}"] = v.detach().numpy()
+        for tag, tree in (("p2", params), ("m2", opt.m), ("v2", opt.v)):
+            for k, v in gather_params(tree, sh).items():
+                out[f"{arch}/{tag}/{k}"] = v.detach().numpy()
+        # AdamW alone on the blocks of the input gradients.
+        jg = {}
+        for k in sh:
+            key, i = _repro_key(k)
+            jg[k] = torch.from_numpy(_layer(ref[f"in/{arch}/grads/{key}"],
+                                            i))
+        p0 = shard_params({k: p.detach().clone()
+                           for k, p in full.named_parameters()}, sh)
+        o0 = adamw.init(p0)._replace(step=torch.tensor(OPT_STEP0,
+                                                       dtype=torch.int32))
+        lr = adamw.schedule(run, o0.step)
+        p1, _, gn = adamw.update(shard_params(jg, sh), o0, p0, run, lr, sh)
+        out[f"{arch}/upd/grad_norm"] = gn.numpy()
+        for k, v in gather_params(p1, sh).items():
+            out[f"{arch}/upd/{k}"] = v.numpy()
+        if arch == TRAIN_ARCHS[0]:
+            mgr = CheckpointManager(ckpt_dir, async_save=True)
+            state = {"params": params, "opt": opt}
+            mgr.save(1, state, shardings={
+                "params": sh, "opt": adamw.state_shardings(sh)})
+            mgr.wait()
+
+
+def _steps_rank(mesh, ref, out, tmp):
+    """The port's side of ``jax_reference_steps`` on this rank."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import driver, steps
+    from repro_torch.sharding.rules import (gather_params, gather_rows,
+                                            model_shardings, shard_params,
+                                            split_batch)
+    run = RunConfig(**RUN_KNOBS)
+
+    def blocks(arch, model, m):
+        full = port_model(arch, ref)
+        return shard_params({k: p.detach() for k, p in
+                             full.named_parameters()},
+                            model_shardings(model, m))
+    for arch in TRAIN_ARCHS:
+        model = build_model(configs.get_reduced_config(arch), "meta",
+                            trainable=True)
+        params = blocks(arch, model, mesh)
+        toks = torch.from_numpy(ref[f"in/{arch}/tokens"])
+        # One process's forward and decode of each data shard's rows
+        # (the MoE's capacity is per data shard), their routing recorded.
+        full = port_model(arch, ref)
+        half = TRAIN_B // mesh.shape["data"]
+        one_last, one_dec, one_routes = [], [], []
+        for d in range(mesh.shape["data"]):
+            rows = toks[d * half:(d + 1) * half]
+            with torch.inference_mode(), routes() as rc:
+                logits, _ = full.forward(run, {"tokens": rows})
+                one_last.append(logits[:, -1])
+                cache = full.init_cache(half, DECODE_LEN)
+                for t in range(DECODE_STEPS):
+                    lg, cache = full.decode_step(run, rows[:, t:t + 1],
+                                                 cache)
+                    one_dec.append((d, t, lg[:, -1]))
+            one_routes.append(rc)
+        out[f"{arch}/prefill_one"] = torch.cat(one_last).float().numpy()
+        for t in range(DECODE_STEPS):
+            out[f"{arch}/decode_one{t}"] = torch.cat(
+                [lg for d, tt, lg in one_dec if tt == t]).float().numpy()
+        force = one_routes[mesh.coords["data"]]
+        n_fwd = len(force) // (1 + DECODE_STEPS)
+        with routes(force[:n_fwd]):
+            out[f"{arch}/prefill"] = steps.make_prefill_step(
+                model, run, mesh)(params, {"tokens": toks}).numpy()
+        tree = steps.compute_params(model, params, mesh)
+        serve = steps.make_serve_step(model, run, mesh)
+        cache = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        cache2 = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        for t in range(DECODE_STEPS):
+            view, rows = split_batch(mesh, {"tokens": toks[:, t:t + 1]})
+            step_routes = force[n_fwd * (1 + t):n_fwd * (2 + t)]
+            with torch.inference_mode(), steps.bound(model, tree), \
+                    routes(step_routes):
+                logits, cache = model.decode_step(run, rows["tokens"], cache,
+                                                  mesh=view)
+            out[f"{arch}/decode{t}"] = gather_rows(
+                view, logits[:, -1].float()).numpy()
+            with routes(step_routes):
+                nxt, cache2 = serve(tree, toks[:, t:t + 1], cache2)
+            out[f"{arch}/serve{t}"] = nxt.numpy()
+    arch = TRAIN_ARCHS[1]
+    batch = {"tokens": torch.from_numpy(ref[f"in/{arch}/tokens"]),
+             "labels": torch.from_numpy(ref[f"in/{arch}/labels"])}
+    dmesh = make_mesh(DATA_MESH, ("data",))
+    one = make_mesh((1,), ("data",))
+    # The data mesh against one process's (1,) mesh, routed as it routed.
+    model = build_model(configs.get_reduced_config(arch), "meta",
+                        trainable=True)
+    grads = {}
+    force = None
+    for tag, m in (("data_one", one), ("data_mesh", dmesh)):
+        params = blocks(arch, model, m)
+        for p in params.values():
+            p.requires_grad_(True)
+        with routes(force) as rc:
+            g, metrics = steps.make_grad_fn(model, run, m)(params, batch)
+        force = rc
+        grads[tag] = gather_params(g, model_shardings(model, m))
+        for k, v in metrics.items():
+            out[f"{tag}/metrics/{k}"] = v.numpy()
+    for k, g in grads["data_mesh"].items():
+        out[f"data_mesh/g/{k}"] = g.numpy()
+        out[f"data_one/g/{k}"] = grads["data_one"][k].numpy()
+    for tag, m, r in (("data_mesh", dmesh, run),
+                      ("microbatch", mesh, RunConfig(**RUN_KNOBS,
+                                                     microbatch=2))):
+        params = blocks(arch, model, m)
+        for p in params.values():
+            p.requires_grad_(True)
+        opt = adamw.init(params)._replace(step=torch.tensor(
+            OPT_STEP0, dtype=torch.int32))
+        _, _, m2 = steps.make_train_step(model, r, m)(params, opt, batch)
+        for k, v in m2.items():
+            out[f"{tag}/step/{k}"] = v.detach().numpy()
+    # train_loop with a failure, and a clean run of the same steps.
+    arch = TRAIN_ARCHS[0]
+    src = ArraySource(ref[f"in/{arch}/loop_tokens"],
+                      ref[f"in/{arch}/loop_labels"], torch.from_numpy)
+    for tag, fail in (("loop", {LOOP_FAIL}), ("loop_clean", set())):
+        model = build_model(configs.get_reduced_config(arch), "meta",
+                            trainable=True)
+        sh = model_shardings(model, mesh)
+        params = blocks(arch, model, mesh)
+        for p in params.values():
+            p.requires_grad_(True)
+        dcfg = driver.DriverConfig(total_steps=LOOP_STEPS,
+                                   ckpt_every=LOOP_EVERY,
+                                   ckpt_dir=os.path.join(tmp, tag))
+        params, opt, hist = driver.train_loop(
+            steps.make_train_step(model, run, mesh), params,
+            adamw.init(params), src, dcfg,
+            {"params": sh, "opt": adamw.state_shardings(sh)},
+            fail_at=fail, log=lambda *_: None)
+        out[f"{tag}/loss"] = np.asarray(hist["loss"], np.float32)
+        out[f"{tag}/restarts"] = np.asarray(hist["restarts"])
+        for k, v in gather_params(params, sh).items():
+            out[f"{tag}/p/{k}"] = v.detach().numpy()
+
+
+def _repro_key(name: str):
+    """(repro's path key, layer index or None) of a port parameter."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return "/".join(["blocks"] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
+def _layer(a, i):
+    return np.ascontiguousarray(a if i is None else a[i])
+
+
+def _restore_rank(mesh, ref, out, ckpt_dir):
+    """Restore the checkpoint the (2, 4) ranks saved into this mesh's
+    blocks; gather them whole."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import (gather_params, init_sharded,
+                                            model_shardings)
+    arch = TRAIN_ARCHS[0]
+    model = build_model(configs.get_reduced_config(arch), "meta",
+                        trainable=True)
+    sh = model_shardings(model, mesh)
+    params = init_sharded(model, sh, torch.Generator().manual_seed(9), "cpu")
+    opt = adamw.init(params)
+    CheckpointManager(ckpt_dir).restore(1, {"params": params, "opt": opt},
+                                        {"params": sh,
+                                         "opt": adamw.state_shardings(sh)})
+    out["restored/step"] = opt.step.numpy()
+    for tag, tree in (("p", params), ("m", opt.m), ("v", opt.v)):
+        for k, v in gather_params(tree, sh).items():
+            out[f"restored/{tag}/{k}"] = v.numpy()
+
+
+def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
+               ckpt_dir: str, out_dir: str) -> None:
+    """One gloo CPU rank: the (2, 4) cases with 8 ranks, the (1, 4)
+    restore with 4; rank 0 writes ``out_dir/world{world}.npz``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        with np.load(ref_file) as z:
+            ref = {k: z[k] for k in z.files}
+        out = {}
+        if world == 8:
+            mesh = make_mesh(MESH, AXES)
+            _moe_rank(mesh, ref, out)
+            _train_rank(mesh, ref, out, ckpt_dir)
+            _steps_rank(mesh, ref, out, out_dir)
+            x = torch.arange(24.0).reshape(2, 3, 4) + rank
+            for dim in range(3):
+                g = mesh.all_gather(x, AXES, dim)
+                out[f"contiguous/{dim}"] = np.array([
+                    g.is_contiguous(),
+                    mesh.psum_scatter(g, AXES, dim).is_contiguous()])
+        else:
+            mesh = make_mesh((1, 4), AXES)
+            _restore_rank(mesh, ref, out, ckpt_dir)
+        out["routes"] = np.array(sorted(mesh.routes.items()))
+        blocks = {k: v for k, v in out.items() if "/rank" in k}
+        gathered = [None] * world
+        dist.all_gather_object(gathered, blocks)
+        if rank == 0:
+            for b in gathered:
+                out.update(b)
+            np.savez(os.path.join(out_dir, f"world{world}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, args: tuple, timeout: float) -> None:
+    """``sharded_pair.spawn_ranks`` over this module's ``torch_rank``."""
+    import sharded_pair
+    sharded_pair.spawn_ranks(world, args, timeout, target=torch_rank)

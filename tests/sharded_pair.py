@@ -139,14 +139,17 @@ def torch_rank(rank: int, world: int, init_file: str, artifact: str,
         dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, args: tuple, timeout: float) -> None:
-    """Run ``torch_rank`` on ``world`` spawned processes; raise if one
-    fails or they do not all finish within ``timeout`` seconds (a rank
-    stuck in a collective is terminated, never waited on)."""
+def spawn_ranks(world: int, args: tuple, timeout: float,
+                target=None) -> None:
+    """Run ``target(rank, world, *args)`` (default ``torch_rank``) on
+    ``world`` spawned processes; raise if one fails or they do not all
+    finish within ``timeout`` seconds (a rank stuck in a collective is
+    terminated, never waited on)."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=torch_rank, args=(r, world, *args))
+    target = target or torch_rank
+    procs = [ctx.Process(target=target, args=(r, world, *args))
              for r in range(world)]
     for p in procs:
         p.start()

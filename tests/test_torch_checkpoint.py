@@ -6,7 +6,8 @@ into the port's live tensors, with equal arrays (exact: both sides are
 f32 params and moments and an int32 step, copied, never computed);
 the same state saved by both gives the same npz keys, dtypes and values
 and the same ``meta.json``.  Also ``keep``-bounded GC, no ``.tmp`` visible
-after an async save, and ``restore``'s refusals.
+after an async save, ``restore``'s refusals, and ``restore`` reading
+each member through a memory map (or whole, where it is compressed).
 """
 import json
 import os
@@ -23,6 +24,7 @@ from repro.models.model import build_model as j_build_model
 from repro.models.module import init_params as j_init_params
 from repro.optim import adamw as j_adamw
 from repro_torch import configs
+from repro_torch.checkpoint import manager
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.models import module
 from repro_torch.models.model import build_model
@@ -173,3 +175,58 @@ def test_restore_refuses_another_tree(tmp_path):
     with pytest.raises((KeyError, ValueError)):
         mgr.restore(1, {"params": wp, "opt": adamw.init(wp)})
     assert all(not torch.isnan(p).any() for p in params.values())
+
+
+def test_restore_maps_the_members_it_reads(tmp_path, monkeypatch):
+    """``restore`` memory-maps each member of the uncompressed npz, so a
+    rank reads only the pages of its own slices: every mapped member
+    equals ``np.load``'s array, and the restore runs with the npz's
+    whole-array reads refused."""
+    _, params, opt = _stateful(0)
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(3, {"params": params, "opt": opt})
+    path = str(tmp_path / "step_00000003" / "arrays.npz")
+    members = manager._npz_members(path)
+    with np.load(path) as z:
+        assert set(members) == set(z.files)
+        for k in z.files:
+            shape, dtype, offset = members[k]
+            assert offset is not None, k
+            mapped = np.memmap(path, dtype=dtype, mode="r", offset=offset,
+                               shape=shape)
+            assert mapped.dtype == z[k].dtype and np.array_equal(
+                mapped, z[k]), k
+
+    def refuse(self, key):
+        raise AssertionError(f"{key} read whole")
+    monkeypatch.setattr(np.lib.npyio.NpzFile, "__getitem__", refuse)
+    _, params2, opt2 = _stateful(1)
+    mgr.restore(3, {"params": params2, "opt": opt2})
+    for k in params:
+        assert torch.equal(params2[k], params[k]), k
+        assert torch.equal(opt2.m[k], opt.m[k]) and torch.equal(
+            opt2.v[k], opt.v[k]), k
+    assert int(opt2.step) == 7
+
+
+def test_restore_reads_a_compressed_checkpoint(tmp_path):
+    """An npz whose members are compressed cannot be mapped: each is read
+    whole, to the same state."""
+    _, params, opt = _stateful(0)
+    CheckpointManager(str(tmp_path / "a"), async_save=False).save(
+        3, {"params": params, "opt": opt})
+    arrays, meta = _load(str(tmp_path / "a" / "step_00000003"))
+    step = tmp_path / "b" / "step_00000003"
+    os.makedirs(step)
+    np.savez_compressed(step / "arrays.npz", **arrays)
+    with open(step / "meta.json", "w") as f:
+        json.dump(meta, f)
+    members = manager._npz_members(str(step / "arrays.npz"))
+    assert all(offset is None for _, _, offset in members.values())
+    _, params2, opt2 = _stateful(1)
+    CheckpointManager(str(tmp_path / "b")).restore(
+        3, {"params": params2, "opt": opt2})
+    for k in params:
+        assert torch.equal(params2[k], params[k]), k
+        assert torch.equal(opt2.v[k], opt.v[k]), k
+    assert int(opt2.step) == 7

@@ -3,7 +3,7 @@ chip_smoke.py or the examples/torch_*.py twins, imports ``jax`` or the
 JAX package ``repro`` (an AST scan of every import statement), importing
 the port's engine, serving, front-end, artifact, enrichment, data,
 analytics, obs, model-stack (the MoE layer and its dispatch, the SSM
-and xLSTM blocks included), mesh and sharded-lookup or
+and xLSTM blocks included), mesh, sharding-rule and sharded-lookup or
 training modules (optimizer, checkpoint manager, driver, train launcher)
 loads neither, chip_smoke.py refuses to
 run without a CUDA device, and the serving launcher and the quickstart
@@ -52,7 +52,8 @@ def test_port_files_found():
                  "runtime/driver.py", "launch/train.py", "models/moe.py",
                  "distributed/dispatch.py", "distributed/__init__.py",
                  "models/ssm.py", "models/xlstm.py", "launch/mesh.py",
-                 "core/distributed.py"):
+                 "core/distributed.py", "sharding/rules.py",
+                 "sharding/__init__.py"):
         assert f"src/repro_torch/{path}" in PORT_FILES
     for name in ("train_lm", "distributed_geo_join", "serve_lm",
                  "analytics_geo"):
@@ -100,7 +101,8 @@ def test_engine_import_loads_no_jax():
                                     "repro_torch.models.ssm",
                                     "repro_torch.models.xlstm",
                                     "repro_torch.launch.mesh",
-                                    "repro_torch.core.distributed"])
+                                    "repro_torch.core.distributed",
+                                    "repro_torch.sharding.rules"])
 def test_slice_import_loads_no_jax(module):
     """The serving, analytics and obs packages, the model stack and the
     training modules load neither ``jax`` nor ``repro`` (the server pulls

@@ -1,0 +1,728 @@
+"""The model half of the port's mesh path (``repro_torch.sharding.rules``,
+``launch.mesh``'s collectives, ``moe_ffn(mesh=)``, the steps,
+``adamw.global_norm`` and ``CheckpointManager`` under a mesh,
+``train_loop(shardings=)``, ``launch/train.py``'s data mesh) against the
+JAX package's, on the CPU.
+
+* In process: every parameter's spec, the batch and input specs and the
+  cache specs of all ten configs at full width on
+  ``make_production_mesh``'s shapes, equal to ``repro``'s (a stub mesh;
+  exact); ``act_spec``; a one-rank mesh, which needs no process group
+  (the train step there is the one-device step on bf16-rounded weights,
+  bit for bit); placement and refusals.
+* Multi-rank: ``repro`` on 8 fake devices in one child interpreter,
+  jitted, on a (2, 4) ("data", "model") mesh, beside the port on one
+  spawn of 8 gloo CPU ranks, then a spawn of 4 for a (1, 4) restore:
+  each rank's blocks; ``moe_ffn`` with experts split over "model" (E 8),
+  with virtual experts (E 2) and with a batch replicated over "data";
+  one train step of reduced qwen and mixtral; AdamW alone on equal
+  inputs; a checkpoint saved on (2, 4) and restored on (1, 4), in
+  process and by ``repro``.  A second JAX child beside it: qwen's
+  ``make_prefill_step`` and ``decode_step`` / ``make_serve_step``;
+  mixtral's train step on the (8,) ("data",) mesh and with 2
+  microbatches; ``train_loop(shardings=)`` with a failure.  Mixtral's
+  routing can flip at near ties between the packages (bf16 rounding,
+  ``tests/moe_pair.py``), so its mesh prefill, decode and data-mesh
+  gradients are held against one process of the port routed as it
+  routed (bit for bit; the data mesh's gradients to 2 %), which
+  ``tests/test_torch_moe.py`` holds against ``repro``; against ``repro``
+  they are held to the bounds a flip stays within.  ``launch/train.py``
+  under 4 gloo ranks.
+
+Tolerances:
+
+* specs, blocks, ``dropped``, restored checkpoints, the mesh against one
+  process routed alike: exact;
+* qwen's prefill and decode logits: 0.1 absolute
+  (``tests/test_torch_models.py``'s; seen: 0.035); served tokens equal
+  where ``repro``'s top-2 margin is over 0.2;
+* ``moe_ffn``'s output: one bf16 ulp of its largest value (2^-7
+  relative; the bf16 psum over "model" adds the partial outputs in
+  another order than XLA; seen: 0 for E 8, one ulp at E 2); ``lb_loss``
+  1e-3 absolute (seen: 6e-8);
+* gradients: 2 % normwise, ``|got - want| / |want|``, for ``moe_ffn``
+  (seen: 0.54 % at most: bf16 products in another order), and 5 % for
+  a train step, ``tests/test_torch_train.py``'s bound (seen: 3.2 %, a
+  bias of a reduced qwen); loss and ce 5e-3 absolute, the grad norm
+  5e-3 relative, ``lb_loss`` 1e-3;
+* a step's updated values within twice Adam's largest move of
+  ``repro``'s, elementwise (``_adam_ratio``: a first update moves a
+  value by ``lr * sign(g)`` times a ratio of the bias corrections, so a
+  gradient near zero may flip it; over a loop, the moves add up),
+  its moments ``m`` 5 % and ``v`` 10 % normwise; AdamW alone on equal
+  inputs: 4 f32 ulps of the largest of the value, its parameter and the
+  step between them (``tests/test_torch_train.py``'s rule; seen: 3.5),
+  the norm 1e-6 relative (seen: equal);
+* the learning rate: 4 f32 ulps (XLA's and PyTorch's ``cos``).
+
+``repro``'s ``moe_ffn`` gradient is held as the derivative of its own
+forward: its ``shard_map`` under ``check_vma=False``
+(``mesh_model_pair.vma_unchecked``, a patch in the child; the forward is
+the same).  With a batch split over "data" ``repro`` runs
+``check_vma=True`` (``src/repro/models/moe.py:189-192``), and on jax
+0.9.0 its gradient through the router (the top-k weights) is then not
+that derivative; the expert weights' gradients are.  Pinned by
+``test_repro_moe_gradient_under_check_vma_is_pinned`` (ROADMAP §3, F9).
+The multi-rank fixture runs once per module (~50 s); the JAX child and
+each spawn have their own time limits, so a rank stuck in a collective
+fails the fixture instead of hanging.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import mesh_model_pair as pair
+from repro import configs as j_configs
+from repro.checkpoint.manager import CheckpointManager as JManager
+from repro.configs.base import ShapeConfig as JShape
+from repro.models import layers as j_layers
+from repro.models.model import build_model as j_build_model
+from repro.models.model import input_specs as j_input_specs
+from repro.sharding import rules as j_rules
+from repro_torch import configs
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.launch.mesh import (AbstractMesh, Mesh, gather_fwd,
+                                     make_production_mesh, psum_bwd,
+                                     psum_fwd)
+from repro_torch.models import layers, module
+from repro_torch.models import moe as t_moe
+from repro_torch.models.model import build_model, input_specs
+from repro_torch.optim import adamw
+from repro_torch.runtime import steps
+from repro_torch.sharding import rules
+from subproc import REPO_ROOT
+
+JAX_TIMEOUT_S = 600
+SPAWN_TIMEOUT_S = {8: 300, 4: 240}
+OUT_ATOL_ULPS = 2.0 ** -7
+LB_ATOL = 1e-3
+MOE_GRAD_NORMWISE = 0.02
+LOSS_ATOL, GNORM_RTOL, GRAD_NORMWISE = 5e-3, 5e-3, 0.05
+LOGIT_ATOL = 0.1
+M_NORMWISE, V_NORMWISE = 0.05, 0.10
+ULPS = 4
+PROD_MESHES = {"single": (16, 16), "multi": (2, 16, 16)}
+BATCHES = (1, 2, 3, 8, 16, 32, 64, 256, 512)
+
+
+class StubMesh:
+    """``axis_names`` and a name -> size ``shape``: what both packages'
+    rules read."""
+
+    def __init__(self, shape, axes):
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, shape))
+
+
+def _prod(kind):
+    m = make_production_mesh(multi_pod=kind == "multi")
+    return m, StubMesh(tuple(m.shape.values()), m.axis_names)
+
+
+def _nw(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# ------------------------------------------------------- specs, in process
+def test_production_mesh_shapes():
+    single, multi = make_production_mesh(), make_production_mesh(
+        multi_pod=True)
+    assert isinstance(single, AbstractMesh)
+    assert single.shape == {"data": 16, "model": 16} and single.size == 256
+    assert multi.axis_names == ("pod", "data", "model")
+    assert multi.shape == {"pod": 2, "data": 16, "model": 16}
+    assert multi.size == 512
+
+
+@pytest.mark.parametrize("kind", sorted(PROD_MESHES))
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_param_specs_match_repro(arch, kind):
+    """spec_pspec of every leaf of the full-width spec tree equals
+    ``repro``'s; ``model_shardings`` gives each per-layer parameter its
+    stacked leaf's spec less the stacked dimensions."""
+    mesh, stub = _prod(kind)
+    jspecs = pair.flat(j_build_model(j_configs.get_config(arch)).specs)
+    model = build_model(configs.get_config(arch), "meta")
+    tspecs = module.flatten(model.specs)
+    assert set(jspecs) == set(k.replace(".", "/") for k in tspecs)
+    for name, p in tspecs.items():
+        got = rules.spec_pspec(p, mesh)
+        assert tuple(got) == tuple(j_rules.spec_pspec(
+            jspecs[name.replace(".", "/")], stub)), name
+    sh = rules.model_shardings(model, mesh)
+    assert set(sh) == set(dict(model.named_parameters()))
+    for pname, s in sh.items():
+        assert s.mesh is mesh
+        stacked = rules.spec_pspec(tspecs[_stacked_name(model, pname)],
+                                   mesh)
+        assert tuple(s.spec) == tuple(stacked[len(stacked) - len(s.spec):])
+
+
+def _stacked_name(model, pname):
+    """The spec-tree leaf a per-layer parameter name comes from."""
+    return ".".join(s for s in pname.split(".") if not s.isdigit())
+
+
+@pytest.mark.parametrize("kind", sorted(PROD_MESHES))
+def test_batch_and_input_specs_match_repro(kind):
+    mesh, stub = _prod(kind)
+    for b in BATCHES:
+        for ndim in (1, 2, 3):
+            assert tuple(rules.batch_pspec(mesh, b, ndim)) == tuple(
+                j_rules.batch_pspec(stub, b, ndim)), (b, ndim)
+        assert rules.batch_axes(mesh, b) == tuple(
+            a for p in j_rules.batch_pspec(stub, b, 1) if p
+            for a in ((p,) if isinstance(p, str) else p))
+    jmesh = jax.sharding.AbstractMesh(tuple(mesh.shape.values()),
+                                      mesh.axis_names)
+    for arch in configs.ARCH_NAMES:
+        for kind_, b in (("train", 256), ("prefill", 32)):
+            shape = ShapeConfig(kind_, 4096, b, kind_)
+            got = rules.input_shardings(mesh, input_specs(
+                configs.get_config(arch), shape))
+            want = j_rules.input_shardings(jmesh, j_input_specs(
+                j_configs.get_config(arch), JShape(kind_, 4096, b, kind_)))
+            assert set(got) == set(want)
+            for k in got:
+                assert tuple(got[k].spec) == tuple(want[k].spec), (arch, k)
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_cache_specs_match_repro(arch):
+    """``cache_shardings`` over the port's cache tree at full width equals
+    ``repro``'s over its own, at a batch the data axis divides and one it
+    does not."""
+    mesh, _ = _prod("single")
+    jmesh = jax.sharding.AbstractMesh((16, 16), ("data", "model"))
+    tmodel = build_model(configs.get_config(arch), "meta")
+    jmodel = j_build_model(j_configs.get_config(arch))
+    for b in (32, 3):
+        got = pair.flat(rules.cache_shardings(
+            mesh, tmodel.cache_specs(b, 1024), b))
+        want = pair.flat(j_rules.cache_shardings(
+            jmesh, jmodel.cache_specs(b, 1024), b))
+        assert set(got) == set(want)
+        for k in got:
+            assert tuple(got[k].spec) == tuple(want[k].spec), (arch, b, k)
+
+
+def test_act_spec_matches_repro():
+    for kind in sorted(PROD_MESHES):
+        mesh, stub = _prod(kind)
+        for shape, parts in (((256, 4096, 32, 128),
+                              (("pod", "data"), None, "model", None)),
+                             ((3, 4096, 8, 128),
+                              (("pod", "data"), None, "model", None)),
+                             ((32, 4096, 152064), ("data", None, "model")),
+                             ((32, 7), (None, "model"))):
+            assert tuple(layers.act_spec(shape, parts, mesh)) == tuple(
+                j_layers.act_spec(shape, parts, stub))
+    x = torch.ones(2, 3)
+    assert layers.shard_act(x, "data", None) is x
+
+
+# ------------------------------------------------- placement, in process
+class CoordMesh(StubMesh):
+    def __init__(self, shape, axes, rank):
+        super().__init__(shape, axes)
+        self.coords = dict(zip(axes, (int(c) for c in np.unravel_index(
+            rank, shape))))
+
+
+def test_local_shards_tile_the_tensor():
+    """The blocks of every rank of a (2, 4) mesh tile the tensor, each
+    the row-major block of its coordinates (a dimension over ("data",
+    "model") splits data-major)."""
+    x = torch.arange(8 * 16 * 3, dtype=torch.float32).reshape(8, 16, 3)
+    for spec in (rules.PartitionSpec("data", "model"),
+                 rules.PartitionSpec(("data", "model")),
+                 rules.PartitionSpec(None, ("data", "model"), None),
+                 rules.PartitionSpec()):
+        seen = torch.zeros_like(x)
+        for r in range(8):
+            mesh = CoordMesh((2, 4), ("data", "model"), r)
+            blk = rules.local_shard(x, spec, mesh)
+            sl = rules.shard_slices(x.shape, spec, mesh)
+            assert torch.equal(blk, x[sl])
+            seen[sl] += 1
+        assert torch.all(seen == (1 if any(spec) else 8)), spec
+    with pytest.raises(ValueError, match="does not split"):
+        rules.shard_slices((6,), rules.PartitionSpec("model"),
+                           CoordMesh((2, 4), ("data", "model"), 0))
+
+
+def test_one_rank_mesh_needs_no_group():
+    mesh = Mesh((1, 1), ("data", "model"))
+    x = torch.randn(4, 6, requires_grad=True)
+    assert mesh.all_gather(x, ("data", "model"), 1) is x
+    assert mesh.psum_scatter(x, "model", 0) is x
+    for fn in (lambda t: gather_fwd(t, mesh, "data", 0),
+               lambda t: psum_fwd(t, mesh, "model"),
+               lambda t: psum_bwd(t, mesh, ("data", "model"))):
+        assert fn(x) is x
+    assert mesh.any(True) and not mesh.any(False)
+    view = mesh.with_batch(("data",))
+    assert view.batch_axes == ("data",) and mesh.batch_axes == ()
+    assert view.routes is mesh.routes and mesh.route == "direct"
+    assert set(mesh.routes) == {"all_reduce", "all_gather",
+                                "reduce_scatter"}
+
+
+def test_one_rank_mesh_step_is_the_cast_step():
+    """A train step on a (1, 1) mesh (no process group) is the one-device
+    step on the same weights rounded to bf16 (``cast_params``), bit for
+    bit: loss, metrics and every gradient but the embedding table's
+    (the mesh gathers the bf16 table, so its gradient is a bf16
+    scatter-add; one device gathers f32 rows: ROADMAP §3)."""
+    cfg = configs.get_reduced_config("mixtral-8x7b")
+    run = RunConfig(remat="full", attn_chunk_q=16, attn_chunk_kv=16)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 33))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+    full = build_model(cfg, "cpu", trainable=True)
+    module.init_params_into(full, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in full.parameters():
+            if p.dim() >= 2:
+                p.copy_(p.to(torch.bfloat16))
+    params = dict(full.named_parameters())
+    g1, m1 = steps.make_grad_fn(full, run)(params, batch)
+    mesh = Mesh((1, 1), ("data", "model"))
+    tmpl = build_model(cfg, "meta", trainable=True)
+    local = {k: p.detach().clone().requires_grad_(True)
+             for k, p in params.items()}
+    g2, m2 = steps.make_grad_fn(tmpl, run, mesh)(local, batch)
+    assert {k: float(v) for k, v in m1.items()} == \
+        {k: float(v) for k, v in m2.items()}
+    for k in g1:
+        if k != "embed.table":
+            # The cast's backward rounds a matrix's gradient to bf16.
+            want = g1[k].to(torch.bfloat16) if g1[k].dim() >= 2 else g1[k]
+            assert torch.equal(want.float(), g2[k].float()), k
+    assert all(p.device.type == "meta" for p in tmpl.parameters())
+
+
+def test_one_rank_mesh_moe_is_the_local_path():
+    """On a (1, 1) mesh ``moe_ffn``'s mesh path (any E: one model rank
+    holds them all) gives the one-rank path's output and aux, bit for
+    bit (the refusals: ``tests/test_torch_moe.py``)."""
+    cfg = dataclasses.replace(configs.get_reduced_config("mixtral-8x7b"),
+                              n_experts=3, capacity_factor=0.5)
+    params = module.init_params(t_moe.moe_spec(cfg),
+                                torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1)).to(torch.bfloat16)
+    mesh = Mesh((1, 1), ("data", "model")).with_batch(("data",))
+    y, aux = t_moe.moe_ffn(params, cfg, x, mesh)
+    y0, aux0 = t_moe.moe_ffn(params, cfg, x)
+    assert torch.equal(y, y0) and int(aux0["dropped"]) > 0
+    assert int(aux["dropped"]) == int(aux0["dropped"])
+    assert float(aux["lb_loss"]) == float(aux0["lb_loss"])
+
+
+def test_checkpoint_shardings_must_match_the_tree(tmp_path):
+    mesh = Mesh((1, 1), ("data", "model"))
+    sh = rules.NamedSharding(mesh, rules.PartitionSpec("data"))
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(1, {"a": torch.ones(4)}, shardings={"a": sh})
+    with pytest.raises(KeyError, match="shardings tree"):
+        mgr.save(2, {"a": torch.ones(4)}, shardings={"b": sh})
+    with pytest.raises(ValueError, match="checkpoint shape"):
+        mgr.restore(1, {"a": torch.zeros(2)}, {"a": sh})
+    got = mgr.restore(1, {"a": torch.zeros(4)}, {"a": sh})
+    assert torch.equal(got["a"], torch.ones(4))
+
+
+# ------------------------------------------------------- multi-rank runs
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{"jax": repro's outputs, 8: the (2, 4) ranks', 4: the (1, 4)
+    restore's, "ckpt": the checkpoint directory}."""
+    tmp = tmp_path_factory.mktemp("mesh_model")
+    inputs, jout = str(tmp / "inputs.npz"), str(tmp / "jax.npz")
+    ckpt = str(tmp / "ckpt")
+    pair.make_inputs(inputs)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        ["src", "tests"]), "XLA_FLAGS": pair.XLA_FLAGS,
+        "JAX_PLATFORMS": "cpu"}
+    jsteps = str(tmp / "jax_steps.npz")
+    children = [subprocess.Popen(
+        [sys.executable, "-c", f"import mesh_model_pair as m; m.{call}"],
+        cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for call in (
+            f"jax_reference({inputs!r}, {jout!r})",
+            f"jax_reference_steps({inputs!r}, {jsteps!r}, {str(tmp)!r})")]
+    try:
+        pair.spawn_ranks(8, (str(tmp / "init8"), inputs, ckpt, str(tmp)),
+                         SPAWN_TIMEOUT_S[8])
+        pair.spawn_ranks(4, (str(tmp / "init4"), inputs, ckpt, str(tmp)),
+                         SPAWN_TIMEOUT_S[4])
+        for child in children:
+            out, err = child.communicate(timeout=JAX_TIMEOUT_S)
+            assert child.returncode == 0 and "jax reference done" in out, \
+                err[-4000:]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+    load = lambda p: dict(np.load(p))     # noqa: E731
+    jax_out = load(jout)
+    jax_out.update(load(jsteps))
+    return {"jax": jax_out, 8: load(str(tmp / "world8.npz")),
+            4: load(str(tmp / "world4.npz")), "ckpt": ckpt,
+            "inputs": load(inputs)}
+
+
+def _repro_leaf(flat, arch, tag, name):
+    key, i = pair._repro_key(name)
+    a = flat[f"{arch}/{tag}/{key}"]
+    return a if i is None else a[i]
+
+
+def test_gathers_are_contiguous(runs):
+    """``Mesh.all_gather`` / ``psum_scatter`` along every dim return
+    contiguous tensors: a product on the permuted view took another
+    cuBLAS kernel than one process's and rounded differently (F11)."""
+    for dim in range(3):
+        assert runs[8][f"contiguous/{dim}"].tolist() == [True, True], dim
+
+
+def test_routes_are_direct_on_gloo_cpu(runs):
+    for world in (8, 4):
+        assert dict(runs[world]["routes"].tolist()) == {
+            "all_gather": "direct", "all_reduce": "direct",
+            "reduce_scatter": "direct"}
+
+
+@pytest.mark.parametrize("arch", pair.TRAIN_ARCHS)
+def test_blocks_are_repro_device_blocks(runs, arch):
+    """Each rank's block of every leaf is the slice ``repro``'s
+    ``NamedSharding.devices_indices_map`` gives its device."""
+    j, t = runs["jax"], runs[8]
+    keys = [k for k in j if k.startswith(f"{arch}/blocks/")]
+    assert keys
+    for k in keys:
+        for r in range(8):
+            assert np.array_equal(t[f"{k}/rank{r}"], j[k][r]), (k, r)
+
+
+@pytest.mark.parametrize("case", sorted(pair.MOE_CASES))
+def test_moe_ffn_matches_repro(runs, case):
+    j, t = runs["jax"], runs[8]
+    y, jy = t[f"moe_{case}/y"], j[f"moe_{case}/y"]
+    assert y.shape == jy.shape
+    assert np.abs(y - jy).max() <= OUT_ATOL_ULPS * np.abs(jy).max()
+    assert int(t[f"moe_{case}/dropped"]) == int(j[f"moe_{case}/dropped"])
+    assert int(j[f"moe_{case}/dropped"]) > 0      # capacity drops
+    assert abs(float(t[f"moe_{case}/lb"]) - float(j[f"moe_{case}/lb"])) \
+        <= LB_ATOL
+
+
+@pytest.mark.parametrize("case", sorted(pair.MOE_CASES))
+def test_moe_ffn_grads_match_repro(runs, case):
+    """The gradients of sum(y * cot) + 0.01 lb_loss with respect to x and
+    every weight, against ``repro``'s derivative of its forward."""
+    j, t = runs["jax"], runs[8]
+    for k in ("x", "router/w", "w_gate", "w_up", "w_down"):
+        got, want = t[f"moe_{case}/g/{k}"], j[f"moe_{case}/g/{k}"]
+        assert got.shape == want.shape
+        assert _nw(got, want) <= MOE_GRAD_NORMWISE, k
+
+
+def test_repro_moe_gradient_under_check_vma_is_pinned(runs):
+    """F9 (ROADMAP §3): with the batch split over "data", ``repro``'s
+    ``moe_ffn`` gradient (``check_vma=True``) is off its forward's
+    derivative on the router's path (x and the router weight, far beyond
+    rounding), while the expert weights' agree; with the batch
+    replicated (``check_vma=False`` in ``repro`` too) all agree.  The
+    port gives the derivative."""
+    j = runs["jax"]
+    for case in ("ep", "virtual"):
+        for k in ("x", "router/w"):
+            assert _nw(j[f"moe_{case}/g_vma/{k}"],
+                       j[f"moe_{case}/g/{k}"]) > 0.2, (case, k)
+        for k in ("w_gate", "w_up", "w_down"):
+            assert np.array_equal(j[f"moe_{case}/g_vma/{k}"],
+                                  j[f"moe_{case}/g/{k}"]), (case, k)
+    for k in ("x", "router/w", "w_gate", "w_up", "w_down"):
+        assert np.array_equal(j[f"moe_replicated/g_vma/{k}"],
+                              j[f"moe_replicated/g/{k}"]), k
+
+
+@pytest.mark.parametrize("arch", pair.TRAIN_ARCHS)
+def test_train_step_metrics_match_repro(runs, arch):
+    j, t = runs["jax"], runs[8]
+    for tag in ("metrics", "step"):
+        keys = {k for k in j if k.startswith(f"{arch}/{tag}/")}
+        assert keys == {k for k in t if k.startswith(f"{arch}/{tag}/")}
+    for key in ("loss", "ce"):
+        for tag in ("metrics", "step"):
+            k = f"{arch}/{tag}/{key}"
+            assert abs(float(t[k]) - float(j[k])) <= LOSS_ATOL, k
+    k = f"{arch}/step/grad_norm"
+    assert abs(float(t[k]) - float(j[k])) <= GNORM_RTOL * float(j[k])
+    lr, jlr = np.float32(t[f"{arch}/step/lr"]), np.float32(
+        j[f"{arch}/step/lr"])
+    assert jlr > 0 and abs(lr - jlr) <= ULPS * np.spacing(jlr)
+    if f"{arch}/step/lb_loss" in j:
+        assert abs(float(t[f"{arch}/step/lb_loss"])
+                   - float(j[f"{arch}/step/lb_loss"])) <= LB_ATOL
+        assert float(t[f"{arch}/step/dropped"]) == float(
+            j[f"{arch}/step/dropped"])
+
+
+@pytest.mark.parametrize("arch", pair.TRAIN_ARCHS)
+def test_train_step_grads_match_repro(runs, arch):
+    """Every parameter's gradient (gathered from the blocks) against
+    ``repro``'s under the mesh."""
+    j, t = runs["jax"], runs[8]
+    names = [k[len(f"{arch}/g/"):] for k in t if k.startswith(f"{arch}/g/")]
+    assert len(names) == len(dict(build_model(
+        configs.get_reduced_config(arch), "meta").named_parameters()))
+    for name in names:
+        got = t[f"{arch}/g/{name}"]
+        want = _repro_leaf(j, arch, "g", name)
+        assert got.shape == want.shape
+        assert _nw(got, want) <= GRAD_NORMWISE, name
+
+
+def _adam_ratio(step, n_grads=1):
+    """The largest |m_hat / sqrt(v_hat)| AdamW can reach at ``step`` from
+    moments that summed ``n_grads`` gradients since zero (Cauchy-Schwarz
+    over the decayed sums; 1 gradient: its exact value)."""
+    run = RunConfig()
+    bc1, bc2 = 1 - run.beta1 ** step, 1 - run.beta2 ** step
+    q = run.beta1 ** 2 / run.beta2
+    return ((1 - run.beta1) / bc1) / np.sqrt((1 - run.beta2) / bc2) \
+        * np.sqrt(sum(q ** i for i in range(n_grads)))
+
+
+@pytest.mark.parametrize("arch", pair.TRAIN_ARCHS)
+def test_train_step_updates_match_repro(runs, arch):
+    j, t = runs["jax"], runs[8]
+    lr = float(j[f"{arch}/step/lr"])
+    bound = 2 * lr * _adam_ratio(pair.OPT_STEP0 + 1)
+    for name in [k[len(f"{arch}/p2/"):] for k in t
+                 if k.startswith(f"{arch}/p2/")]:
+        got, want = t[f"{arch}/p2/{name}"], _repro_leaf(j, arch, "p2", name)
+        tol = bound + ULPS * np.spacing(np.abs(want).astype(np.float32))
+        assert np.all(np.abs(got - want) <= tol), name
+        assert _nw(t[f"{arch}/m2/{name}"],
+                   _repro_leaf(j, arch, "m2", name)) <= M_NORMWISE, name
+        assert _nw(t[f"{arch}/v2/{name}"],
+                   _repro_leaf(j, arch, "v2", name)) <= V_NORMWISE, name
+
+
+@pytest.mark.parametrize("arch", pair.TRAIN_ARCHS)
+def test_sharded_adamw_matches_repro_on_equal_inputs(runs, arch):
+    """AdamW on the blocks (the norm summed over each leaf's own axes)
+    against ``repro``'s jitted ``update`` under the mesh, fed the same
+    gradients."""
+    j, t, inp = runs["jax"], runs[8], runs["inputs"]
+    gn, jgn = float(t[f"{arch}/upd/grad_norm"]), float(
+        j[f"{arch}/upd/grad_norm"])
+    assert abs(gn - jgn) <= 1e-6 * jgn
+    for name in [k[len(f"{arch}/upd/"):] for k in t
+                 if k.startswith(f"{arch}/upd/") and k != f"{arch}/upd/"
+                 "grad_norm"]:
+        got, want = t[f"{arch}/upd/{name}"], _repro_leaf(j, arch, "upd",
+                                                          name)
+        p0 = _repro_leaf({f"{arch}/w/{k[len(f'w/{arch}/'):]}": v
+                          for k, v in inp.items()
+                          if k.startswith(f"w/{arch}/")}, arch, "w", name)
+        mag = np.maximum(np.maximum(np.abs(want), np.abs(p0)),
+                         np.abs(p0 - want)).astype(np.float32)
+        assert np.all(np.abs(got - want) <= ULPS * np.spacing(mag)), name
+
+
+def test_prefill_and_serve_steps_match_repro(runs):
+    """qwen's ``make_prefill_step`` last logits and DECODE_STEPS of
+    ``decode_step`` logits on (2, 4) within LOGIT_ATOL of ``repro``'s
+    under the mesh; ``make_serve_step``'s tokens equal wherever
+    ``repro``'s top-2 margin is clear of twice that."""
+    j, t = runs["jax"], runs[8]
+    arch = pair.TRAIN_ARCHS[0]
+    assert t[f"{arch}/prefill"].shape == (pair.TRAIN_B, 512)
+    assert np.abs(t[f"{arch}/prefill"] - j[f"{arch}/prefill"]).max() \
+        <= LOGIT_ATOL
+    clear = 0
+    for s in range(pair.DECODE_STEPS):
+        want = j[f"{arch}/decode{s}"]
+        assert np.abs(t[f"{arch}/decode{s}"] - want).max() <= LOGIT_ATOL
+        top = np.sort(want, -1)[:, -2:]
+        ok = top[:, 1] - top[:, 0] > 2 * LOGIT_ATOL
+        clear += int(ok.sum())
+        assert np.array_equal(t[f"{arch}/serve{s}"][ok, 0],
+                              j[f"{arch}/serve{s}"][ok, 0])
+    assert clear >= pair.DECODE_STEPS * pair.TRAIN_B // 2
+
+
+@pytest.mark.parametrize("arch", pair.TRAIN_ARCHS)
+def test_mesh_prefill_and_decode_are_one_process_routed_alike(runs, arch):
+    """The mesh's prefill, decode and serve steps against one process's
+    forward and decode of each data shard's rows (the MoE's capacity is
+    per shard), routed as that process routed: bit for bit.  With
+    ``tests/test_torch_moe.py`` holding one process against ``repro``,
+    this holds mixtral's mesh path, whose routing can flip at near ties
+    between the packages."""
+    t = runs[8]
+    assert np.array_equal(t[f"{arch}/prefill"], t[f"{arch}/prefill_one"])
+    for s in range(pair.DECODE_STEPS):
+        want = t[f"{arch}/decode_one{s}"]
+        assert np.array_equal(t[f"{arch}/decode{s}"], want)
+        assert np.array_equal(t[f"{arch}/serve{s}"][:, 0],
+                              want.argmax(-1))
+
+
+def test_data_mesh_moe_is_one_process_routed_alike(runs):
+    """Mixtral on the (8,) ("data",) mesh (``repro``'s MoE takes its
+    one-rank path over the whole batch there): metrics equal to one
+    process's (1,) mesh, routed as it routed, and every gradient within
+    MOE_GRAD_NORMWISE (the bf16 gradients of 8 shares summed in another
+    order; seen: 1.1 %)."""
+    t = runs[8]
+    for k in ("loss", "ce", "lb_loss", "dropped"):
+        assert t[f"data_mesh/metrics/{k}"] == t[f"data_one/metrics/{k}"], k
+    names = [k[len("data_mesh/g/"):] for k in t
+             if k.startswith("data_mesh/g/")]
+    assert names
+    for name in names:
+        assert _nw(t[f"data_mesh/g/{name}"],
+                   t[f"data_one/g/{name}"]) <= MOE_GRAD_NORMWISE, name
+
+
+@pytest.mark.parametrize("tag", ["data_mesh", "microbatch"])
+def test_mixtral_step_variants_match_repro(runs, tag):
+    """Mixtral's train step on the (8,) data mesh and with 2 microbatches
+    on (2, 4) against ``repro``'s: the bounds of a step that a routing
+    flip at a near tie stays within (loss, ce 5e-3; lb_loss 1e-3; the
+    grad norm 5e-3 relative)."""
+    j, t = runs["jax"], runs[8]
+    for key in ("loss", "ce"):
+        assert abs(float(t[f"{tag}/step/{key}"])
+                   - float(j[f"{tag}/step/{key}"])) <= LOSS_ATOL
+    assert abs(float(t[f"{tag}/step/lb_loss"])
+               - float(j[f"{tag}/step/lb_loss"])) <= LB_ATOL
+    gn = float(j[f"{tag}/step/grad_norm"])
+    assert abs(float(t[f"{tag}/step/grad_norm"]) - gn) <= GNORM_RTOL * gn
+
+
+def test_train_loop_matches_repro(runs):
+    """``train_loop(shardings=)`` on (2, 4), a failure injected at step
+    LOOP_FAIL: one restart, the losses of the steps it ends with within
+    5e-3 of ``repro``'s loop under the mesh, the final parameters within
+    Adam's moves of ``repro``'s, and bit for bit a clean run's."""
+    j, t = runs["jax"], runs[8]
+    assert int(t["loop/restarts"]) == int(j["loop/restarts"]) == 1
+    got, want = t["loop/loss"], j["loop/loss"][-pair.LOOP_STEPS:]
+    assert len(got) == pair.LOOP_STEPS
+    assert np.all(np.abs(got - want) <= LOSS_ATOL)
+    assert np.array_equal(got, t["loop_clean/loss"])
+    run = RunConfig(**pair.RUN_KNOBS)
+    bound = 2 * sum(float(adamw.schedule(run, torch.tensor(s)))
+                    * _adam_ratio(s + 1, s + 1)
+                    for s in range(pair.LOOP_STEPS))
+    names = [k[len("loop/p/"):] for k in t if k.startswith("loop/p/")]
+    assert names
+    for name in names:
+        p = t[f"loop/p/{name}"]
+        assert np.array_equal(p, t[f"loop_clean/p/{name}"]), name
+        want = _repro_leaf({f"x/p/{k[len('loop/p/'):]}": v
+                            for k, v in j.items() if k.startswith("loop/p/")},
+                           "x", "p", name)
+        assert np.all(np.abs(p - want) <= bound + ULPS * np.spacing(
+            np.abs(want).astype(np.float32))), name
+
+
+def test_checkpoint_restores_on_other_meshes(runs, tmp_path):
+    """qwen's state after its step, saved from (2, 4): restored on (1, 4)
+    (each rank reading its blocks), in one process and by ``repro``, bit
+    for bit the state that was saved."""
+    t4, t8 = runs[4], runs[8]
+    arch = pair.TRAIN_ARCHS[0]
+    assert int(t4["restored/step"]) == pair.OPT_STEP0 + 1
+    for tag, src in (("p", "p2"), ("m", "m2"), ("v", "v2")):
+        names = [k[len(f"{arch}/{src}/"):] for k in t8
+                 if k.startswith(f"{arch}/{src}/")]
+        for name in names:
+            assert np.array_equal(t4[f"restored/{tag}/{name}"],
+                                  t8[f"{arch}/{src}/{name}"]), name
+    model = build_model(configs.get_reduced_config(arch), "cpu",
+                        trainable=True)
+    params = dict(model.named_parameters())
+    opt = adamw.init(params)
+    CheckpointManager(runs["ckpt"]).restore(1, {"params": params,
+                                                "opt": opt})
+    for name, p in params.items():
+        assert np.array_equal(p.detach().numpy(), t8[f"{arch}/p2/{name}"])
+        assert np.array_equal(opt.v[name].numpy(), t8[f"{arch}/v2/{name}"])
+    jm = j_build_model(j_configs.get_reduced_config(arch))
+    like = {"params": jax.tree.map(np.zeros_like, jm.abstract_params())}
+    from repro.optim import adamw as j_adamw
+    like["opt"] = j_adamw.init(like["params"])
+    got = JManager(runs["ckpt"]).restore(1, like)
+    assert int(got["opt"].step) == pair.OPT_STEP0 + 1
+    jflat = pair.flat(jax.tree.map(np.asarray, got["params"]))
+    for name in params:
+        key, i = pair._repro_key(name)
+        a = jflat[key] if i is None else jflat[key][i]
+        assert np.array_equal(a, t8[f"{arch}/p2/{name}"]), name
+
+
+def test_train_launcher_on_a_data_mesh(tmp_path):
+    """``launch/train.py`` under 4 gloo ranks (torchrun's environment) on
+    its (4,) ("data",) mesh: the losses of a one-process run within
+    5e-3 (the mesh casts the matrices to bf16 before the forward, one
+    device does not), one checkpoint directory in ``repro``'s format, and
+    a second run resuming from it."""
+    def run(world, ck, steps_=3):
+        env = {**os.environ, "PYTHONPATH": "src", "WORLD_SIZE": str(world),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+               "OMP_NUM_THREADS": "1"}
+        args = [sys.executable, "-m", "repro_torch.launch.train",
+                "--reduced", "--device", "cpu", "--steps", str(steps_),
+                "--batch", "8", "--seq", "32", "--ckpt-every", "2",
+                "--ckpt-dir", ck]
+        procs = [subprocess.Popen(args, cwd=REPO_ROOT, env={
+            **env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=180))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        assert all(p.returncode == 0 for p in procs), outs[0][1][-3000:]
+        return outs[0][0]
+
+    def losses(text):
+        line = [ln for ln in text.splitlines() if "done: loss" in ln][0]
+        return [float(v) for v in line.split("loss ")[1].split(",")[0]
+                .split(" -> ")]
+    one = losses(run(1, str(tmp_path / "one")))
+    out4 = run(4, str(tmp_path / "four"))
+    assert "mesh {'data': 4}" in out4
+    four = losses(out4)
+    assert max(abs(a - b) for a, b in zip(one, four)) <= LOSS_ATOL
+    assert sorted(os.listdir(tmp_path / "four")) == [
+        "step_00000000", "step_00000002", "step_00000003"]
+    resumed = run(4, str(tmp_path / "four"), steps_=4)
+    assert "resumed from checkpoint step 3" in resumed
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]

@@ -270,12 +270,33 @@ def test_moe_ffn_matches_repro(arch, cf, routes):
                                atol=BF16_ATOL)
 
 
+class _StubMesh:
+    """A mesh's names, sizes and this rank's coordinates, no group: the
+    refusals come before any collective."""
+
+    def __init__(self, shape, axes, batch_axes):
+        self.axis_names, self.batch_axes = tuple(axes), tuple(batch_axes)
+        self.shape = dict(zip(axes, shape))
+        self.coords = {a: 0 for a in axes}
+        self.size = int(np.prod(shape))
+
+
 def test_moe_ffn_refuses_a_mesh():
+    """The meshes the mesh path refuses: a model axis that the expert
+    count neither divides nor is divided by (``repro``'s ValueError), and
+    rows split on other axes than ``repro``'s MoE layer would split the
+    batch on (a data extent that divides it, a pod x data one that does
+    not)."""
     cfg = configs.get_reduced_config("mixtral-8x7b")
     _, tp = _moe_params(cfg)
     x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        moe.moe_ffn(tp, cfg, x, mesh=object())
+    with pytest.raises(ValueError, match="need one to divide the other"):
+        moe.moe_ffn(tp, cfg, x, _StubMesh((1, 3), ("data", "model"),
+                                          ("data",)))
+    with pytest.raises(NotImplementedError, match="splits a batch of 2"):
+        moe.moe_ffn(tp, cfg, x, _StubMesh((2, 2, 1),
+                                          ("pod", "data", "model"),
+                                          ("data",)))
 
 
 @pytest.mark.parametrize("tokens", [1, 8, 80, 16384])

@@ -36,6 +36,16 @@ Two more, found by comparing the packages' public signatures:
   refused the keyword.  It now cuts at the same point: ids and
   ``ResolveStats`` equal ``repro``'s at k = 1 and 2 on both schedules.
 
+One more, found training on a data mesh (a rank's batch of one row):
+
+* F10, flash at batch 1: ``attend_bshd`` reshaped q / k / v [1, S, H,
+  D] to [H, S, D] after a transpose, which at B = 1 is a strided view,
+  and the kernel wrapper refuses a non-contiguous tensor on the card
+  (``q must be contiguous``): a one-prompt prefill or a rank's one-row
+  training step failed there.  ``bhsd`` now makes it contiguous; the
+  test hands ``attend_bshd`` a function that refuses what the card's
+  wrapper refuses, at B = 1 and 3, with the twin's values.
+
 The cases marked ``cuda`` repeat each on the card, against the twins,
 and skip here; chip_smoke.py runs the same on the H100.
 """
@@ -377,6 +387,27 @@ def test_resolve_candidates_truncates_to_k(fast_pair, points_small, k,
     assert int(need.sum()) > 0
     if k == 1:
         assert not torch.equal(port(cand)[0], at)
+
+
+# ----------------------------------------------------------------- F10
+@pytest.mark.parametrize("b", [1, 3])
+def test_attend_bshd_hands_the_kernel_contiguous_heads(b):
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, 64, h, 16)),
+                               dtype=torch.float32) for h in (4, 2, 2))
+
+    def kernel(q_, k_, v_, *, causal):
+        for name, t in (("q", q_), ("k", k_), ("v", v_)):
+            if not t.is_contiguous():       # _build.require's refusal
+                raise ValueError(f"{name} must be contiguous")
+        return ref.flash_attn_bhsd(q_, k_, v_, causal=causal, bk=32)
+
+    def twin(q_, k_, v_, *, causal):
+        return ref.flash_attn_bhsd(q_, k_, v_, causal=causal, bk=32)
+
+    got = flash_attn.attend_bshd(kernel, q, k, v, causal=True)
+    assert torch.equal(got, flash_attn.attend_bshd(twin, q, k, v,
+                                                   causal=True))
 
 
 # ------------------------------------------------------- on the card
