@@ -285,20 +285,27 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
      shared: no scaling figure) draw their blocks of the same weights
      (``sharding.rules.init_sharded``) and run:
      a. ``make_prefill_step`` over MESH_MOE_BATCH x MESH_MOE_SEQ on a
-        (1, 4) and a (2, 2) mesh, routed as one process routed the same
-        rows (each choice of their own that differs must be a near tie):
-        flash_attn_bhsd launched once a layer a rank (wgmma, each call
-        against the twin) and nothing else, the last logits within
-        LOGIT_TOL of one process's, dropped equal to one process's at
-        the same per-shard capacity; ms a forward, the weights' gather,
-        peak memory and the collectives' routes per rank; then the token
-        loop (MESH_SERVE) on (1, 4) through ``make_serve_step``, no
-        kernel launched, fed one process's tokens and routed as it
-        routed: every step's last logits within LOGIT_TOL of its own
-        (where they are not bit-equal, ``op_log`` names the first value
-        that differs after equal ones: an attention output, the expert
-        buckets or outputs, the MoE output, the final hidden state or
-        the logits);
+        (1, 4) and a (2, 2) mesh, tensor-parallel over "model" (each
+        rank its heads, vocab block and experts), routed as one process
+        routed the same rows (each choice of their own that differs must
+        be a near tie): flash_attn_bhsd launched once a layer a rank at
+        [B_loc * H / m, S, hd] (wgmma, each call against the twin) and
+        nothing else, the last logits (gathered over the vocab and the
+        rows) within LOGIT_TOL of one process's, dropped equal to one
+        process's at the same per-shard capacity; ms a forward, the
+        compute tree's bytes and gather seconds beside the gathered
+        layout's (every leaf but the experts whole over "model"), peak
+        memory and the collectives' routes per rank; flash timed at the
+        (1, 4) shape on rank 0's first call (the kernels line's
+        ``mesh_tp_shape``); then the token loop (MESH_SERVE) on (1, 4)
+        through ``make_serve_step`` on each rank's block of the cache
+        (its kv heads: 1/4 of one process's k / v bytes), no kernel
+        launched, fed one process's tokens and routed as it routed: each
+        rank's vocab block of every step's last logits within LOGIT_TOL
+        of one process's (where they are not bit-equal, ``op_log`` names
+        the first value that differs after equal ones: an attention
+        output, the expert buckets or outputs, the MoE output, the final
+        hidden state or the logits);
      b. Qwen1.5-0.5B at its published width through
         ``launch.train.setup_mesh`` on the (MESH_RANKS,) ("data",) mesh,
         MESH_TRAIN_STEPS steps of ``make_train_step`` (remat "full"; 48
@@ -309,7 +316,13 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         shardings=)``: rank 0 writes whole arrays), restored on a (2, 2)
         mesh (each rank its blocks) and in one process, all three equal
         bit for bit (position-weighted integer checksums of the f32
-        bits, summed over the blocks).
+        bits, summed over the blocks);
+     b'. Qwen1.5-0.5B at its published width, one ``make_train_step``
+        on a (2, 2) ("data", "model") mesh, tensor-parallel (remat
+        "full", MESH_TRAIN_BATCH x MESH_TRAIN_SEQ, 48 wgmma flash
+        launches a rank at [B_loc * H / 2, S, hd], each against the
+        twin): its loss, ce and grad norm within phase 9's bounds of one
+        process's first step; the blocks', compute tree's and peak bytes.
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -522,14 +535,16 @@ SHARDED_RUNS = {
 # times are time-shared, no scaling figure), each joined within
 # MESH_TIMEOUT_S.  (a) Mixtral-8x7B at its published widths cut to
 # MESH_MOE_LAYERS of 32 layers, random weights from MOE_SEED: a
-# make_prefill_step forward over MESH_MOE_BATCH x MESH_MOE_SEQ tokens on a
-# (1, 4) mesh (2 experts a rank) and a (2, 2) one (4 experts a rank, their
+# make_prefill_step forward over MESH_MOE_BATCH x MESH_MOE_SEQ tokens,
+# tensor-parallel over "model", on a (1, 4) mesh (8 heads and 2 experts a
+# rank) and a (2, 2) one (16 heads and 4 experts a rank, the experts
 # weights gathered over "data"), each routed as the one-process forward of
 # the same rows routed (its own differing choices must be near ties), then
 # the token loop serving MESH_SERVE on (1, 4).  (b) Qwen1.5-0.5B at its
 # published width trained MESH_TRAIN_STEPS steps of MESH_TRAIN_BATCH x
 # MESH_TRAIN_SEQ tokens on launch/train.py's (4,) ("data",) mesh, remat
-# "full", against one process's step on a (1,) mesh (which casts alike).
+# "full", against one process's step on a (1,) mesh (which casts alike);
+# and one step on a (2, 2) mesh, tensor-parallel over "model".
 # (c) Its state after them saved from that mesh and restored on a (2, 2)
 # mesh and in one process, held bit for bit by integer checksums of the
 # f32 bits (position-weighted, summed over the blocks: integer sums do
@@ -2517,7 +2532,8 @@ def op_log(model):
     "moe_out"), each ``moe._expert_ffn`` call's (weights held, buf, h)
     ("experts"), each step's hidden state before the final norm
     ("final"), the unembedding's (normed input, weight held) ("unembed")
-    and its last logits in f32 ("logits")."""
+    and its last logits in f32 ("logits"; under a tensor-parallel mesh
+    this rank's vocab block)."""
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
@@ -2543,8 +2559,8 @@ def op_log(model):
         ops["unembed"].append((x.clone(), params["w"]))
         return real_unembed(params, x)
 
-    def logits(x):
-        out = real_logits(x)
+    def logits(x, mesh=None):
+        out = real_logits(x, mesh)
         ops["final"].append(x.clone())
         ops["logits"].append(out[:, -1].float())
         return out
@@ -3877,9 +3893,18 @@ def state_checksums(params, opt, shardings=None) -> dict:
     return out
 
 
-def mesh_moe_rank(smoke, ref, rank):
-    """Phase 14a on one rank: Mixtral's prefill on each of MESH_SHAPES and
-    the token loop on (1, 4)."""
+def tree_bytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+def kv_bytes(cache: dict) -> int:
+    """The bytes of a cache's k / v leaves."""
+    return tree_bytes({k: cache[k] for k in ("k", "v")})
+
+
+def mesh_moe_rank(smoke, ref, rank, tmp):
+    """Phase 14a on one rank: Mixtral's prefill on each of MESH_SHAPES,
+    tensor-parallel over "model", and the token loop on (1, 4)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_mesh
@@ -3897,11 +3922,20 @@ def mesh_moe_rank(smoke, ref, rank):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        params = init_sharded(model, model_shardings(model, mesh),
-                              torch.Generator(device="cuda")
-                              .manual_seed(MOE_SEED), "cuda")
-        block_bytes = sum(p.numel() * p.element_size()
-                          for p in params.values())
+        shardings = model_shardings(model, mesh)
+        params = init_sharded(model, shardings, torch.Generator(
+            device="cuda").manual_seed(MOE_SEED), "cuda")
+        block_bytes = tree_bytes(params)
+        # The tree of the gathered layout (every leaf but the experts
+        # whole over "model", as before tensor parallelism), timed and
+        # measured beside the tensor-parallel one, then freed.
+        t0 = time.perf_counter()
+        whole = steps._compute_tree(params, shardings, ())
+        torch.cuda.synchronize()
+        gathered = dict(gather_s=time.perf_counter() - t0,
+                        tree_bytes=tree_bytes(whole))
+        del whole
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         tree = steps.compute_params(model, params, mesh)
         torch.cuda.synchronize()
@@ -3923,8 +3957,14 @@ def mesh_moe_rank(smoke, ref, rank):
         counts = dict(smoke.build.LAUNCHES)
         routes = dict(smoke.build.ROUTE_LAUNCHES)
         b_loc = MESH_MOE_BATCH // shape[0]
-        bhsd = (b_loc * cfg.n_heads, MESH_MOE_SEQ, cfg.hd)
+        # Each rank's block of heads (tensor-parallel over "model").
+        bhsd = (b_loc * cfg.n_heads // shape[1], MESH_MOE_SEQ, cfg.hd)
         calls = cap.calls["flash_attn_bhsd"]
+        if rank == 0 and shape == (1, 4):
+            # The path's first call, timed by the main process.
+            (q, k, v), kw, _ = calls[0]
+            torch.save({"qkv": [x.cpu() for x in (q, k, v)], "kw": kw,
+                        "b_loc": b_loc}, os.path.join(tmp, "mesh_flash.pt"))
         for kname, n in counts.items():
             check((n > 0) == (kname == "flash_attn_bhsd"),
                   f"mesh {tag} prefill: {kname} launched {n} times")
@@ -3953,7 +3993,8 @@ def mesh_moe_rank(smoke, ref, rank):
             flash_launches=counts["flash_attn_bhsd"], flash_shape=bhsd,
             flash_max_abs_err=err, flash_over=over, near_tie_flips=flips,
             dropped=sum(dropped), block_bytes=block_bytes,
-            gather_s=gather_s, peak_total_bytes=torch.cuda
+            tree_bytes=tree_bytes(tree), gather_s=gather_s,
+            gathered_layout=gathered, peak_total_bytes=torch.cuda
             .max_memory_allocated() - base, last=last.float().cpu().numpy().tolist()
             if rank == 0 else None, **timing)
         if shape == (1, 4):
@@ -3964,9 +4005,12 @@ def mesh_moe_rank(smoke, ref, rank):
 
 def mesh_serve(smoke, model, run, mesh, tree, ref):
     """Phase 14a's token loop on this rank through ``make_serve_step`` (no
-    kernel of the eight launched), fed the tokens one process was fed
-    (its prompts, then its greedy tokens): once timed, then once routed
-    as one process routed, each step's last logits held against its own.
+    kernel of the eight launched) on its block of the cache (its rows and
+    kv heads, ``local_cache``; its k / v bytes beside one process's), fed
+    the tokens one process was fed (its prompts, then its greedy tokens):
+    once timed, then once routed as one process routed, this rank's
+    vocab block of each step's last logits held against the same block
+    of one process's.
     ``first_difference`` is the first value of that second pass that is
     not one process's bit for bit, in the order a step computes them
     (per layer: ``moe_ffn``'s input, i.e. after the attention; this
@@ -3977,7 +4021,7 @@ def mesh_serve(smoke, model, run, mesh, tree, ref):
     them, and compared with one process's bits.  ``first_logits`` is the
     first step whose logits differ though every value before them is
     equal; there the unembedding is rerun on a contiguous copy of its
-    weight (under a mesh it is a gathered, permuted view)."""
+    weight block."""
     from repro_torch.models import moe
     from repro_torch.runtime import steps
     b, s, gen = MESH_SERVE
@@ -3987,8 +4031,11 @@ def mesh_serve(smoke, model, run, mesh, tree, ref):
                      torch.from_numpy(ref["serve_gaps"])))
     step = steps.make_serve_step(model, run, mesh)
 
+    cache_bytes = {}
+
     def loop():
         cache = steps.local_cache(model, mesh, b, s + gen, "cuda")
+        cache_bytes["rank"] = kv_bytes(cache)
         toks = []
         for t in range(n_steps):
             nxt, cache = step(tree, feed[:, t:t + 1], cache)
@@ -4006,8 +4053,12 @@ def mesh_serve(smoke, model, run, mesh, tree, ref):
     with RouteLog().record(force) as rc, op_log(model) as ops:
         loop()
     flips = route_flips(force, rc, "mesh serve vs one process")
+    # This rank's vocab block of the logits, beside the same block of one
+    # process's.
     got = torch.stack(ops["logits"])
-    want_logits = torch.from_numpy(ref["serve_logits"]).cuda()
+    v_lo = mesh.coords["model"] * got.shape[-1]
+    want_logits = torch.from_numpy(ref["serve_logits"][
+        ..., v_lo:v_lo + got.shape[-1]]).cuda()
     step_err = (got - want_logits).abs().amax(dim=(1, 2)).cpu().numpy()
     want = {k: torch.from_numpy(ref[f"serve_{k}"]).view(torch.bfloat16)
             for k in ("moe_in", "moe_out", "buf", "h", "final")}
@@ -4056,7 +4107,9 @@ def mesh_serve(smoke, model, run, mesh, tree, ref):
         if first is not None:
             break
     del ops
+    one_cache = kv_bytes(model.cache_specs(b, s + gen))
     return dict(tokens=toks.cpu().numpy().tolist(),
+                cache_bytes=cache_bytes["rank"], cache_bytes_one=one_cache,
                 step_max_abs_err=step_err.tolist(),
                 first_logit_step=int(np.flatnonzero(step_err)[0])
                 if step_err.any() else None,
@@ -4143,6 +4196,62 @@ def mesh_train_rank(smoke, ref, rank, tmp):
     return out
 
 
+def mesh_tp_train_rank(smoke, ref):
+    """Phase 14b' on one rank: Qwen1.5-0.5B at its published width, one
+    ``make_train_step`` on a (2, 2) ("data", "model") mesh, tensor-
+    parallel over "model" (remat "full"; 2 flash launches a layer a rank
+    at [B_loc * H / 2, S, hd], each call held against the twin), on step
+    0's batch: its loss, ce and grad norm, the step's seconds, the
+    blocks' and the compute tree's bytes, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import model_shardings, tp_leaves
+    cfg = get_config(LM_ARCH)
+    run = train_mod.run_config(LM_ARCH, MESH_TRAIN_STEPS, MESH_TRAIN_SEQ,
+                               remat="full")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, opt, _ = train_mod.setup_mesh(cfg, mesh, seed=TRAIN_SEED,
+                                                 device="cuda")
+    tree = steps._compute_tree(steps.cast_params(params),
+                               model_shardings(model, mesh), ("data",),
+                               tp_leaves(model, mesh))
+    tree_b = tree_bytes(tree)
+    del tree
+    step = steps.make_train_step(model, run, mesh)
+    batch = {k: torch.from_numpy(ref[f"train_{k}"][0]).cuda()
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    t0 = time.perf_counter()
+    with smoke.capture(keep=[]) as cap:
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])
+    dt = time.perf_counter() - t0
+    launches = dict(smoke.build.LAUNCHES)
+    routes = dict(smoke.build.ROUTE_LAUNCHES)
+    n_flash = 2 * cfg.n_layers            # forward + the remat recompute
+    shape = (MESH_TRAIN_BATCH // 2 * cfg.n_heads // 2, MESH_TRAIN_SEQ,
+             cfg.hd)
+    c = cap.checked["flash_attn_bhsd"]
+    check(launches["flash_attn_bhsd"] == n_flash
+          == routes.get("flash_attn_bhsd:wgmma") == c["calls"]
+          and sum(launches.values()) == n_flash
+          and c["rows"] == n_flash * shape[0],
+          f"mesh TP train step: launches {launches} {routes}, {c['rows']} "
+          f"rows, not {n_flash} wgmma flash calls at {shape}")
+    return dict(step_s=dt, loss=loss, ce=float(m["ce"]),
+                grad_norm=float(m["grad_norm"]),
+                flash_launches=launches["flash_attn_bhsd"],
+                flash_shape=shape, flash_max_abs_err=c["max_abs_err"],
+                block_bytes=tree_bytes(params), tree_bytes=tree_b,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                routes=dict(mesh.routes), coords=mesh.coords)
+
+
 def mesh_rank(rank, addr, tmp):
     """Phase 14 on one of MESH_RANKS gloo ranks sharing cuda:0 (a spawned
     process); writes ``rank{rank}.json``."""
@@ -4158,8 +4267,9 @@ def mesh_rank(rank, addr, tmp):
         smoke = Smoke()
         with np.load(os.path.join(tmp, "ref.npz")) as z:
             ref = {k: z[k] for k in z.files}
-        out = {"moe": mesh_moe_rank(smoke, ref, rank)}
+        out = {"moe": mesh_moe_rank(smoke, ref, rank, tmp)}
         out["train"] = mesh_train_rank(smoke, ref, rank, tmp)
+        out["tp_train"] = mesh_tp_train_rank(smoke, ref)
         out["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -4284,7 +4394,8 @@ def mesh_references(smoke, tmp) -> dict:
 
 def mesh_phase(smoke, result) -> dict:
     """Phase 14: the model half of distributed (see the module docstring).
-    Returns the flash kernel's launches a rank on its paths."""
+    Returns the flash kernel's launches a rank on its paths and its
+    timing at the tensor-parallel prefill's shape."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -4298,6 +4409,15 @@ def mesh_phase(smoke, result) -> dict:
         ranks = spawn_ranks(mesh_rank, MESH_RANKS, MESH_TIMEOUT_S, tmp,
                             "mesh")
         out["spawn_s"] = time.perf_counter() - t0
+        # Flash at the (1, 4) prefill's shape, on rank 0's first call's
+        # inputs: the kernel, its twin and PyTorch's fused attention.
+        saved = torch.load(os.path.join(tmp, "mesh_flash.pt"))
+        qkv = tuple(x.cuda() for x in saved["qkv"])
+        fa = smoke.flash.flash_attn_bhsd(*qkv, **saved["kw"])
+        tp_timing = flash_row(smoke, [(qkv, saved["kw"], (fa,))],
+                              MESH_MOE_LAYERS, batch=saved["b_loc"],
+                              path="mesh prefill (1, 4), tensor-parallel")
+        del saved, qkv, fa
         # (c) one process restores the checkpoint whole.
         t0 = time.perf_counter()
         model = build_model(get_config(LM_ARCH), "cuda", trainable=True)
@@ -4347,8 +4467,14 @@ def mesh_phase(smoke, result) -> dict:
               f"{[round(r['peak_total_bytes'] / 2**30, 2) for r in runs]}, "
               f"blocks "
               f"GiB {[round(r['block_bytes'] / 2**30, 2) for r in runs]}, "
-              f"gather s {[round(r['gather_s'], 2) for r in runs]}, routes "
-              f"{runs[0]['routes']}")
+              f"compute tree GiB "
+              f"{[round(r['tree_bytes'] / 2**30, 3) for r in runs]} in "
+              f"{[round(r['gather_s'], 2) for r in runs]} s (the gathered "
+              f"layout's, every leaf but the experts whole over 'model': "
+              f"{[round(r['gathered_layout']['tree_bytes'] / 2**30, 3) for r in runs]}"
+              f" GiB in "
+              f"{[round(r['gathered_layout']['gather_s'], 2) for r in runs]}"
+              f" s), routes {runs[0]['routes']}")
     # (a) the token loop on (1, 4), fed one process's tokens and routed
     # as it routed: every step's logits within LOGIT_TOL of its own.
     b, s, gen = MESH_SERVE
@@ -4361,11 +4487,22 @@ def mesh_phase(smoke, result) -> dict:
                             f"process's (tol {LOGIT_TOL})")
     same = int((got == ref["serve_tokens"]).sum())
     firsts = [(x["first_logits"], x["first_difference"]) for x in serves]
+    m = MESH_SHAPES[0][1]
+    kv_split = cfg.n_kv_heads % m == 0
+    check(all(x["cache_bytes"] * (m if kv_split else 1)
+              == x["cache_bytes_one"] for x in serves),
+          f"mesh serve: k / v cache bytes a rank "
+          f"{[x['cache_bytes'] for x in serves]}, one process's "
+          f"{serves[0]['cache_bytes_one']} ({cfg.n_kv_heads} kv heads on a "
+          f"{m}-way 'model' axis)")
     out["serve"] = dict(max_abs_err=err, tokens_equal=same, ranks=serves)
     print(f"phase 14: mixtral token loop on (1, 4), {b} prompts of {s} + "
           f"{gen} generated, fed one process's tokens and routed alike "
-          f"(near-tie flips {[x['near_tie_flips'] for x in serves]}): "
-          f"every step's logits within {err:.4g} of one process's (tol "
+          f"(near-tie flips {[x['near_tie_flips'] for x in serves]}), each "
+          f"rank's k / v cache {serves[0]['cache_bytes']} B (its "
+          f"{cfg.n_kv_heads // m if kv_split else cfg.n_kv_heads} kv heads) "
+          f"beside one process's {serves[0]['cache_bytes_one']} B: every "
+          f"step's logits within {err:.4g} of one process's (tol "
           f"{LOGIT_TOL}), first unequal step "
           f"{[x['first_logit_step'] for x in serves]}; by rank, the first "
           f"logits that differ after equal values and the first hidden "
@@ -4410,12 +4547,42 @@ def mesh_phase(smoke, result) -> dict:
           f"{max(t['restore_2x2_s'] for t in trains):.2f} s and in one "
           f"process in {out['restore_one_s']:.2f} s, {len(sums)} tensors "
           f"bit-identical (checksums)")
+    # (b') Qwen's tensor-parallel step on (2, 2) against the same one
+    # process's first step.
+    tps = [r["tp_train"] for r in ranks]
+    for key in ("loss", "ce"):
+        check(all(abs(t[key] - one[key]) <= TRAIN_LOSS_ATOL for t in tps),
+              f"mesh TP train: {key} {[t[key] for t in tps]} vs one "
+              f"process's {one[key]}")
+    check(all(abs(t["grad_norm"] - one["grad_norm"])
+              <= TRAIN_GNORM_RTOL * one["grad_norm"] for t in tps),
+          f"mesh TP train: grad norm {[t['grad_norm'] for t in tps]} vs one "
+          f"process's {one['grad_norm']}")
+    out["tp_train"] = dict(ranks=tps)
+    print(f"phase 14: {LM_ARCH} at full width, one make_train_step on a "
+          f"(2, 2) ('data', 'model') mesh, tensor-parallel (remat full, "
+          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}): loss "
+          f"{tps[0]['loss']:.5f} / ce {tps[0]['ce']:.5f} / grad norm "
+          f"{tps[0]['grad_norm']:.5f} vs one process's {one['loss']:.5f} / "
+          f"{one['ce']:.5f} / {one['grad_norm']:.5f} (tol {TRAIN_LOSS_ATOL}, "
+          f"{TRAIN_GNORM_RTOL} relative); per rank flash "
+          f"x{tps[0]['flash_launches']} at {tps[0]['flash_shape']} (wgmma, "
+          f"each == twin, max abs err "
+          f"{max(t['flash_max_abs_err'] for t in tps):.3g}), step s "
+          f"{[round(t['step_s'], 2) for t in tps]}, blocks GiB "
+          f"{[round(t['block_bytes'] / 2**30, 3) for t in tps]}, compute "
+          f"tree GiB {[round(t['tree_bytes'] / 2**30, 3) for t in tps]}, "
+          f"peak GiB {[round(t['peak_bytes'] / 2**30, 2) for t in tps]}, "
+          f"routes {tps[0]['routes']}")
     out["seconds"] = time.perf_counter() - t_start
     print(f"phase 14: {out['seconds']:.1f} s ({out['references_s']:.1f} s "
           f"one-process references, {out['spawn_s']:.1f} s the spawn)")
-    return {"mesh_prefill_1x4": ranks[0]["moe"]["1x4"]["flash_launches"],
-            "mesh_prefill_2x2": ranks[0]["moe"]["2x2"]["flash_launches"],
-            "mesh_train_step": first["flash_launches"]}
+    return {"launches": {
+        "mesh_prefill_1x4": ranks[0]["moe"]["1x4"]["flash_launches"],
+        "mesh_prefill_2x2": ranks[0]["moe"]["2x2"]["flash_launches"],
+        "mesh_train_step": first["flash_launches"],
+        "mesh_tp_train_step": tps[0]["flash_launches"]},
+        "timing": tp_timing}
 
 
 def host_map():
@@ -5067,7 +5234,7 @@ def main() -> int:
     phase_s["sharded"] = time.perf_counter() - t_start
     # -- 14. the model half of distributed ------------------------------------
     torch.cuda.empty_cache()
-    mesh_launches = mesh_phase(smoke, result)
+    mesh = mesh_phase(smoke, result)
     phase_s["mesh"] = time.perf_counter() - t_start
     # The two PIP kernels' launches on the sharded path at (1, 1) beside
     # their main path's.
@@ -5087,7 +5254,7 @@ def main() -> int:
     flash_kernel["launches_by_path"] = {
         "lm_prefill": flash_kernel["launches"], **train_launches,
         "moe_forward": moe["launches"], **xattn["launches"],
-        **recurrent["launches"], **mesh_launches}
+        **recurrent["launches"], **mesh["launches"]}
     flash_kernel["launches"] = train_launches["train_run"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5095,6 +5262,7 @@ def main() -> int:
     for kind, row in xattn["timing"].items():
         flash_kernel[f"encdec_{kind}_shape"] = {k: row[k] for k in keys}
     flash_kernel["zamba2_shape"] = {k: recurrent["timing"][k] for k in keys}
+    flash_kernel["mesh_tp_shape"] = {k: mesh["timing"][k] for k in keys}
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card

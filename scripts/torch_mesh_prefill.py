@@ -6,7 +6,9 @@ mesh, one NCCL rank a GPU: the multi-card record of PERF.md.
 Each rank draws its own blocks of random weights (each block from a seed
 and the rank: no single process could hold the 32 layers, 93 GB in
 bf16), gathers its compute tree once (``runtime.steps.compute_params``),
-and runs ``make_prefill_step`` over BATCH x SEQ tokens: the median host
+and runs ``make_prefill_step`` over BATCH x SEQ tokens, tensor-parallel
+over "model" (each rank its heads, vocab block and experts; flash at
+[B_loc * H / m, S, hd]): the median host
 milliseconds of REPS forwards after a warm-up (each ending in a sync),
 tok/s, the flash launches of one forward, peak device memory, the
 gather's seconds and the collectives' routes, per rank.  Rank 0 prints

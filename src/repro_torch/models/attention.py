@@ -30,6 +30,18 @@ it runs the kernel's plain twin.  The two agree to rounding: the flash
 kernel sums the f32 probabilities into ``l`` where ``blockwise_attn``
 sums them after rounding to bf16.  MLA's prefill keeps
 ``blockwise_attn``, as ``repro`` (dv != d).
+
+Under a mesh whose "model" axis splits the q heads
+(``sharding.rules.tp_layout``), ``gqa_self_attn`` and
+``gqa_decode_self_attn`` run on this rank's heads (Megatron's column /
+row layout; ``repro`` constrains q / k / v to [BATCH, None, "model",
+None]): the head counts come from the blocks' shapes, the input enters
+through ``psum_bwd``, flash runs on [B_loc * H / m, S, hd], and ``wo``'s
+row block gives bf16 partials that ``layers.dense_rows`` sums over
+"model".  Where the kv heads are whole on every rank (``n_kv_heads`` not
+a multiple of the axis), every rank computes them all, as one process
+does, and reads the one its q heads use (head j reads kv head j // (H /
+KH)); their gradient is summed over "model" there (``psum_bwd``).
 """
 from __future__ import annotations
 
@@ -40,8 +52,9 @@ import torch
 
 from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense, dense_spec, \
-    rmsnorm, rmsnorm_spec, rope_tables
+from repro_torch.launch.mesh import psum_bwd
+from repro_torch.models.layers import apply_rope, dense, dense_rows, \
+    dense_spec, model_block, rmsnorm, rmsnorm_spec, rope_tables
 
 NEG_INF = -1.0e30
 
@@ -180,14 +193,15 @@ def gqa_spec(cfg, d_in=None, kv_d_in=None):
 
 
 def gqa_project_qkv(params, cfg, x, kv_x=None, rope=None):
-    """x [B,S,D] -> q [B,S,H,hd], k/v [B,T,KH,hd] (rope applied if given)."""
+    """x [B,S,D] -> q [B,S,H,hd], k/v [B,T,KH,hd] (rope applied if given;
+    H and KH are the blocks' head counts)."""
     b, s, _ = x.shape
     kv_x = x if kv_x is None else kv_x
     t = kv_x.shape[1]
     hd = cfg.hd
-    q = dense(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = dense(params["wk"], kv_x).reshape(b, t, cfg.n_kv_heads, hd)
-    v = dense(params["wv"], kv_x).reshape(b, t, cfg.n_kv_heads, hd)
+    q = dense(params["wq"], x).reshape(b, s, -1, hd)
+    k = dense(params["wk"], kv_x).reshape(b, t, -1, hd)
+    v = dense(params["wv"], kv_x).reshape(b, t, -1, hd)
     if rope is not None:
         sin, cos = rope
         q = apply_rope(q, sin, cos)
@@ -206,36 +220,87 @@ def repeat_kv(k, n_heads):
                                                                d)
 
 
+def tp_heads(params, cfg, mesh):
+    """(tp, kv) of this rank's attention, from the blocks' shapes: ``tp``
+    whether it holds a block of the q heads over "model"; ``kv``, where
+    it holds every kv head (see the module doc), the slice of them its q
+    heads read, else None."""
+    hd = cfg.hd
+    h = params["wq"]["w"].shape[-1] // hd
+    kh = params["wk"]["w"].shape[-1] // hd
+    if not model_block(mesh, h, cfg.n_heads):
+        if kh != cfg.n_kv_heads:
+            raise ValueError(f"kv heads {kh} of {cfg.n_kv_heads} beside "
+                             f"all {h} q heads")
+        return False, None
+    if model_block(mesh, kh, cfg.n_kv_heads):
+        return True, None
+    g = cfg.n_heads // cfg.n_kv_heads
+    if g % h:
+        raise ValueError(f"{h} q heads a rank straddle kv heads of {g}")
+    first = mesh.index("model") * h // g
+    return True, slice(first, first + 1)
+
+
+def _tp_qkv(params, cfg, x, rope, mesh):
+    """(q, k, v) of this rank's heads, its kv-head slice, and whether the
+    attention is tensor-parallel (``tp_heads``)."""
+    tp, kv = tp_heads(params, cfg, mesh)
+    if not tp:
+        return gqa_project_qkv(params, cfg, x, rope=rope), kv, False
+    xt = psum_bwd(x, mesh, "model")
+    if kv is None:
+        return gqa_project_qkv(params, cfg, xt, rope=rope), kv, True
+    # Every kv head, from the input as every rank holds it.
+    b, s = x.shape[:2]
+    q = dense(params["wq"], xt).reshape(b, s, -1, cfg.hd)
+    k = dense(params["wk"], x).reshape(b, s, -1, cfg.hd)
+    v = dense(params["wv"], x).reshape(b, s, -1, cfg.hd)
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    return (q, psum_bwd(k, mesh, "model"), psum_bwd(v, mesh, "model")), \
+        kv, True
+
+
 def gqa_self_attn(params, cfg, x, *, positions, chunk_q, chunk_kv,
-                  causal=True):
+                  causal=True, mesh=None):
+    """Self-attention of x [B, S, D]; with ``mesh``, tensor-parallel over
+    its "model" axis where the blocks say so (see the module doc)."""
     sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    q, k, v = gqa_project_qkv(params, cfg, x, rope=(sin, cos))
-    k = repeat_kv(k, cfg.n_heads)
-    v = repeat_kv(v, cfg.n_heads)
+    (q, k, v), kv, tp = _tp_qkv(params, cfg, x, (sin, cos), mesh)
+    if kv is not None:
+        k, v = k[:, :, kv], v[:, :, kv]
+    h = q.shape[2]
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
     o = self_attn(q, k, v, causal=causal, window=cfg.sliding_window,
                   chunk_q=chunk_q, chunk_kv=chunk_kv)
     b, s = x.shape[:2]
+    if tp:
+        return dense_rows(params["wo"], o.reshape(b, s, -1), mesh)
     return dense(params["wo"], o.reshape(b, s, -1))
 
 
-def gqa_decode_self_attn(params, cfg, x, k_cache, v_cache, pos):
-    """x [B,1,D]; per-layer caches [B,T,KH,hd]; pos [] absolute position
-    (an int32 tensor).  Returns (out [B,1,D], k_cache, v_cache): the
-    caches are written in place (one slot; ``repro`` returns updated
-    copies).  For SWA the cache is a rolling buffer of length == window."""
+def gqa_decode_self_attn(params, cfg, x, k_cache, v_cache, pos, mesh=None):
+    """x [B,1,D]; per-layer caches [B,T,KH,hd] (with ``mesh``, the kv
+    heads this rank holds); pos [] absolute position (an int32 tensor).
+    Returns (out [B,1,D], k_cache, v_cache): the caches are written in
+    place (one slot; ``repro`` returns updated copies).  For SWA the cache
+    is a rolling buffer of length == window."""
     b = x.shape[0]
     hd = cfg.hd
     sin, cos = rope_tables(pos[None], hd, cfg.rope_theta)
-    q = dense(params["wq"], x).reshape(b, 1, cfg.n_heads, hd)
-    k = dense(params["wk"], x).reshape(b, 1, cfg.n_kv_heads, hd)
-    v = dense(params["wv"], x).reshape(b, 1, cfg.n_kv_heads, hd)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+    (q, k, v), kv, tp = _tp_qkv(params, cfg, x, (sin, cos), mesh)
+    if k.shape[2] != k_cache.shape[2]:
+        raise ValueError(f"{k.shape[2]} kv heads into a cache of "
+                         f"{k_cache.shape[2]}")
     t = k_cache.shape[1]
     slot = (pos % t) if cfg.sliding_window else torch.clamp(pos, max=t - 1)
     idx = slot.reshape(1).long()
     k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+    kc, vc = (k_cache, v_cache) if kv is None else (k_cache[:, :, kv],
+                                                    v_cache[:, :, kv])
     if cfg.sliding_window:
         # Rolling buffer: slot i holds absolute position pos - ((slot-i) % t),
         # valid iff non-negative.
@@ -244,9 +309,12 @@ def gqa_decode_self_attn(params, cfg, x, k_cache, v_cache, pos):
         cache_pos = torch.where(age <= torch.clamp(pos, max=t - 1),
                                 pos - age, -1)
         cache_pos = cache_pos[None, :].expand(b, t)
-        o = decode_attn(q, k_cache, v_cache, None, cache_pos=cache_pos)
+        o = decode_attn(q, kc, vc, None, cache_pos=cache_pos)
     else:
-        o = decode_attn(q, k_cache, v_cache, pos + 1)
+        o = decode_attn(q, kc, vc, pos + 1)
+    if tp:
+        return dense_rows(params["wo"], o.reshape(b, 1, -1), mesh), \
+            k_cache, v_cache
     out = dense(params["wo"], o.reshape(b, 1, -1))
     return out, k_cache, v_cache
 

@@ -6,6 +6,12 @@ The activations are written op for op as ``jax.nn.silu`` and
 and their constants rounded to it, so in bf16 they give ``repro``'s bits
 (``F.silu`` / ``F.gelu`` compute in f32 and round once: one bf16 ulp
 off in about a third of the elements).
+
+Under a mesh whose "model" axis splits the hidden width
+(``sharding.rules.tp_layout``), ``ffn`` takes this rank's column blocks
+of ``w_gate`` / ``w_up`` and its row block of ``w_down`` (Megatron's
+column / row layout): the input enters through ``psum_bwd``, the bf16
+partials leave through ``layers.dense_rows``.
 """
 from __future__ import annotations
 
@@ -13,7 +19,9 @@ import math
 
 import torch
 
-from repro_torch.models.layers import dense, dense_spec, sigmoid
+from repro_torch.launch.mesh import psum_bwd
+from repro_torch.models.layers import dense, dense_rows, dense_spec, \
+    model_block, sigmoid
 
 
 def ffn_spec(d, d_ff, act: str):
@@ -44,7 +52,14 @@ def gelu_tanh(x):
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
-def ffn(params, x, act: str):
+def ffn(params, x, act: str, mesh=None, d_ff=None):
+    """x [..., D] -> [..., D].  With ``d_ff`` (the config's width) and a
+    ``w_down`` whose rows are this rank's block of it, tensor-parallel
+    over ``mesh``'s "model" axis (see the module doc)."""
+    tp = d_ff is not None and model_block(
+        mesh, params["w_down"]["w"].shape[0], d_ff)
+    if tp:
+        x = psum_bwd(x, mesh, "model")
     if act == "swiglu":
         g = dense(params["w_gate"], x)
         u = dense(params["w_up"], x)
@@ -55,4 +70,6 @@ def ffn(params, x, act: str):
         h = gelu_tanh(dense(params["w_up"], x))
     else:
         raise ValueError(act)
+    if tp:
+        return dense_rows(params["w_down"], h, mesh)
     return dense(params["w_down"], h)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import psum_fwd
 from repro_torch.models.module import P
 
 ACT_DTYPE = torch.bfloat16
@@ -57,11 +58,25 @@ def act_spec(shape, parts, mesh):
 def shard_act(x, *parts):
     """The identity.  In ``repro`` a sharding constraint for GSPMD, which
     changes no value; the port's activations are already this rank's
-    rows (``runtime.steps`` splits the batch over ``BATCH``), and what
-    GSPMD would shard further (heads, mlp, vocab over "model") the port
-    computes whole on every rank of the model axis until tensor-parallel
-    compute is ported (ROADMAP §1 item 7)."""
+    rows (``runtime.steps`` splits the batch over ``BATCH``), and where
+    GSPMD shards heads, mlp and vocab over "model" the port's dense and
+    MoE families compute on their parameter blocks
+    (``sharding.rules.tp_layout``; the attention, ``ffn`` and the head
+    below read the blocks' shapes)."""
     return x
+
+
+def model_block(mesh, local: int, whole: int) -> bool:
+    """Whether a dimension that is ``local`` long here and ``whole`` long
+    in the config is this rank's block over ``mesh``'s "model" axis (False
+    when it is whole); raises when it is neither."""
+    if local == whole:
+        return False
+    if mesh is None or "model" not in mesh.axis_names \
+            or local * mesh.shape["model"] != whole:
+        raise ValueError(f"a block of {local} of {whole} is no 'model' "
+                         f"block of mesh {getattr(mesh, 'shape', None)}")
+    return True
 
 
 def rmsnorm_spec(d):
@@ -94,10 +109,20 @@ def embed_spec(vocab, d):
     return {"table": P((vocab, d), ("vocab", "embed"), init="normal")}
 
 
-def embed(params, tokens):
-    # Gather, then cast: the same bits as repro's cast-then-gather
-    # without casting the whole table.
-    return params["table"][tokens].to(ACT_DTYPE)
+def embed(params, tokens, mesh=None, vocab=None):
+    """The rows of ``tokens``: gather, then cast (the same bits as
+    ``repro``'s cast-then-gather without casting the whole table).  Where
+    the table is this rank's vocab block of ``vocab`` rows (``mesh``'s
+    "model" axis), the rank looks up the tokens in its range, puts zeros
+    elsewhere and sums over "model": exactly one process's rows."""
+    table = params["table"]
+    if vocab is None or not model_block(mesh, table.shape[0], vocab):
+        return table[tokens].to(ACT_DTYPE)
+    n = table.shape[0]
+    idx = tokens.long() - mesh.index("model") * n
+    mine = (idx >= 0) & (idx < n)
+    rows = table[torch.where(mine, idx, 0)].to(ACT_DTYPE)
+    return psum_fwd(rows.masked_fill(~mine[..., None], 0), mesh, "model")
 
 
 def unembed_spec(vocab, d):
@@ -163,3 +188,15 @@ def dense(params, x):
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
+
+
+def dense_rows(params, x, mesh):
+    """``dense`` of this rank's columns of ``x`` by its row block of
+    ``w`` (no bias), summed over ``mesh``'s "model" axis (Megatron's g):
+    each partial product rounded to x's dtype (bf16), the partials added
+    in f32 and the sum rounded once, as XLA lowers ``repro``'s
+    partitioned ``dense`` (a bf16 partial, an all-reduce promoted to
+    f32).  The f32 sum of a few bf16 values is exact but for far-apart
+    exponents, so it does not depend on the collective's order."""
+    return psum_fwd((x @ params["w"].to(x.dtype)).float(), mesh,
+                    "model").to(x.dtype)

@@ -30,8 +30,14 @@ the params argument:
 The last three run under ``torch.inference_mode()``.  ``mesh`` (a
 ``launch.mesh.Mesh`` view naming the batch axes) reaches the MoE layers,
 as in ``repro``; with it the batch is this rank's rows and the MoE
-family's ``aux`` the whole batch's (``runtime.steps`` under a mesh).
-The other families take it and ignore it, as ``repro``'s do.  ``cache_specs`` /
+family's ``aux`` the whole batch's (``runtime.steps`` under a mesh).  In
+the dense and MoE (GQA) families it also reaches the embedding, the
+attention, the FFN and the head, which compute on this rank's blocks
+over "model" where the bound parameters are blocks
+(``sharding.rules.tp_layout``): then the logits are this rank's vocab
+block [B, S, V / m] and the cache holds this rank's kv heads
+(``init_cache(kv_heads=)``).  The other families take it and ignore it
+outside the MoE layers, as ``repro``'s do.  ``cache_specs`` /
 ``abstract_params`` are meta-device stand-ins (shapes, no memory), and
 ``input_specs`` those of a cell's inputs.  Two builds:
 
@@ -65,6 +71,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import psum_bwd
 from repro_torch.models import ssm, xlstm
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import blockwise_attn, decode_attn, \
@@ -72,7 +79,7 @@ from repro_torch.models.attention import blockwise_attn, decode_attn, \
     repeat_kv, self_attn
 from repro_torch.models.ffn import ffn, ffn_spec
 from repro_torch.models.layers import ACT_DTYPE, dense, embed, embed_spec, \
-    rmsnorm, rmsnorm_spec, rope_tables, unembed, unembed_spec
+    model_block, rmsnorm, rmsnorm_spec, rope_tables, unembed, unembed_spec
 from repro_torch.models.module import ParamTree, abstract_params, \
     param_count, stack
 
@@ -184,15 +191,27 @@ class Model(nn.Module):
         w = self.cfg.sliding_window
         return min(max_len, w) if w else max_len
 
-    def _kv(self, n, batch, t, device):
-        shape = (n, batch, t, self.cfg.n_kv_heads, self.cfg.hd)
+    def _kv(self, n, batch, t, device, kv_heads=None):
+        shape = (n, batch, t, kv_heads or self.cfg.n_kv_heads, self.cfg.hd)
         return (torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
                 torch.zeros(shape, dtype=CACHE_DTYPE, device=device))
 
-    def _logits(self, x):
+    def _embed(self, tokens, mesh=None):
+        if mesh is None:
+            return embed(self.embed, tokens)
+        return embed(self.embed, tokens, mesh, self.cfg.vocab)
+
+    def _logits(self, x, mesh=None):
+        """f32 logits of the hidden state x; this rank's vocab block where
+        the unembedding (or the tied table) is a block over "model" (x
+        enters it through ``psum_bwd``)."""
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
-            return x.float() @ self.embed["table"].float().T
+        tied = self.cfg.tie_embeddings
+        w = self.embed["table"] if tied else self.unembed["w"]
+        if model_block(mesh, w.shape[0 if tied else 1], self.cfg.vocab):
+            x = psum_bwd(x, mesh, "model")
+        if tied:
+            return x.float() @ w.float().T
         return unembed(self.unembed, x)
 
 
@@ -208,31 +227,33 @@ class DenseModel(Model):
 
     def forward(self, run, batch, mesh=None):
         tokens = batch["tokens"]
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = _positions(tokens.shape[1], x.device)
         blk = _wrap_remat(
-            lambda p, x: tf.dense_block(p, self.cfg, run, x, pos), run)
+            lambda p, x: tf.dense_block(p, self.cfg, run, x, pos, mesh), run)
         for p in self.blocks:
             x = blk(p, x)
-        return self._logits(x), {}
+        return self._logits(x, mesh), {}
 
     @torch.inference_mode()
-    def init_cache(self, batch, max_len, device=None):
+    def init_cache(self, batch, max_len, device=None, kv_heads=None):
+        """Zeros; ``kv_heads``: the kv heads a rank holds (a block over
+        "model", ``runtime.steps.local_cache``), else all of them."""
         dev = device or self.device
         k, v = self._kv(self.cfg.n_layers, batch, self._cache_len(max_len),
-                        dev)
+                        dev, kv_heads)
         return {"k": k, "v": v,
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.inference_mode()
     def decode_step(self, run, tokens, cache, mesh=None):
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = cache["pos"]
         for i, p in enumerate(self.blocks):
             x, _, _ = tf.dense_block_decode(p, self.cfg, x, cache["k"][i],
-                                            cache["v"][i], pos)
-        return self._logits(x), {"k": cache["k"], "v": cache["v"],
-                                 "pos": pos + 1}
+                                            cache["v"][i], pos, mesh)
+        return self._logits(x, mesh), {"k": cache["k"], "v": cache["v"],
+                                       "pos": pos + 1}
 
     @torch.inference_mode()
     def prefill(self, run, tokens, max_len):
@@ -291,10 +312,10 @@ class MoEModel(Model):
         (token, choice) pairs (i32)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = _positions(tokens.shape[1], x.device)
         dblk = _wrap_remat(
-            lambda p, x: tf.dense_block(p, cfg, run, x, pos), run)
+            lambda p, x: tf.dense_block(p, cfg, run, x, pos, mesh), run)
         for p in self._dense():
             x = dblk(p, x)
         mblk = _wrap_remat(
@@ -306,10 +327,11 @@ class MoEModel(Model):
             dropped.append(aux["dropped"])
         aux = {"lb_loss": torch.stack(lb).mean(),
                "dropped": torch.stack(dropped).sum(dtype=torch.int32)}
-        return self._logits(x), aux
+        return self._logits(x, mesh), aux
 
     @torch.inference_mode()
-    def init_cache(self, batch, max_len, device=None):
+    def init_cache(self, batch, max_len, device=None, kv_heads=None):
+        """Zeros; ``kv_heads`` as ``DenseModel.init_cache``'s."""
         cfg = self.cfg
         dev = device or self.device
         fd = cfg.first_dense_layers
@@ -322,25 +344,26 @@ class MoEModel(Model):
                                   dtype=CACHE_DTYPE, device=dev)
         else:
             c["k"], c["v"] = self._kv(n, batch, self._cache_len(max_len),
-                                      dev)
+                                      dev, kv_heads)
         if fd:
-            c["dense_k"], c["dense_v"] = self._kv(fd, batch, max_len, dev)
+            c["dense_k"], c["dense_v"] = self._kv(fd, batch, max_len, dev,
+                                                  kv_heads)
         return c
 
     @torch.inference_mode()
     def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = cache["pos"]
         for i, p in enumerate(self._dense()):
             x, _, _ = tf.dense_block_decode(p, cfg, x, cache["dense_k"][i],
-                                            cache["dense_v"][i], pos)
+                                            cache["dense_v"][i], pos, mesh)
         names = ("ckv", "kr") if cfg.mla else ("k", "v")
         for i, p in enumerate(self.blocks):
             x, _ = tf.moe_block_decode(p, cfg, x,
                                        {k: cache[k][i] for k in names}, pos,
                                        mesh)
-        return self._logits(x), dict(cache, pos=pos + 1)
+        return self._logits(x, mesh), dict(cache, pos=pos + 1)
 
 
 class VLMModel(Model):

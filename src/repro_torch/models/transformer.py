@@ -33,14 +33,16 @@ def dense_block_spec(cfg):
     }
 
 
-def dense_block(p, cfg, run, x, positions):
+def dense_block(p, cfg, run, x, positions, mesh=None):
+    """With ``mesh``, the attention and the FFN are tensor-parallel over
+    its "model" axis where ``p``'s blocks say so; x stays whole over it."""
     x = x.to(ACT_DTYPE)
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     x = x + gqa_self_attn(p["attn"], cfg, h, positions=positions,
                           chunk_q=run.attn_chunk_q,
-                          chunk_kv=run.attn_chunk_kv)
+                          chunk_kv=run.attn_chunk_kv, mesh=mesh)
     h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    x = x + ffn(p["ffn"], h, cfg.act)
+    x = x + ffn(p["ffn"], h, cfg.act, mesh, cfg.d_ff)
     return x
 
 
@@ -56,12 +58,13 @@ def dense_block_bidir(p, cfg, run, x, positions):
     return x
 
 
-def dense_block_decode(p, cfg, x, kc, vc, pos):
+def dense_block_decode(p, cfg, x, kc, vc, pos, mesh=None):
     a, kc, vc = gqa_decode_self_attn(
         p["attn"], cfg, rmsnorm(p["attn_norm"], x, cfg.norm_eps), kc, vc,
-        pos)
+        pos, mesh)
     x = x + a
-    x = x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act)
+    x = x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act,
+                mesh, cfg.d_ff)
     return x, kc, vc
 
 
@@ -78,12 +81,19 @@ def moe_block_spec(cfg):
 
 def moe_block(p, cfg, run, x, positions, mesh=None):
     """Returns (x, aux) with aux = {"lb_loss", "dropped"} of the layer
-    (``mesh``: ``moe_ffn``'s)."""
+    (``mesh``: ``moe_ffn``'s, and the GQA attention's, tensor-parallel
+    where ``p``'s blocks say so)."""
     x = x.to(ACT_DTYPE)
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    attn = mla_self_attn if cfg.mla else gqa_self_attn
-    x = x + attn(p["attn"], cfg, h, positions=positions,
-                 chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv)
+    if cfg.mla:
+        a = mla_self_attn(p["attn"], cfg, h, positions=positions,
+                          chunk_q=run.attn_chunk_q,
+                          chunk_kv=run.attn_chunk_kv)
+    else:
+        a = gqa_self_attn(p["attn"], cfg, h, positions=positions,
+                          chunk_q=run.attn_chunk_q,
+                          chunk_kv=run.attn_chunk_kv, mesh=mesh)
+    x = x + a
     y, aux = moe_ffn(p["moe"], cfg, rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
                      mesh)
     return x + y, aux
@@ -98,7 +108,7 @@ def moe_block_decode(p, cfg, x, cache_slices, pos, mesh=None):
                                        cache_slices["kr"], pos)
     else:
         a, _, _ = gqa_decode_self_attn(p["attn"], cfg, h, cache_slices["k"],
-                                       cache_slices["v"], pos)
+                                       cache_slices["v"], pos, mesh)
     x = x + a
     y, _ = moe_ffn(p["moe"], cfg, rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
                    mesh)

@@ -30,7 +30,7 @@ parameter blocks first, as ``repro``'s steps take params:
   * ``prefill_step(params, batch) -> [B, V]`` and ``serve_step(params,
     tokens [B, 1], cache) -> (next tokens [B, 1], cache)``: the global
     batch in and out (the rows gathered back), the cache this rank's
-    rows (``local_cache``); ``params`` may also be ``compute_params``'s
+    rows and kv heads (``local_cache``); ``params`` may also be ``compute_params``'s
     tree, gathered once for many steps.
 
 The forward reads the compute tree: ``cast_params`` (every >= 2-D f32
@@ -38,17 +38,31 @@ block cast to bf16, as ``repro`` casts before GSPMD's gathers, so the
 f32 unembedding reads bf16-rounded weights with a mesh and f32 ones
 without), then each block all-gathered over the axes it is split on
 (``launch.mesh.gather_fwd``), except the expert weights, which
-``moe_ffn`` takes as they are placed.  The tree is put in place of the
-template's parameters for the forward and its backward (a remat block's
-backward recomputes from it) and taken out after.  Gradients land on
-each parameter's own block (``repro``'s ``constrain_grads``), by the
-collectives' backward: summed over the axes the batch is split on
-(each rank's loss is its share of the global one: ``cross_entropy``
-averages over the batch axes with ``psum_fwd``), taken as this rank's
-slice over the axes every rank computes alike ("model" outside the
-experts).  The cache's kv heads and tensor-parallel compute over "model"
-are not ported (ROADMAP §1 item 7): every rank of a model slice
-computes attention, the FFNs and the unembedding whole.
+``moe_ffn`` takes as they are placed, and the tensor-parallel leaves of
+the dense and MoE (GQA) families (``sharding.rules.tp_block``: the
+attention's q / k / v / o weights and biases where the "model" split
+falls on whole heads, the FFN's, the embedding table and the
+unembedding where the vocab is split), which are gathered over the
+batch axes only and keep their "model" block: the model computes on
+them (Megatron's column / row layout, ``models.attention`` /
+``models.ffn`` / ``models.layers``), the residual stream whole over
+"model" between sublayers.  The tree is put in place of the template's
+parameters for the forward and its backward (a remat block's backward
+recomputes from it, collectives included, on every rank alike) and
+taken out after.  Gradients land on each parameter's own block
+(``repro``'s ``constrain_grads``), by the collectives' backward: summed
+over the axes the batch is split on (each rank's loss is its share of
+the global one: ``cross_entropy`` averages over the batch axes with
+``psum_fwd``), taken as this rank's slice over the axes every rank
+computes alike ("model" for a leaf read whole), and a block's own over
+"model" for a tensor-parallel leaf.  With a vocab split the logits are
+this rank's block [B, S, V / m]: ``cross_entropy`` is vocab-parallel,
+and the prefill and serve steps gather the last logits over "model"
+before the rows.  The cache holds this rank's rows and, where
+``cache_shardings`` puts them on "model", its kv heads
+(``local_cache``).  The other families (MLA, vlm, encdec, ssm_hybrid,
+xlstm) read their attention, FFN and head whole on every model rank
+(ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -58,10 +72,12 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch.mesh import gather_fwd, psum_bwd, psum_fwd
+from repro_torch.models.layers import model_block
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
-from repro_torch.sharding.rules import batch_axes, gather_rows, \
-    mesh_extent, model_shardings, split_batch
+from repro_torch.sharding.rules import batch_axes, cache_shardings, \
+    gather_rows, mesh_extent, model_shardings, split_batch, tp_layout, \
+    tp_leaves
 
 # The expert weights: ``moe_ffn`` gathers them over "data" itself and
 # keeps their "model" blocks local.
@@ -79,12 +95,14 @@ def cast_params(params: dict) -> dict:
             and p.dim() >= 2 else p for k, p in params.items()}
 
 
-def _compute_tree(params: dict, shardings: dict, axes: tuple
-                  ) -> ComputeParams:
+def _compute_tree(params: dict, shardings: dict, axes: tuple,
+                  keep=frozenset()) -> ComputeParams:
     """Each block gathered over the axes it is split on: the gradient
     summed over those of ``axes`` (the batch's) and sliced over the
     others; a block whole along a batch axis sums its gradient over it
-    (``psum_bwd``).  The expert weights stay as placed."""
+    (``psum_bwd``).  The expert weights stay as placed; the leaves named
+    in ``keep`` (``sharding.rules.tp_leaves``) keep their "model"
+    block."""
     out = ComputeParams()
     for name, x in params.items():
         sh = shardings[name]
@@ -95,6 +113,11 @@ def _compute_tree(params: dict, shardings: dict, axes: tuple
             parts = (part,) if isinstance(part, str) else tuple(part)
             split.update(parts)
             if name.endswith(_EXPERT_LEAVES):
+                continue
+            if name in keep and "model" in parts:
+                if len(parts) > 1:
+                    raise ValueError(f"{name}: 'model' shares dimension "
+                                     f"{dim} with {parts}")
                 continue
             red = {a in axes for a in parts}
             if len(red) > 1:
@@ -110,7 +133,8 @@ def compute_params(model: Model, params: dict, mesh) -> ComputeParams:
     """The serving steps' compute tree of this rank's blocks (no cast, as
     ``repro``'s prefill and serve steps do none): gather it once and hand
     it to many steps."""
-    return _compute_tree(params, model_shardings(model, mesh), ())
+    return _compute_tree(params, model_shardings(model, mesh), (),
+                         tp_leaves(model, mesh))
 
 
 def _bind(model: Model, tree: dict) -> None:
@@ -141,14 +165,33 @@ def bound(model: Model, tree: dict):
         _release(model)
 
 
+# The cache leaves whose kv heads (axis -2) follow the attention's.
+_KV_CACHE = ("k", "v", "dense_k", "dense_v")
+
+
 def local_cache(model: Model, mesh, batch: int, max_len: int, device):
     """``model.init_cache`` for this rank's rows of a ``batch``-row decode
-    under ``mesh`` (the cache stays whole over "model")."""
+    under ``mesh`` (``mesh`` needs only ``axis_names`` and ``shape``), and
+    in the dense and MoE (GQA) families its kv heads where
+    ``sharding.rules.cache_shardings`` puts them on "model" (the blocks
+    the attention's k / v weights give: ``tp_layout``); whole over
+    "model" otherwise."""
     n = mesh_extent(mesh, batch_axes(mesh, batch))
-    return model.init_cache(batch // n, max_len, device=device)
+    kv = tp_layout(model.cfg, mesh).kv_heads
+    if kv == model.cfg.n_kv_heads:
+        return model.init_cache(batch // n, max_len, device=device)
+    specs = cache_shardings(mesh, model.cache_specs(batch, max_len), batch)
+    for key in _KV_CACHE:
+        if key in specs and specs[key].spec[-2] != "model":
+            raise ValueError(f"{key}: the attention splits its {kv} kv "
+                             f"heads, cache_shardings gives "
+                             f"{specs[key].spec}")
+    return model.init_cache(batch // n, max_len, device=device,
+                            kv_heads=kv)
 
 
-def cross_entropy(logits, labels, z_loss_coef: float, mesh=None):
+def cross_entropy(logits, labels, z_loss_coef: float, mesh=None,
+                  vocab=None):
     """Token-mean CE over f32 logits [..., V]; returns (ce + z-loss, ce).
 
     ``repro`` takes the gold logit as a masked sum over the one-hot of
@@ -156,10 +199,18 @@ def cross_entropy(logits, labels, z_loss_coef: float, mesh=None):
     ``gather``, the same value without a second [B, S, V] f32 tensor.
     With a mesh (a view naming the batch axes) the logits are this
     rank's rows: the means are the global batch's (``psum_fwd`` over the
-    batch axes), and their gradient on each rank its share.
+    batch axes), and their gradient on each rank its share.  Where they
+    are also this rank's block of ``vocab`` over "model", the CE is
+    vocab-parallel: the shift is the ``pmax`` of the local maxima
+    (detached), the sum of exponentials and the gold logit (a masked
+    local gather) are summed over "model" with ``psum_fwd``, and the
+    z-loss reads the global lse.
     """
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if vocab is not None and model_block(mesh, logits.shape[-1], vocab):
+        lse, gold = _vocab_parallel(logits, labels, mesh)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     axes = tuple(mesh.batch_axes) if mesh is not None else ()
     n = mesh_extent(mesh, axes) if axes else 1
 
@@ -169,6 +220,20 @@ def cross_entropy(logits, labels, z_loss_coef: float, mesh=None):
     ce = mean(lse - gold)
     zl = z_loss_coef * mean(torch.square(lse)) if z_loss_coef else 0.0
     return ce + zl, ce
+
+
+def _vocab_parallel(logits, labels, mesh):
+    """(lse, gold logit) of a vocab block of the logits over "model"."""
+    n = logits.shape[-1]
+    shift = mesh.pmax(logits.detach().amax(dim=-1), "model")
+    total = psum_fwd(torch.exp(logits - shift[..., None]).sum(dim=-1), mesh,
+                     "model")
+    lse = shift + torch.log(total)
+    idx = labels.long() - mesh.index("model") * n
+    mine = (idx >= 0) & (idx < n)
+    gold = torch.gather(logits, -1, torch.where(mine, idx, 0)[..., None])
+    gold = psum_fwd(gold[..., 0].masked_fill(~mine, 0), mesh, "model")
+    return lse, gold
 
 
 def make_loss_fn(model: Model, run: RunConfig, mesh=None):
@@ -181,7 +246,8 @@ def make_loss_fn(model: Model, run: RunConfig, mesh=None):
 
     def forward_loss(batch, view):
         logits, aux = model(run, batch, mesh=view)
-        loss, ce = cross_entropy(logits, batch["labels"], run.z_loss, view)
+        loss, ce = cross_entropy(logits, batch["labels"], run.z_loss, view,
+                                 cfg.vocab)
         metrics = {"ce": ce}
         if "lb_loss" in aux:
             loss = loss + cfg.router_aux_coef * aux["lb_loss"]
@@ -193,11 +259,12 @@ def make_loss_fn(model: Model, run: RunConfig, mesh=None):
     if mesh is None:
         return lambda batch: forward_loss(batch, None)
     shardings = model_shardings(model, mesh)
+    keep = tp_leaves(model, mesh)
 
     def loss_fn(params, batch):
         view, rows = split_batch(mesh, batch)
         _bind(model, _compute_tree(cast_params(params), shardings,
-                                   view.batch_axes))
+                                   view.batch_axes, keep))
         return forward_loss(rows, view)
 
     loss_fn.shardings = shardings
@@ -270,9 +337,18 @@ def make_train_step(model: Model, run: RunConfig, mesh=None):
     return train_step
 
 
-def _tree_for(params, shardings):
+def _tree_for(params, shardings, keep):
     return params if isinstance(params, ComputeParams) \
-        else _compute_tree(params, shardings, ())
+        else _compute_tree(params, shardings, (), keep)
+
+
+def _last_row(model: Model, view, logits):
+    """This rank's rows of the last position's logits [B_loc, V],
+    gathered over "model" along the vocab where they are its block."""
+    last = logits[:, -1, :]
+    if model_block(view, last.shape[-1], model.cfg.vocab):
+        last = view.all_gather(last, "model", 1)
+    return last
 
 
 def make_prefill_step(model: Model, run: RunConfig, mesh=None):
@@ -289,13 +365,14 @@ def make_prefill_step(model: Model, run: RunConfig, mesh=None):
 
         return prefill_step
     shardings = model_shardings(model, mesh)
+    keep = tp_leaves(model, mesh)
 
     @torch.inference_mode()
     def prefill_mesh(params, batch):
         view, rows = split_batch(mesh, batch)
-        with bound(model, _tree_for(params, shardings)):
+        with bound(model, _tree_for(params, shardings, keep)):
             logits, _ = model.forward(run, rows, mesh=view)
-        return gather_rows(view, logits[:, -1, :])
+        return gather_rows(view, _last_row(model, view, logits))
 
     return prefill_mesh
 
@@ -314,14 +391,16 @@ def make_serve_step(model: Model, run: RunConfig, mesh=None):
 
         return serve_step
     shardings = model_shardings(model, mesh)
+    keep = tp_leaves(model, mesh)
 
     @torch.inference_mode()
     def serve_mesh(params, tokens, cache):
         view, rows = split_batch(mesh, {"tokens": tokens})
-        with bound(model, _tree_for(params, shardings)):
+        with bound(model, _tree_for(params, shardings, keep)):
             logits, cache = model.decode_step(run, rows["tokens"], cache,
                                               mesh=view)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return gather_rows(view, nxt)[:, None], cache
+        # The greedy token of the whole row: the first index on ties.
+        nxt = torch.argmax(_last_row(model, view, logits), dim=-1)
+        return gather_rows(view, nxt.to(torch.int32))[:, None], cache
 
     return serve_mesh

@@ -30,6 +30,13 @@ map to no mesh axis).  Weights are carried across as
 ``params_from_numpy`` (or ``init_params_into``) on a full model, then
 ``shard_params``; ``init_sharded`` draws them leaf by leaf straight into
 the shards.
+
+``tp_layout`` / ``tp_block`` / ``tp_leaves`` are the tensor-parallel rule
+of the dense and MoE (GQA) families: which leaves a rank computes on as
+its "model" block (the attention's heads, the FFN's width, the vocab),
+decided from these rules and the config alone; ``runtime.steps`` keeps
+those blocks in the compute tree and ``local_cache`` splits the cache's
+kv heads as ``cache_shardings`` does.
 """
 from __future__ import annotations
 
@@ -121,6 +128,95 @@ def model_shardings(model, mesh, rules=None) -> dict:
     return out
 
 
+# ------------------------------------------------------ tensor parallelism
+# The families whose GQA attention, dense FFN and head run tensor-parallel
+# over "model" (Megatron's column / row layout); MLA, vlm, encdec,
+# ssm_hybrid and xlstm compute those leaves whole on every model rank.
+TP_FAMILIES = ("dense", "moe")
+
+# Leaf (name suffix) -> (the ``TPLayout`` field it is split by, the
+# dimension that field's rule puts on "model").
+_TP_LEAVES = {
+    "attn.wq.w": ("heads", 1), "attn.wq.b": ("heads", 0),
+    "attn.wo.w": ("heads", 0),
+    "attn.wk.w": ("kv_heads", 1), "attn.wk.b": ("kv_heads", 0),
+    "attn.wv.w": ("kv_heads", 1), "attn.wv.b": ("kv_heads", 0),
+    "ffn.w_gate.w": ("ffn", 1), "ffn.w_up.w": ("ffn", 1),
+    "ffn.w_down.w": ("ffn", 0),
+    "embed.table": ("vocab", 0), "unembed.w": ("vocab", 1),
+}
+
+
+class TPLayout(NamedTuple):
+    """What one rank of the "model" axis computes: its q heads, the kv
+    heads it holds (``n_kv_heads`` when they are whole on every rank), its
+    FFN width and its vocab block."""
+    heads: int
+    kv_heads: int
+    ffn: int
+    vocab: int
+
+
+def tp_layout(cfg, mesh) -> TPLayout:
+    """``cfg``'s tensor-parallel layout on ``mesh`` (anything with
+    ``axis_names`` and ``shape``), from the rules alone: heads, the FFN
+    and the vocab are split where ``DEFAULT_RULES`` put them on "model"
+    and the split falls on whole heads (``n_heads % m``); the kv heads
+    where ``n_kv_heads % m`` (else each rank keeps them whole and reads
+    the one its q heads use, which needs every rank's q heads inside one
+    kv head, else it raises).  Whole everywhere for a family outside
+    ``TP_FAMILIES``, MLA, and a mesh without a "model" extent."""
+    whole = TPLayout(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab)
+    m = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    if m == 1 or cfg.family not in TP_FAMILIES or cfg.mla:
+        return whole
+
+    def split(n, axis):
+        ok = spec_pspec(P((n,), (axis,)), mesh) == PartitionSpec("model")
+        return n // m if ok else n
+    heads, kv = cfg.n_heads, cfg.n_kv_heads
+    if cfg.n_heads % m == 0 and split(cfg.n_heads * cfg.hd, "heads") < \
+            cfg.n_heads * cfg.hd:
+        heads = cfg.n_heads // m
+        if cfg.n_kv_heads % m == 0:
+            kv = cfg.n_kv_heads // m
+        elif (cfg.n_heads // cfg.n_kv_heads) % heads:
+            raise ValueError(
+                f"{cfg.name}: {heads} q heads a rank straddle kv heads of "
+                f"{cfg.n_heads // cfg.n_kv_heads} (model axis {m})")
+    return TPLayout(heads, kv, split(cfg.d_ff, "mlp"),
+                    split(cfg.vocab, "vocab"))
+
+
+def tp_block(name: str, spec, cfg, mesh) -> bool:
+    """Whether the parameter ``name`` (placed by ``spec``) stays this
+    rank's block over "model" in the compute tree (its consumer computes
+    on the block), by ``tp_layout``; False for a leaf every model rank
+    reads whole.  Raises where the layout splits a leaf its spec does not
+    put on "model"."""
+    kind = next((v for k, v in _TP_LEAVES.items()
+                 if name == k or name.endswith("." + k)), None)
+    if kind is None:
+        return False
+    field, dim = kind
+    lay = tp_layout(cfg, mesh)
+    whole = TPLayout(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab)
+    if getattr(lay, field) == getattr(whole, field):
+        return False
+    part = spec[dim] if dim < len(spec) else None
+    if part != "model":
+        raise ValueError(f"{name}: the tensor-parallel layout splits its "
+                         f"{field} over 'model', its spec is {spec}")
+    return True
+
+
+def tp_leaves(model, mesh) -> frozenset:
+    """The names of ``model``'s parameters that ``tp_block`` keeps as
+    blocks over "model" on ``mesh``."""
+    return frozenset(name for name, sh in model_shardings(model, mesh)
+                     .items() if tp_block(name, sh.spec, model.cfg, mesh))
+
+
 def batch_pspec(mesh, batch: int, ndim: int) -> PartitionSpec:
     axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
     if not axes or batch % mesh_extent(mesh, axes) != 0:
@@ -147,9 +243,10 @@ def cache_shardings(mesh, cache_specs, batch: int):
     """Shardings for a decode cache tree (``repro``'s rule: the first
     axis of size ``batch`` on ("pod","data"); kv heads (axis -2) of a KV
     cache, and the widest divisible trailing axis of an SSM / xLSTM
-    state, on "model").  The port's steps keep the cache whole on every
-    rank of a batch slice (kv heads over "model" come later); these specs
-    say where ``repro`` puts it."""
+    state, on "model").  The port's steps hold these blocks for the
+    dense and MoE (GQA) families (``runtime.steps.local_cache``: each
+    rank its rows and, where the kv heads split, its kv heads); the other
+    families keep the cache whole over "model"."""
     model = mesh.shape.get("model", 1)
     dp = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
     dp_size = mesh_extent(mesh, dp) if dp else 1

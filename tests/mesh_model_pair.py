@@ -35,6 +35,15 @@ RUN_KNOBS = dict(remat="none", attn_chunk_q=16, attn_chunk_kv=16,
                  learning_rate=1e-3, warmup_steps=2, total_steps=100)
 DECODE_STEPS, DECODE_LEN = 4, 8
 DATA_MESH = (8,)              # launch/train.py's ("data",) mesh
+# The tensor-parallel trees: the two train archs and a reduced MiniCPM
+# whose vocab (513) the rules leave whole (its 6 heads are whole on a
+# 4-way axis too; its FFN of 180 splits).
+TREE_CASES = {"qwen1.5-0.5b": {}, "mixtral-8x7b": {},
+              "minicpm-2b": {"vocab": 513}}
+VOCAB_CE = (8, 6, 512)        # vocab-parallel CE: rows, positions, vocab
+# Mixtral's routing in repro's train step, written by the JAX child
+# beside its outputs and read by the port's ranks.
+ROUTES_FILE = "jax_routes.npz"
 LOOP_STEPS, LOOP_EVERY, LOOP_FAIL = 3, 2, 2
 
 
@@ -77,6 +86,35 @@ def routes(force=None):
         yield calls
     finally:
         moe._router = real
+
+
+@contextlib.contextmanager
+def partials():
+    """The port's row-parallel products inside the block, in call order:
+    [tag ("wo" or "w_down"), this rank's input columns, its weight block,
+    the partial it sums over "model" (bf16 values, handed to the sum in
+    f32)]."""
+    from repro_torch.models import attention, ffn, layers
+    calls = []
+    real_rows, real_psum = layers.dense_rows, layers.psum_fwd
+
+    def rows_for(tag):
+        def rec(params, x, mesh):
+            calls.append([tag, x.clone(), params["w"]])
+            return real_rows(params, x, mesh)
+        return rec
+
+    def psum(x, mesh, axes):
+        if calls and len(calls[-1]) == 3:
+            calls[-1].append(x.clone())
+        return real_psum(x, mesh, axes)
+    attention.dense_rows, ffn.dense_rows = rows_for("wo"), rows_for("w_down")
+    layers.psum_fwd = psum
+    try:
+        yield calls
+    finally:
+        attention.dense_rows = ffn.dense_rows = real_rows
+        layers.psum_fwd = real_psum
 
 
 def flat(tree, pre=()) -> dict:
@@ -135,6 +173,57 @@ def vma_unchecked():
         yield
     finally:
         j_moe.shard_map = orig
+
+
+@contextlib.contextmanager
+def jax_moe_inputs():
+    """``repro``'s MoE layers' inputs inside the block, as (x [B, S, D],
+    router weight) f32 numpy pairs in completion order (a
+    ``jax.debug.callback`` in front of each ``moe_ffn`` call: it reads
+    the values and changes none; call ``jax.effects_barrier()`` before
+    reading them)."""
+    import jax
+
+    from repro.models import transformer as j_tf
+    seen, real = [], j_tf.moe_ffn
+
+    def keep(x, w):
+        seen.append((np.asarray(x).astype(np.float32),
+                     np.asarray(w).astype(np.float32)))
+
+    def rec(p, cfg, x, mesh=None):
+        jax.debug.callback(keep, x, p["router"]["w"])
+        return real(p, cfg, x, mesh=mesh)
+    j_tf.moe_ffn = rec
+    try:
+        yield seen
+    finally:
+        j_tf.moe_ffn = real
+
+
+def jax_routes(cfg, router_ws, seen, n_data):
+    """[(ids [B * S, k], the k-th minus (k+1)-th probability [B * S])]
+    a MoE layer: ``repro``'s router (``moe._router``) on each data
+    shard's rows of that layer's input (the seen call whose router weight
+    is the layer's, ``router_ws[layer]``, as the step cast it)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import moe as j_moe
+    out = []
+    for w in router_ws:
+        x = next(a for a, sw in seen if np.array_equal(sw, w))
+        ids, gaps = [], []
+        for rows in np.split(x, n_data):
+            x2d = jnp.asarray(rows.reshape(-1, x.shape[-1]), jnp.bfloat16)
+            _, top_i, _ = j_moe._router({"router": {"w": jnp.asarray(
+                w, jnp.bfloat16)}}, cfg, x2d)
+            probs = np.sort(np.asarray(jax.nn.softmax(
+                x2d.astype(jnp.float32) @ jnp.asarray(w), axis=-1)), -1)
+            ids.append(np.asarray(top_i, np.int32))
+            gaps.append(probs[:, -cfg.top_k] - probs[:, -cfg.top_k - 1])
+        out.append((np.concatenate(ids), np.concatenate(gaps)))
+    return out
 
 
 def make_inputs(path: str) -> None:
@@ -207,6 +296,70 @@ def jax_reference(inputs: str, out_file: str) -> None:
         return nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
                      if k.startswith(pre)})
 
+    # -- one train step -------------------------------------------------
+    # Mixtral first: its routing is handed to the port's ranks as soon as
+    # it is known (ROUTES_FILE), while this child goes on.
+    for arch in sorted(TRAIN_ARCHS, key=lambda a: a != TRAIN_ARCHS[1]):
+        cfg = configs.get_reduced_config(arch)
+        model = build_model(cfg)
+        params = weights(arch)
+        batch = {"tokens": jnp.asarray(ref[f"in/{arch}/tokens"]),
+                 "labels": jnp.asarray(ref[f"in/{arch}/labels"])}
+        p_sh = param_shardings(model.specs, mesh)
+        # Each device's block of every leaf (rank = position in the mesh).
+        for k, p in flat(model.specs).items():
+            idx = NamedSharding(mesh, spec_pspec(p, mesh)) \
+                .devices_indices_map(p.shape)
+            dev = {d.id: s for d, s in idx.items()}
+            out[f"{arch}/blocks/{k}"] = np.array(
+                [[[sl.start or 0, p.shape[i] if sl.stop is None else sl.stop]
+                  for i, sl in enumerate(dev[r])] for r in ranks])
+        grad_fn = jax.value_and_grad(steps.make_loss_fn(model, run, mesh),
+                                     has_aux=True)
+        train_step = steps.make_train_step(model, run, mesh)
+
+        def both(p, o, bt):
+            (_, metrics), grads = grad_fn(p, bt)
+            return (metrics, grads) + tuple(train_step(p, o, bt))
+
+        with use_mesh(mesh), vma_unchecked(), jax_moe_inputs() as seen:
+            params_s = put(params, p_sh)
+            opt = adamw.init(params_s)._replace(step=jnp.int32(OPT_STEP0))
+            metrics, grads, p2, o2, m2 = jax.jit(both)(params_s, opt, batch)
+            jax.effects_barrier()
+        if cfg.n_experts:
+            # How repro routed each MoE layer (the router weight as the
+            # step cast it: bf16).
+            ws = np.asarray(params["blocks"]["moe"]["router"]["w"]).astype(
+                jnp.bfloat16).astype(np.float32)
+            for i, (ids, gap) in enumerate(jax_routes(
+                    cfg, list(ws), seen, MESH[0])):
+                out[f"{arch}/routes/ids{i}"] = ids
+                out[f"{arch}/routes/gap{i}"] = gap
+            part = os.path.join(os.path.dirname(out_file), "routes.part.npz")
+            np.savez(part, **{k: v for k, v in out.items()
+                              if "/routes/" in k})
+            os.replace(part, os.path.join(os.path.dirname(out_file),
+                                          ROUTES_FILE))
+        # AdamW alone on the input gradients, under the mesh.
+        pre = f"in/{arch}/grads/"
+        g_in = nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
+                     if k.startswith(pre)})
+        with use_mesh(mesh):
+            upd_p, _, upd_gn = jax.jit(lambda g, o, p: adamw.update(
+                g, o, p, run, adamw.schedule(run, o.step)))(
+                    put(g_in, p_sh), opt, params_s)
+        out[f"{arch}/upd/grad_norm"] = np.asarray(upd_gn)
+        for k, v in flat(upd_p).items():
+            out[f"{arch}/upd/{k}"] = np.asarray(v, np.float32)
+        for k, v in metrics.items():
+            out[f"{arch}/metrics/{k}"] = np.asarray(v, np.float32)
+        for k, v in m2.items():
+            out[f"{arch}/step/{k}"] = np.asarray(v, np.float32)
+        for tag, tree in (("g", grads), ("p2", p2), ("m2", o2.m),
+                          ("v2", o2.v)):
+            for k, v in flat(tree).items():
+                out[f"{arch}/{tag}/{k}"] = np.asarray(v, np.float32)
     # -- moe_ffn --------------------------------------------------------
     for name, (e, b) in MOE_CASES.items():
         cfg = moe_cfg(configs, e)
@@ -233,53 +386,6 @@ def jax_reference(inputs: str, out_file: str) -> None:
             for k, v in flat(gp).items():
                 out[f"moe_{name}/{tag}/{k}"] = np.asarray(v, np.float32)
 
-    # -- one train step -------------------------------------------------
-    for arch in TRAIN_ARCHS:
-        cfg = configs.get_reduced_config(arch)
-        model = build_model(cfg)
-        params = weights(arch)
-        batch = {"tokens": jnp.asarray(ref[f"in/{arch}/tokens"]),
-                 "labels": jnp.asarray(ref[f"in/{arch}/labels"])}
-        p_sh = param_shardings(model.specs, mesh)
-        # Each device's block of every leaf (rank = position in the mesh).
-        for k, p in flat(model.specs).items():
-            idx = NamedSharding(mesh, spec_pspec(p, mesh)) \
-                .devices_indices_map(p.shape)
-            dev = {d.id: s for d, s in idx.items()}
-            out[f"{arch}/blocks/{k}"] = np.array(
-                [[[sl.start or 0, p.shape[i] if sl.stop is None else sl.stop]
-                  for i, sl in enumerate(dev[r])] for r in ranks])
-        grad_fn = jax.value_and_grad(steps.make_loss_fn(model, run, mesh),
-                                     has_aux=True)
-        train_step = steps.make_train_step(model, run, mesh)
-
-        def both(p, o, bt):
-            (_, metrics), grads = grad_fn(p, bt)
-            return (metrics, grads) + tuple(train_step(p, o, bt))
-
-        with use_mesh(mesh), vma_unchecked():
-            params_s = put(params, p_sh)
-            opt = adamw.init(params_s)._replace(step=jnp.int32(OPT_STEP0))
-            metrics, grads, p2, o2, m2 = jax.jit(both)(params_s, opt, batch)
-        # AdamW alone on the input gradients, under the mesh.
-        pre = f"in/{arch}/grads/"
-        g_in = nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
-                     if k.startswith(pre)})
-        with use_mesh(mesh):
-            upd_p, _, upd_gn = jax.jit(lambda g, o, p: adamw.update(
-                g, o, p, run, adamw.schedule(run, o.step)))(
-                    put(g_in, p_sh), opt, params_s)
-        out[f"{arch}/upd/grad_norm"] = np.asarray(upd_gn)
-        for k, v in flat(upd_p).items():
-            out[f"{arch}/upd/{k}"] = np.asarray(v, np.float32)
-        for k, v in metrics.items():
-            out[f"{arch}/metrics/{k}"] = np.asarray(v, np.float32)
-        for k, v in m2.items():
-            out[f"{arch}/step/{k}"] = np.asarray(v, np.float32)
-        for tag, tree in (("g", grads), ("p2", p2), ("m2", o2.m),
-                          ("v2", o2.v)):
-            for k, v in flat(tree).items():
-                out[f"{arch}/{tag}/{k}"] = np.asarray(v, np.float32)
     np.savez(out_file, **out)
     print("jax reference done")
 
@@ -441,7 +547,7 @@ def _moe_rank(mesh, ref, out):
                 gather_full(g, shard[k]).numpy()
 
 
-def _train_rank(mesh, ref, out, ckpt_dir):
+def _train_rank(mesh, ref, out, ckpt_dir, out_dir):
     """One train step of each arch on this rank; each device's block
     slices; the step's update on ``repro``'s own gradients; a checkpoint
     of qwen's state after the step (saved from this mesh)."""
@@ -474,15 +580,21 @@ def _train_rank(mesh, ref, out, ckpt_dir):
                  for s, d in zip(sl, p.shape)])
         batch = {"tokens": torch.from_numpy(ref[f"in/{arch}/tokens"]),
                  "labels": torch.from_numpy(ref[f"in/{arch}/labels"])}
-        grads, metrics = steps.make_grad_fn(model, run, mesh)(params, batch)
+        force = _repro_routes(out_dir, arch, cfg, mesh)
+        with routes(force) as own:
+            grads, metrics = steps.make_grad_fn(model, run, mesh)(params,
+                                                                  batch)
+        for i, ids in enumerate(own):
+            out[f"{arch}/own_ids{i}/rank{mesh.rank}"] = ids.numpy()
         for k, v in metrics.items():
             out[f"{arch}/metrics/{k}"] = v.numpy()
         for k, g in gather_params(grads, sh).items():
             out[f"{arch}/g/{k}"] = g.numpy()
         opt = adamw.init(params)._replace(step=torch.tensor(
             OPT_STEP0, dtype=torch.int32))
-        _, opt, m2 = steps.make_train_step(model, run, mesh)(params, opt,
-                                                             batch)
+        with routes(force):
+            _, opt, m2 = steps.make_train_step(model, run, mesh)(params, opt,
+                                                                 batch)
         for k, v in m2.items():
             out[f"{arch}/step/{k}"] = v.detach().numpy()
         for tag, tree in (("p2", params), ("m2", opt.m), ("v2", opt.v)):
@@ -509,6 +621,30 @@ def _train_rank(mesh, ref, out, ckpt_dir):
             mgr.save(1, state, shardings={
                 "params": sh, "opt": adamw.state_shardings(sh)})
             mgr.wait()
+
+
+def _repro_routes(out_dir, arch, cfg, mesh):
+    """``repro``'s routing of this rank's data shard in each MoE layer of
+    the train step (``jax_routes``: the JAX child writes ROUTES_FILE to
+    ``out_dir``; waited for up to RANK_TIMEOUT_S), to force on the port's
+    router (``routes``); None for a dense arch."""
+    import time
+
+    import torch
+    if not cfg.n_experts:
+        return None
+    path = os.path.join(out_dir, ROUTES_FILE)
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} from the JAX child")
+        time.sleep(0.2)
+    with np.load(path) as z:
+        got = {k: z[k] for k in z.files}
+    n = TRAIN_B * TRAIN_S // mesh.shape["data"]
+    lo = mesh.coords["data"] * n
+    return [torch.from_numpy(got[f"{arch}/routes/ids{i}"][lo:lo + n])
+            for i in range(cfg.n_layers - cfg.first_dense_layers)]
 
 
 def _steps_rank(mesh, ref, out, tmp):
@@ -557,13 +693,15 @@ def _steps_rank(mesh, ref, out, tmp):
                 [lg for d, tt, lg in one_dec if tt == t]).float().numpy()
         force = one_routes[mesh.coords["data"]]
         n_fwd = len(force) // (1 + DECODE_STEPS)
-        with routes(force[:n_fwd]):
+        with routes(force[:n_fwd]), partials() as rec:
             out[f"{arch}/prefill"] = steps.make_prefill_step(
                 model, run, mesh)(params, {"tokens": toks}).numpy()
+        _partials_vs_one(mesh, full, rec, out, arch)
         tree = steps.compute_params(model, params, mesh)
         serve = steps.make_serve_step(model, run, mesh)
         cache = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
         cache2 = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        out[f"{arch}/cache_k/rank{mesh.rank}"] = np.array(cache["k"].shape)
         for t in range(DECODE_STEPS):
             view, rows = split_batch(mesh, {"tokens": toks[:, t:t + 1]})
             step_routes = force[n_fwd * (1 + t):n_fwd * (2 + t)]
@@ -571,8 +709,8 @@ def _steps_rank(mesh, ref, out, tmp):
                     routes(step_routes):
                 logits, cache = model.decode_step(run, rows["tokens"], cache,
                                                   mesh=view)
-            out[f"{arch}/decode{t}"] = gather_rows(
-                view, logits[:, -1].float()).numpy()
+            out[f"{arch}/decode{t}"] = gather_rows(view, steps._last_row(
+                model, view, logits).float()).numpy()
             with routes(step_routes):
                 nxt, cache2 = serve(tree, toks[:, t:t + 1], cache2)
             out[f"{arch}/serve{t}"] = nxt.numpy()
@@ -599,6 +737,20 @@ def _steps_rank(mesh, ref, out, tmp):
     for k, g in grads["data_mesh"].items():
         out[f"data_mesh/g/{k}"] = g.numpy()
         out[f"data_one/g/{k}"] = grads["data_one"][k].numpy()
+    # qwen's prefill on the data mesh ("model" of extent 1) against one
+    # process's forward of each row.
+    qarch = TRAIN_ARCHS[0]
+    qmodel = build_model(configs.get_reduced_config(qarch), "meta",
+                         trainable=True)
+    qtoks = torch.from_numpy(ref[f"in/{qarch}/tokens"])
+    got = steps.make_prefill_step(qmodel, run, dmesh)(
+        blocks(qarch, qmodel, dmesh), {"tokens": qtoks})
+    qfull = port_model(qarch, ref)
+    with torch.inference_mode():
+        want = torch.cat([qfull.forward(run, {"tokens": qtoks[i:i + 1]})[0][
+            :, -1] for i in range(TRAIN_B)])
+    out["data_mesh/prefill"] = got.numpy()
+    out["data_mesh/prefill_one"] = want.numpy()
     for tag, m, r in (("data_mesh", dmesh, run),
                       ("microbatch", mesh, RunConfig(**RUN_KNOBS,
                                                      microbatch=2))):
@@ -633,6 +785,87 @@ def _steps_rank(mesh, ref, out, tmp):
         out[f"{tag}/restarts"] = np.asarray(hist["restarts"])
         for k, v in gather_params(params, sh).items():
             out[f"{tag}/p/{k}"] = v.detach().numpy()
+
+
+def _partials_vs_one(mesh, full, rec, out, arch):
+    """Layer 0's row-parallel products on this rank against one process's
+    product of the same slices: its input columns by the rows of the
+    whole weight (``full``'s) that its block holds, in the input's dtype;
+    True where bit-equal (``/rank`` keys: every rank's is kept)."""
+    import torch
+    whole = {"wo": "blocks.0.attn.wo.w", "w_down": "blocks.0.ffn.w_down.w"}
+    params = dict(full.named_parameters())
+    for tag, name in whole.items():
+        if name not in params:
+            continue
+        calls = [c for c in rec if c[0] == tag]
+        _, x, w, partial = calls[0]
+        n = w.shape[0]
+        lo = mesh.index("model") * n
+        rows = params[name].detach()[lo:lo + n]
+        want = x @ rows.to(x.dtype)
+        out[f"{arch}/partial_{tag}/rank{mesh.rank}"] = np.array([
+            torch.equal(w.float(), rows.float()),
+            torch.equal(partial.float(), want.float()),
+            n * mesh.shape["model"] ==
+            params[name].shape[0]])
+
+
+def _tp_rank(mesh, out):
+    """The tensor-parallel pieces on this rank: each TREE_CASES arch's
+    compute trees (serving and training), each leaf's share of its whole
+    elements ("tree/...": rank 0's); the vocab-parallel ``cross_entropy``
+    and its gradient against the whole vocab's on this rank's rows, and
+    the vocab-split embedding against one process's gather-then-cast
+    ("/rank" keys)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (init_sharded, model_shardings,
+                                            split_batch, tp_leaves)
+    for arch, changes in TREE_CASES.items():
+        cfg = dataclasses.replace(configs.get_reduced_config(arch),
+                                  **changes)
+        model = build_model(cfg, "meta", trainable=True)
+        sh = model_shardings(model, mesh)
+        whole = dict(model.named_parameters())
+        params = init_sharded(model, sh, torch.Generator().manual_seed(4),
+                              "cpu")
+        trees = {"serve": steps.compute_params(model, params, mesh),
+                 "train": steps._compute_tree(
+                     steps.cast_params(params), sh, ("data",),
+                     tp_leaves(model, mesh))}
+        for tag, tree in trees.items():
+            for name, t in tree.items():
+                if mesh.rank == 0:
+                    out[f"tree/{arch}/{tag}/{name}"] = np.float64(
+                        t.numel() / whole[name].numel())
+    b, s, v = VOCAB_CE
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy(rng.normal(size=(b, s, v)).astype(np.float32)
+                              * 4)
+    labels = torch.from_numpy(rng.integers(0, v, (b, s)).astype(np.int32))
+    view, rows = split_batch(mesh, {"logits": logits, "labels": labels})
+    n = v // mesh.shape["model"]
+    lo = mesh.index("model") * n
+    blk = rows["logits"][..., lo:lo + n].clone().requires_grad_(True)
+    loss, ce = steps.cross_entropy(blk, rows["labels"], 1e-4, view, v)
+    g, = torch.autograd.grad(loss, blk)
+    whole_l = rows["logits"].clone().requires_grad_(True)
+    loss1, ce1 = steps.cross_entropy(whole_l, rows["labels"], 1e-4, view)
+    g1, = torch.autograd.grad(loss1, whole_l)
+    out[f"vocab_ce/rank{mesh.rank}"] = np.array([
+        float(abs(loss - loss1)), float(abs(ce - ce1)),
+        float((g - g1[..., lo:lo + n]).abs().max()), float(loss1)])
+    table = torch.from_numpy(rng.normal(size=(v, 16)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, v, (b, s)))
+    same = []
+    for t in (table, table.to(torch.bfloat16)):
+        got = layers.embed({"table": t[lo:lo + n]}, toks, view, v)
+        same.append(torch.equal(got, t[toks].to(layers.ACT_DTYPE)))
+    out[f"vocab_embed/rank{mesh.rank}"] = np.array(same)
 
 
 def _repro_key(name: str):
@@ -694,7 +927,8 @@ def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
         if world == 8:
             mesh = make_mesh(MESH, AXES)
             _moe_rank(mesh, ref, out)
-            _train_rank(mesh, ref, out, ckpt_dir)
+            _tp_rank(mesh, out)
+            _train_rank(mesh, ref, out, ckpt_dir, out_dir)
             _steps_rank(mesh, ref, out, out_dir)
             x = torch.arange(24.0).reshape(2, 3, 4) + rank
             for dim in range(3):

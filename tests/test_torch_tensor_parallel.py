@@ -1,0 +1,172 @@
+"""The tensor-parallel layout of the port's dense and MoE (GQA) families
+(``sharding.rules.tp_layout`` / ``tp_block`` / ``tp_leaves``,
+``runtime.steps.local_cache``) at full width, shapes only: no ranks, no
+weights (meta-device models and meshes of names and sizes).
+
+For each of Qwen1.5-0.5B, MiniCPM-2B, Nemotron-4-15B, Yi-9B and
+Mixtral-8x7B on ``make_production_mesh``'s two shapes and on (2, 4):
+
+* the layout (a rank's q heads, kv heads, FFN width and vocab) against
+  the config's counts split where "model" divides them (the kv heads only
+  where the q heads split too), and the leaves that stay blocks: exactly
+  those whose ``repro`` spec (``repro.sharding.rules.spec_pspec`` on the
+  stacked leaf, a stub mesh) puts that count on "model", their block
+  shapes the layout's counts;
+* ``local_cache``'s leaf shapes (built on the meta device) against the
+  blocks of ``repro``'s ``cache_shardings`` over ``repro``'s cache tree,
+  compared leaf by leaf as ``test_cache_specs_match_repro`` compares
+  specs, at a batch the batch axes divide (64) and one they do not (3).
+  The batch 64 matches no other cache dimension of these configs
+  (``repro``'s rule splits the first dimension equal to the batch).
+
+DeepSeek-V2 (MoE, MLA) stays whole over "model", and so does every leaf
+on a mesh without a "model" extent.  Exact throughout.
+"""
+import dataclasses
+
+import jax
+import pytest
+
+import mesh_model_pair as pair
+from repro import configs as j_configs
+from repro.models.model import build_model as j_build_model
+from repro.sharding import rules as j_rules
+from repro_torch import configs
+from repro_torch.launch.mesh import AbstractMesh, make_production_mesh
+from repro_torch.models.model import build_model
+from repro_torch.runtime import steps
+from repro_torch.sharding import rules
+
+TP_ARCHS = ("qwen1.5-0.5b", "minicpm-2b", "nemotron-4-15b", "yi-9b",
+            "mixtral-8x7b")
+KINDS = ("multi", "single", "test")      # the production meshes, (2, 4)
+CACHE_BATCHES, CACHE_LEN = (64, 3), 1024
+# Leaf suffix -> (layout field, the dimension it splits).
+LEAVES = {"attn.wq.w": ("heads", 1), "attn.wq.b": ("heads", 0),
+          "attn.wo.w": ("heads", 0), "attn.wk.w": ("kv_heads", 1),
+          "attn.wk.b": ("kv_heads", 0), "attn.wv.w": ("kv_heads", 1),
+          "attn.wv.b": ("kv_heads", 0), "ffn.w_gate.w": ("ffn", 1),
+          "ffn.w_up.w": ("ffn", 1), "ffn.w_down.w": ("ffn", 0),
+          "embed.table": ("vocab", 0), "unembed.w": ("vocab", 1)}
+
+
+class StubMesh:
+    def __init__(self, shape, axes):
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, shape))
+
+
+def _mesh(kind):
+    if kind == "test":
+        return AbstractMesh((2, 4), ("data", "model"))
+    return make_production_mesh(multi_pod=kind == "multi")
+
+
+def _expected(cfg, m):
+    """The layout the rule gives, from the counts alone."""
+    def cut(n):
+        return n // m if n % m == 0 else n
+    heads = cut(cfg.n_heads)
+    kv = cut(cfg.n_kv_heads) if heads < cfg.n_heads else cfg.n_kv_heads
+    return rules.TPLayout(heads, kv, cut(cfg.d_ff), cut(cfg.vocab))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_layout_and_blocks(arch, kind):
+    mesh = _mesh(kind)
+    m = mesh.shape["model"]
+    cfg = configs.get_config(arch)
+    lay = rules.tp_layout(cfg, mesh)
+    assert lay == _expected(cfg, m)
+    stub = StubMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    jspecs = pair.flat(j_build_model(j_configs.get_config(arch)).specs)
+    model = build_model(cfg, "meta")
+    keep = rules.tp_leaves(model, mesh)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    whole = rules.TPLayout(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab)
+    for name in shapes:
+        kind_ = next((v for k, v in LEAVES.items() if name.endswith(k)),
+                     None)
+        if kind_ is None:
+            assert name not in keep, name
+            continue
+        field, dim = kind_
+        split = getattr(lay, field) < getattr(whole, field)
+        assert (name in keep) == split, name
+        jname = "/".join(s for s in name.split(".") if not s.isdigit())
+        jspec = tuple(j_rules.spec_pspec(jspecs[jname], stub))
+        lead = len(jspec) - len(shapes[name])
+        if split:
+            # repro's rule puts this dimension on "model" ...
+            assert jspec[lead + dim] == "model", (name, jspec)
+            # ... and the block holds the layout's count of it.
+            per = shapes[name][dim] // getattr(whole, field)
+            assert shapes[name][dim] // m == per * getattr(lay, field)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_local_cache_is_repro_cache_blocks(arch, kind):
+    mesh = _mesh(kind)
+    jmesh = jax.sharding.AbstractMesh(tuple(mesh.shape.values()),
+                                      mesh.axis_names)
+    tmodel = build_model(configs.get_config(arch), "meta")
+    jmodel = j_build_model(j_configs.get_config(arch))
+    for b in CACHE_BATCHES:
+        got = pair.flat(steps.local_cache(tmodel, mesh, b, CACHE_LEN,
+                                          "meta"))
+        specs = jmodel.cache_specs(b, CACHE_LEN)
+        want = pair.flat(j_rules.cache_shardings(jmesh, specs, b))
+        jshape = pair.flat(jax.tree.map(lambda a: tuple(a.shape), specs))
+        assert set(got) == set(want)
+        for k, sh in want.items():
+            block = tuple(
+                d // (1 if p is None else rules.mesh_extent(
+                    mesh, (p,) if isinstance(p, str) else tuple(p)))
+                for d, p in zip(jshape[k], tuple(sh.spec)
+                                + (None,) * len(jshape[k])))
+            assert tuple(got[k].shape) == block, (arch, kind, b, k)
+            assert got[k].device.type == "meta"
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_mla_and_model_free_meshes_stay_whole(kind):
+    """DeepSeek-V2 (MLA) keeps every leaf whole over "model" and its cache
+    whole over it; a ("data",) mesh keeps every arch whole."""
+    mesh = _mesh(kind)
+    cfg = configs.get_config("deepseek-v2-236b")
+    assert rules.tp_layout(cfg, mesh) == rules.TPLayout(
+        cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab)
+    model = build_model(cfg, "meta")
+    assert not rules.tp_leaves(model, mesh)
+    data = AbstractMesh((mesh.size,), ("data",))
+    for arch in TP_ARCHS:
+        c = configs.get_config(arch)
+        assert rules.tp_layout(c, data) == rules.TPLayout(
+            c.n_heads, c.n_kv_heads, c.d_ff, c.vocab)
+        assert not rules.tp_leaves(build_model(c, "meta"), data)
+
+
+def test_straddling_q_heads_raise():
+    """A layout whose ranks' q heads would straddle two kv heads (6 heads
+    in 2 groups on a 3-way axis) raises instead of computing whole."""
+    cfg = dataclasses.replace(configs.get_reduced_config("nemotron-4-15b"),
+                              n_heads=6, n_kv_heads=2)
+    with pytest.raises(ValueError, match="straddle"):
+        rules.tp_layout(cfg, AbstractMesh((1, 3), ("data", "model")))
+
+
+def test_reduced_configs_on_the_test_mesh():
+    """The reduced configs the CPU ranks run on (2, 4) cover every case of
+    the rule: q heads split one a rank with kv heads split (qwen) or whole
+    (mixtral, yi), q heads whole (MiniCPM's 6, Nemotron's 6), the FFN and
+    the vocab split."""
+    mesh = _mesh("test")
+    got = {a: rules.tp_layout(configs.get_reduced_config(a), mesh)
+           for a in TP_ARCHS}
+    assert got["qwen1.5-0.5b"] == rules.TPLayout(1, 1, 44, 128)
+    assert got["mixtral-8x7b"] == rules.TPLayout(1, 2, 40, 128)
+    assert got["yi-9b"] == rules.TPLayout(1, 2, 44, 128)
+    assert got["minicpm-2b"] == rules.TPLayout(6, 6, 45, 128)
+    assert got["nemotron-4-15b"] == rules.TPLayout(6, 2, 96, 128)
