@@ -281,7 +281,8 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
      routing recorded, and its token loop with each step's fed token,
      routing and what ``op_log`` records;
      Qwen1.5-0.5B's steps on a (1,) mesh, which casts as the ranks'
-     mesh does), then MESH_RANKS gloo ranks spawned on cuda:0 (time-
+     mesh does; (d) / (e)'s models: each forward's last logits and
+     token loop), then MESH_RANKS gloo ranks spawned on cuda:0 (time-
      shared: no scaling figure) draw their blocks of the same weights
      (``sharding.rules.init_sharded``) and run:
      a. ``make_prefill_step`` over MESH_MOE_BATCH x MESH_MOE_SEQ on a
@@ -322,7 +323,33 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         "full", MESH_TRAIN_BATCH x MESH_TRAIN_SEQ, 48 wgmma flash
         launches a rank at [B_loc * H / 2, S, hd], each against the
         twin): its loss, ce and grad norm within phase 9's bounds of one
-        process's first step; the blocks', compute tree's and peak bytes.
+        process's first step; the blocks', compute tree's and peak bytes;
+     d. Llama-3.2-Vision-90B at its published widths, VLM_GROUPS of its
+        20 groups (both gates of each cross block drawn live), on a
+        (1, 4) mesh, tensor-parallel over "model" (16 q heads, 2 kv heads
+        and a quarter of the FFN and the vocab a rank, self and cross
+        blocks alike; each rank draws its blocks in turn):
+        ``make_prefill_step`` over MESH_VLM_BATCH x VLM_SEQ tokens and
+        1,600 image tokens a row launches flash once a self layer a rank
+        at [B_loc * 16, S, 128] (causal, wgmma, each call against the
+        twin) and nothing else; the last logits (gathered over the
+        vocab) within LOGIT_TOL of one process's; ms a forward, the
+        compute tree's bytes and gather seconds beside the gathered
+        layout's (gathered leaf by leaf), peak memory; then the token
+        loop (MESH_SERVE) through ``make_serve_step`` on each rank's
+        block of the caches (k / v / img_k / img_v: 2 of 8 kv heads, a
+        quarter of one process's bytes), no kernel launched, and fed one
+        process's tokens: every step's last logits within LOGIT_TOL of
+        its own;
+     e. SeamlessM4T-medium whole on (1, 4), the same way: over
+        MESH_ENCDEC_BATCH x ENCDEC_SEQ frames and tokens, flash once an
+        encoder layer (full) and once a decoder layer (causal) a rank at
+        [B_loc * 4, S, 64], the head whole on every rank (its vocab of
+        256,206 does not split 4 ways), the k / v / cross_k / cross_v
+        caches 4 of 16 kv heads a rank; flash timed at (d)'s and (e)'s
+        rank shapes on rank 0's first call (the kernels line's
+        ``mesh_vlm_causal_shape``, ``mesh_encdec_full_shape`` and
+        ``mesh_encdec_causal_shape``).
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -549,11 +576,26 @@ SHARDED_RUNS = {
 # mesh and in one process, held bit for bit by integer checksums of the
 # f32 bits (position-weighted, summed over the blocks: integer sums do
 # not depend on the order).
+# (d) Llama-3.2-Vision-90B at its published widths, VLM_GROUPS of its 20
+# groups (random weights from XATTN_SEED, both gates of each cross block
+# drawn live as in phase 11), and (e) SeamlessM4T-medium whole, each
+# tensor-parallel on MESH_XATTN_SHAPE: make_prefill_step over
+# MESH_VLM_BATCH x VLM_SEQ tokens (1,600 image tokens a row) and
+# MESH_ENCDEC_BATCH x ENCDEC_SEQ frames and tokens against one process's
+# forward, then the token loop (MESH_SERVE) on each rank's block of the
+# caches against one process's loop fed the same tokens.  A row of the
+# vlm adds ~1.3 GB of f32 all-reduces to a forward through gloo's host
+# staging, so the batches stay small.
 MESH_RANKS, MESH_TIMEOUT_S = 4, 900
 MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 4, 2048
 MESH_SERVE = (4, 128, 32)
 MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4, 1024
 MESH_SHAPES = ((1, 4), (2, 2))
+MESH_XATTN_SHAPE, MESH_VLM_BATCH, MESH_ENCDEC_BATCH = (1, 4), 2, 2
+GATHER_PIECE_BYTES = 1 << 28     # gathered_layout's piece, 256 MiB
+# (tag, arch, batch, sequence) of phase 14 (d) and (e).
+MESH_XATTN = (("vlm", VLM_ARCH, MESH_VLM_BATCH, VLM_SEQ),
+              ("encdec", ENCDEC_ARCH, MESH_ENCDEC_BATCH, ENCDEC_SEQ))
 SERVE_STAGES = ("queue_wait", "host_prepare", "device_assign", "merge",
                 "request", "analytics_observe")
 SPAN_NAMES = {"request", "submit", "queue_wait", "host_prepare", "route",
@@ -2941,18 +2983,24 @@ def moe_phase(smoke, result, faulty) -> dict:
 
 
 # -- phase 11: the vlm and encdec families -----------------------------------
-def set_gates(model, gate=None) -> None:
+def draw_gates(pairs, gate=None) -> None:
     """The vlm's gates (zero at init, as in ``repro``, which would hide the
-    whole image path) drawn from U(0.5, 1.5) with XATTN_SEED; ``gate``
-    then sets every attention gate to that value (the ffn gates stay)."""
+    whole image path), ``pairs`` of (gate, ffn_gate) in group order, drawn
+    from U(0.5, 1.5) with XATTN_SEED; ``gate`` then sets every attention
+    gate to that value (the ffn gates stay)."""
     gen = torch.Generator(device="cuda").manual_seed(XATTN_SEED + 1)
     with torch.no_grad():
-        for group in model.groups:
-            cross = group["cross"]
-            for p in (cross.gate, cross.ffn_gate):
+        for attn_gate, ffn_gate in pairs:
+            for p in (attn_gate, ffn_gate):
                 p.uniform_(0.5, 1.5, generator=gen)
             if gate is not None:
-                cross.gate.fill_(gate)
+                attn_gate.fill_(gate)
+
+
+def set_gates(model, gate=None) -> None:
+    """``draw_gates`` over a vlm model's cross blocks."""
+    draw_gates([(g["cross"].gate, g["cross"].ffn_gate)
+                for g in model.groups], gate)
 
 
 def family_load(arch, out, phase=11, **changes):
@@ -3023,6 +3071,7 @@ def family_forward(smoke, cfg, model, batch, faulty, want_calls, out, what,
     call of each kind (causal, full) for the timing."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import model as model_mod
     from repro_torch.models import transformer as tf
     from repro_torch.runtime.steps import make_prefill_step
@@ -3094,8 +3143,7 @@ def family_forward(smoke, cfg, model, batch, faulty, want_calls, out, what,
     f.update(step_timing(step, batch, b * s))
     if patches is None:
         patches = [(ops, "flash_attn", "self attention (flash)"),
-                   (tf, "blockwise_attn", "cross attention (blockwise, f32)"),
-                   (model_mod, "blockwise_attn",
+                   (attn_mod, "blockwise_attn",
                     "cross attention (blockwise, f32)"),
                    (tf, "ffn", "FFN"), (model_mod, "ffn", "FFN"),
                    (model_mod, "unembed", "unembedding (f32)")]
@@ -3897,9 +3945,229 @@ def tree_bytes(tree: dict) -> int:
     return sum(t.numel() * t.element_size() for t in tree.values())
 
 
-def kv_bytes(cache: dict) -> int:
-    """The bytes of a cache's k / v leaves."""
-    return tree_bytes({k: cache[k] for k in ("k", "v")})
+def kv_bytes(cache: dict, keys=("k", "v")) -> int:
+    """The bytes of a cache's k / v leaves (``keys``)."""
+    return tree_bytes({k: cache[k] for k in keys})
+
+
+# The kv leaves of the cross-attention families' caches.
+XATTN_KV = {"vlm": ("k", "v", "img_k", "img_v"),
+            "encdec": ("k", "v", "cross_k", "cross_v")}
+
+
+def mesh_xattn_cfg(arch):
+    """Phase 14 (d) / (e)'s config: the vlm cut to VLM_GROUPS groups, the
+    encdec whole."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(
+            cfg, n_layers=VLM_GROUPS * cfg.cross_attn_every)
+    return cfg
+
+
+def gathered_layout(params, shardings) -> dict:
+    """The layout before tensor parallelism (every leaf but the experts
+    gathered whole over the mesh), leaf by leaf, each in pieces of at most
+    GATHER_PIECE_BYTES gathered along a dimension the leaf's spec leaves
+    whole, each piece freed before the next (a card shared by four ranks
+    beside the main process holds no four whole vlms, nor four of its
+    3.9 GiB f32 embeddings at once): its bytes and the gathers'
+    seconds."""
+    from repro_torch.runtime import steps
+    nbytes, t0 = 0, time.perf_counter()
+    for name, x in params.items():
+        sh = shardings[name]
+        split = [p for p in sh.spec if p is not None]
+        whole = x.numel() * x.element_size() * math.prod(
+            sh.mesh.shape[a] for p in split
+            for a in ((p,) if isinstance(p, str) else p))
+        free = [d for d in range(x.dim())
+                if d >= len(sh.spec) or sh.spec[d] is None]
+        pieces = (x.chunk(max(1, min(x.shape[free[0]],
+                                     -(-whole // GATHER_PIECE_BYTES))),
+                          free[0]) if free else (x,))
+        for piece in pieces:
+            t = steps._compute_tree({name: piece.contiguous()},
+                                    {name: sh}, ())
+            nbytes += tree_bytes(t)
+            del t
+    torch.cuda.synchronize()
+    return dict(gather_s=time.perf_counter() - t0, tree_bytes=nbytes)
+
+
+def xattn_flash_calls(cfg, b_loc, seq, m) -> list:
+    """(causal, [BH, S, D]) of each flash call of a rank's prefill: the
+    vlm's self layers causal, the encdec's encoder full then its decoder
+    causal, each at this rank's heads."""
+    shape = (b_loc * cfg.n_heads // m, seq, cfg.hd)
+    if cfg.family == "vlm":
+        n_self = cfg.n_layers // cfg.cross_attn_every * (
+            cfg.cross_attn_every - 1)
+        return [(True, shape)] * n_self
+    return [(False, shape)] * cfg.enc_layers + [(True, shape)] * cfg.n_layers
+
+
+def mesh_xattn_rank(smoke, ref, rank, tmp):
+    """Phase 14 (d) and (e) on one rank: each cross-attention arch's
+    ``make_prefill_step`` on MESH_XATTN_SHAPE, tensor-parallel over
+    "model", and its token loop on this rank's block of the caches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import init_sharded, model_shardings
+    mesh = make_mesh(MESH_XATTN_SHAPE, ("data", "model"))
+    m = mesh.shape["model"]
+    out = {}
+    for tag, arch, b, seq in MESH_XATTN:
+        cfg = mesh_xattn_cfg(arch)
+        model = build_model(cfg, "meta")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        shardings = model_shardings(model, mesh)
+        # One rank draws at a time: ``init_sharded`` draws each stacked
+        # leaf whole in f32 (7 GiB for the vlm's FFN leaves), and four
+        # such draws beside the blocks overflow the one card.
+        for r in range(MESH_RANKS):
+            if r == rank:
+                params = init_sharded(model, shardings, torch.Generator(
+                    device="cuda").manual_seed(XATTN_SEED), "cuda")
+                torch.cuda.empty_cache()
+            dist.barrier()
+        if cfg.family == "vlm":
+            draw_gates([(params[f"groups.{g}.cross.gate"],
+                         params[f"groups.{g}.cross.ffn_gate"])
+                        for g in range(len(model.groups))])
+        block_bytes = tree_bytes(params)
+        gathered = gathered_layout(params, shardings)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tree = steps.compute_params(model, params, mesh)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        stub = "img" if cfg.family == "vlm" else "frames"
+        batch = {"tokens": torch.from_numpy(ref[f"{tag}_tokens"]).cuda(),
+                 stub: torch.from_numpy(ref[f"{tag}_{stub}"]).cuda().view(
+                     torch.bfloat16)}
+        run = serve_mod.run_config(seq)
+        step = steps.make_prefill_step(model, run, mesh)
+        torch.cuda.synchronize()
+        smoke.build.reset_launches()
+        with smoke.capture(keep=["flash_attn_bhsd"]) as cap:
+            last = step(tree, batch)
+            torch.cuda.synchronize()
+        counts = dict(smoke.build.LAUNCHES)
+        routes = dict(smoke.build.ROUTE_LAUNCHES)
+        calls = cap.calls["flash_attn_bhsd"]
+        want = xattn_flash_calls(cfg, b, seq, m)
+        for kname, n in counts.items():
+            check((n > 0) == (kname == "flash_attn_bhsd"),
+                  f"mesh {tag} prefill: {kname} launched {n} times")
+        got = [(kw["causal"], tuple(a[0].shape)) for a, kw, _ in calls]
+        check(got == want and counts["flash_attn_bhsd"] == len(want)
+              and routes.get("flash_attn_bhsd:wgmma") == len(want)
+              and all(a[0].dtype == torch.bfloat16 for a, _, _ in calls),
+              f"mesh {tag} prefill: flash calls {got} by route {routes}, "
+              f"not {len(want)} wgmma calls {sorted(set(want))}")
+        err = over = 0.0
+        for args, kw, (o,) in calls:
+            w, spread = smoke.twin("flash_attn_bhsd", args, kw)
+            e, ov = flash_err(o, w, spread, f"mesh {tag} flash call")
+            err, over = max(err, e), max(over, ov)
+            del w, spread
+        if rank == 0:
+            # The first call of each kind, timed by the main process.
+            firsts = {}
+            for (q, k, v), kw, _ in calls:
+                firsts.setdefault(kw["causal"], ([x.cpu() for x in (q, k, v)],
+                                                 kw))
+            torch.save({"calls": firsts, "b_loc": b},
+                       os.path.join(tmp, f"mesh_{tag}_flash.pt"))
+        del cap, calls
+        check(bool(torch.isfinite(last).all())
+              and last.shape == (b, cfg.vocab),
+              f"mesh {tag} prefill: last logits {tuple(last.shape)} not "
+              f"finite")
+        diff = float((last.float().cpu() - torch.from_numpy(
+            ref[f"{tag}_last"])).abs().max())
+        timing = step_timing(lambda bt: step(tree, bt), batch, b * seq)
+        unembed = tuple(tree["unembed.w"].shape)
+        out[tag] = dict(
+            coords=mesh.coords, routes=dict(mesh.routes),
+            flash_launches=counts["flash_attn_bhsd"],
+            flash_by_kind={kind: sum(c == causal for c, _ in want)
+                           for kind, causal in (("full", False),
+                                                ("causal", True))},
+            flash_shapes=sorted(set(want)), flash_max_abs_err=err,
+            flash_over=over, logits_vs_one=diff, unembed_shape=unembed,
+            unembed_whole=unembed == (cfg.d_model, cfg.vocab),
+            block_bytes=block_bytes, tree_bytes=tree_bytes(tree),
+            gather_s=gather_s, gathered_layout=gathered,
+            peak_total_bytes=torch.cuda.max_memory_allocated() - base,
+            **timing)
+        del last, batch
+        out[tag]["serve"] = mesh_xattn_serve(smoke, model, mesh, tree, ref,
+                                             tmp, tag, rank)
+        del params, tree
+    return out
+
+
+def mesh_xattn_serve(smoke, model, mesh, tree, ref, tmp, tag, rank):
+    """Phase 14 (d) / (e)'s token loop on this rank through
+    ``make_serve_step`` (timed; no kernel of the eight launched) on its
+    block of the caches (its rows and kv heads, ``local_cache``; its kv
+    bytes beside one process's), fed the tokens one process was fed; on
+    rank 0 each step's last logits (gathered over the vocab, as the step
+    gathers them for its argmax) held against one process's after the
+    loop."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.runtime import steps
+    b, s, gen = MESH_SERVE
+    n_steps = s + gen - 1
+    feed = torch.from_numpy(ref[f"{tag}_serve_feed"]).cuda()
+    run = serve_mod.run_config(s)
+    step = steps.make_serve_step(model, run, mesh)
+    keys = XATTN_KV[tag]
+    cache = steps.local_cache(model, mesh, b, s + gen, "cuda")
+    cache_bytes = kv_bytes(cache, keys)
+    seen, real = [], steps._last_row
+
+    def last_row(model_, view, logits):
+        last = real(model_, view, logits)
+        check(last.shape[0] == b, f"mesh {tag} serve: rows split over "
+                                  f"{view.batch_axes}")
+        if rank == 0:
+            seen.append(last)
+        return last
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    steps._last_row = last_row
+    try:
+        t0 = time.perf_counter()
+        for t in range(n_steps):
+            _, cache = step(tree, feed[:, t:t + 1], cache)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        steps._last_row = real
+    launched = {k: v for k, v in smoke.build.LAUNCHES.items() if v}
+    check(not launched, f"mesh {tag} serve: kernels launched {launched}")
+    errs = []
+    if rank == 0:
+        want = np.load(os.path.join(tmp, f"{tag}_serve_logits.npy"),
+                       mmap_mode="r")
+        check(len(seen) == n_steps, f"mesh {tag} serve: {len(seen)} steps")
+        errs = [float((got.float().cpu() - torch.from_numpy(
+            np.array(want[t]))).abs().max()) for t, got in enumerate(seen)]
+    one = kv_bytes(model.cache_specs(b, s + gen), keys)
+    return dict(cache_bytes=cache_bytes, cache_bytes_one=one,
+                cache_shapes={k: list(cache[k].shape) for k in keys},
+                step_max_abs_err=errs, steps=n_steps,
+                ms_a_step=dt * 1e3 / n_steps, tok_s=b * n_steps / dt)
 
 
 def mesh_moe_rank(smoke, ref, rank, tmp):
@@ -3926,15 +4194,10 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
         params = init_sharded(model, shardings, torch.Generator(
             device="cuda").manual_seed(MOE_SEED), "cuda")
         block_bytes = tree_bytes(params)
-        # The tree of the gathered layout (every leaf but the experts
-        # whole over "model", as before tensor parallelism), timed and
-        # measured beside the tensor-parallel one, then freed.
-        t0 = time.perf_counter()
-        whole = steps._compute_tree(params, shardings, ())
-        torch.cuda.synchronize()
-        gathered = dict(gather_s=time.perf_counter() - t0,
-                        tree_bytes=tree_bytes(whole))
-        del whole
+        # The gathered layout (every leaf but the experts whole over
+        # "model", as before tensor parallelism), timed and measured
+        # beside the tensor-parallel one.
+        gathered = gathered_layout(params, shardings)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         tree = steps.compute_params(model, params, mesh)
@@ -4270,6 +4533,7 @@ def mesh_rank(rank, addr, tmp):
         out = {"moe": mesh_moe_rank(smoke, ref, rank, tmp)}
         out["train"] = mesh_train_rank(smoke, ref, rank, tmp)
         out["tp_train"] = mesh_tp_train_rank(smoke, ref)
+        out["xattn"] = mesh_xattn_rank(smoke, ref, rank, tmp)
         out["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -4388,8 +4652,150 @@ def mesh_references(smoke, tmp) -> dict:
     out["train_one"]["step_s"] = times
     del qmodel, params, opt, m
     torch.cuda.empty_cache()
+    xattn_references(ref, out, tmp)
     np.savez(os.path.join(tmp, "ref.npz"), **ref)
     return out
+
+
+def xattn_references(ref, out, tmp) -> None:
+    """Phase 14 (d) / (e)'s one-process runs: each cross-attention arch
+    (``mesh_xattn_cfg``; the same weights the ranks draw, the vlm's gates
+    drawn live) over its batch (``xattn_batch``): the forward's last
+    logits; its token loop (MESH_SERVE: prompts from XATTN_SEED + 1, then
+    its greedy tokens), each step's fed token and last logits (to
+    ``tmp/{tag}_serve_logits.npy``), and its cache's kv bytes."""
+    from repro_torch.launch import serve as serve_mod
+    for tag, arch, b, seq in MESH_XATTN:
+        cfg = mesh_xattn_cfg(arch)
+        model = serve_mod.load_model(cfg, seed=XATTN_SEED, device="cuda")
+        if cfg.family == "vlm":
+            set_gates(model)
+        batch = xattn_batch(cfg, b, seq)
+        stub = "img" if cfg.family == "vlm" else "frames"
+        ref[f"{tag}_tokens"] = batch["tokens"].cpu().numpy()
+        ref[f"{tag}_{stub}"] = bf16_bits(batch[stub])
+        run = serve_mod.run_config(seq)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits = model.forward(run, batch)[0]
+            ref[f"{tag}_last"] = logits[:, -1].float().cpu().numpy()
+        torch.cuda.synchronize()
+        out[f"{tag}_forward_s"] = time.perf_counter() - t0
+        del logits, batch
+        bs, s, gen = MESH_SERVE
+        prompts = serve_mod.make_prompts(cfg, bs, s, XATTN_SEED + 1, "cuda")
+        sruns = serve_mod.run_config(s)
+        feed, steps_logits = [], []
+        with torch.inference_mode():
+            cache = model.init_cache(bs, s + gen)
+            out[f"{tag}_cache_bytes_one"] = kv_bytes(cache, XATTN_KV[tag])
+            tok = prompts[:, :1]
+            for t in range(s + gen - 1):
+                feed.append(tok)
+                logits, cache = model.decode_step(sruns, tok, cache)
+                steps_logits.append(logits[:, -1].float().cpu())
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(
+                    torch.int32)[:, None]
+                tok = prompts[:, t + 1:t + 2] if t + 1 < s else nxt
+        ref[f"{tag}_serve_feed"] = torch.cat(feed, 1).cpu().numpy()
+        np.save(os.path.join(tmp, f"{tag}_serve_logits.npy"),
+                torch.stack(steps_logits).numpy())
+        del model, cache, logits, steps_logits
+        torch.cuda.empty_cache()
+    print(f"phase 14: one-process references done, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB left reserved on "
+          f"the card", flush=True)
+
+
+def mesh_xattn_timing(smoke, ranks, tmp) -> dict:
+    """Flash at phase 14 (d) / (e)'s rank shapes, on rank 0's first call
+    of each kind (``flash_row``: beside its twin, bound and SDPA)."""
+    timing = {}
+    for tag, _, _, _ in MESH_XATTN:
+        saved = torch.load(os.path.join(tmp, f"mesh_{tag}_flash.pt"))
+        for causal, (qkv, kw) in sorted(saved["calls"].items()):
+            qkv = tuple(x.cuda() for x in qkv)
+            fa = smoke.flash.flash_attn_bhsd(*qkv, **kw)
+            kind = "causal" if causal else "full"
+            timing[f"mesh_{tag}_{kind}"] = flash_row(
+                smoke, [(qkv, kw, (fa,))],
+                ranks[0]["xattn"][tag]["flash_by_kind"][kind],
+                batch=saved["b_loc"],
+                path=f"mesh {tag} prefill (1, 4), tensor-parallel, {kind}")
+            del qkv, fa
+    return timing
+
+
+def mesh_xattn_checks(ranks, ref, out) -> None:
+    """Phase 14 (d) / (e)'s checks on the ranks' records, against the
+    one-process references (``xattn_references``), into ``out``."""
+    m = MESH_XATTN_SHAPE[1]
+    for tag, arch, b, seq in MESH_XATTN:
+        cfg = mesh_xattn_cfg(arch)
+        runs = [r["xattn"][tag] for r in ranks]
+        diff = max(r["logits_vs_one"] for r in runs)
+        check(diff <= LOGIT_TOL, f"mesh {tag}: last logits {diff} from the "
+                                 f"one-process forward's (tol {LOGIT_TOL})")
+        whole_vocab = cfg.vocab % m != 0
+        check(all(r["unembed_whole"] == whole_vocab for r in runs),
+              f"mesh {tag}: unembed.w a rank {runs[0]['unembed_shape']} "
+              f"(vocab {cfg.vocab} on a {m}-way axis)")
+        serves = [r["serve"] for r in runs]
+        err = max(serves[0]["step_max_abs_err"])
+        check(len(serves[0]["step_max_abs_err"]) == serves[0]["steps"]
+              and err <= LOGIT_TOL,
+              f"mesh {tag} serve: a step's logits {err} from one process's "
+              f"(tol {LOGIT_TOL})")
+        kv_split = cfg.n_kv_heads % m == 0
+        check(all(x["cache_bytes"] * (m if kv_split else 1)
+                  == ref[f"{tag}_cache_bytes_one"] for x in serves),
+              f"mesh {tag} serve: kv cache bytes a rank "
+              f"{[x['cache_bytes'] for x in serves]}, one process's "
+              f"{ref[f'{tag}_cache_bytes_one']} ({cfg.n_kv_heads} kv heads "
+              f"on a {m}-way 'model' axis)")
+        out[tag] = dict(arch=arch, layers=cfg.n_layers + cfg.enc_layers,
+                        batch=b, seq=seq, logits_vs_one=diff,
+                        serve_max_abs_err=err,
+                        one_process_forward_s=ref[f"{tag}_forward_s"],
+                        cache_bytes_one=ref[f"{tag}_cache_bytes_one"],
+                        ranks=runs)
+        r0 = runs[0]
+        print(f"phase 14: {cfg.name} at full width, {out[tag]['layers']} "
+              f"layers, on a (1, 4) mesh ({MESH_RANKS} gloo ranks on "
+              f"cuda:0), tensor-parallel over 'model' "
+              f"({cfg.n_heads // m} q heads, "
+              f"{cfg.n_kv_heads // m if kv_split else cfg.n_kv_heads} kv "
+              f"heads, d_ff {cfg.d_ff // m} a rank; unembed.w a rank "
+              f"{r0['unembed_shape']}), make_prefill_step over {b} x "
+              f"{seq}: last logits within {diff:.4g} of one process's (tol "
+              f"{LOGIT_TOL}); per rank flash_attn_bhsd x"
+              f"{r0['flash_launches']} at {r0['flash_shapes']} (wgmma, "
+              f"each == twin, max "
+              f"{max(r['flash_over'] for r in runs):.3g}x the tolerance) "
+              f"and nothing else of the eight; ms a forward "
+              f"{[round(r['step_s'] * 1e3, 1) for r in runs]} (one process "
+              f"{ref[f'{tag}_forward_s'] * 1e3:.1f} ms, its first call), "
+              f"peak GiB "
+              f"{[round(r['peak_total_bytes'] / 2**30, 2) for r in runs]}, "
+              f"blocks GiB {[round(r['block_bytes'] / 2**30, 3) for r in runs]}"
+              f", compute tree GiB "
+              f"{[round(r['tree_bytes'] / 2**30, 3) for r in runs]} in "
+              f"{[round(r['gather_s'], 2) for r in runs]} s (the gathered "
+              f"layout's, every leaf whole over 'model': "
+              f"{[round(r['gathered_layout']['tree_bytes'] / 2**30, 3) for r in runs]}"
+              f" GiB in "
+              f"{[round(r['gathered_layout']['gather_s'], 2) for r in runs]}"
+              f" s), routes {r0['routes']} ({card_line()})")
+        bs, s_, gen = MESH_SERVE
+        print(f"phase 14: {cfg.name} token loop on (1, 4), {bs} prompts of "
+              f"{s_} + {gen} generated, fed one process's tokens: each "
+              f"rank's {', '.join(XATTN_KV[tag])} cache "
+              f"{serves[0]['cache_bytes']} B "
+              f"({serves[0]['cache_shapes']}) beside one process's "
+              f"{ref[f'{tag}_cache_bytes_one']} B; every step's last "
+              f"logits within {err:.4g} of one process's (tol {LOGIT_TOL}); "
+              f"no kernel launched; ms a step "
+              f"{[round(x['ms_a_step'], 2) for x in serves]}")
 
 
 def mesh_phase(smoke, result) -> dict:
@@ -4418,6 +4824,7 @@ def mesh_phase(smoke, result) -> dict:
                               MESH_MOE_LAYERS, batch=saved["b_loc"],
                               path="mesh prefill (1, 4), tensor-parallel")
         del saved, qkv, fa
+        xattn_timing = mesh_xattn_timing(smoke, ranks, tmp)
         # (c) one process restores the checkpoint whole.
         t0 = time.perf_counter()
         model = build_model(get_config(LM_ARCH), "cuda", trainable=True)
@@ -4574,6 +4981,8 @@ def mesh_phase(smoke, result) -> dict:
           f"tree GiB {[round(t['tree_bytes'] / 2**30, 3) for t in tps]}, "
           f"peak GiB {[round(t['peak_bytes'] / 2**30, 2) for t in tps]}, "
           f"routes {tps[0]['routes']}")
+    # (d) / (e) the cross-attention families on (1, 4).
+    mesh_xattn_checks(ranks, ref, out)
     out["seconds"] = time.perf_counter() - t_start
     print(f"phase 14: {out['seconds']:.1f} s ({out['references_s']:.1f} s "
           f"one-process references, {out['spawn_s']:.1f} s the spawn)")
@@ -4581,8 +4990,10 @@ def mesh_phase(smoke, result) -> dict:
         "mesh_prefill_1x4": ranks[0]["moe"]["1x4"]["flash_launches"],
         "mesh_prefill_2x2": ranks[0]["moe"]["2x2"]["flash_launches"],
         "mesh_train_step": first["flash_launches"],
-        "mesh_tp_train_step": tps[0]["flash_launches"]},
-        "timing": tp_timing}
+        "mesh_tp_train_step": tps[0]["flash_launches"],
+        **{f"mesh_{tag}_prefill": ranks[0]["xattn"][tag]["flash_launches"]
+           for tag, _, _, _ in MESH_XATTN}},
+        "timing": tp_timing, "xattn_timing": xattn_timing}
 
 
 def host_map():
@@ -5263,6 +5674,8 @@ def main() -> int:
         flash_kernel[f"encdec_{kind}_shape"] = {k: row[k] for k in keys}
     flash_kernel["zamba2_shape"] = {k: recurrent["timing"][k] for k in keys}
     flash_kernel["mesh_tp_shape"] = {k: mesh["timing"][k] for k in keys}
+    for kind, row in mesh["xattn_timing"].items():
+        flash_kernel[f"{kind}_shape"] = {k: row[k] for k in keys}
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card

@@ -1,19 +1,25 @@
-"""Mixtral-8x7B's prefill at its published widths on a ("data", "model")
-mesh, one NCCL rank a GPU: the multi-card record of PERF.md.
+"""A model's prefill at its published widths on a ("data", "model") mesh,
+one NCCL rank a GPU: the multi-card record of PERF.md.
 
   python3 scripts/torch_mesh_prefill.py --layers 32 --mesh 1 4
+  python3 scripts/torch_mesh_prefill.py --arch llama-3.2-vision-90b \
+      --mesh 1 4
 
-Each rank draws its own blocks of random weights (each block from a seed
-and the rank: no single process could hold the 32 layers, 93 GB in
-bf16), gathers its compute tree once (``runtime.steps.compute_params``),
-and runs ``make_prefill_step`` over BATCH x SEQ tokens, tensor-parallel
-over "model" (each rank its heads, vocab block and experts; flash at
-[B_loc * H / m, S, hd]): the median host
-milliseconds of REPS forwards after a warm-up (each ending in a sync),
-tok/s, the flash launches of one forward, peak device memory, the
-gather's seconds and the collectives' routes, per rank.  Rank 0 prints
-them, with the card's name and power limit, as one JSON line and writes
-``--out``.
+``--arch`` is Mixtral-8x7B (the default) or Llama-3.2-Vision-90B.  Each
+rank draws its own blocks of random weights (each block from a seed and
+the rank: no single process could hold either model, 93 GB and 179 GB
+in bf16), gathers its compute tree once
+(``runtime.steps.compute_params``), and runs ``make_prefill_step`` over
+the arch's BATCHES x SEQ tokens, tensor-parallel over "model" (each rank
+its heads, FFN and vocab blocks, Mixtral's experts; flash at [B_loc * H
+/ m, S, hd]).  The vlm's gates, which start at zero and would hide the
+image path, are drawn from U(0.5, 1.5) and its N_IMG x d_vision image
+tokens a row from normals, both from SEED alike on every rank.  Printed:
+the median host milliseconds of REPS forwards after a warm-up (each
+ending in a sync), tok/s, the kernel launches of one forward by route,
+peak device memory, the gather's seconds and the collectives' routes,
+per rank.  Rank 0 prints them, with the card's name and power limit, as
+one JSON line and writes ``--out``.
 """
 import argparse
 import dataclasses
@@ -33,7 +39,8 @@ import torch.multiprocessing as mp
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
-ARCH, BATCH, SEQ, REPS, SEED = "mixtral-8x7b", 8, 2048, 3, 0
+BATCHES = {"mixtral-8x7b": 8, "llama-3.2-vision-90b": 4}
+SEQ, REPS, SEED = 2048, 3, 0
 
 
 def random_blocks(model, shardings, seed: int, device) -> dict:
@@ -58,6 +65,21 @@ def random_blocks(model, shardings, seed: int, device) -> dict:
     return out
 
 
+def vlm_inputs(model, params, batch: int, device) -> torch.Tensor:
+    """The vlm's gates drawn live into ``params`` and its image tokens
+    [batch, n_img, d_vision] (bf16), both from SEED, alike on every
+    rank."""
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    with torch.no_grad():
+        for g in range(len(model.groups)):
+            for leaf in ("gate", "ffn_gate"):
+                params[f"groups.{g}.cross.{leaf}"].uniform_(0.5, 1.5,
+                                                            generator=gen)
+    return torch.randn((batch, cfg.n_img_tokens, cfg.d_vision),
+                       generator=gen, device=device).to(torch.bfloat16)
+
+
 def rank_main(rank, args, addr, out_file):
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -73,8 +95,9 @@ def rank_main(rank, args, addr, out_file):
                             world_size=world,
                             timeout=timedelta(minutes=10))
     try:
-        cfg = get_config(ARCH)
+        cfg = get_config(args.arch)
         cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
+        batch = BATCHES[args.arch]
         mesh = make_mesh(tuple(args.mesh), ("data", "model"))
         model = build_model(cfg, "meta")
         t0 = time.perf_counter()
@@ -90,14 +113,17 @@ def rank_main(rank, args, addr, out_file):
         gather_s = time.perf_counter() - t0
         run = serve_mod.run_config(SEQ)
         step = steps.make_prefill_step(model, run, mesh)
-        toks = serve_mod.make_prompts(cfg, BATCH, SEQ, SEED,
-                                      device)
-        step(tree, {"tokens": toks})            # warm-up
+        inputs = {"tokens": serve_mod.make_prompts(cfg, batch, SEQ, SEED,
+                                                   device)}
+        if cfg.family == "vlm":
+            inputs["img"] = vlm_inputs(model, params, batch, device)
+        step(tree, inputs)                      # warm-up
         torch.cuda.synchronize()
         _build.reset_launches()
-        last = step(tree, {"tokens": toks})
+        last = step(tree, inputs)
         torch.cuda.synchronize()
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        routes = {k: v for k, v in _build.ROUTE_LAUNCHES.items() if v}
         if not bool(torch.isfinite(last).all()):
             raise RuntimeError("prefill logits not finite")
         torch.cuda.reset_peak_memory_stats()
@@ -105,14 +131,17 @@ def rank_main(rank, args, addr, out_file):
         for _ in range(REPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(tree, {"tokens": toks})
+            step(tree, inputs)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         ms = float(np.median(times)) * 1e3
         rec = dict(rank=rank, coords=mesh.coords, ms=ms,
                    ms_all=[t * 1e3 for t in times],
-                   tok_s=BATCH * SEQ / (ms / 1e3),
-                   launches=launches, block_bytes=block_bytes,
+                   tok_s=batch * SEQ / (ms / 1e3),
+                   launches=launches, launch_routes=routes,
+                   flash_shape=[batch * cfg.n_heads // args.mesh[1], SEQ,
+                                cfg.hd],
+                   block_bytes=block_bytes,
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    draw_s=draw_s, gather_s=gather_s,
                    routes=dict(mesh.routes))
@@ -125,7 +154,8 @@ def rank_main(rank, args, addr, out_file):
                 text=True).stdout.strip().splitlines()
             summary = dict(arch=cfg.name, layers=cfg.n_layers,
                            params=model.param_count(), mesh=args.mesh,
-                           backend="nccl", batch=BATCH, seq=SEQ, cards=card, ranks=recs)
+                           backend="nccl", batch=batch, seq=SEQ,
+                           cards=card, ranks=recs)
             print(json.dumps(summary))
             if out_file:
                 with open(out_file, "w") as f:
@@ -136,6 +166,7 @@ def rank_main(rank, args, addr, out_file):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="mixtral-8x7b", choices=sorted(BATCHES))
     ap.add_argument("--layers", type=int, default=0,
                     help="layers (default: the config's)")
     ap.add_argument("--mesh", type=int, nargs=2, default=[1, 4])

@@ -42,6 +42,13 @@ row block gives bf16 partials that ``layers.dense_rows`` sums over
 a multiple of the axis), every rank computes them all, as one process
 does, and reads the one its q heads use (head j reads kv head j // (H /
 KH)); their gradient is summed over "model" there (``psum_bwd``).
+
+Cross-attention (the vlm's gated blocks over the image tokens, the
+encdec decoder's over the encoder's output) has the same layout:
+``cross_kv`` gives this rank's kv heads of the other input (all of them
+where they are whole), ``cross_attn`` / ``cross_decode_attn`` its q
+heads of the residual, ``blockwise_attn`` / ``decode_attn`` over the kv
+head they read, and ``wo``'s row block summed by ``dense_rows``.
 """
 from __future__ import annotations
 
@@ -275,10 +282,60 @@ def gqa_self_attn(params, cfg, x, *, positions, chunk_q, chunk_kv,
     v = repeat_kv(v, h)
     o = self_attn(q, k, v, causal=causal, window=cfg.sliding_window,
                   chunk_q=chunk_q, chunk_kv=chunk_kv)
-    b, s = x.shape[:2]
+    return _attn_out(params, o, tp, mesh)
+
+
+def _attn_out(params, o, tp, mesh):
+    """``wo`` of the attention output o [B, S, H, hd]: this rank's row
+    block summed over "model" (``dense_rows``) where ``tp``."""
+    b, s = o.shape[:2]
     if tp:
         return dense_rows(params["wo"], o.reshape(b, s, -1), mesh)
     return dense(params["wo"], o.reshape(b, s, -1))
+
+
+def cross_kv(params, cfg, kv_x, mesh=None):
+    """Cross-attention k, v [B, T, KH, hd] of the other input kv_x [B, T,
+    d_in]: this rank's kv heads where they split over "model" (kv_x
+    enters through ``psum_bwd``), every kv head where they are whole (as
+    one process computes them; their gradient summed over "model")."""
+    tp, kv = tp_heads(params, cfg, mesh)
+    b, t = kv_x.shape[:2]
+    src = psum_bwd(kv_x, mesh, "model") if tp and kv is None else kv_x
+    k = dense(params["wk"], src).reshape(b, t, -1, cfg.hd)
+    v = dense(params["wv"], src).reshape(b, t, -1, cfg.hd)
+    if tp and kv is not None:
+        k, v = psum_bwd(k, mesh, "model"), psum_bwd(v, mesh, "model")
+    return k, v
+
+
+def _cross_q(params, cfg, h, k, v, mesh):
+    """(q of this rank's heads from h [B, S, D], the kv heads they read of
+    k / v [B, T, KH, hd], whether tensor-parallel)."""
+    tp, kv = tp_heads(params, cfg, mesh)
+    b, s = h.shape[:2]
+    q = dense(params["wq"], psum_bwd(h, mesh, "model") if tp else h)
+    if kv is not None:
+        k, v = k[:, :, kv], v[:, :, kv]
+    return q.reshape(b, s, -1, cfg.hd), k, v, tp
+
+
+def cross_attn(params, cfg, h, k, v, *, chunk_q, chunk_kv, mesh=None):
+    """Cross-attention of the normed residual h [B, S, D] over k, v
+    (``cross_kv``'s), through ``blockwise_attn`` (no RoPE, no mask): the
+    key length differs from the query length."""
+    q, k, v, tp = _cross_q(params, cfg, h, k, v, mesh)
+    o = blockwise_attn(q, k, v, causal=False, chunk_q=chunk_q,
+                       chunk_kv=chunk_kv)
+    return _attn_out(params, o, tp, mesh)
+
+
+def cross_decode_attn(params, cfg, h, k_cache, v_cache, mesh=None):
+    """One token's cross-attention (h [B, 1, D]) over every slot of the
+    caches [B, T, KH, hd] (this rank's kv heads where they split)."""
+    q, k, v, tp = _cross_q(params, cfg, h, k_cache, v_cache, mesh)
+    o = decode_attn(q, k, v, k.shape[1])
+    return _attn_out(params, o, tp, mesh)
 
 
 def gqa_decode_self_attn(params, cfg, x, k_cache, v_cache, pos, mesh=None):
@@ -312,11 +369,7 @@ def gqa_decode_self_attn(params, cfg, x, k_cache, v_cache, pos, mesh=None):
         o = decode_attn(q, kc, vc, None, cache_pos=cache_pos)
     else:
         o = decode_attn(q, kc, vc, pos + 1)
-    if tp:
-        return dense_rows(params["wo"], o.reshape(b, 1, -1), mesh), \
-            k_cache, v_cache
-    out = dense(params["wo"], o.reshape(b, 1, -1))
-    return out, k_cache, v_cache
+    return _attn_out(params, o, tp, mesh), k_cache, v_cache
 
 
 # --------------------------------------------------------------------------

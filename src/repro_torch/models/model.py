@@ -31,12 +31,14 @@ The last three run under ``torch.inference_mode()``.  ``mesh`` (a
 ``launch.mesh.Mesh`` view naming the batch axes) reaches the MoE layers,
 as in ``repro``; with it the batch is this rank's rows and the MoE
 family's ``aux`` the whole batch's (``runtime.steps`` under a mesh).  In
-the dense and MoE (GQA) families it also reaches the embedding, the
-attention, the FFN and the head, which compute on this rank's blocks
-over "model" where the bound parameters are blocks
-(``sharding.rules.tp_layout``): then the logits are this rank's vocab
-block [B, S, V / m] and the cache holds this rank's kv heads
-(``init_cache(kv_heads=)``).  The other families take it and ignore it
+the dense, MoE (GQA), vlm and encdec families it also reaches the
+embedding, the attention (self and cross), the FFN and the head, which
+compute on this rank's blocks over "model" where the bound parameters
+are blocks (``sharding.rules.tp_layout``): then the logits are this
+rank's vocab block [B, S, V / m] (whole where the vocab does not split,
+as SeamlessM4T's 256,206) and the cache holds this rank's kv heads
+(``init_cache(kv_heads=)``: the vlm's image caches and the encdec's
+cross caches too).  MLA, ssm_hybrid and xlstm take it and ignore it
 outside the MoE layers, as ``repro``'s do.  ``cache_specs`` /
 ``abstract_params`` are meta-device stand-ins (shapes, no memory), and
 ``input_specs`` those of a cell's inputs.  Two builds:
@@ -74,9 +76,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import psum_bwd
 from repro_torch.models import ssm, xlstm
 from repro_torch.models import transformer as tf
-from repro_torch.models.attention import blockwise_attn, decode_attn, \
-    gqa_decode_self_attn, gqa_project_qkv, gqa_self_attn, gqa_spec, \
-    repeat_kv, self_attn
+from repro_torch.models.attention import cross_attn, cross_decode_attn, \
+    cross_kv, gqa_decode_self_attn, gqa_project_qkv, gqa_self_attn, \
+    gqa_spec, repeat_kv, self_attn
 from repro_torch.models.ffn import ffn, ffn_spec
 from repro_torch.models.layers import ACT_DTYPE, dense, embed, embed_spec, \
     model_block, rmsnorm, rmsnorm_spec, rope_tables, unembed, unembed_spec
@@ -399,24 +401,27 @@ class VLMModel(Model):
         cfg = self.cfg
         tokens = batch["tokens"]
         img = batch["img"].to(ACT_DTYPE)
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = _positions(tokens.shape[1], x.device)
         sblk = _wrap_remat(
-            lambda p, x: tf.dense_block(p, cfg, run, x, pos), run)
+            lambda p, x: tf.dense_block(p, cfg, run, x, pos, mesh), run)
         for group in self.groups:
             for p in group["selfs"]:
                 x = sblk(p, x)
-            kv = tf.cross_img_kv(group["cross"], cfg, img)
-            x = tf.cross_block(group["cross"], cfg, run, x, kv)
-        return self._logits(x), {}
+            kv = tf.cross_img_kv(group["cross"], cfg, img, mesh)
+            x = tf.cross_block(group["cross"], cfg, run, x, kv, mesh)
+        return self._logits(x, mesh), {}
 
     @torch.inference_mode()
-    def init_cache(self, batch, max_len, device=None):
+    def init_cache(self, batch, max_len, device=None, kv_heads=None):
+        """Zeros; ``kv_heads`` (of the self and image caches) as
+        ``DenseModel.init_cache``'s."""
         cfg = self.cfg
         dev = device or self.device
         g, k = self.n_groups, cfg.cross_attn_every
-        shape = (g, k - 1, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        ishape = (g, batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.hd)
+        kh = kv_heads or cfg.n_kv_heads
+        shape = (g, k - 1, batch, max_len, kh, cfg.hd)
+        ishape = (g, batch, cfg.n_img_tokens, kh, cfg.hd)
         c = {name: torch.zeros(sh, dtype=CACHE_DTYPE, device=dev)
              for name, sh in (("k", shape), ("v", shape), ("img_k", ishape),
                               ("img_v", ishape))}
@@ -426,15 +431,16 @@ class VLMModel(Model):
     @torch.inference_mode()
     def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = cache["pos"]
         for g, group in enumerate(self.groups):
             for j, p in enumerate(group["selfs"]):
                 x, _, _ = tf.dense_block_decode(p, cfg, x, cache["k"][g, j],
-                                                cache["v"][g, j], pos)
+                                                cache["v"][g, j], pos, mesh)
             x = tf.cross_block_decode(group["cross"], cfg, x,
-                                      cache["img_k"][g], cache["img_v"][g])
-        return self._logits(x), dict(cache, pos=pos + 1)
+                                      cache["img_k"][g], cache["img_v"][g],
+                                      mesh)
+        return self._logits(x, mesh), dict(cache, pos=pos + 1)
 
 
 def _dec_spec(cfg):
@@ -471,70 +477,69 @@ class EncDecModel(Model):
         self.enc_blocks = self._stack(enc, cfg.enc_layers, device)
         self.dec_blocks = self._stack(dec, cfg.n_layers, device)
 
-    def encode(self, run, frames):
+    def encode(self, run, frames, mesh=None):
         cfg = self.cfg
         pos = _positions(frames.shape[1], frames.device)
         blk = _wrap_remat(
-            lambda p, x: tf.dense_block_bidir(p, cfg, run, x, pos), run)
+            lambda p, x: tf.dense_block_bidir(p, cfg, run, x, pos, mesh),
+            run)
         x = frames
         for p in self.enc_blocks:
             x = blk(p, x)
         return rmsnorm(self.enc_norm, x, cfg.norm_eps)
 
-    def _dec_block(self, p, x, enc_out, pos, run):
+    def _dec_block(self, p, x, enc_out, pos, run, mesh=None):
         cfg = self.cfg
         x = x + gqa_self_attn(p["self"], cfg,
                               rmsnorm(p["self_norm"], x, cfg.norm_eps),
                               positions=pos, chunk_q=run.attn_chunk_q,
-                              chunk_kv=run.attn_chunk_kv)
-        h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-        q, k, v = gqa_project_qkv(p["cross"], cfg, h, kv_x=enc_out)
-        o = blockwise_attn(q, k, v, causal=False, chunk_q=run.attn_chunk_q,
-                           chunk_kv=run.attn_chunk_kv)
-        b, s = x.shape[:2]
-        x = x + dense(p["cross"]["wo"], o.reshape(b, s, -1))
+                              chunk_kv=run.attn_chunk_kv, mesh=mesh)
+        k, v = cross_kv(p["cross"], cfg, enc_out, mesh)
+        x = x + cross_attn(p["cross"], cfg,
+                           rmsnorm(p["cross_norm"], x, cfg.norm_eps), k, v,
+                           chunk_q=run.attn_chunk_q,
+                           chunk_kv=run.attn_chunk_kv, mesh=mesh)
         return x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
-                       cfg.act)
+                       cfg.act, mesh, cfg.d_ff)
 
     def forward(self, run, batch, mesh=None):
         tokens = batch["tokens"]
-        enc_out = self.encode(run, batch["frames"].to(ACT_DTYPE))
-        x = embed(self.embed, tokens)
+        enc_out = self.encode(run, batch["frames"].to(ACT_DTYPE), mesh)
+        x = self._embed(tokens, mesh)
         pos = _positions(tokens.shape[1], x.device)
         blk = _wrap_remat(
-            lambda p, x: self._dec_block(p, x, enc_out, pos, run), run)
+            lambda p, x: self._dec_block(p, x, enc_out, pos, run, mesh), run)
         for p in self.dec_blocks:
             x = blk(p, x)
-        return self._logits(x), {}
+        return self._logits(x, mesh), {}
 
     @torch.inference_mode()
-    def init_cache(self, batch, max_len, device=None):
+    def init_cache(self, batch, max_len, device=None, kv_heads=None):
+        """Zeros; ``kv_heads`` (of the self and cross caches) as
+        ``DenseModel.init_cache``'s."""
         dev = device or self.device
         n = self.cfg.n_layers
-        k, v = self._kv(n, batch, max_len, dev)
-        ck, cv = self._kv(n, batch, max_len, dev)
+        k, v = self._kv(n, batch, max_len, dev, kv_heads)
+        ck, cv = self._kv(n, batch, max_len, dev, kv_heads)
         return {"k": k, "v": v, "cross_k": ck, "cross_v": cv,
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.inference_mode()
     def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = cache["pos"]
-        b = x.shape[0]
         for i, p in enumerate(self.dec_blocks):
             a, _, _ = gqa_decode_self_attn(
                 p["self"], cfg, rmsnorm(p["self_norm"], x, cfg.norm_eps),
-                cache["k"][i], cache["v"][i], pos)
+                cache["k"][i], cache["v"][i], pos, mesh)
             x = x + a
-            h = rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-            q = dense(p["cross"]["wq"], h).reshape(b, 1, cfg.n_heads, cfg.hd)
-            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
-            o = decode_attn(q, ck, cv, ck.shape[1])
-            x = x + dense(p["cross"]["wo"], o.reshape(b, 1, -1))
+            x = x + cross_decode_attn(
+                p["cross"], cfg, rmsnorm(p["cross_norm"], x, cfg.norm_eps),
+                cache["cross_k"][i], cache["cross_v"][i], mesh)
             x = x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps),
-                        cfg.act)
-        return self._logits(x), dict(cache, pos=pos + 1)
+                        cfg.act, mesh, cfg.d_ff)
+        return self._logits(x, mesh), dict(cache, pos=pos + 1)
 
 
 def _stacked_zeros(state: dict, lead: tuple) -> dict:

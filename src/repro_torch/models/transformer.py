@@ -6,14 +6,21 @@ axis; the port loops over one ``ParamTree`` per layer (``model.py``).
 Cross-attention (the vlm's image keys, the encdec decoder's encoder
 keys) has another key length than its queries, so it stays
 ``blockwise_attn``, as in ``repro``: the flash kernel takes equal
-lengths only."""
+lengths only.
+
+Every block but zamba2's shared one takes ``mesh``: with it the
+attention (self and cross), the FFN and the cross block's gated FFN are
+tensor-parallel over its "model" axis where the parameters are this
+rank's blocks (``sharding.rules.tp_layout``), and the residual stream
+stays whole over it between sublayers."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import blockwise_attn, decode_attn, \
-    gqa_decode_self_attn, gqa_project_qkv, gqa_self_attn, gqa_spec, \
-    mla_decode_self_attn, mla_self_attn, mla_spec, repeat_kv, self_attn
+from repro_torch.models.attention import cross_attn, cross_decode_attn, \
+    cross_kv, decode_attn, gqa_decode_self_attn, gqa_project_qkv, \
+    gqa_self_attn, gqa_spec, mla_decode_self_attn, mla_self_attn, mla_spec, \
+    repeat_kv, self_attn
 from repro_torch.models.ffn import ffn, ffn_spec
 from repro_torch.models.layers import ACT_DTYPE, apply_rope, dense, \
     rmsnorm, rmsnorm_spec, rope_tables
@@ -46,15 +53,18 @@ def dense_block(p, cfg, run, x, positions, mesh=None):
     return x
 
 
-def dense_block_bidir(p, cfg, run, x, positions):
+def dense_block_bidir(p, cfg, run, x, positions, mesh=None):
     """Encoder block: bidirectional self-attention (seamless-m4t's
-    encoder), on flash's full (non-causal) route where it applies."""
+    encoder), on flash's full (non-causal) route where it applies;
+    ``mesh`` as ``dense_block``'s."""
     x = x.to(ACT_DTYPE)
     x = x + gqa_self_attn(p["attn"], cfg, rmsnorm(p["attn_norm"], x,
                                                   cfg.norm_eps),
                           positions=positions, chunk_q=run.attn_chunk_q,
-                          chunk_kv=run.attn_chunk_kv, causal=False)
-    x = x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act)
+                          chunk_kv=run.attn_chunk_kv, causal=False,
+                          mesh=mesh)
+    x = x + ffn(p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act,
+                mesh, cfg.d_ff)
     return x
 
 
@@ -129,44 +139,42 @@ def cross_block_spec(cfg):
     }
 
 
-def _gated(p, cfg, x, o):
+def _gated(p, cfg, x, o, mesh=None):
     """The residual adds of a cross block: the attention output ``o``
-    and the FFN, each times ``tanh`` of its f32 gate cast to x's dtype."""
+    (summed over "model" where it is tensor-parallel) and the FFN, each
+    times ``tanh`` of its f32 gate cast to x's dtype."""
     x = x + torch.tanh(p["gate"]).to(x.dtype) * o
     return x + torch.tanh(p["ffn_gate"]).to(x.dtype) * ffn(
-        p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act)
+        p["ffn"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg.act, mesh,
+        cfg.d_ff)
 
 
-def cross_block(p, cfg, run, x, img_kv):
+def cross_block(p, cfg, run, x, img_kv, mesh=None):
     """Gated cross-attention (llama-3.2-vision style) over the image
-    keys and values ``img_kv`` ([B, T, KH, hd] each)."""
+    keys and values ``img_kv`` ([B, T, KH, hd] each, ``cross_img_kv``'s);
+    ``mesh`` as ``dense_block``'s."""
     x = x.to(ACT_DTYPE)
     k, v = img_kv
-    h = rmsnorm(p["norm"], x, cfg.norm_eps)
-    b, s, _ = x.shape
-    q = dense(p["attn"]["wq"], h).reshape(b, s, cfg.n_heads, cfg.hd)
-    o = blockwise_attn(q, k, v, causal=False, chunk_q=run.attn_chunk_q,
-                       chunk_kv=run.attn_chunk_kv)
-    return _gated(p, cfg, x, dense(p["attn"]["wo"], o.reshape(b, s, -1)))
+    o = cross_attn(p["attn"], cfg, rmsnorm(p["norm"], x, cfg.norm_eps), k, v,
+                   chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv,
+                   mesh=mesh)
+    return _gated(p, cfg, x, o, mesh)
 
 
-def cross_img_kv(p, cfg, img):
+def cross_img_kv(p, cfg, img, mesh=None):
     """Cross-attention K / V [B, T, KH, hd] from the vision embeddings
-    [B, T, dv]."""
-    b, t, _ = img.shape
-    k = dense(p["attn"]["wk"], img).reshape(b, t, cfg.n_kv_heads, cfg.hd)
-    v = dense(p["attn"]["wv"], img).reshape(b, t, cfg.n_kv_heads, cfg.hd)
-    return k, v
+    [B, T, dv] (with ``mesh``, this rank's kv heads where they split:
+    ``attention.cross_kv``)."""
+    return cross_kv(p["attn"], cfg, img, mesh)
 
 
-def cross_block_decode(p, cfg, x, img_k, img_v):
+def cross_block_decode(p, cfg, x, img_k, img_v, mesh=None):
     """One token's cross block against the image caches [B, T, KH, hd]
-    (read only; see ``model.VLMModel``)."""
+    (read only; see ``model.VLMModel``; with ``mesh``, this rank's kv
+    heads where they split)."""
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
-    b = x.shape[0]
-    q = dense(p["attn"]["wq"], h).reshape(b, 1, cfg.n_heads, cfg.hd)
-    o = decode_attn(q, img_k, img_v, img_k.shape[1])
-    return _gated(p, cfg, x, dense(p["attn"]["wo"], o.reshape(b, 1, -1)))
+    return _gated(p, cfg, x, cross_decode_attn(p["attn"], cfg, h, img_k,
+                                               img_v, mesh), mesh)
 
 
 # ======================================================== ssm hybrid blocks

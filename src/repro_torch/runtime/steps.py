@@ -39,12 +39,12 @@ f32 unembedding reads bf16-rounded weights with a mesh and f32 ones
 without), then each block all-gathered over the axes it is split on
 (``launch.mesh.gather_fwd``), except the expert weights, which
 ``moe_ffn`` takes as they are placed, and the tensor-parallel leaves of
-the dense and MoE (GQA) families (``sharding.rules.tp_block``: the
-attention's q / k / v / o weights and biases where the "model" split
-falls on whole heads, the FFN's, the embedding table and the
-unembedding where the vocab is split), which are gathered over the
-batch axes only and keep their "model" block: the model computes on
-them (Megatron's column / row layout, ``models.attention`` /
+the dense, MoE (GQA), vlm and encdec families (``sharding.rules.tp_block``:
+the q / k / v / o weights and biases of the self- and cross-attention
+where the "model" split falls on whole heads, the FFN's, the embedding
+table and the unembedding where the vocab is split), which are gathered
+over the batch axes only and keep their "model" block: the model
+computes on them (Megatron's column / row layout, ``models.attention`` /
 ``models.ffn`` / ``models.layers``), the residual stream whole over
 "model" between sublayers.  The tree is put in place of the template's
 parameters for the forward and its backward (a remat block's backward
@@ -60,9 +60,12 @@ this rank's block [B, S, V / m]: ``cross_entropy`` is vocab-parallel,
 and the prefill and serve steps gather the last logits over "model"
 before the rows.  The cache holds this rank's rows and, where
 ``cache_shardings`` puts them on "model", its kv heads
-(``local_cache``).  The other families (MLA, vlm, encdec, ssm_hybrid,
-xlstm) read their attention, FFN and head whole on every model rank
-(ROADMAP §1 item 7).
+(``local_cache``: the vlm's image caches and the encdec's cross caches
+too).  The vlm's image and the encdec's frames are split by rows like
+the tokens; the image enters the cross-attention's k / v, the encoder's
+output each decoder layer's, through ``psum_bwd``.  Only MLA,
+ssm_hybrid and xlstm read their attention, FFN and head whole on every
+model rank (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -166,16 +169,17 @@ def bound(model: Model, tree: dict):
 
 
 # The cache leaves whose kv heads (axis -2) follow the attention's.
-_KV_CACHE = ("k", "v", "dense_k", "dense_v")
+_KV_CACHE = ("k", "v", "dense_k", "dense_v", "img_k", "img_v", "cross_k",
+             "cross_v")
 
 
 def local_cache(model: Model, mesh, batch: int, max_len: int, device):
     """``model.init_cache`` for this rank's rows of a ``batch``-row decode
     under ``mesh`` (``mesh`` needs only ``axis_names`` and ``shape``), and
-    in the dense and MoE (GQA) families its kv heads where
-    ``sharding.rules.cache_shardings`` puts them on "model" (the blocks
-    the attention's k / v weights give: ``tp_layout``); whole over
-    "model" otherwise."""
+    in the dense, MoE (GQA), vlm and encdec families its kv heads (of
+    every leaf in ``_KV_CACHE``) where ``sharding.rules.cache_shardings``
+    puts them on "model" (the blocks the attention's k / v weights give:
+    ``tp_layout``); whole over "model" otherwise."""
     n = mesh_extent(mesh, batch_axes(mesh, batch))
     kv = tp_layout(model.cfg, mesh).kv_heads
     if kv == model.cfg.n_kv_heads:

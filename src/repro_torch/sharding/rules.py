@@ -32,11 +32,12 @@ map to no mesh axis).  Weights are carried across as
 the shards.
 
 ``tp_layout`` / ``tp_block`` / ``tp_leaves`` are the tensor-parallel rule
-of the dense and MoE (GQA) families: which leaves a rank computes on as
-its "model" block (the attention's heads, the FFN's width, the vocab),
-decided from these rules and the config alone; ``runtime.steps`` keeps
-those blocks in the compute tree and ``local_cache`` splits the cache's
-kv heads as ``cache_shardings`` does.
+of the dense, MoE (GQA), vlm and encdec families: which leaves a rank
+computes on as its "model" block (the self- and cross-attention's heads,
+the FFN's width, the vocab), decided from these rules and the config
+alone; ``runtime.steps`` keeps those blocks in the compute tree and
+``local_cache`` splits the cache's kv heads (the vlm's image caches and
+the encdec's cross caches too) as ``cache_shardings`` does.
 """
 from __future__ import annotations
 
@@ -129,18 +130,25 @@ def model_shardings(model, mesh, rules=None) -> dict:
 
 
 # ------------------------------------------------------ tensor parallelism
-# The families whose GQA attention, dense FFN and head run tensor-parallel
-# over "model" (Megatron's column / row layout); MLA, vlm, encdec,
+# The families whose GQA attention (self and cross), dense FFN and head
+# run tensor-parallel over "model" (Megatron's column / row layout); MLA,
 # ssm_hybrid and xlstm compute those leaves whole on every model rank.
-TP_FAMILIES = ("dense", "moe")
+TP_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
-# Leaf (name suffix) -> (the ``TPLayout`` field it is split by, the
-# dimension that field's rule puts on "model").
+# An attention's leaf (the last two names) -> (the ``TPLayout`` field it
+# is split by, the dimension that field's rule puts on "model"), under
+# any of the attention prefixes: "attn" (the self blocks', the vlm's
+# cross blocks'), "self" and "cross" (the encdec decoder's).
+_ATTN_LEAVES = {
+    "wq.w": ("heads", 1), "wq.b": ("heads", 0), "wo.w": ("heads", 0),
+    "wk.w": ("kv_heads", 1), "wk.b": ("kv_heads", 0),
+    "wv.w": ("kv_heads", 1), "wv.b": ("kv_heads", 0),
+}
+_ATTN_PREFIXES = ("attn", "self", "cross")
+# Leaf (name suffix) -> (field, dimension).
 _TP_LEAVES = {
-    "attn.wq.w": ("heads", 1), "attn.wq.b": ("heads", 0),
-    "attn.wo.w": ("heads", 0),
-    "attn.wk.w": ("kv_heads", 1), "attn.wk.b": ("kv_heads", 0),
-    "attn.wv.w": ("kv_heads", 1), "attn.wv.b": ("kv_heads", 0),
+    **{f"{pre}.{k}": v for pre in _ATTN_PREFIXES
+       for k, v in _ATTN_LEAVES.items()},
     "ffn.w_gate.w": ("ffn", 1), "ffn.w_up.w": ("ffn", 1),
     "ffn.w_down.w": ("ffn", 0),
     "embed.table": ("vocab", 0), "unembed.w": ("vocab", 1),
@@ -241,12 +249,15 @@ _KV_KEYS = ("k", "v", "attn_k", "attn_v", "cross_k", "cross_v",
 
 def cache_shardings(mesh, cache_specs, batch: int):
     """Shardings for a decode cache tree (``repro``'s rule: the first
-    axis of size ``batch`` on ("pod","data"); kv heads (axis -2) of a KV
-    cache, and the widest divisible trailing axis of an SSM / xLSTM
-    state, on "model").  The port's steps hold these blocks for the
-    dense and MoE (GQA) families (``runtime.steps.local_cache``: each
-    rank its rows and, where the kv heads split, its kv heads); the other
-    families keep the cache whole over "model"."""
+    axis of size ``batch`` on ("pod","data"), which may be another axis
+    than the rows where one comes before them at the same size, e.g. the
+    vlm's groups; kv heads (axis -2) of a KV cache, and the widest
+    divisible trailing axis of an SSM / xLSTM state, on "model").  The
+    port's steps hold these kv-head blocks for the dense, MoE (GQA), vlm
+    and encdec families (``runtime.steps.local_cache``: each rank its
+    rows and, where the kv heads split, its kv heads of the self, image
+    and cross caches); MLA, ssm_hybrid and xlstm keep the cache whole over
+    "model"."""
     model = mesh.shape.get("model", 1)
     dp = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
     dp_size = mesh_extent(mesh, dp) if dp else 1

@@ -35,11 +35,26 @@ RUN_KNOBS = dict(remat="none", attn_chunk_q=16, attn_chunk_kv=16,
                  learning_rate=1e-3, warmup_steps=2, total_steps=100)
 DECODE_STEPS, DECODE_LEN = 4, 8
 DATA_MESH = (8,)              # launch/train.py's ("data",) mesh
-# The tensor-parallel trees: the two train archs and a reduced MiniCPM
+# The tensor-parallel trees: the two train archs, a reduced MiniCPM
 # whose vocab (513) the rules leave whole (its 6 heads are whole on a
-# 4-way axis too; its FFN of 180 splits).
+# 4-way axis too; its FFN of 180 splits), the reduced vlm (q heads split,
+# its 2 kv heads whole) and the reduced encdec with a vocab the axis
+# does not divide, as SeamlessM4T's 256,206 (its blocks split, its head
+# whole).
 TREE_CASES = {"qwen1.5-0.5b": {}, "mixtral-8x7b": {},
-              "minicpm-2b": {"vocab": 513}}
+              "minicpm-2b": {"vocab": 513}, "llama-3.2-vision-90b": {},
+              "seamless-m4t-medium": {"vocab": 513}}
+# The cross-attention families (reduced) on (2, 4): prefill, DECODE_STEPS
+# of the serve loop and one train step with remat "full", against repro
+# under the same mesh; the prefill on the (8,) data mesh against one
+# process.  The vlm's 2 kv heads stay whole on the 4-way axis (each rank
+# computes both and reads the one its q head uses), the encdec's 4 split.
+# Both gates of each vlm cross block are drawn from U(0.5, 1.5) (repro
+# starts them at zero, which hides the image path); the encoder's frames
+# are XATTN_ENC_S long, another length than the tokens.
+XATTN_ARCHS = ("llama-3.2-vision-90b", "seamless-m4t-medium")
+XATTN_ENC_S = 40
+XATTN_KNOBS = dict(RUN_KNOBS, remat="full")
 VOCAB_CE = (8, 6, 512)        # vocab-parallel CE: rows, positions, vocab
 # Mixtral's routing in repro's train step, written by the JAX child
 # beside its outputs and read by the port's ranks.
@@ -159,6 +174,14 @@ def train_batch(cfg, seed=0):
     return toks[:, :-1].copy(), toks[:, 1:].copy()
 
 
+def xattn_batch(ref, arch, as_array, labels=True) -> dict:
+    """A cross-attention arch's global batch from ``ref``: tokens (and
+    labels) and its stub, ``img`` or ``frames``."""
+    pre = f"in/{arch}/"
+    return {k[len(pre):]: as_array(v) for k, v in ref.items()
+            if k.startswith(pre) and (labels or k != pre + "labels")}
+
+
 @contextlib.contextmanager
 def vma_unchecked():
     """``repro``'s MoE ``shard_map`` with ``check_vma=False`` (a patch of
@@ -258,6 +281,23 @@ def make_inputs(path: str) -> None:
         for k, v in flat(params).items():
             out[f"in/{arch}/grads/{k}"] = (rng.normal(size=v.shape) * 0.01
                                            ).astype(np.float32)
+    for arch in XATTN_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        params = init_params(build_model(cfg).specs, jax.random.key(0))
+        rng = np.random.default_rng(1)
+        for k, v in flat(params).items():
+            v = np.asarray(v)
+            if k.endswith(("cross/gate", "cross/ffn_gate")):
+                v = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+            out[f"w/{arch}/{k}"] = v
+        out[f"in/{arch}/tokens"], out[f"in/{arch}/labels"] = \
+            train_batch(cfg, seed=3)
+        if cfg.family == "vlm":
+            out[f"in/{arch}/img"] = rng.normal(size=(
+                TRAIN_B, cfg.n_img_tokens, cfg.d_vision)).astype(np.float32)
+        else:
+            out[f"in/{arch}/frames"] = rng.normal(size=(
+                TRAIN_B, XATTN_ENC_S, cfg.d_model)).astype(np.float32)
     np.savez(path, **out)
 
 
@@ -484,6 +524,54 @@ def jax_reference_steps(inputs: str, out_file: str, tmp: str) -> None:
     out["loop/restarts"] = np.asarray(hist["restarts"])
     for k, v in flat(p).items():
         out[f"loop/p/{k}"] = np.asarray(v, np.float32)
+    # The cross-attention families: prefill, decode / serve, a train step
+    # with remat "full".
+    xrun = RunConfig(**XATTN_KNOBS)
+    for arch in XATTN_ARCHS:
+        model = build_model(configs.get_reduced_config(arch))
+        batch = xattn_batch(ref, arch, jnp.asarray)
+        toks = batch["tokens"]
+        grad_fn = jax.value_and_grad(steps.make_loss_fn(model, xrun, mesh),
+                                     has_aux=True)
+        train_step = steps.make_train_step(model, xrun, mesh)
+
+        def both(p, o, bt):
+            (_, metrics), grads = grad_fn(p, bt)
+            return (metrics, grads) + tuple(train_step(p, o, bt))
+
+        with use_mesh(mesh):
+            params = jax.device_put(weights(arch),
+                                    param_shardings(model.specs, mesh))
+            out[f"{arch}/prefill"] = np.asarray(jax.jit(
+                steps.make_prefill_step(model, xrun, mesh))(
+                    params, {k: v for k, v in batch.items()
+                             if k != "labels"}))
+            dec = jax.jit(lambda p, t, c: model.decode_step(p, xrun, t, c,
+                                                            mesh=mesh))
+            serve = jax.jit(steps.make_serve_step(model, xrun, mesh))
+            cache = model.init_cache(TRAIN_B, DECODE_LEN)
+            cache2 = model.init_cache(TRAIN_B, DECODE_LEN)
+            for t in range(DECODE_STEPS):
+                logits, cache = dec(params, toks[:, t:t + 1], cache)
+                nxt, cache2 = serve(params, toks[:, t:t + 1], cache2)
+                out[f"{arch}/decode{t}"] = np.asarray(logits[:, -1],
+                                                      np.float32)
+                out[f"{arch}/serve{t}"] = np.asarray(nxt)
+            o = adamw.init(params)._replace(step=jnp.int32(OPT_STEP0))
+            metrics, grads, _, _, m2 = jax.jit(both)(params, o, batch)
+        # The same gradients on one device (no mesh): repro's own spread
+        # between two layouts.
+        (_, _), g_one = jax.jit(jax.value_and_grad(
+            steps.make_loss_fn(model, xrun), has_aux=True))(weights(arch),
+                                                            batch)
+        for k, v in flat(g_one).items():
+            out[f"{arch}/g_one/{k}"] = np.asarray(v, np.float32)
+        for k, v in metrics.items():
+            out[f"{arch}/metrics/{k}"] = np.asarray(v, np.float32)
+        for k, v in m2.items():
+            out[f"{arch}/step/{k}"] = np.asarray(v, np.float32)
+        for k, v in flat(grads).items():
+            out[f"{arch}/g/{k}"] = np.asarray(v, np.float32)
     np.savez(out_file, **out)
     print("jax reference done")
 
@@ -787,6 +875,76 @@ def _steps_rank(mesh, ref, out, tmp):
             out[f"{tag}/p/{k}"] = v.detach().numpy()
 
 
+def _xattn_rank(mesh, ref, out):
+    """The port's side of ``jax_reference_steps``' cross-attention cases
+    on this rank: the (2, 4) prefill, decode and serve steps (each rank's
+    cache leaf shapes, "/rank" keys), one train step's metrics and
+    gradients (gathered); the (8,) data mesh's prefill beside one
+    process's forward of each row."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (gather_params, gather_rows,
+                                            model_shardings, shard_params,
+                                            split_batch)
+    run = RunConfig(**XATTN_KNOBS)
+    dmesh = make_mesh(DATA_MESH, ("data",))
+    for arch in XATTN_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        model = build_model(cfg, "meta", trainable=True)
+        sh = model_shardings(model, mesh)
+        full = port_model(arch, ref)
+        whole = {k: p.detach() for k, p in full.named_parameters()}
+        params = shard_params(whole, sh)
+        batch = xattn_batch(ref, arch, torch.from_numpy)
+        fwd = {k: v for k, v in batch.items() if k != "labels"}
+        toks = batch["tokens"]
+        out[f"{arch}/prefill"] = steps.make_prefill_step(model, run, mesh)(
+            params, fwd).numpy()
+        tree = steps.compute_params(model, params, mesh)
+        serve = steps.make_serve_step(model, run, mesh)
+        cache = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        cache2 = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        for k, c in cache.items():
+            if k != "pos":
+                out[f"{arch}/cache_{k}/rank{mesh.rank}"] = np.array(c.shape)
+        for t in range(DECODE_STEPS):
+            view, rows = split_batch(mesh, {"tokens": toks[:, t:t + 1]})
+            with torch.inference_mode(), steps.bound(model, tree):
+                logits, cache = model.decode_step(run, rows["tokens"], cache,
+                                                  mesh=view)
+            out[f"{arch}/decode{t}"] = gather_rows(view, steps._last_row(
+                model, view, logits).float()).numpy()
+            nxt, cache2 = serve(tree, toks[:, t:t + 1], cache2)
+            out[f"{arch}/serve{t}"] = nxt.numpy()
+        for p in params.values():
+            p.requires_grad_(True)
+        grads, metrics = steps.make_grad_fn(model, run, mesh)(params, batch)
+        for k, v in metrics.items():
+            out[f"{arch}/metrics/{k}"] = v.numpy()
+        for k, g in gather_params(grads, sh).items():
+            out[f"{arch}/g/{k}"] = g.float().numpy()
+        opt = adamw.init(params)._replace(step=torch.tensor(
+            OPT_STEP0, dtype=torch.int32))
+        _, _, m2 = steps.make_train_step(model, run, mesh)(params, opt,
+                                                           batch)
+        for k, v in m2.items():
+            out[f"{arch}/step/{k}"] = v.detach().numpy()
+        # The data mesh ("model" of extent 1): one process's rows.
+        got = steps.make_prefill_step(model, run, dmesh)(
+            shard_params(whole, model_shardings(model, dmesh)), fwd)
+        with torch.inference_mode():
+            want = torch.cat([full.forward(run, {k: v[i:i + 1] for k, v in
+                                                 fwd.items()})[0][:, -1]
+                              for i in range(TRAIN_B)])
+        out[f"{arch}/data_mesh/prefill"] = got.numpy()
+        out[f"{arch}/data_mesh/prefill_one"] = want.numpy()
+
+
 def _partials_vs_one(mesh, full, rec, out, arch):
     """Layer 0's row-parallel products on this rank against one process's
     product of the same slices: its input columns by the rows of the
@@ -869,11 +1027,13 @@ def _tp_rank(mesh, out):
 
 
 def _repro_key(name: str):
-    """(repro's path key, layer index or None) of a port parameter."""
+    """(repro's path key, the index of the per-layer slice in its stacked
+    leaf or None) of a port parameter: ``blocks.3.attn.wq.w`` ->
+    ("blocks/attn/wq/w", (3,)), ``groups.1.selfs.0.attn.wq.w`` ->
+    ("groups/selfs/attn/wq/w", (1, 0))."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return "/".join(["blocks"] + parts[2:]), int(parts[1])
-    return "/".join(parts), None
+    idx = tuple(int(p) for p in parts if p.isdigit())
+    return "/".join(p for p in parts if not p.isdigit()), idx or None
 
 
 def _layer(a, i):
@@ -930,6 +1090,7 @@ def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
             _tp_rank(mesh, out)
             _train_rank(mesh, ref, out, ckpt_dir, out_dir)
             _steps_rank(mesh, ref, out, out_dir)
+            _xattn_rank(mesh, ref, out)
             x = torch.arange(24.0).reshape(2, 3, 4) + rank
             for dim in range(3):
                 g = mesh.all_gather(x, AXES, dim)

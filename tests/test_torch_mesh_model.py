@@ -294,11 +294,20 @@ def test_one_rank_mesh_step_is_the_cast_step():
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 33))
     batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
              "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+    _one_rank_step_is_the_cast_step(cfg, run, batch)
+
+
+def _one_rank_step_is_the_cast_step(cfg, run, batch):
+    """The (1, 1) mesh's gradients and metrics against the one-device
+    step's on bf16-rounded weights (random, the vlm's gates drawn from
+    U(0.5, 1.5)): equal bit for bit but the embedding table's."""
     full = build_model(cfg, "cpu", trainable=True)
     module.init_params_into(full, torch.Generator().manual_seed(0))
     with torch.no_grad():
-        for p in full.parameters():
-            if p.dim() >= 2:
+        for name, p in full.named_parameters():
+            if name.endswith(("cross.gate", "cross.ffn_gate")):
+                p.uniform_(0.5, 1.5)
+            elif p.dim() >= 2:
                 p.copy_(p.to(torch.bfloat16))
     params = dict(full.named_parameters())
     g1, m1 = steps.make_grad_fn(full, run)(params, batch)
@@ -315,6 +324,26 @@ def test_one_rank_mesh_step_is_the_cast_step():
             want = g1[k].to(torch.bfloat16) if g1[k].dim() >= 2 else g1[k]
             assert torch.equal(want.float(), g2[k].float()), k
     assert all(p.device.type == "meta" for p in tmpl.parameters())
+
+
+@pytest.mark.parametrize("arch", pair.XATTN_ARCHS)
+def test_one_rank_mesh_xattn_step_is_the_cast_step(arch):
+    """The cross-attention families on a (1, 1) mesh (no "model" extent,
+    nothing tensor-parallel), remat "full", gates non-zero: the step of
+    ``test_one_rank_mesh_step_is_the_cast_step``, bit for bit."""
+    cfg = configs.get_reduced_config(arch)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 17))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["img"] = torch.from_numpy(rng.normal(size=(
+            2, cfg.n_img_tokens, cfg.d_vision)).astype(np.float32))
+    else:
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            2, 12, cfg.d_model)).astype(np.float32))
+    _one_rank_step_is_the_cast_step(cfg, RunConfig(**pair.XATTN_KNOBS),
+                                    batch)
 
 
 def test_one_rank_mesh_moe_is_the_local_path():
@@ -572,15 +601,22 @@ def test_prefill_and_serve_steps_match_repro(runs):
     ``decode_step`` logits on (2, 4) within LOGIT_ATOL of ``repro``'s
     under the mesh; ``make_serve_step``'s tokens equal wherever
     ``repro``'s top-2 margin is clear of twice that."""
+    _prefill_and_serve_match(runs, pair.TRAIN_ARCHS[0])
+
+
+def _prefill_and_serve_match(runs, arch):
+    """``arch``'s prefill and decode logits within LOGIT_ATOL of
+    ``repro``'s, its served tokens equal where ``repro``'s top-2 margin is
+    clear of twice that (at least half of them)."""
     j, t = runs["jax"], runs[8]
-    arch = pair.TRAIN_ARCHS[0]
-    assert t[f"{arch}/prefill"].shape == (pair.TRAIN_B, 512)
+    vocab = configs.get_reduced_config(arch).vocab
+    assert t[f"{arch}/prefill"].shape == (pair.TRAIN_B, vocab)
     assert np.abs(t[f"{arch}/prefill"] - j[f"{arch}/prefill"]).max() \
         <= LOGIT_ATOL
     clear = 0
     for s in range(pair.DECODE_STEPS):
         want = j[f"{arch}/decode{s}"]
-        assert np.abs(t[f"{arch}/decode{s}"] - want).max() <= LOGIT_ATOL
+        assert np.abs(t[f"{arch}/decode{s}"] - want).max() <= LOGIT_ATOL, s
         top = np.sort(want, -1)[:, -2:]
         ok = top[:, 1] - top[:, 0] > 2 * LOGIT_ATOL
         clear += int(ok.sum())
@@ -649,7 +685,13 @@ def test_tp_trees_hold_model_blocks(runs, arch, tag):
                               "ffn.", "embed.table", "unembed.w"),
              "mixtral-8x7b": ("attn.wq", "attn.wo", "embed.table",
                               "unembed.w"),
-             "minicpm-2b": ("ffn.",)}[arch]
+             "minicpm-2b": ("ffn.",),
+             # Self and cross blocks alike; the 2 kv heads whole.
+             "llama-3.2-vision-90b": ("attn.wq", "attn.wo", "ffn.",
+                                      "embed.table", "unembed.w"),
+             # Encoder, decoder self and cross; the vocab of 513 whole.
+             "seamless-m4t-medium": ("attn.w", "self.w", "cross.w",
+                                     "ffn.")}[arch]
     for name, share in got.items():
         if ".moe.w_" in name:
             continue
@@ -687,6 +729,107 @@ def test_mesh_cache_holds_kv_head_blocks(runs, arch):
     for r in range(8):
         assert runs[8][f"{arch}/cache_k/rank{r}"].tolist() == [
             cfg.n_layers, pair.TRAIN_B // 2, t_len, kv, cfg.hd], r
+
+
+@pytest.mark.parametrize("arch", pair.XATTN_ARCHS)
+def test_xattn_prefill_and_serve_steps_match_repro(runs, arch):
+    """The cross-attention families' ``make_prefill_step`` last logits
+    and DECODE_STEPS of ``decode_step`` logits on (2, 4),
+    tensor-parallel over "model" (the vlm's gates non-zero), within
+    LOGIT_ATOL of ``repro``'s under the mesh; ``make_serve_step``'s tokens
+    equal wherever ``repro``'s top-2 margin is clear of twice that."""
+    _prefill_and_serve_match(runs, arch)
+
+
+@pytest.mark.parametrize("arch", pair.XATTN_ARCHS)
+def test_xattn_train_step_matches_repro(runs, arch):
+    """One train step of the cross-attention families on (2, 4),
+    tensor-parallel over "model", remat "full", against ``repro``'s under
+    the mesh: loss and ce within LOSS_ATOL (the loss function's and the
+    step's), the grad norm within GNORM_RTOL, the lr within ULPS, every
+    gradient (gathered from the blocks) within GRAD_NORMWISE.
+
+    A one-element gradient (a vlm gate's: ``tanh``'s derivative times the
+    sum, over every activation of the batch, of the gated output times
+    its cotangent, whose terms cancel) has no normwise bound from
+    rounding: its relative error is the summed terms' rounding over a
+    small sum.  ``repro``'s own gradients on the mesh and on one device
+    differ by more than GRAD_NORMWISE at such a leaf (pinned below; 23.6 %
+    at the first group's ``ffn_gate`` on these inputs).  So a
+    one-element gradient is held within GRAD_NORMWISE of ``repro``'s
+    under the mesh or within that spread of ``repro``'s two layouts,
+    whichever is larger; every other gradient at GRAD_NORMWISE."""
+    j, t = runs["jax"], runs[8]
+    for tag in ("metrics", "step"):
+        keys = {k for k in j if k.startswith(f"{arch}/{tag}/")}
+        assert keys and keys == {k for k in t
+                                 if k.startswith(f"{arch}/{tag}/")}
+        for key in ("loss", "ce"):
+            k = f"{arch}/{tag}/{key}"
+            assert abs(float(t[k]) - float(j[k])) <= LOSS_ATOL, k
+    k = f"{arch}/step/grad_norm"
+    assert abs(float(t[k]) - float(j[k])) <= GNORM_RTOL * float(j[k])
+    lr, jlr = np.float32(t[f"{arch}/step/lr"]), np.float32(
+        j[f"{arch}/step/lr"])
+    assert jlr > 0 and abs(lr - jlr) <= ULPS * np.spacing(jlr)
+    names = [k[len(f"{arch}/g/"):] for k in t if k.startswith(f"{arch}/g/")]
+    assert len(names) == len(dict(build_model(
+        configs.get_reduced_config(arch), "meta").named_parameters()))
+    spreads = []
+    for name in names:
+        got = t[f"{arch}/g/{name}"]
+        want = _repro_leaf(j, arch, "g", name)
+        assert got.shape == want.shape
+        if want.size > 1:
+            assert _nw(got, want) <= GRAD_NORMWISE, name
+            continue
+        spread = float(np.abs(_repro_leaf(j, arch, "g_one", name)
+                              - want).max())
+        spreads.append(spread / float(np.abs(want).max()))
+        assert float(np.abs(got - want).max()) <= max(
+            GRAD_NORMWISE * float(np.abs(want).max()), spread), name
+    cfg = configs.get_reduced_config(arch)
+    if cfg.family == "vlm":
+        # Both gates of every cross block, and repro's spread over
+        # GRAD_NORMWISE at one of them.
+        assert len(spreads) == 2 * cfg.n_layers // cfg.cross_attn_every
+        assert max(spreads) > GRAD_NORMWISE
+    else:
+        assert not spreads
+
+
+@pytest.mark.parametrize("arch", pair.XATTN_ARCHS)
+def test_xattn_cache_holds_kv_head_blocks(runs, arch):
+    """``local_cache`` of the cross-attention families on (2, 4): this
+    rank's 4 of 8 rows and, where the kv heads split (the encdec's 4),
+    1 kv head of 4 in every kv leaf, the vlm's image caches and the
+    encdec's cross caches too; the vlm's 2 kv heads stay whole."""
+    cfg = configs.get_reduced_config(arch)
+    kv = cfg.n_kv_heads // 4 if cfg.n_kv_heads % 4 == 0 else cfg.n_kv_heads
+    rows, hd = pair.TRAIN_B // 2, cfg.hd
+    if cfg.family == "vlm":
+        g, k = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every
+        want = {"k": [g, k - 1, rows, pair.DECODE_LEN, kv, hd],
+                "img_k": [g, rows, cfg.n_img_tokens, kv, hd]}
+        want["v"], want["img_v"] = want["k"], want["img_k"]
+    else:
+        want = {k: [cfg.n_layers, rows, pair.DECODE_LEN, kv, hd]
+                for k in ("k", "v", "cross_k", "cross_v")}
+    for r in range(8):
+        got = {k[len(f"{arch}/cache_"):-len(f"/rank{r}")]: v.tolist()
+               for k, v in runs[8].items()
+               if k.startswith(f"{arch}/cache_") and k.endswith(f"/rank{r}")}
+        assert got == want, r
+
+
+@pytest.mark.parametrize("arch", pair.XATTN_ARCHS)
+def test_xattn_data_mesh_prefill_is_one_process(runs, arch):
+    """The cross-attention families' prefill on the (8,) ("data",) mesh,
+    where "model" has extent 1 and nothing is tensor-parallel: one
+    process's forward of each row, bit for bit."""
+    t = runs[8]
+    assert np.array_equal(t[f"{arch}/data_mesh/prefill"],
+                          t[f"{arch}/data_mesh/prefill_one"])
 
 
 def test_data_mesh_moe_is_one_process_routed_alike(runs):

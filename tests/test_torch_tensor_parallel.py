@@ -1,10 +1,11 @@
-"""The tensor-parallel layout of the port's dense and MoE (GQA) families
-(``sharding.rules.tp_layout`` / ``tp_block`` / ``tp_leaves``,
-``runtime.steps.local_cache``) at full width, shapes only: no ranks, no
-weights (meta-device models and meshes of names and sizes).
+"""The tensor-parallel layout of the port's dense, MoE (GQA), vlm and
+encdec families (``sharding.rules.tp_layout`` / ``tp_block`` /
+``tp_leaves``, ``runtime.steps.local_cache``) at full width, shapes only:
+no ranks, no weights (meta-device models and meshes of names and sizes).
 
-For each of Qwen1.5-0.5B, MiniCPM-2B, Nemotron-4-15B, Yi-9B and
-Mixtral-8x7B on ``make_production_mesh``'s two shapes and on (2, 4):
+For each of Qwen1.5-0.5B, MiniCPM-2B, Nemotron-4-15B, Yi-9B,
+Mixtral-8x7B, Llama-3.2-Vision-90B and SeamlessM4T-medium on
+``make_production_mesh``'s two shapes and on (2, 4):
 
 * the layout (a rank's q heads, kv heads, FFN width and vocab) against
   the config's counts split where "model" divides them (the kv heads only
@@ -17,10 +18,15 @@ Mixtral-8x7B on ``make_production_mesh``'s two shapes and on (2, 4):
   compared leaf by leaf as ``test_cache_specs_match_repro`` compares
   specs, at a batch the batch axes divide (64) and one they do not (3).
   The batch 64 matches no other cache dimension of these configs
-  (``repro``'s rule splits the first dimension equal to the batch).
+  (``repro``'s rule splits the first dimension equal to the batch: at a
+  batch equal to an earlier dimension, such as the vlm's 4 self layers a
+  group or its 20 groups, it splits that one, pinned as a fact about the
+  reference; ``local_cache`` splits the rows).
 
-DeepSeek-V2 (MoE, MLA) stays whole over "model", and so does every leaf
-on a mesh without a "model" extent.  Exact throughout.
+The attention leaves match under any attention prefix: the self blocks'
+and the vlm's cross blocks' ``attn.*``, the encdec decoder's ``self.*``
+and ``cross.*``.  DeepSeek-V2 (MoE, MLA) stays whole over "model", and so
+does every leaf on a mesh without a "model" extent.  Exact throughout.
 """
 import dataclasses
 
@@ -38,16 +44,19 @@ from repro_torch.runtime import steps
 from repro_torch.sharding import rules
 
 TP_ARCHS = ("qwen1.5-0.5b", "minicpm-2b", "nemotron-4-15b", "yi-9b",
-            "mixtral-8x7b")
+            "mixtral-8x7b", "llama-3.2-vision-90b", "seamless-m4t-medium")
 KINDS = ("multi", "single", "test")      # the production meshes, (2, 4)
 CACHE_BATCHES, CACHE_LEN = (64, 3), 1024
-# Leaf suffix -> (layout field, the dimension it splits).
-LEAVES = {"attn.wq.w": ("heads", 1), "attn.wq.b": ("heads", 0),
-          "attn.wo.w": ("heads", 0), "attn.wk.w": ("kv_heads", 1),
-          "attn.wk.b": ("kv_heads", 0), "attn.wv.w": ("kv_heads", 1),
-          "attn.wv.b": ("kv_heads", 0), "ffn.w_gate.w": ("ffn", 1),
-          "ffn.w_up.w": ("ffn", 1), "ffn.w_down.w": ("ffn", 0),
-          "embed.table": ("vocab", 0), "unembed.w": ("vocab", 1)}
+# Leaf suffix -> (layout field, the dimension it splits); the attention's
+# under each of its prefixes.
+LEAVES = {**{f"{pre}.{k}": v for pre in ("attn", "self", "cross")
+             for k, v in {"wq.w": ("heads", 1), "wq.b": ("heads", 0),
+                          "wo.w": ("heads", 0), "wk.w": ("kv_heads", 1),
+                          "wk.b": ("kv_heads", 0), "wv.w": ("kv_heads", 1),
+                          "wv.b": ("kv_heads", 0)}.items()},
+          "ffn.w_gate.w": ("ffn", 1), "ffn.w_up.w": ("ffn", 1),
+          "ffn.w_down.w": ("ffn", 0), "embed.table": ("vocab", 0),
+          "unembed.w": ("vocab", 1)}
 
 
 class StubMesh:
@@ -86,8 +95,8 @@ def test_tp_layout_and_blocks(arch, kind):
     shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
     whole = rules.TPLayout(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab)
     for name in shapes:
-        kind_ = next((v for k, v in LEAVES.items() if name.endswith(k)),
-                     None)
+        kind_ = next((v for k, v in LEAVES.items()
+                      if name.endswith("." + k) or name == k), None)
         if kind_ is None:
             assert name not in keep, name
             continue
@@ -170,3 +179,64 @@ def test_reduced_configs_on_the_test_mesh():
     assert got["yi-9b"] == rules.TPLayout(1, 2, 44, 128)
     assert got["minicpm-2b"] == rules.TPLayout(6, 6, 45, 128)
     assert got["nemotron-4-15b"] == rules.TPLayout(6, 2, 96, 128)
+    # q heads split one a rank, the 2 kv heads whole (head j reads kv
+    # head j // 2), self and cross alike.
+    assert got["llama-3.2-vision-90b"] == rules.TPLayout(1, 2, 44, 128)
+    assert got["seamless-m4t-medium"] == rules.TPLayout(1, 1, 64, 128)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_encdec_decoder_leaves_split_and_its_head_stays_whole(kind):
+    """SeamlessM4T-medium: the decoder's ``self.*`` and ``cross.*``
+    attention leaves and the encoder's ``attn.*`` are blocks over
+    "model" (16 heads split 4 or 16 ways, kv heads too), the FFNs too;
+    its vocab of 256,206 divides by neither 4 nor 16, so the embedding and
+    the unembedding stay whole, as ``repro``'s spec leaves them."""
+    mesh = _mesh(kind)
+    m = mesh.shape["model"]
+    cfg = configs.get_config("seamless-m4t-medium")
+    assert cfg.vocab % m
+    model = build_model(cfg, "meta")
+    keep = rules.tp_leaves(model, mesh)
+    for i in range(cfg.n_layers):
+        for pre in ("self", "cross"):
+            for leaf in ("wq", "wk", "wv", "wo"):
+                assert f"dec_blocks.{i}.{pre}.{leaf}.w" in keep
+        assert f"dec_blocks.{i}.ffn.w_up.w" in keep
+        assert f"dec_blocks.{i}.self_norm.scale" not in keep
+    for i in range(cfg.enc_layers):
+        assert f"enc_blocks.{i}.attn.wq.w" in keep
+    assert "embed.table" not in keep and "unembed.w" not in keep
+    stub = StubMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    jspecs = pair.flat(j_build_model(j_configs.get_config(
+        "seamless-m4t-medium")).specs)
+    for name in ("embed/table", "unembed/w"):
+        assert "model" not in tuple(j_rules.spec_pspec(jspecs[name], stub))
+
+
+def test_repro_cache_rule_takes_the_first_axis_of_the_batch_size():
+    """``repro``'s ``cache_shardings`` puts "data" on the first cache
+    dimension equal to the batch: the vlm's self cache is [20 groups, 4
+    self layers a group, B, T, 8, 128], so at batch 4 on (2, 4) it splits
+    the layers a group and at batch 20 the groups, not the rows (a fact
+    about the reference, pinned).  ``local_cache`` takes the rows: this
+    rank's B / 2 of them, and 2 of the 8 kv heads in each kv leaf."""
+    mesh = _mesh("test")
+    jmesh = jax.sharding.AbstractMesh((2, 4), ("data", "model"))
+    arch = "llama-3.2-vision-90b"
+    cfg = configs.get_config(arch)
+    jmodel = j_build_model(j_configs.get_config(arch))
+    tmodel = build_model(cfg, "meta")
+    for b, axis in ((4, 1), (20, 0)):
+        specs = pair.flat(j_rules.cache_shardings(
+            jmesh, jmodel.cache_specs(b, CACHE_LEN), b))
+        assert tuple(specs["k"].spec)[axis] == "data", (b, specs["k"])
+        assert tuple(specs["k"].spec)[2] is None
+        got = steps.local_cache(tmodel, mesh, b, CACHE_LEN, "meta")
+        assert tuple(got["k"].shape) == (20, 4, b // 2, CACHE_LEN, 2, 128)
+        assert tuple(got["img_k"].shape) == (20, b // 2, 1600, 2, 128)
+    # The reduced vlm's 2 groups: at batch 2, the groups.
+    red = j_build_model(j_configs.get_reduced_config(arch))
+    specs = pair.flat(j_rules.cache_shardings(jmesh, red.cache_specs(2, 8),
+                                              2))
+    assert tuple(specs["k"].spec)[0] == "data"

@@ -535,8 +535,10 @@ def test_straggler_hook_fires(tmp_path):
     seen = []
 
     def step(params, opt, batch):
-        if batch["step"] == 7:
-            time.sleep(0.25)
+        # Every step takes 5 ms at least: a step of microseconds makes the
+        # running median so small that the host's jitter after step 7's
+        # sleep reads as a straggler too.
+        time.sleep(0.25 if batch["step"] == 7 else 0.005)
         return params, opt, {"loss": torch.tensor(1.0),
                              "lr": torch.tensor(0.0)}
     fn, params, opt = _fake(step)
