@@ -349,7 +349,39 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         caches 4 of 16 kv heads a rank; flash timed at (d)'s and (e)'s
         rank shapes on rank 0's first call (the kernels line's
         ``mesh_vlm_causal_shape``, ``mesh_encdec_full_shape`` and
-        ``mesh_encdec_causal_shape``).
+        ``mesh_encdec_causal_shape``);
+     f. DeepSeek-V2 at its published widths, 2 of its 60 layers (the
+        dense first layer and one MoE layer), on (1, 4), tensor-parallel
+        over "model" (32 of 128 MLA heads, its re-blocked ``wuq`` cut to
+        them, the shared experts' width and the dense layer's GQA and FFN
+        split; the latents and the ``ckv`` / ``kr`` cache whole):
+        ``make_prefill_step`` over MESH_LAST_BATCH x MESH_LAST_SEQ
+        tokens, no kernel launched (head dim 192), routed as one process
+        routed (each differing choice a near tie), the last logits within
+        LOGIT_TOL of one process's; the head fed one process's final
+        hidden state within LOGIT_TOL; then the token loop (4 x 128 +
+        16) on the whole ckv / kr cache, fed one process's tokens and
+        routed alike, every step within LOGIT_TOL;
+     g. Zamba2-1.2B whole (38 layers) on (1, 4): 16 of 64 Mamba2 heads
+        and 8 of 32 attention heads a rank; flash launched once a shared
+        block (6) a rank at [16, 2048, 64], causal, wgmma, each call
+        against the twin, and nothing else of the eight; each Mamba2 and
+        shared block fed one process's input to it within
+        RECURRENT_BLOCK_RTOL of its output's scale, the head fed one
+        process's final hidden state within LOGIT_TOL (the whole
+        forward's logits reported: they decorrelate at full depth); the
+        token loop (2 x 32 + 16: MESH_LAST's comment) on the head-split
+        state (S and the conv state at the rank's heads, the shared
+        caches at its kv heads), no kernel launched, its logits
+        reported;
+     h. xLSTM-1.3B, one of its six groups (7 mLSTM blocks and its sLSTM),
+        on (1, 4), one of 4 heads a rank, the same way, no kernel
+        launched, its last logits and every loop step's (2 x 128 + 16)
+        within LOGIT_TOL of one process's; for each of (f)-(h): ms a forward a rank, the compute
+        tree's bytes and gather seconds beside the gathered layout's,
+        peak memory a rank, each cache leaf's bytes a rank beside one
+        process's; flash at (g)'s rank shape on rank 0's first call
+        (the kernels line's ``mesh_zamba2_shape``).
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -596,6 +628,26 @@ GATHER_PIECE_BYTES = 1 << 28     # gathered_layout's piece, 256 MiB
 # (tag, arch, batch, sequence) of phase 14 (d) and (e).
 MESH_XATTN = (("vlm", VLM_ARCH, MESH_VLM_BATCH, VLM_SEQ),
               ("encdec", ENCDEC_ARCH, MESH_ENCDEC_BATCH, ENCDEC_SEQ))
+# (f)-(h) the last three families, each at its published widths on
+# MESH_LAST_SHAPE, tensor-parallel over "model" (random weights from
+# XATTN_SEED, zamba2's live leaves as phase 12 draws them), a forward
+# over MESH_LAST_BATCH x MESH_LAST_SEQ tokens and a token loop: (tag,
+# arch, layers kept (None: whole), the loop's (prompts, prompt length,
+# generated)).  DeepSeek-V2 keeps its dense first layer and one MoE
+# layer, the xLSTM one of its six groups (7 mLSTM blocks and its sLSTM),
+# zamba2 all 38 layers.  zamba2's loop is cut to 2 x 32 + 16 (each of
+# its steps all-reduces ~90 times through gloo's host staging, 0.56 s a
+# step on the H100's host: 2 x 128 + 16 took 80 s of the three cases'
+# 150 s).  The whole forward's and the loop's logits are held against
+# one process's where they stay within LOGIT_TOL (DeepSeek-V2, the
+# xLSTM); zamba2's decorrelate at full depth (phase 12's
+# RECURRENT_BLOCK_RTOL comment) and are reported, its blocks and its
+# head held.
+MESH_LAST_SHAPE, MESH_LAST_BATCH, MESH_LAST_SEQ = (1, 4), 2, 2048
+MESH_LAST = (("dsv2", DSV2_ARCH, 2, (4, 128, 16)),
+             ("zamba2", SSM_ARCH, None, (2, 32, 16)),
+             ("xlstm", XLSTM_ARCH, 8, (2, 128, 16)))
+MESH_LAST_WHOLE = ("moe", "xlstm")      # families whose logits are held
 SERVE_STAGES = ("queue_wait", "host_prepare", "device_assign", "merge",
                 "request", "analytics_observe")
 SPAN_NAMES = {"request", "submit", "queue_wait", "host_prepare", "route",
@@ -4534,6 +4586,7 @@ def mesh_rank(rank, addr, tmp):
         out["train"] = mesh_train_rank(smoke, ref, rank, tmp)
         out["tp_train"] = mesh_tp_train_rank(smoke, ref)
         out["xattn"] = mesh_xattn_rank(smoke, ref, rank, tmp)
+        out["last"] = mesh_last_rank(smoke, ref, rank, tmp)
         out["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -4653,6 +4706,9 @@ def mesh_references(smoke, tmp) -> dict:
     del qmodel, params, opt, m
     torch.cuda.empty_cache()
     xattn_references(ref, out, tmp)
+    t0 = time.perf_counter()
+    last_references(ref, out, tmp)
+    out["last_references_s"] = time.perf_counter() - t0
     np.savez(os.path.join(tmp, "ref.npz"), **ref)
     return out
 
@@ -4825,6 +4881,7 @@ def mesh_phase(smoke, result) -> dict:
                               path="mesh prefill (1, 4), tensor-parallel")
         del saved, qkv, fa
         xattn_timing = mesh_xattn_timing(smoke, ranks, tmp)
+        last_timing = mesh_last_timing(smoke, ranks, tmp)
         # (c) one process restores the checkpoint whole.
         t0 = time.perf_counter()
         model = build_model(get_config(LM_ARCH), "cuda", trainable=True)
@@ -4983,6 +5040,8 @@ def mesh_phase(smoke, result) -> dict:
           f"routes {tps[0]['routes']}")
     # (d) / (e) the cross-attention families on (1, 4).
     mesh_xattn_checks(ranks, ref, out)
+    # (f)-(h) the last three families on (1, 4).
+    mesh_last_checks(ranks, ref, out)
     out["seconds"] = time.perf_counter() - t_start
     print(f"phase 14: {out['seconds']:.1f} s ({out['references_s']:.1f} s "
           f"one-process references, {out['spawn_s']:.1f} s the spawn)")
@@ -4992,8 +5051,461 @@ def mesh_phase(smoke, result) -> dict:
         "mesh_train_step": first["flash_launches"],
         "mesh_tp_train_step": tps[0]["flash_launches"],
         **{f"mesh_{tag}_prefill": ranks[0]["xattn"][tag]["flash_launches"]
-           for tag, _, _, _ in MESH_XATTN}},
-        "timing": tp_timing, "xattn_timing": xattn_timing}
+           for tag, _, _, _ in MESH_XATTN},
+        **{f"mesh_{tag}_prefill": ranks[0]["last"][tag]["flash_launches"]
+           for tag, _, _, _ in MESH_LAST}},
+        "timing": tp_timing, "xattn_timing": {**xattn_timing,
+                                              **last_timing}}
+
+
+# -- phase 14 (f)-(h): the last three families --------------------------------
+def last_cfg(arch, layers):
+    """Phase 14 (f)-(h)'s config: ``arch`` at its published widths, cut to
+    its first ``layers`` layers (None: whole)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def live_ssm_blocks(model, params, shardings) -> None:
+    """``live_ssm``'s draws (the same generator calls, leaf by leaf in
+    parameter order, each into a tensor of the whole leaf's shape) cut
+    to this rank's blocks of ``params``: the ranks hold blocks of the
+    one process's live weights."""
+    from repro_torch.sharding.rules import local_shard
+    gen = torch.Generator(device="cuda").manual_seed(XATTN_SEED + 2)
+    rank = model.cfg.shared_lora_rank
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf not in ("a_log", "dt_bias", "b_q"):
+                continue
+            t = torch.empty(p.shape, dtype=params[name].dtype, device="cuda")
+            if leaf == "b_q":
+                t.normal_(0.0, rank ** -0.5, generator=gen)
+            else:
+                t.uniform_(-1.0, 1.0, generator=gen)
+            sh = shardings[name]
+            params[name].copy_(local_shard(t, sh.spec, sh.mesh))
+
+
+def last_blocks(family):
+    """[(module, block function, the index of x in its arguments)] of the
+    blocks phase 14 (g) / (h) holds one by one (none for MLA: its
+    logits are held whole, routed alike)."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models import transformer as tf
+    return {"ssm_hybrid": [(ssm, "mamba2", 2), (tf, "_shared_attn", 4)],
+            "xlstm": [(xlstm, "mlstm", 2), (xlstm, "slstm", 2)]}.get(
+                family, [])
+
+
+def last_references(ref, out, tmp) -> None:
+    """Phase 14 (f)-(h)'s one-process runs: each arch (``last_cfg``; the
+    weights the ranks draw, zamba2's live leaves too) over
+    MESH_LAST_BATCH x MESH_LAST_SEQ tokens: the forward's last logits,
+    its routing (MLA), each block's input and output and the head's
+    input (to ``tmp/{tag}_blocks.pt``); its token loop (prompts from
+    XATTN_SEED + 1, then its greedy tokens): each step's fed token, last
+    logits (``tmp/{tag}_serve_logits.npy``) and routing, and its cache
+    leaves' bytes."""
+    from repro_torch.launch import serve as serve_mod
+    b, s = MESH_LAST_BATCH, MESH_LAST_SEQ
+    for tag, arch, layers, serve in MESH_LAST:
+        cfg = last_cfg(arch, layers)
+        model = serve_mod.load_model(cfg, seed=XATTN_SEED, device="cuda")
+        if cfg.family == "ssm_hybrid":
+            live_ssm(model)
+        toks = serve_mod.make_prompts(cfg, b, s, XATTN_SEED, "cuda")
+        ref[f"{tag}_tokens"] = toks.cpu().numpy()
+        run = serve_mod.run_config(s)
+        seen, head = [], []
+
+        def rec(real, xi):
+            def fn(*a, **kw):
+                y = real(*a, **kw)
+                seen.append((a[xi].cpu(), y.cpu()))
+                return y
+            return fn
+        logits_fn = model._logits
+
+        def logits_rec(x, mesh=None):
+            head.append(x[:, -1:].cpu())
+            return logits_fn(x, mesh)
+        model._logits = logits_rec
+        log = RouteLog()
+        try:
+            t0 = time.perf_counter()
+            with patched(*[(mod, f, rec(getattr(mod, f), xi))
+                           for mod, f, xi in last_blocks(cfg.family)]), \
+                    log.record() as rc, torch.inference_mode():
+                logits = model.forward(run, {"tokens": toks})[0]
+                ref[f"{tag}_last"] = logits[:, -1].float().cpu().numpy()
+            torch.cuda.synchronize()
+            out[f"{tag}_forward_s"] = time.perf_counter() - t0
+        finally:
+            del model._logits
+        for i, (ids, gap) in enumerate(rc):
+            ref[f"{tag}_ids{i}"] = ids.numpy()
+            ref[f"{tag}_gap{i}"] = gap.numpy()
+        torch.save({"blocks": seen, "head": head[0]},
+                   os.path.join(tmp, f"{tag}_blocks.pt"))
+        out[f"{tag}_blocks"] = len(seen)
+        del logits, seen, head
+        bs, ps, gen = serve
+        prompts = serve_mod.make_prompts(cfg, bs, ps, XATTN_SEED + 1, "cuda")
+        sruns = serve_mod.run_config(ps)
+        feed, steps_logits = [], []
+        with torch.inference_mode(), log.record() as rc:
+            cache = model.init_cache(bs, ps + gen)
+            out[f"{tag}_cache_bytes_one"] = {
+                k: t.numel() * t.element_size()
+                for k, t in flat_cache(cache).items()}
+            tok = prompts[:, :1]
+            for t in range(ps + gen - 1):
+                feed.append(tok)
+                logits, cache = model.decode_step(sruns, tok, cache)
+                steps_logits.append(logits[:, -1].float().cpu())
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(
+                    torch.int32)[:, None]
+                tok = prompts[:, t + 1:t + 2] if t + 1 < ps else nxt
+        ref[f"{tag}_serve_feed"] = torch.cat(feed, 1).cpu().numpy()
+        if rc:
+            ref[f"{tag}_serve_ids"] = torch.stack([i for i, _ in rc]).numpy()
+            ref[f"{tag}_serve_gaps"] = torch.stack([g for _, g in rc]).numpy()
+        np.save(os.path.join(tmp, f"{tag}_serve_logits.npy"),
+                torch.stack(steps_logits).numpy())
+        del model, cache, logits, steps_logits
+        torch.cuda.empty_cache()
+
+
+def flat_cache(cache, pre="") -> dict:
+    """{"a/b": leaf} of a cache tree, its position counter left out."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(flat_cache(v, f"{pre}{k}/"))
+        elif k != "pos":
+            out[pre + k] = v
+    return out
+
+
+def mesh_last_rank(smoke, ref, rank, tmp):
+    """Phase 14 (f)-(h) on one rank: each of MESH_LAST on
+    MESH_LAST_SHAPE, tensor-parallel over "model" (``mesh_last_case``)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(MESH_LAST_SHAPE, ("data", "model"))
+    return {tag: mesh_last_case(smoke, ref, rank, tmp, mesh, tag, arch,
+                                layers, serve)
+            for tag, arch, layers, serve in MESH_LAST}
+
+
+def mesh_last_case(smoke, ref, rank, tmp, mesh, tag, arch, layers, serve):
+    """One of phase 14 (f)-(h) on this rank: the blocks drawn in turn,
+    ``make_prefill_step`` (routed as one process routed, MLA), its kernel
+    launches (zamba2: flash once a shared block, each call against the
+    twin), its last logits; each block fed one process's input against
+    its output, and the head fed one process's final hidden state; the
+    timing, bytes and peak; then the token loop."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (gather_rows, init_sharded,
+                                            model_shardings, split_batch)
+    cfg = last_cfg(arch, layers)
+    m = mesh.shape["model"]
+    model = build_model(cfg, "meta")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shardings = model_shardings(model, mesh)
+    for r in range(MESH_RANKS):
+        if r == rank:
+            params = init_sharded(model, shardings, torch.Generator(
+                device="cuda").manual_seed(XATTN_SEED), "cuda")
+            if cfg.family == "ssm_hybrid":
+                live_ssm_blocks(model, params, shardings)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    block_bytes = tree_bytes(params)
+    gathered = gathered_layout(params, shardings)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree = steps.compute_params(model, params, mesh)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    b, s = MESH_LAST_BATCH, MESH_LAST_SEQ
+    batch = {"tokens": torch.from_numpy(ref[f"{tag}_tokens"]).cuda()}
+    run = serve_mod.run_config(s)
+    step = steps.make_prefill_step(model, run, mesh)
+    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts else 0
+    force = [(torch.from_numpy(ref[f"{tag}_ids{i}"]),
+              torch.from_numpy(ref[f"{tag}_gap{i}"])) for i in range(n_moe)]
+    log = RouteLog()
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    with smoke.capture(keep=["flash_attn_bhsd"]) as cap, \
+            log.record(force or None) as rc:
+        last = step(tree, batch)
+        torch.cuda.synchronize()
+    counts = dict(smoke.build.LAUNCHES)
+    routes = dict(smoke.build.ROUTE_LAUNCHES)
+    calls = cap.calls["flash_attn_bhsd"]
+    n_flash = cfg.n_layers // cfg.shared_attn_every \
+        if cfg.family == "ssm_hybrid" else 0
+    bhsd = (b * cfg.n_heads // m, s, cfg.hd)
+    for kname, n in counts.items():
+        check((n > 0) == (kname == "flash_attn_bhsd" and n_flash > 0),
+              f"mesh {tag} prefill: {kname} launched {n} times")
+    check(len(calls) == counts.get("flash_attn_bhsd", 0) == n_flash
+          and routes.get("flash_attn_bhsd:wgmma", 0) == n_flash
+          and all(a[0].shape == bhsd and a[0].dtype == torch.bfloat16
+                  and kw["causal"] for a, kw, _ in calls),
+          f"mesh {tag} prefill: flash launches {routes}, not {n_flash} "
+          f"causal wgmma calls at {bhsd}")
+    err = over = 0.0
+    for args, kw, (o,) in calls:
+        w, spread = smoke.twin("flash_attn_bhsd", args, kw)
+        e, ov = flash_err(o, w, spread, f"mesh {tag} flash call")
+        err, over = max(err, e), max(over, ov)
+        del w, spread
+    if rank == 0 and calls:
+        (q, k, v), kw, _ = calls[0]
+        torch.save({"qkv": [x.cpu() for x in (q, k, v)], "kw": kw,
+                    "b_loc": b}, os.path.join(tmp, f"mesh_{tag}_flash.pt"))
+    del cap, calls
+    flips = route_flips(force, rc, f"mesh {tag} vs one process") \
+        if force else 0
+    check(bool(torch.isfinite(last).all()) and last.shape == (b, cfg.vocab),
+          f"mesh {tag} prefill: last logits {tuple(last.shape)} not finite")
+    diff = float((last.float().cpu() - torch.from_numpy(
+        ref[f"{tag}_last"])).abs().max())
+    # Block by block: each block fed one process's input to it, against
+    # its output (the forward's own blocks run on as they are); the head
+    # fed one process's final hidden state.
+    saved = torch.load(os.path.join(tmp, f"{tag}_blocks.pt"))
+    worst, at = {}, [0]
+
+    def fed(real, xi, name):
+        def fn(*a, **kw):
+            y = real(*a, **kw)
+            x_in, y_one = saved["blocks"][at[0]]
+            at[0] += 1
+            a = list(a)
+            a[xi] = x_in.cuda()
+            r = float(row_ratio(real(*a, **kw), y_one.cuda()))
+            worst[name] = max(worst.get(name, 0.0), r)
+            return y
+        return fn
+    view = split_batch(mesh, batch)[0]
+    with patched(*[(mod, f, fed(getattr(mod, f), xi, f))
+                   for mod, f, xi in last_blocks(cfg.family)]), \
+            log.record(force or None):
+        step(tree, batch)
+    with torch.inference_mode(), steps.bound(model, tree):
+        head = model._logits(saved["head"].cuda(), view)
+        head = gather_rows(view, steps._last_row(model, view, head))
+    check(at[0] == len(saved["blocks"]),
+          f"mesh {tag}: {at[0]} blocks fed, one process ran "
+          f"{len(saved['blocks'])}")
+    head_diff = float((head.float().cpu() - torch.from_numpy(
+        ref[f"{tag}_last"])).abs().max())
+    del saved, head
+    timing = step_timing(lambda bt: step(tree, bt), batch, b * s)
+    res = dict(coords=mesh.coords, routes=dict(mesh.routes),
+               flash_launches=counts.get("flash_attn_bhsd", 0),
+               flash_shape=bhsd if n_flash else None, flash_max_abs_err=err,
+               flash_over=over, near_tie_flips=flips, logits_vs_one=diff,
+               head_vs_one=head_diff, block_ratio=worst,
+               block_bytes=block_bytes, tree_bytes=tree_bytes(tree),
+               gather_s=gather_s, gathered_layout=gathered,
+               peak_total_bytes=torch.cuda.max_memory_allocated() - base,
+               **timing)
+    del last, batch
+    res["serve"] = mesh_last_serve(smoke, model, mesh, tree, ref, tmp, tag,
+                                   serve, rank)
+    del params, tree
+    return res
+
+
+def mesh_last_serve(smoke, model, mesh, tree, ref, tmp, tag, serve, rank):
+    """Phase 14 (f)-(h)'s token loop on this rank through
+    ``make_serve_step`` (timed; no kernel of the eight launched) on its
+    block of the cache (``local_cache``: its heads of every state leaf,
+    MLA's ckv / kr whole; each leaf's bytes beside one process's), fed
+    one process's tokens and routed as it routed (MLA); on rank 0 each
+    step's last logits (gathered over the vocab) against one process's
+    after the loop."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.runtime import steps
+    b, s, gen = serve
+    n_steps = s + gen - 1
+    feed = torch.from_numpy(ref[f"{tag}_serve_feed"]).cuda()
+    step = steps.make_serve_step(model, serve_mod.run_config(s), mesh)
+    cache = steps.local_cache(model, mesh, b, s + gen, "cuda")
+    cache_bytes = {k: t.numel() * t.element_size()
+                   for k, t in flat_cache(cache).items()}
+    force = list(zip(torch.from_numpy(ref[f"{tag}_serve_ids"]),
+                     torch.from_numpy(ref[f"{tag}_serve_gaps"]))) \
+        if f"{tag}_serve_ids" in ref else None
+    seen, real = [], steps._last_row
+
+    def last_row(model_, view, logits):
+        last = real(model_, view, logits)
+        if rank == 0:
+            seen.append(last)
+        return last
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    steps._last_row = last_row
+    try:
+        with RouteLog().record(force) as rc:
+            t0 = time.perf_counter()
+            for t in range(n_steps):
+                _, cache = step(tree, feed[:, t:t + 1], cache)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        steps._last_row = real
+    launched = {k: v for k, v in smoke.build.LAUNCHES.items() if v}
+    check(not launched, f"mesh {tag} serve: kernels launched {launched}")
+    flips = route_flips(force, rc, f"mesh {tag} serve vs one process") \
+        if force else 0
+    errs = []
+    if rank == 0:
+        want = np.load(os.path.join(tmp, f"{tag}_serve_logits.npy"),
+                       mmap_mode="r")
+        check(len(seen) == n_steps, f"mesh {tag} serve: {len(seen)} steps")
+        errs = [float((got.float().cpu() - torch.from_numpy(
+            np.array(want[t]))).abs().max()) for t, got in enumerate(seen)]
+        check(all(math.isfinite(e) for e in errs),
+              f"mesh {tag} serve: logits not finite")
+    return dict(cache_bytes=cache_bytes,
+                cache_shapes={k: list(t.shape)
+                              for k, t in flat_cache(cache).items()},
+                step_max_abs_err=errs, steps=n_steps, near_tie_flips=flips,
+                ms_a_step=dt * 1e3 / n_steps, tok_s=b * n_steps / dt)
+
+
+def mesh_last_timing(smoke, ranks, tmp) -> dict:
+    """Flash at phase 14 (g)'s rank shape, on rank 0's first call
+    (``flash_row``: beside its twin, bound and SDPA)."""
+    timing = {}
+    for tag, _, _, _ in MESH_LAST:
+        path = os.path.join(tmp, f"mesh_{tag}_flash.pt")
+        if not os.path.exists(path):
+            continue
+        saved = torch.load(path)
+        qkv = tuple(x.cuda() for x in saved["qkv"])
+        fa = smoke.flash.flash_attn_bhsd(*qkv, **saved["kw"])
+        timing[f"mesh_{tag}"] = flash_row(
+            smoke, [(qkv, saved["kw"], (fa,))],
+            ranks[0]["last"][tag]["flash_launches"], batch=saved["b_loc"],
+            path=f"mesh {tag} prefill (1, 4), tensor-parallel")
+        del qkv, fa
+    return timing
+
+
+def mesh_last_checks(ranks, ref, out) -> None:
+    """Phase 14 (f)-(h)'s checks on the ranks' records, against the
+    one-process references (``last_references``), into ``out``."""
+    m = MESH_LAST_SHAPE[1]
+    for tag, arch, layers, serve in MESH_LAST:
+        cfg = last_cfg(arch, layers)
+        runs = [r["last"][tag] for r in ranks]
+        r0 = runs[0]
+        diff = max(r["logits_vs_one"] for r in runs)
+        head = max(r["head_vs_one"] for r in runs)
+        blocks = {k: max(r["block_ratio"].get(k, 0.0) for r in runs)
+                  for k in r0["block_ratio"]}
+        check(head <= LOGIT_TOL, f"mesh {tag}: the head fed one process's "
+                                 f"hidden state {head} from its logits")
+        check(all(v <= RECURRENT_BLOCK_RTOL for v in blocks.values()),
+              f"mesh {tag}: blocks fed one process's inputs {blocks} of "
+              f"their outputs' scale (tol {RECURRENT_BLOCK_RTOL})")
+        held = cfg.family in MESH_LAST_WHOLE
+        if held:
+            check(diff <= LOGIT_TOL, f"mesh {tag}: last logits {diff} from "
+                                     f"the one-process forward's")
+        sv = [r["serve"] for r in runs]
+        err = max(sv[0]["step_max_abs_err"])
+        if held:
+            check(err <= LOGIT_TOL, f"mesh {tag} serve: a step's logits "
+                                    f"{err} from one process's")
+        one = ref[f"{tag}_cache_bytes_one"]
+        check(set(sv[0]["cache_bytes"]) == set(one),
+              f"mesh {tag} serve: cache leaves {sorted(sv[0]['cache_bytes'])}")
+        split = {k: one[k] / sv[0]["cache_bytes"][k] for k in one}
+        for k, ratio in split.items():
+            leaf = k.rsplit("/", 1)[-1]
+            want = 1.0 if leaf in ("ckv", "kr") else None if leaf == "conv" \
+                else float(m)
+            check(want is None and 1.0 < ratio < m or ratio == want,
+                  f"mesh {tag} serve: {k} a rank is 1/{ratio} of one "
+                  f"process's")
+        out[tag] = dict(arch=arch, layers=cfg.n_layers, batch=MESH_LAST_BATCH,
+                        seq=MESH_LAST_SEQ, logits_vs_one=diff,
+                        head_vs_one=head, block_ratio=blocks,
+                        serve_max_abs_err=err,
+                        serve_err_by_step=sv[0]["step_max_abs_err"][::16],
+                        cache_split=split,
+                        one_process_forward_s=ref[f"{tag}_forward_s"],
+                        ranks=runs)
+        heads = (f"{cfg.n_heads // m} of {cfg.n_heads} MLA heads"
+                 if cfg.mla else f"{tp_ssm(cfg) // m} of {tp_ssm(cfg)} "
+                 f"Mamba2 heads and {cfg.n_heads // m} of {cfg.n_heads} "
+                 f"attention heads" if cfg.family == "ssm_hybrid"
+                 else f"{cfg.n_heads // m} of {cfg.n_heads} heads")
+        print(f"phase 14: {cfg.name} at full width, {cfg.n_layers} layers, "
+              f"on a (1, 4) mesh ({MESH_RANKS} gloo ranks on cuda:0), "
+              f"tensor-parallel over 'model' ({heads} a rank), "
+              f"make_prefill_step over {MESH_LAST_BATCH} x {MESH_LAST_SEQ}: "
+              f"last logits within {diff:.4g} of one process's"
+              f"{' (routed alike)' if cfg.mla else ''}"
+              f"{'' if held else ' (reported, not held)'}; the head fed one "
+              f"process's final hidden state within {head:.4g} (tol "
+              f"{LOGIT_TOL}); blocks fed one process's inputs within "
+              + (", ".join(f"{k} {v:.3g}" for k, v in blocks.items())
+                 or "(no recurrent block)")
+              + f" of their scale (tol {RECURRENT_BLOCK_RTOL}); per rank "
+              f"flash_attn_bhsd x{r0['flash_launches']} at "
+              f"{r0['flash_shape']} (wgmma, each == twin, max "
+              f"{max(r['flash_over'] for r in runs):.3g}x the tolerance) "
+              f"and nothing else of the eight; ms a forward "
+              f"{[round(r['step_s'] * 1e3, 1) for r in runs]} (one process "
+              f"{ref[f'{tag}_forward_s'] * 1e3:.1f} ms, its first call), "
+              f"peak GiB "
+              f"{[round(r['peak_total_bytes'] / 2**30, 2) for r in runs]}, "
+              f"blocks GiB {[round(r['block_bytes'] / 2**30, 3) for r in runs]}"
+              f", compute tree GiB "
+              f"{[round(r['tree_bytes'] / 2**30, 3) for r in runs]} in "
+              f"{[round(r['gather_s'], 2) for r in runs]} s (the gathered "
+              f"layout's, every leaf but the experts whole over 'model': "
+              f"{[round(r['gathered_layout']['tree_bytes'] / 2**30, 3) for r in runs]}"
+              f" GiB in "
+              f"{[round(r['gathered_layout']['gather_s'], 2) for r in runs]}"
+              f" s), routes {r0['routes']} ({card_line()})")
+        bs, s_, gen = serve
+        print(f"phase 14: {cfg.name} token loop on (1, 4), {bs} prompts of "
+              f"{s_} + {gen} generated, fed one process's tokens"
+              f"{' and routed alike' if cfg.mla else ''}: each cache leaf "
+              f"a rank in B {sv[0]['cache_bytes']} ({sv[0]['cache_shapes']})"
+              f" beside one process's {one}, one process's / a rank's "
+              f"{ {k: round(v, 3) for k, v in split.items()} }; the last "
+              f"logits' largest difference from one process's "
+              f"{err:.4g}"
+              f"{' (tol ' + str(LOGIT_TOL) + ')' if held else ' (reported)'},"
+              f" by step {[round(e, 3) for e in out[tag]['serve_err_by_step']]}"
+              f"; no kernel launched; ms a step "
+              f"{[round(x['ms_a_step'], 2) for x in sv]}")
+
+
+def tp_ssm(cfg) -> int:
+    """zamba2's Mamba2 heads."""
+    return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
 
 
 def host_map():

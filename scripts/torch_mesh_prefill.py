@@ -4,21 +4,28 @@ one NCCL rank a GPU: the multi-card record of PERF.md.
   python3 scripts/torch_mesh_prefill.py --layers 32 --mesh 1 4
   python3 scripts/torch_mesh_prefill.py --arch llama-3.2-vision-90b \
       --mesh 1 4
+  python3 scripts/torch_mesh_prefill.py --arch deepseek-v2-236b \
+      --layers 20 --mesh 1 4
 
-``--arch`` is Mixtral-8x7B (the default) or Llama-3.2-Vision-90B.  Each
-rank draws its own blocks of random weights (each block from a seed and
-the rank: no single process could hold either model, 93 GB and 179 GB
-in bf16), gathers its compute tree once
-(``runtime.steps.compute_params``), and runs ``make_prefill_step`` over
-the arch's BATCHES x SEQ tokens, tensor-parallel over "model" (each rank
-its heads, FFN and vocab blocks, Mixtral's experts; flash at [B_loc * H
-/ m, S, hd]).  The vlm's gates, which start at zero and would hide the
-image path, are drawn from U(0.5, 1.5) and its N_IMG x d_vision image
-tokens a row from normals, both from SEED alike on every rank.  Printed:
+``--arch`` is Mixtral-8x7B (the default), Llama-3.2-Vision-90B or
+DeepSeek-V2-236B.  Each rank draws its own blocks of random weights
+(each block from a seed and the rank: no single process could hold any
+of them, 93 GB, 179 GB and, at 20 of DeepSeek-V2's 60 layers, 157 GB in
+bf16; a leaf every rank reads whole is then not the same on every rank,
+which changes no shape or launch), gathers its compute tree once
+(``runtime.steps.compute_params``: MLA's re-blocked ``wuq`` gathered and
+cut to the rank's heads), and runs ``make_prefill_step`` over the arch's
+BATCHES x SEQ tokens, tensor-parallel over "model" (each rank its heads,
+FFN and vocab blocks, the experts, DeepSeek-V2's shared experts' width;
+flash at [B_loc * H / m, S, hd], none for MLA's head dim of 192).  The
+vlm's gates, which start at zero and would hide the image path, are
+drawn from U(0.5, 1.5) and its N_IMG x d_vision image tokens a row from
+normals, both from SEED alike on every rank.  Printed:
 the median host milliseconds of REPS forwards after a warm-up (each
 ending in a sync), tok/s, the kernel launches of one forward by route,
-peak device memory, the gather's seconds and the collectives' routes,
-per rank.  Rank 0 prints them, with the card's name and power limit, as
+the MoE layers' dropped (token, choice) pairs of that forward, peak
+device memory, the gather's seconds and the collectives' routes, per
+rank.  Rank 0 prints them, with the card's name and power limit, as
 one JSON line and writes ``--out``.
 """
 import argparse
@@ -39,7 +46,8 @@ import torch.multiprocessing as mp
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
-BATCHES = {"mixtral-8x7b": 8, "llama-3.2-vision-90b": 4}
+BATCHES = {"mixtral-8x7b": 8, "llama-3.2-vision-90b": 4,
+           "deepseek-v2-236b": 4}
 SEQ, REPS, SEED = 2048, 3, 0
 
 
@@ -85,6 +93,7 @@ def rank_main(rank, args, addr, out_file):
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
     from repro_torch.models.model import build_model
     from repro_torch.runtime import steps
     from repro_torch.sharding.rules import model_shardings
@@ -120,8 +129,18 @@ def rank_main(rank, args, addr, out_file):
         step(tree, inputs)                      # warm-up
         torch.cuda.synchronize()
         _build.reset_launches()
-        last = step(tree, inputs)
-        torch.cuda.synchronize()
+        dropped, real = [], tf.moe_ffn
+
+        def moe_ffn(*a, **kw):
+            y, aux = real(*a, **kw)
+            dropped.append(int(aux["dropped"]))
+            return y, aux
+        tf.moe_ffn = moe_ffn
+        try:
+            last = step(tree, inputs)
+            torch.cuda.synchronize()
+        finally:
+            tf.moe_ffn = real
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         routes = {k: v for k, v in _build.ROUTE_LAUNCHES.items() if v}
         if not bool(torch.isfinite(last).all()):
@@ -140,7 +159,8 @@ def rank_main(rank, args, addr, out_file):
                    tok_s=batch * SEQ / (ms / 1e3),
                    launches=launches, launch_routes=routes,
                    flash_shape=[batch * cfg.n_heads // args.mesh[1], SEQ,
-                                cfg.hd],
+                                cfg.hd] if launches else None,
+                   dropped=sum(dropped), moe_layers=len(dropped),
                    block_bytes=block_bytes,
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    draw_s=draw_s, gather_s=gather_s,

@@ -43,6 +43,15 @@ a multiple of the axis), every rank computes them all, as one process
 does, and reads the one its q heads use (head j reads kv head j // (H /
 KH)); their gradient is summed over "model" there (``psum_bwd``).
 
+MLA has the same layout over its heads: ``wuk`` / ``wuv`` are column
+blocks, ``wo`` a row block, ``wuq`` a re-blocked leaf whose piece is the
+rank's heads' columns (``sharding.rules.tp_pieces``); the latents ``cq``
+(``wdq`` gathered whole: a split ``cq`` would need its norm summed over
+"model" and an all-gather), ``ckv`` and the rope key ``kr`` are computed
+whole on every rank and feed its heads through ``psum_bwd``; prefill
+runs ``blockwise_attn`` over the rank's heads, decode absorbs ``wuk`` /
+``wuv`` over them against the whole ``ckv`` / ``kr`` cache.
+
 Cross-attention (the vlm's gated blocks over the image tokens, the
 encdec decoder's over the encoder's output) has the same layout:
 ``cross_kv`` gives this rank's kv heads of the other input (all of them
@@ -394,11 +403,25 @@ def mla_spec(cfg):
     }
 
 
-def _mla_qkr(params, cfg, x, positions):
-    """Shared q / rope-key computation. x [B,S,D]."""
+def _mla_tp(params, cfg, mesh):
+    """(this rank's MLA heads, whether it holds a block of them over
+    "model"), from ``wuk``'s head columns."""
+    h = params["wuk"]["w"].shape[-1] // cfg.qk_nope_dim
+    return h, model_block(mesh, h, cfg.n_heads)
+
+
+def _mla_qkr(params, cfg, x, positions, mesh=None):
+    """Shared q / rope-key computation. x [B,S,D]: q of this rank's heads
+    (``wuq``'s head columns, its re-blocked piece under a mesh), and the
+    rope key.  Under a mesh the latents are read whole on every rank
+    (``wdq`` gathered whole: its q_lora columns split would need the
+    norm summed over "model" and ``cq`` gathered), and ``cq`` and ``kr``
+    feed this rank's heads through ``psum_bwd``."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h, tp = _mla_tp(params, cfg, mesh)
     cq = rmsnorm(params["q_norm"], dense(params["wdq"], x), cfg.norm_eps)
+    if tp:
+        cq = psum_bwd(cq, mesh, "model")
     q = dense(params["wuq"], cq).reshape(
         b, s, h, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope = q[..., :cfg.qk_nope_dim]
@@ -407,39 +430,51 @@ def _mla_qkr(params, cfg, x, positions):
     q_rope = apply_rope(q_rope, sin, cos)
     kr = dense(params["wkr"], x).reshape(b, s, 1, cfg.qk_rope_dim)
     kr = apply_rope(kr, sin, cos)
+    if tp:
+        kr = psum_bwd(kr, mesh, "model")
     return q_nope, q_rope, kr, (sin, cos)
 
 
-def mla_self_attn(params, cfg, x, *, positions, chunk_q, chunk_kv):
-    """Training / prefill MLA in the expanded (naive) form, through
-    ``blockwise_attn`` as in ``repro``."""
-    b, s, _ = x.shape
-    h = cfg.n_heads
-    q_nope, q_rope, kr, _ = _mla_qkr(params, cfg, x, positions)
+def _mla_ckv(params, cfg, x, tp, mesh):
+    """The normed latent c_kv of x, whole on every rank (``psum_bwd``
+    where it feeds this rank's heads)."""
     ckv = rmsnorm(params["kv_norm"], dense(params["wdkv"], x), cfg.norm_eps)
+    return psum_bwd(ckv, mesh, "model") if tp else ckv
+
+
+def mla_self_attn(params, cfg, x, *, positions, chunk_q, chunk_kv,
+                  mesh=None):
+    """Training / prefill MLA in the expanded (naive) form, through
+    ``blockwise_attn`` as in ``repro``; with ``mesh``, on this rank's
+    heads where the blocks say so (see the module doc)."""
+    b, s, _ = x.shape
+    h, tp = _mla_tp(params, cfg, mesh)
+    q_nope, q_rope, kr, _ = _mla_qkr(params, cfg, x, positions, mesh)
+    ckv = _mla_ckv(params, cfg, x, tp, mesh)
     k_nope = dense(params["wuk"], ckv).reshape(b, s, h, cfg.qk_nope_dim)
     v = dense(params["wuv"], ckv).reshape(b, s, h, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, kr.expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
     o = blockwise_attn(q, k, v, causal=True, chunk_q=chunk_q,
                        chunk_kv=chunk_kv)
-    return dense(params["wo"], o.reshape(b, s, -1))
+    return _attn_out(params, o, tp, mesh)
 
 
-def mla_decode_self_attn(params, cfg, x, ckv, kr, pos):
+def mla_decode_self_attn(params, cfg, x, ckv, kr, pos, mesh=None):
     """Decode with the compressed cache (c_kv + k_rope) and absorbed mats.
 
     ckv: [B,T,kv_lora]; kr: [B,T,rope_d]; pos: [] absolute position (an
     int32 tensor).  Scores = q_nope W_uk^T . ckv + q_rope . k_rope;
     out = (P . ckv) W_uv, in f32.  Returns (out [B,1,D], ckv, kr): the
     caches are written in place (one slot; ``repro`` returns updated
-    copies).
+    copies).  With ``mesh``, ``wuk`` / ``wuv`` are absorbed over this
+    rank's heads against the whole cache, and ``wo``'s row block is
+    summed over "model".
     """
     b = x.shape[0]
-    h = cfg.n_heads
-    q_nope, q_rope, kr_new, _ = _mla_qkr(params, cfg, x, pos[None])
-    ckv_new = rmsnorm(params["kv_norm"], dense(params["wdkv"], x),
-                      cfg.norm_eps)
+    h, tp = _mla_tp(params, cfg, mesh)
+    q_nope, q_rope, kr_new, _ = _mla_qkr(params, cfg, x, pos[None], mesh)
+    ckv_new = _mla_ckv(params, cfg, x, tp, mesh)
     t = ckv.shape[1]
     idx = torch.clamp(pos, max=t - 1).reshape(1).long()
     ckv.index_copy_(1, idx, ckv_new.to(ckv.dtype))
@@ -456,5 +491,6 @@ def mla_decode_self_attn(params, cfg, x, ckv, kr, pos):
     octx = torch.einsum("bht,btc->bhc", p, ckv.float())
     wuv = params["wuv"]["w"].reshape(cfg.kv_lora, h, cfg.v_head_dim)
     o = torch.einsum("bhc,chv->bhv", octx, wuv.float())
-    out = dense(params["wo"], o.reshape(b, 1, -1).to(x.dtype))
+    out = _attn_out(params, o.reshape(b, 1, h, cfg.v_head_dim).to(x.dtype),
+                    tp, mesh)
     return out, ckv, kr

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.launch.mesh import psum_fwd
+from repro_torch.launch.mesh import psum_bwd, psum_fwd
 from repro_torch.models.module import P
 
 ACT_DTYPE = torch.bfloat16
@@ -59,8 +59,8 @@ def shard_act(x, *parts):
     """The identity.  In ``repro`` a sharding constraint for GSPMD, which
     changes no value; the port's activations are already this rank's
     rows (``runtime.steps`` splits the batch over ``BATCH``), and where
-    GSPMD shards heads, mlp and vocab over "model" the port's dense and
-    MoE families compute on their parameter blocks
+    GSPMD shards heads, mlp and vocab over "model" the port's families
+    compute on their parameter blocks
     (``sharding.rules.tp_layout``; the attention, ``ffn`` and the head
     below read the blocks' shapes)."""
     return x
@@ -83,12 +83,39 @@ def rmsnorm_spec(d):
     return {"scale": P((d,), (None,), init="ones")}
 
 
-def rmsnorm(params, x, eps=1e-5):
+def rmsnorm(params, x, eps=1e-5, mesh=None, d=None):
+    """RMSNorm over the last axis in f32.  With ``d`` (the whole width)
+    and an x that is this rank's block of it over ``mesh``'s "model" axis
+    (a norm over heads the rank splits: Mamba2's gated norm, the mLSTM's
+    and sLSTM's), the sum of squares of the block is summed over "model"
+    and divided by ``d``, and the whole ``scale`` leaf is cut to the
+    block (through ``psum_bwd``: each rank's gradient covers its block).
+    Each rank's normalized block reads the one total, so the total's
+    gradient is summed over "model" too (``psum_fwd`` then ``psum_bwd``:
+    an all-reduce both ways; Megatron's g alone would pass each rank its
+    partial)."""
     dt = x.dtype
+    scale = params["scale"]
+    if d is None or not model_block(mesh, x.shape[-1], d):
+        x = x.float()
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        x = x * torch.rsqrt(var + eps)
+        return (x * scale).to(dt)
+    n = x.shape[-1]
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"]).to(dt)
+    ss = torch.sum(torch.square(x), dim=-1, keepdim=True)
+    ss = psum_bwd(psum_fwd(ss, mesh, "model"), mesh, "model")
+    x = x * torch.rsqrt(ss / d + eps)
+    return (x * model_part(scale, mesh, 0, n)).to(dt)
+
+
+def model_part(t, mesh, dim: int, n: int):
+    """This rank's ``n`` entries along ``dim`` of ``t``, a leaf every rank
+    of ``mesh``'s "model" axis holds whole and reads only in part (rank i
+    the i-th run of ``n``): entered through ``psum_bwd``, so the rank's
+    gradient of the whole leaf is the sum of every rank's part."""
+    t = psum_bwd(t, mesh, "model")
+    return t.narrow(dim, mesh.index("model") * n, n)
 
 
 def layernorm_spec(d):

@@ -31,15 +31,16 @@ The last three run under ``torch.inference_mode()``.  ``mesh`` (a
 ``launch.mesh.Mesh`` view naming the batch axes) reaches the MoE layers,
 as in ``repro``; with it the batch is this rank's rows and the MoE
 family's ``aux`` the whole batch's (``runtime.steps`` under a mesh).  In
-the dense, MoE (GQA), vlm and encdec families it also reaches the
-embedding, the attention (self and cross), the FFN and the head, which
-compute on this rank's blocks over "model" where the bound parameters
-are blocks (``sharding.rules.tp_layout``): then the logits are this
-rank's vocab block [B, S, V / m] (whole where the vocab does not split,
-as SeamlessM4T's 256,206) and the cache holds this rank's kv heads
-(``init_cache(kv_heads=)``: the vlm's image caches and the encdec's
-cross caches too).  MLA, ssm_hybrid and xlstm take it and ignore it
-outside the MoE layers, as ``repro``'s do.  ``cache_specs`` /
+every family it also reaches the embedding, the attention (self, cross,
+MLA, zamba2's shared block), the FFN and shared experts, the Mamba2 and
+xLSTM blocks and the head, which compute on this rank's blocks over
+"model" where the bound parameters are blocks
+(``sharding.rules.tp_layout``): then the logits are this rank's vocab
+block [B, S, V / m] (whole where the vocab does not split, as
+SeamlessM4T's 256,206) and the cache holds this rank's kv heads
+(``init_cache(kv_heads=)``: the vlm's image caches, the encdec's cross
+caches, zamba2's shared-block caches too) and the heads of its
+recurrent state (``init_cache(heads=)``).  ``cache_specs`` /
 ``abstract_params`` are meta-device stand-ins (shapes, no memory), and
 ``input_specs`` those of a cell's inputs.  Two builds:
 
@@ -598,25 +599,32 @@ class SSMHybridModel(Model):
     def forward(self, run, batch, mesh=None):
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = _positions(tokens.shape[1], x.device)
         mblk = _wrap_remat(
-            lambda p, x: x + ssm.mamba2(p, cfg, x, chunk=run.ssm_chunk), run)
+            lambda p, x: x + ssm.mamba2(p, cfg, x, chunk=run.ssm_chunk,
+                                        mesh=mesh), run)
         for group in self.groups:
             for p in group["mambas"]:
                 x = mblk(p, x)
-            x = tf._shared_attn(self.shared, group["lora"], cfg, run, x, pos)
+            x = tf._shared_attn(self.shared, group["lora"], cfg, run, x, pos,
+                                mesh)
         for p in self._tail():
             x = mblk(p, x)
-        return self._logits(x), {}
+        return self._logits(x, mesh), {}
 
     @torch.inference_mode()
-    def init_cache(self, batch, max_len, device=None):
+    def init_cache(self, batch, max_len, device=None, kv_heads=None,
+                   heads=None):
+        """Zeros; ``heads``: the Mamba2 heads a rank holds, ``kv_heads``
+        the shared block's (blocks over "model",
+        ``runtime.steps.local_cache``), else all of them."""
         cfg = self.cfg
         dev = device or self.device
-        one = ssm.mamba2_init_state(cfg, batch, cfg.d_model, device=dev)
+        one = ssm.mamba2_init_state(cfg, batch, cfg.d_model, device=dev,
+                                    heads=heads)
         g, k = self.n_groups, cfg.shared_attn_every
-        ak, av = self._kv(g, batch, max_len, dev)
+        ak, av = self._kv(g, batch, max_len, dev, kv_heads)
         cache = {"ssm": _stacked_zeros(one, (g, k)), "attn_k": ak,
                  "attn_v": av,
                  "pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -627,19 +635,20 @@ class SSMHybridModel(Model):
     @torch.inference_mode()
     def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
         pos = cache["pos"]
+        step = functools.partial(ssm.mamba2_step, mesh=mesh)
         for g, group in enumerate(self.groups):
             for j, p in enumerate(group["mambas"]):
-                x = _step_into(ssm.mamba2_step, p, cfg, x,
+                x = _step_into(step, p, cfg, x,
                                {k: t[g, j] for k, t in cache["ssm"].items()})
             x, _, _ = tf._shared_attn_decode(
                 self.shared, group["lora"], cfg, x, cache["attn_k"][g],
-                cache["attn_v"][g], pos)
+                cache["attn_v"][g], pos, mesh)
         for j, p in enumerate(self._tail()):
-            x = _step_into(ssm.mamba2_step, p, cfg, x,
+            x = _step_into(step, p, cfg, x,
                            {k: t[j] for k, t in cache["tail_ssm"].items()})
-        return self._logits(x), dict(cache, pos=pos + 1)
+        return self._logits(x, mesh), dict(cache, pos=pos + 1)
 
 
 class XLSTMModel(Model):
@@ -682,10 +691,10 @@ class XLSTMModel(Model):
 
     def forward(self, run, batch, mesh=None):
         cfg = self.cfg
-        x = embed(self.embed, batch["tokens"])
+        x = self._embed(batch["tokens"], mesh)
         mblk = _wrap_remat(
-            lambda p, x: x + xlstm.mlstm(p, cfg, x, chunk=run.ssm_chunk),
-            run)
+            lambda p, x: x + xlstm.mlstm(p, cfg, x, chunk=run.ssm_chunk,
+                                         mesh=mesh), run)
         if not self.n_groups:
             for p in self.blocks:
                 x = mblk(p, x)
@@ -693,20 +702,22 @@ class XLSTMModel(Model):
             for group in self.groups:
                 for p in group["mlstms"]:
                     x = mblk(p, x)
-                x = x + xlstm.slstm(group["slstm"], cfg, x)
-        return self._logits(x), {}
+                x = x + xlstm.slstm(group["slstm"], cfg, x, mesh)
+        return self._logits(x, mesh), {}
 
     @torch.inference_mode()
-    def init_cache(self, batch, max_len, device=None):
+    def init_cache(self, batch, max_len, device=None, heads=None):
+        """Zeros; ``heads``: the heads a rank holds (a block over "model",
+        ``runtime.steps.local_cache``), else all of them."""
         cfg = self.cfg
         dev = device or self.device
-        m_one = xlstm.mlstm_init_state(cfg, batch, device=dev)
+        m_one = xlstm.mlstm_init_state(cfg, batch, device=dev, heads=heads)
         c = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
         if self.n_groups:
             c["m"] = _stacked_zeros(m_one, (self.n_groups,
                                             cfg.slstm_every - 1))
             c["s"] = _stacked_zeros(xlstm.slstm_init_state(
-                cfg, batch, device=dev), (self.n_groups,))
+                cfg, batch, device=dev, heads=heads), (self.n_groups,))
         else:
             c["m"] = _stacked_zeros(m_one, (cfg.n_layers,))
         return c
@@ -714,20 +725,22 @@ class XLSTMModel(Model):
     @torch.inference_mode()
     def decode_step(self, run, tokens, cache, mesh=None):
         cfg = self.cfg
-        x = embed(self.embed, tokens)
+        x = self._embed(tokens, mesh)
+        mstep = functools.partial(xlstm.mlstm_step, mesh=mesh)
         if not self.n_groups:
             for i, p in enumerate(self.blocks):
-                x = _step_into(xlstm.mlstm_step, p, cfg, x,
+                x = _step_into(mstep, p, cfg, x,
                                {k: t[i] for k, t in cache["m"].items()})
         else:
+            sstep = functools.partial(xlstm.slstm_step, mesh=mesh)
             for g, group in enumerate(self.groups):
                 for j, p in enumerate(group["mlstms"]):
-                    x = _step_into(xlstm.mlstm_step, p, cfg, x,
+                    x = _step_into(mstep, p, cfg, x,
                                    {k: t[g, j]
                                     for k, t in cache["m"].items()})
-                x = _step_into(xlstm.slstm_step, group["slstm"], cfg, x,
+                x = _step_into(sstep, group["slstm"], cfg, x,
                                {k: t[g] for k, t in cache["s"].items()})
-        return self._logits(x), dict(cache, pos=cache["pos"] + 1)
+        return self._logits(x, mesh), dict(cache, pos=cache["pos"] + 1)
 
 
 _BUILDERS = {"dense": DenseModel, "moe": MoEModel, "vlm": VLMModel,

@@ -4,11 +4,13 @@
 capacity-buckets the (token, choice) pairs (``distributed.dispatch``),
 runs every expert's SwiGLU on its bucket, and sums each token's weighted
 rows back; shared experts, when the config has them, run through
-``ffn`` on every token.  ``aux`` carries the Switch-style load-balance
-loss ``E * sum(me * ce)`` and the number of dropped (token, choice)
-pairs (i32).  Capacity is ``ceil(T * k / E * capacity_factor)`` for the
-T tokens of the call, as in ``repro``: a decode step (T = B) can drop
-pairs that a forward over the same positions keeps.
+``ffn`` on every token (tensor-parallel over "model" where their width
+is this rank's block, ``sharding.rules.tp_layout``).  ``aux`` carries
+the Switch-style load-balance loss ``E * sum(me * ce)`` and the number
+of dropped (token, choice) pairs (i32).  Capacity is ``ceil(T * k / E *
+capacity_factor)`` for the T tokens of the call, as in ``repro``: a
+decode step (T = B) can drop pairs that a forward over the same
+positions keeps.
 
 Top-k is a stable descending sort cut at k: the order of
 ``jax.lax.top_k`` (values descending, the lower index first on a tie),
@@ -261,5 +263,6 @@ def moe_ffn(params, cfg, x, mesh=None):
         y, lb = out.reshape(b, s, d), e * torch.sum(me * ce)
     aux = {"lb_loss": lb, "dropped": dropped}
     if cfg.n_shared_experts:
-        y = y + ffn(params["shared"], x, "swiglu")
+        y = y + ffn(params["shared"], x, "swiglu", mesh,
+                    cfg.d_ff_expert * cfg.n_shared_experts)
     return y, aux

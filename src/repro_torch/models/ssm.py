@@ -26,6 +26,16 @@ Where the port differs from ``repro``, and why:
   builds the [B, Lc, H, N, P] product first;
 * no ``shard_act``: it is the identity in the port (``layers.shard_act``).
 
+Under a mesh whose "model" axis splits the heads
+(``sharding.rules.tp_layout``: "heads carry TP", as ``repro``'s Mamba2
+says), ``mamba2`` / ``mamba2_step`` work on this rank's heads: z, x and
+dt from its piece of ``in_proj`` (re-blocked: its heads' columns and the
+B / C ones whole), the depthwise conv over its x channels and the B / C
+ones, the SSD scan over its heads unchanged, the gated norm's sum of
+squares summed over "model" (``layers.rmsnorm``), and ``out_proj``'s row
+block summed by ``layers.dense_rows``.  The input enters through
+``psum_bwd``, and so does each whole leaf a rank reads in part.
+
 ``repro``'s bf16 roundings are kept: the chunked form takes dt * x in
 bf16 (dt rounded first), the step in f32; the depthwise conv sums its
 taps in x's dtype one tap at a time, oldest first.  ``conv_w``,
@@ -36,9 +46,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import psum_bwd
 from repro_torch.models.ffn import silu
-from repro_torch.models.layers import dense, dense_spec, rmsnorm, \
-    rmsnorm_spec, softplus
+from repro_torch.models.layers import dense, dense_rows, dense_spec, \
+    model_block, model_part, rmsnorm, rmsnorm_spec, softplus
 from repro_torch.models.module import P
 
 
@@ -76,18 +87,53 @@ def _causal_conv(x, w, b, state=None):
     return y + b.to(x.dtype), xp[:, -(k - 1):]
 
 
-def _split_in_proj(params, cfg, x, d_in):
-    di = cfg.ssm_expand * d_in
-    n = cfg.ssm_state
-    h = di // cfg.ssm_head_dim
+def _heads(params, cfg, d_in, mesh):
+    """(this rank's heads, the whole count, whether it holds a block of
+    them over ``mesh``'s "model" axis), from ``out_proj``'s rows."""
+    h = cfg.ssm_expand * d_in // cfg.ssm_head_dim
+    hl = params["out_proj"]["w"].shape[0] // cfg.ssm_head_dim
+    return hl, h, model_block(mesh, hl, h)
+
+
+def _split_in_proj(params, cfg, x, d_in, mesh=None):
+    """z, x, B, C, dt of x [B, S, D] and their widths: this rank's heads'
+    z / x / dt and the B / C columns whole under a mesh (``in_proj`` is
+    its re-blocked piece there, x enters through ``psum_bwd``)."""
+    hl, _, tp = _heads(params, cfg, d_in, mesh)
+    dl, n = hl * cfg.ssm_head_dim, cfg.ssm_state
+    if tp:
+        x = psum_bwd(x, mesh, "model")
     zxbcdt = dense(params["in_proj"], x)
-    z, xs, bb, cc, dt = torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
-    return z, xs, bb, cc, dt, di, n, h
+    z, xs, bb, cc, dt = torch.split(zxbcdt, [dl, dl, n, n, hl], dim=-1)
+    return z, xs, bb, cc, dt, dl, n, hl
 
 
-def _gated_out(params, cfg, y, z):
-    """The block's output: rmsnorm(y * silu(z)), then ``out_proj``."""
-    y = rmsnorm(params["norm"], y * silu(z), cfg.norm_eps)
+def _parts(params, cfg, d_in, mesh):
+    """The whole leaves a rank reads in part: the conv's weights and bias
+    at its x channels and the B / C ones, ``a_log`` / ``d_skip`` /
+    ``dt_bias`` at its heads (``layers.model_part``); as they are
+    without a "model" block."""
+    keys = ("conv_w", "conv_b", "a_log", "d_skip", "dt_bias")
+    hl, h, tp = _heads(params, cfg, d_in, mesh)
+    if not tp:
+        return {k: params[k] for k in keys}
+    di, dl = h * cfg.ssm_head_dim, hl * cfg.ssm_head_dim
+    out = {k: model_part(params[k], mesh, 0, hl) for k in keys[2:]}
+    for k in keys[:2]:
+        t = psum_bwd(params[k], mesh, "model")
+        out[k] = torch.cat([t.narrow(0, mesh.index("model") * dl, dl),
+                            t.narrow(0, di, t.shape[0] - di)])
+    return out
+
+
+def _gated_out(params, cfg, y, z, mesh=None):
+    """The block's output: rmsnorm(y * silu(z)), then ``out_proj``; under
+    a mesh the norm's sum of squares over "model" (``layers.rmsnorm``)
+    and ``out_proj``'s row block summed by ``dense_rows``."""
+    di = params["norm"]["scale"].shape[-1]
+    y = rmsnorm(params["norm"], y * silu(z), cfg.norm_eps, mesh, di)
+    if model_block(mesh, y.shape[-1], di):
+        return dense_rows(params["out_proj"], y, mesh)
     return dense(params["out_proj"], y)
 
 
@@ -119,62 +165,71 @@ def _ssd_chunks(xt, bb, cc, log_a, lc: int):
     return torch.cat(ys, dim=1)
 
 
-def mamba2(params, cfg, x, chunk: int = 128, d_in=None):
+def mamba2(params, cfg, x, chunk: int = 128, d_in=None, mesh=None):
     """Train / prefill.  x [B, S, D] -> [B, S, D]; S must be a multiple of
-    min(chunk, S)."""
+    min(chunk, S).  With ``mesh``, on this rank's heads where the blocks
+    say so (see the module doc)."""
     b, s, d = x.shape
     lc = min(chunk, s)
     if s % lc:
         raise ValueError(f"mamba2: sequence length {s} is no multiple of "
                          f"the chunk {lc}")
-    z, xs, bb, cc, dt, di, n, h = _split_in_proj(params, cfg, x, d_in or d)
+    z, xs, bb, cc, dt, di, n, h = _split_in_proj(params, cfg, x, d_in or d,
+                                                 mesh)
+    w = _parts(params, cfg, d_in or d, mesh)
     p = cfg.ssm_head_dim
 
     conv_in = torch.cat([xs, bb, cc], dim=-1)
-    conv_out, _ = _causal_conv(conv_in, params["conv_w"], params["conv_b"])
+    conv_out, _ = _causal_conv(conv_in, w["conv_w"], w["conv_b"])
     xs, bb, cc = torch.split(silu(conv_out), [di, n, n], dim=-1)
 
-    dt = softplus(dt.float() + params["dt_bias"].float())          # [B,S,H]
-    log_a = -torch.exp(params["a_log"].float()) * dt                 # <= 0
+    dt = softplus(dt.float() + w["dt_bias"].float())               # [B,S,H]
+    log_a = -torch.exp(w["a_log"].float()) * dt                      # <= 0
     xh = xs.reshape(b, s, h, p)
     xt = xh * dt[..., None].to(xh.dtype)                             # dt * x
 
     y = _ssd_chunks(xt, bb, cc, log_a, lc)
-    y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
+    y = y + w["d_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, di).to(x.dtype)
-    return _gated_out(params, cfg, y, z)
+    return _gated_out(params, cfg, y, z, mesh)
 
 
-def mamba2_init_state(cfg, batch, d_in, dtype=torch.float32, device=None):
-    di = cfg.ssm_expand * d_in
+def mamba2_init_state(cfg, batch, d_in, dtype=torch.float32, device=None,
+                      heads=None):
+    """Zeros: ``S`` [B, H, N, P] f32 and ``conv`` [B, K-1, H P + 2 N]; H
+    is ``heads`` (this rank's under a mesh, ``runtime.steps.local_cache``)
+    or all of them."""
+    h = heads or cfg.ssm_expand * d_in // cfg.ssm_head_dim
     n = cfg.ssm_state
-    h = di // cfg.ssm_head_dim
     return {
         "S": torch.zeros((batch, h, n, cfg.ssm_head_dim),
                          dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * n),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                             h * cfg.ssm_head_dim + 2 * n),
                             dtype=dtype, device=device),
     }
 
 
-def mamba2_step(params, cfg, x, state, d_in=None):
-    """Decode one token.  x [B, 1, D]; state {"S", "conv"}.  Returns (y
-    [B, 1, D], the new state: "S" f32, "conv" in x's dtype)."""
+def mamba2_step(params, cfg, x, state, d_in=None, mesh=None):
+    """Decode one token.  x [B, 1, D]; state {"S", "conv"} (this rank's
+    heads under a mesh).  Returns (y [B, 1, D], the new state: "S" f32,
+    "conv" in x's dtype)."""
     b, _, d = x.shape
-    z, xs, bb, cc, dt, di, n, h = _split_in_proj(params, cfg, x, d_in or d)
+    z, xs, bb, cc, dt, di, n, h = _split_in_proj(params, cfg, x, d_in or d,
+                                                 mesh)
+    w = _parts(params, cfg, d_in or d, mesh)
     p = cfg.ssm_head_dim
     conv_in = torch.cat([xs, bb, cc], dim=-1)
-    conv_out, conv_state = _causal_conv(conv_in, params["conv_w"],
-                                        params["conv_b"],
+    conv_out, conv_state = _causal_conv(conv_in, w["conv_w"], w["conv_b"],
                                         state["conv"].to(conv_in.dtype))
     xs, bb, cc = torch.split(silu(conv_out), [di, n, n], dim=-1)
-    dt = softplus(dt.float() + params["dt_bias"].float())[:, 0]     # [B,H]
-    a = torch.exp(-torch.exp(params["a_log"].float()) * dt)
+    dt = softplus(dt.float() + w["dt_bias"].float())[:, 0]          # [B,H]
+    a = torch.exp(-torch.exp(w["a_log"].float()) * dt)
     xh = xs.reshape(b, h, p).float()
     xt = xh * dt[..., None]
     S = a[:, :, None, None] * state["S"] \
         + bb[:, 0].float()[:, None, :, None] * xt[:, :, None, :]
     y = torch.einsum("bn,bhnp->bhp", cc[:, 0].float(), S)
-    y = y + params["d_skip"].float()[None, :, None] * xh
+    y = y + w["d_skip"].float()[None, :, None] * xh
     y = y.reshape(b, 1, di).to(x.dtype)
-    return _gated_out(params, cfg, y, z), {"S": S, "conv": conv_state}
+    return _gated_out(params, cfg, y, z, mesh), {"S": S, "conv": conv_state}

@@ -8,22 +8,23 @@ keys) has another key length than its queries, so it stays
 ``blockwise_attn``, as in ``repro``: the flash kernel takes equal
 lengths only.
 
-Every block but zamba2's shared one takes ``mesh``: with it the
-attention (self and cross), the FFN and the cross block's gated FFN are
-tensor-parallel over its "model" axis where the parameters are this
-rank's blocks (``sharding.rules.tp_layout``), and the residual stream
-stays whole over it between sublayers."""
+Every block takes ``mesh``: with it the attention (self, cross, MLA and
+zamba2's shared block), the FFN, the shared experts and the cross
+block's gated FFN are tensor-parallel over its "model" axis where the
+parameters are this rank's blocks (``sharding.rules.tp_layout``), and the
+residual stream stays whole over it between sublayers."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import cross_attn, cross_decode_attn, \
-    cross_kv, decode_attn, gqa_decode_self_attn, gqa_project_qkv, \
+from repro_torch.launch.mesh import psum_bwd
+from repro_torch.models.attention import _attn_out, _tp_qkv, cross_attn, \
+    cross_decode_attn, cross_kv, decode_attn, gqa_decode_self_attn, \
     gqa_self_attn, gqa_spec, mla_decode_self_attn, mla_self_attn, mla_spec, \
     repeat_kv, self_attn
 from repro_torch.models.ffn import ffn, ffn_spec
-from repro_torch.models.layers import ACT_DTYPE, apply_rope, dense, \
-    rmsnorm, rmsnorm_spec, rope_tables
+from repro_torch.models.layers import ACT_DTYPE, apply_rope, rmsnorm, \
+    rmsnorm_spec, rope_tables
 from repro_torch.models.module import P
 from repro_torch.models.moe import moe_ffn, moe_spec
 
@@ -91,14 +92,14 @@ def moe_block_spec(cfg):
 
 def moe_block(p, cfg, run, x, positions, mesh=None):
     """Returns (x, aux) with aux = {"lb_loss", "dropped"} of the layer
-    (``mesh``: ``moe_ffn``'s, and the GQA attention's, tensor-parallel
-    where ``p``'s blocks say so)."""
+    (``mesh``: ``moe_ffn``'s, and the attention's, GQA or MLA,
+    tensor-parallel where ``p``'s blocks say so)."""
     x = x.to(ACT_DTYPE)
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     if cfg.mla:
         a = mla_self_attn(p["attn"], cfg, h, positions=positions,
                           chunk_q=run.attn_chunk_q,
-                          chunk_kv=run.attn_chunk_kv)
+                          chunk_kv=run.attn_chunk_kv, mesh=mesh)
     else:
         a = gqa_self_attn(p["attn"], cfg, h, positions=positions,
                           chunk_q=run.attn_chunk_q,
@@ -115,7 +116,7 @@ def moe_block_decode(p, cfg, x, cache_slices, pos, mesh=None):
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     if cfg.mla:
         a, _, _ = mla_decode_self_attn(p["attn"], cfg, h, cache_slices["ckv"],
-                                       cache_slices["kr"], pos)
+                                       cache_slices["kr"], pos, mesh)
     else:
         a, _, _ = gqa_decode_self_attn(p["attn"], cfg, h, cache_slices["k"],
                                        cache_slices["v"], pos, mesh)
@@ -198,48 +199,65 @@ def shared_lora_spec(cfg):
     }
 
 
-def _shared_qkv(shared, lora, cfg, h, positions):
+def _shared_qkv(shared, lora, cfg, h, positions, mesh=None):
     """q (with the invocation's LoRA term), k, v of the normed input h
     [B, S, D], RoPE'd at ``positions`` [S]: the two LoRA products each
-    rounded to h's dtype, added to q before RoPE, as ``repro`` does."""
+    rounded to h's dtype, added to q before RoPE, as ``repro`` does.
+    With ``mesh``, this rank's heads where the blocks say so (q, k, v as
+    ``attention._tp_qkv`` gives them; ``h @ a_q`` whole on every rank,
+    entering ``b_q``'s column block through ``psum_bwd``).  Returns (q,
+    k, v, the kv-head slice its q heads read or None, whether
+    tensor-parallel)."""
     b, s, _ = h.shape
-    q_extra = (h @ lora["a_q"].to(h.dtype)) @ lora["b_q"].to(h.dtype)
-    q, k, v = gqa_project_qkv(shared["attn"], cfg, h, rope=None)
-    q = q + q_extra.reshape(b, s, cfg.n_heads, cfg.hd)
+    (q, k, v), kv, tp = _tp_qkv(shared["attn"], cfg, h, None, mesh)
+    mid = h @ lora["a_q"].to(h.dtype)
+    if tp:
+        mid = psum_bwd(mid, mesh, "model")
+    q_extra = mid @ lora["b_q"].to(h.dtype)
+    q = q + q_extra.reshape(b, s, -1, cfg.hd)
     sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v, kv, tp
 
 
-def _shared_out(shared, cfg, x, o):
+def _shared_out(shared, cfg, x, o, tp=False, mesh=None):
     """The residual adds of the shared block: ``wo`` of the attention
-    output o [B, S, H, hd], then the FFN."""
-    b, s = x.shape[:2]
-    x = x + dense(shared["attn"]["wo"], o.reshape(b, s, -1))
+    output o [B, S, H, hd] (its row block summed over "model" where
+    ``tp``), then the FFN (tensor-parallel where its blocks say so)."""
+    x = x + _attn_out(shared["attn"], o, tp, mesh)
     return x + ffn(shared["ffn"], rmsnorm(shared["ffn_norm"], x,
-                                          cfg.norm_eps), cfg.act)
+                                          cfg.norm_eps), cfg.act, mesh,
+                   cfg.d_ff)
 
 
-def _shared_attn(shared, lora, cfg, run, x, positions):
+def _shared_attn(shared, lora, cfg, run, x, positions, mesh=None):
     """The shared block over x [B, S, D]: causal self-attention on the
     flash kernel (``self_attn``; trainable under autograd), where
-    ``repro`` calls ``blockwise_attn``."""
+    ``repro`` calls ``blockwise_attn``; with ``mesh``, on this rank's
+    heads."""
     x = x.to(ACT_DTYPE)
     h = rmsnorm(shared["norm"], x, cfg.norm_eps)
-    q, k, v = _shared_qkv(shared, lora, cfg, h, positions)
-    o = self_attn(q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
-                  causal=True, window=None, chunk_q=run.attn_chunk_q,
+    q, k, v, kv, tp = _shared_qkv(shared, lora, cfg, h, positions, mesh)
+    if kv is not None:
+        k, v = k[:, :, kv], v[:, :, kv]
+    n = q.shape[2]
+    o = self_attn(q, repeat_kv(k, n), repeat_kv(v, n), causal=True,
+                  window=None, chunk_q=run.attn_chunk_q,
                   chunk_kv=run.attn_chunk_kv)
-    return _shared_out(shared, cfg, x, o)
+    return _shared_out(shared, cfg, x, o, tp, mesh)
 
 
-def _shared_attn_decode(shared, lora, cfg, x, kc, vc, pos):
+def _shared_attn_decode(shared, lora, cfg, x, kc, vc, pos, mesh=None):
     """One token's shared block against its invocation's caches [B, T,
-    KH, hd], written in place at slot min(pos, T - 1).  Returns (x, kc,
-    vc)."""
+    KH, hd] (this rank's kv heads where they split), written in place at
+    slot min(pos, T - 1).  Returns (x, kc, vc)."""
     h = rmsnorm(shared["norm"], x, cfg.norm_eps)
-    q, k, v = _shared_qkv(shared, lora, cfg, h, pos[None])
+    q, k, v, kv, tp = _shared_qkv(shared, lora, cfg, h, pos[None], mesh)
+    if k.shape[2] != kc.shape[2]:
+        raise ValueError(f"{k.shape[2]} kv heads into a cache of "
+                         f"{kc.shape[2]}")
     idx = torch.clamp(pos, max=kc.shape[1] - 1).reshape(1).long()
     kc.index_copy_(1, idx, k.to(kc.dtype))
     vc.index_copy_(1, idx, v.to(vc.dtype))
-    o = decode_attn(q, kc, vc, pos + 1)
-    return _shared_out(shared, cfg, x, o), kc, vc
+    kk, vv = (kc, vc) if kv is None else (kc[:, :, kv], vc[:, :, kv])
+    o = decode_attn(q, kk, vv, pos + 1)
+    return _shared_out(shared, cfg, x, o, tp, mesh), kc, vc

@@ -39,17 +39,26 @@ f32 unembedding reads bf16-rounded weights with a mesh and f32 ones
 without), then each block all-gathered over the axes it is split on
 (``launch.mesh.gather_fwd``), except the expert weights, which
 ``moe_ffn`` takes as they are placed, and the tensor-parallel leaves of
-the dense, MoE (GQA), vlm and encdec families (``sharding.rules.tp_block``:
-the q / k / v / o weights and biases of the self- and cross-attention
-where the "model" split falls on whole heads, the FFN's, the embedding
-table and the unembedding where the vocab is split), which are gathered
-over the batch axes only and keep their "model" block: the model
-computes on them (Megatron's column / row layout, ``models.attention`` /
-``models.ffn`` / ``models.layers``), the residual stream whole over
-"model" between sublayers.  The tree is put in place of the template's
-parameters for the forward and its backward (a remat block's backward
-recomputes from it, collectives included, on every rank alike) and
-taken out after.  Gradients land on each parameter's own block
+every family (``sharding.rules.tp_block``: the attention's q / k / v / o
+weights and biases, self, cross, MLA's ``wuk`` / ``wuv`` / ``wo`` and
+zamba2's shared block's, where the "model" split falls on whole heads,
+the FFN's and the shared experts', Mamba2's ``out_proj``, the xLSTM
+blocks' head columns and rows, the embedding table and the unembedding
+where the vocab is split), which are gathered over the batch axes only
+and keep their "model" block: the model computes on them (Megatron's
+column / row layout, ``models.attention`` / ``models.ffn`` /
+``models.ssm`` / ``models.xlstm`` / ``models.layers``), the residual
+stream whole over "model" between sublayers.  A re-blocked leaf (MLA's
+``wuq``, Mamba2's ``in_proj``: ``sharding.rules.tp_pieces``) is gathered
+whole and cut to the piece this rank computes on; its gradient is
+reduce-scattered over "model", each rank's covering only its piece.  A
+whole leaf the model reads only in part (Mamba2's conv, ``a_log``,
+``d_skip``, ``dt_bias``, the split norms' scales, the mLSTM's ``wi`` /
+``wf``, the sLSTM's ``r*`` and ``wo``) is cut in the model, through
+``psum_bwd`` (``layers.model_part``).  The tree is put in place of the
+template's parameters for the forward and its backward (a remat block's
+backward recomputes from it, collectives included, on every rank alike)
+and taken out after.  Gradients land on each parameter's own block
 (``repro``'s ``constrain_grads``), by the collectives' backward: summed
 over the axes the batch is split on (each rank's loss is its share of
 the global one: ``cross_entropy`` averages over the batch axes with
@@ -58,14 +67,13 @@ computes alike ("model" for a leaf read whole), and a block's own over
 "model" for a tensor-parallel leaf.  With a vocab split the logits are
 this rank's block [B, S, V / m]: ``cross_entropy`` is vocab-parallel,
 and the prefill and serve steps gather the last logits over "model"
-before the rows.  The cache holds this rank's rows and, where
-``cache_shardings`` puts them on "model", its kv heads
-(``local_cache``: the vlm's image caches and the encdec's cross caches
-too).  The vlm's image and the encdec's frames are split by rows like
-the tokens; the image enters the cross-attention's k / v, the encoder's
-output each decoder layer's, through ``psum_bwd``.  Only MLA,
-ssm_hybrid and xlstm read their attention, FFN and head whole on every
-model rank (ROADMAP §1 item 7).
+before the rows.  The cache holds this rank's rows and, where the
+layout splits them, its kv heads and the heads of its recurrent state
+(``local_cache``: the vlm's image caches, the encdec's cross caches,
+zamba2's shared-block caches too; MLA's ``ckv`` / ``kr`` whole).  The
+vlm's image and the encdec's frames are split by rows like the tokens;
+the image enters the cross-attention's k / v, the encoder's output each
+decoder layer's, through ``psum_bwd``.
 """
 from __future__ import annotations
 
@@ -80,7 +88,7 @@ from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 from repro_torch.sharding.rules import batch_axes, cache_shardings, \
     gather_rows, mesh_extent, model_shardings, split_batch, tp_layout, \
-    tp_leaves
+    tp_leaves, tp_pieces, tp_whole
 
 # The expert weights: ``moe_ffn`` gathers them over "data" itself and
 # keeps their "model" blocks local.
@@ -99,14 +107,17 @@ def cast_params(params: dict) -> dict:
 
 
 def _compute_tree(params: dict, shardings: dict, axes: tuple,
-                  keep=frozenset()) -> ComputeParams:
+                  keep=frozenset(), pieces=None) -> ComputeParams:
     """Each block gathered over the axes it is split on: the gradient
     summed over those of ``axes`` (the batch's) and sliced over the
     others; a block whole along a batch axis sums its gradient over it
     (``psum_bwd``).  The expert weights stay as placed; the leaves named
-    in ``keep`` (``sharding.rules.tp_leaves``) keep their "model"
-    block."""
+    in ``keep`` (``sharding.rules.tp_leaves``) keep their "model" block;
+    a re-blocked leaf (``pieces``: ``sharding.rules.tp_pieces``) is
+    gathered whole, its gradient reduce-scattered over "model" too (each
+    rank's covers only its piece), and cut to this rank's piece."""
     out = ComputeParams()
+    pieces = pieces or {}
     for name, x in params.items():
         sh = shardings[name]
         split = set()
@@ -122,13 +133,19 @@ def _compute_tree(params: dict, shardings: dict, axes: tuple,
                     raise ValueError(f"{name}: 'model' shares dimension "
                                      f"{dim} with {parts}")
                 continue
-            red = {a in axes for a in parts}
+            red = {a in axes or (name in pieces and a == "model")
+                   for a in parts}
             if len(red) > 1:
                 raise ValueError(f"{name}: {parts} mixes batch and other "
                                  f"axes")
             x = gather_fwd(x, sh.mesh, parts, dim, reduce=red.pop())
         rest = tuple(a for a in axes if a not in split)
-        out[name] = psum_bwd(x, sh.mesh, rest) if rest else x
+        if rest:
+            x = psum_bwd(x, sh.mesh, rest)
+        if name in pieces:
+            dim, ranges = pieces[name]
+            x = torch.cat([x.narrow(dim, a, b - a) for a, b in ranges], dim)
+        out[name] = x
     return out
 
 
@@ -137,7 +154,7 @@ def compute_params(model: Model, params: dict, mesh) -> ComputeParams:
     ``repro``'s prefill and serve steps do none): gather it once and hand
     it to many steps."""
     return _compute_tree(params, model_shardings(model, mesh), (),
-                         tp_leaves(model, mesh))
+                         tp_leaves(model, mesh), tp_pieces(model, mesh))
 
 
 def _bind(model: Model, tree: dict) -> None:
@@ -170,28 +187,74 @@ def bound(model: Model, tree: dict):
 
 # The cache leaves whose kv heads (axis -2) follow the attention's.
 _KV_CACHE = ("k", "v", "dense_k", "dense_v", "img_k", "img_v", "cross_k",
-             "cross_v")
+             "cross_v", "attn_k", "attn_v")
+# The recurrent state leaves, split by the heads their block computes on.
+_STATE_CACHE = ("S", "C", "n", "m", "c", "h", "conv")
 
 
 def local_cache(model: Model, mesh, batch: int, max_len: int, device):
     """``model.init_cache`` for this rank's rows of a ``batch``-row decode
     under ``mesh`` (``mesh`` needs only ``axis_names`` and ``shape``), and
-    in the dense, MoE (GQA), vlm and encdec families its kv heads (of
-    every leaf in ``_KV_CACHE``) where ``sharding.rules.cache_shardings``
-    puts them on "model" (the blocks the attention's k / v weights give:
-    ``tp_layout``); whole over "model" otherwise."""
+    where ``tp_layout`` splits them over "model": the kv heads of every
+    leaf in ``_KV_CACHE`` (the blocks the attention's k / v weights give,
+    where ``sharding.rules.cache_shardings`` puts them on "model" too),
+    and the heads of every recurrent state leaf (Mamba2's ``S`` [.., B,
+    H / m, N, P] and ``conv`` [.., B, K-1, di / m + 2 N], its B / C
+    channels whole; the mLSTM's ``C`` / ``n`` / ``m`` and the sLSTM's
+    ``c`` / ``n`` / ``h`` / ``m`` at H / m heads).  That state block is
+    the one the blocks compute on, not ``cache_shardings``' (the widest
+    divisible trailing axis: ``S``'s P, ``C``'s dv, ``conv``'s contiguous
+    channels), a difference pinned by design (ROADMAP §3): ``S`` and
+    ``C`` hold as many bytes a rank.  MLA's ``ckv`` / ``kr`` stay whole
+    over "model"; so does everything on a mesh that splits nothing."""
     n = mesh_extent(mesh, batch_axes(mesh, batch))
-    kv = tp_layout(model.cfg, mesh).kv_heads
-    if kv == model.cfg.n_kv_heads:
+    cfg = model.cfg
+    lay, whole = tp_layout(cfg, mesh), tp_whole(cfg)
+    kw = {}
+    if lay.kv_heads != whole.kv_heads and cfg.family != "xlstm":
+        kw["kv_heads"] = lay.kv_heads
+    heads = {"ssm_hybrid": "ssm_heads", "xlstm": "heads"}.get(cfg.family)
+    if heads and getattr(lay, heads) != getattr(whole, heads):
+        kw["heads"] = getattr(lay, heads)
+    if not kw:
         return model.init_cache(batch // n, max_len, device=device)
     specs = cache_shardings(mesh, model.cache_specs(batch, max_len), batch)
-    for key in _KV_CACHE:
-        if key in specs and specs[key].spec[-2] != "model":
-            raise ValueError(f"{key}: the attention splits its {kv} kv "
-                             f"heads, cache_shardings gives "
-                             f"{specs[key].spec}")
-    return model.init_cache(batch // n, max_len, device=device,
-                            kv_heads=kv)
+    if "kv_heads" in kw:
+        for key in _KV_CACHE:
+            if key in specs and specs[key].spec[-2] != "model":
+                raise ValueError(f"{key}: the attention splits its "
+                                 f"{lay.kv_heads} kv heads, cache_shardings "
+                                 f"gives {specs[key].spec}")
+    cache = model.init_cache(batch // n, max_len, device=device, **kw)
+    rows = model.cache_specs(batch // n, max_len)
+    m = mesh.shape["model"]
+    for path, t in _leaves(cache):
+        if path[-1] not in _STATE_CACHE:
+            continue
+        want = _leaf_at(rows, path)
+        cut = [i for i, (a, b) in enumerate(zip(t.shape, want.shape))
+               if a != b]
+        ok = len(cut) == 1 and (want.shape[cut[0]] % m == 0 and t.shape[
+            cut[0]] * m == want.shape[cut[0]] or path[-1] == "conv")
+        if not ok:
+            raise ValueError(f"{'/'.join(path)}: a state block of "
+                             f"{tuple(t.shape)} from {tuple(want.shape)} "
+                             f"on a {m}-way 'model' axis")
+    return cache
+
+
+def _leaves(tree, pre=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, pre + (k,))
+        else:
+            yield pre + (k,), v
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def cross_entropy(logits, labels, z_loss_coef: float, mesh=None,
@@ -263,12 +326,12 @@ def make_loss_fn(model: Model, run: RunConfig, mesh=None):
     if mesh is None:
         return lambda batch: forward_loss(batch, None)
     shardings = model_shardings(model, mesh)
-    keep = tp_leaves(model, mesh)
+    keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
 
     def loss_fn(params, batch):
         view, rows = split_batch(mesh, batch)
         _bind(model, _compute_tree(cast_params(params), shardings,
-                                   view.batch_axes, keep))
+                                   view.batch_axes, keep, pieces))
         return forward_loss(rows, view)
 
     loss_fn.shardings = shardings
@@ -341,9 +404,9 @@ def make_train_step(model: Model, run: RunConfig, mesh=None):
     return train_step
 
 
-def _tree_for(params, shardings, keep):
+def _tree_for(params, shardings, keep, pieces):
     return params if isinstance(params, ComputeParams) \
-        else _compute_tree(params, shardings, (), keep)
+        else _compute_tree(params, shardings, (), keep, pieces)
 
 
 def _last_row(model: Model, view, logits):
@@ -369,12 +432,12 @@ def make_prefill_step(model: Model, run: RunConfig, mesh=None):
 
         return prefill_step
     shardings = model_shardings(model, mesh)
-    keep = tp_leaves(model, mesh)
+    keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
 
     @torch.inference_mode()
     def prefill_mesh(params, batch):
         view, rows = split_batch(mesh, batch)
-        with bound(model, _tree_for(params, shardings, keep)):
+        with bound(model, _tree_for(params, shardings, keep, pieces)):
             logits, _ = model.forward(run, rows, mesh=view)
         return gather_rows(view, _last_row(model, view, logits))
 
@@ -395,12 +458,12 @@ def make_serve_step(model: Model, run: RunConfig, mesh=None):
 
         return serve_step
     shardings = model_shardings(model, mesh)
-    keep = tp_leaves(model, mesh)
+    keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
 
     @torch.inference_mode()
     def serve_mesh(params, tokens, cache):
         view, rows = split_batch(mesh, {"tokens": tokens})
-        with bound(model, _tree_for(params, shardings, keep)):
+        with bound(model, _tree_for(params, shardings, keep, pieces)):
             logits, cache = model.decode_step(run, rows["tokens"], cache,
                                               mesh=view)
         # The greedy token of the whole row: the first index on ties.

@@ -31,13 +31,17 @@ map to no mesh axis).  Weights are carried across as
 ``shard_params``; ``init_sharded`` draws them leaf by leaf straight into
 the shards.
 
-``tp_layout`` / ``tp_block`` / ``tp_leaves`` are the tensor-parallel rule
-of the dense, MoE (GQA), vlm and encdec families: which leaves a rank
-computes on as its "model" block (the self- and cross-attention's heads,
-the FFN's width, the vocab), decided from these rules and the config
-alone; ``runtime.steps`` keeps those blocks in the compute tree and
-``local_cache`` splits the cache's kv heads (the vlm's image caches and
-the encdec's cross caches too) as ``cache_shardings`` does.
+``tp_layout`` / ``tp_block`` / ``tp_leaves`` / ``tp_pieces`` are the
+tensor-parallel rule of every family: which leaves a rank computes on as
+its "model" block (the attention's heads, self, cross, MLA's and
+zamba2's shared block's, the FFN's and the shared experts' width, the
+Mamba2 and xLSTM heads, the vocab), and which it computes on as a piece
+of a re-blocked leaf (MLA's ``wuq``, Mamba2's ``in_proj``: ``repro``'s
+block is not the one the rank computes on), decided from these rules
+and the config alone; ``runtime.steps`` keeps those blocks and pieces in
+the compute tree and ``local_cache`` splits the cache's kv heads as
+``cache_shardings`` does and the recurrent state by the heads a rank
+computes (not ``cache_shardings``' axis: ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -130,57 +134,97 @@ def model_shardings(model, mesh, rules=None) -> dict:
 
 
 # ------------------------------------------------------ tensor parallelism
-# The families whose GQA attention (self and cross), dense FFN and head
-# run tensor-parallel over "model" (Megatron's column / row layout); MLA,
-# ssm_hybrid and xlstm compute those leaves whole on every model rank.
-TP_FAMILIES = ("dense", "moe", "vlm", "encdec")
+# Every family computes tensor-parallel over "model" (Megatron's column /
+# row layout) where the rules put its heads, FFN width or vocab there and
+# the split falls on whole heads.
+TP_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm_hybrid", "xlstm")
 
 # An attention's leaf (the last two names) -> (the ``TPLayout`` field it
 # is split by, the dimension that field's rule puts on "model"), under
 # any of the attention prefixes: "attn" (the self blocks', the vlm's
-# cross blocks'), "self" and "cross" (the encdec decoder's).
+# cross blocks', zamba2's shared block's, DeepSeek-V2's dense layer's),
+# "self" and "cross" (the encdec decoder's).
 _ATTN_LEAVES = {
     "wq.w": ("heads", 1), "wq.b": ("heads", 0), "wo.w": ("heads", 0),
     "wk.w": ("kv_heads", 1), "wk.b": ("kv_heads", 0),
     "wv.w": ("kv_heads", 1), "wv.b": ("kv_heads", 0),
 }
 _ATTN_PREFIXES = ("attn", "self", "cross")
-# Leaf (name suffix) -> (field, dimension).
+# Leaf (name suffix, the layer indices dropped) -> (field, dimension).
 _TP_LEAVES = {
     **{f"{pre}.{k}": v for pre in _ATTN_PREFIXES
        for k, v in _ATTN_LEAVES.items()},
+    # MLA: the up-projections' head columns (wo as above).
+    "attn.wuk.w": ("heads", 1), "attn.wuv.w": ("heads", 1),
     "ffn.w_gate.w": ("ffn", 1), "ffn.w_up.w": ("ffn", 1),
     "ffn.w_down.w": ("ffn", 0),
+    "moe.shared.w_gate.w": ("shared_ffn", 1),
+    "moe.shared.w_up.w": ("shared_ffn", 1),
+    "moe.shared.w_down.w": ("shared_ffn", 0),
+    # Mamba2: rows of di, contiguous by head; zamba2's LoRA on q.
+    "out_proj.w": ("ssm_heads", 0), "lora.b_q": ("heads", 1),
     "embed.table": ("vocab", 0), "unembed.w": ("vocab", 1),
 }
+# The xLSTM's blocks (mLSTM under "mlstms" or a flat "blocks" stack, the
+# sLSTM under "slstm"): their leaves' names carry no attention prefix.
+# The sLSTM's ``wo`` is both its o gate's input projection (its head
+# columns) and its output projection (its head rows), as in ``repro``,
+# whose spec's ``wo`` replaces the gate's: a whole leaf read in part.
+_XLSTM_LEAVES = {
+    **{k: ("heads", 1) for k in ("wq.w", "wk.w", "wv.w", "wo_gate.w")},
+    **{f"slstm.w{g}.{p}": ("heads", 1 if p == "w" else 0)
+       for g in "zif" for p in "wb"},
+    "slstm.wo.w": None, "wo.w": ("heads", 0),
+    "embed.table": ("vocab", 0), "unembed.w": ("vocab", 1),
+}
+# Re-blocked leaves: ``repro``'s block is not the one their consumer
+# computes on (MLA's ``wuq`` puts its q_lora rows on "model", so its
+# head columns cannot take it; Mamba2's ``in_proj`` splits the columns of
+# [z | x | B | C | dt] contiguously, off the heads).  ``_compute_tree``
+# gathers them over "model" and cuts this rank's piece (``tp_pieces``).
+_TP_PIECES = {"attn.wuq.w": ("heads", 1), "in_proj.w": ("ssm_heads", 1)}
 
 
 class TPLayout(NamedTuple):
     """What one rank of the "model" axis computes: its q heads, the kv
     heads it holds (``n_kv_heads`` when they are whole on every rank), its
-    FFN width and its vocab block."""
+    FFN width, its vocab block, its width of the shared experts (DeepSeek-
+    V2's ``d_ff_expert * n_shared_experts``) and its Mamba2 heads
+    (``ssm_expand * d_model / ssm_head_dim``; 0 where there are none)."""
     heads: int
     kv_heads: int
     ffn: int
     vocab: int
+    shared_ffn: int = 0
+    ssm_heads: int = 0
+
+
+def tp_whole(cfg) -> TPLayout:
+    """``cfg``'s layout on a single rank: every count whole."""
+    ssm = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim \
+        if cfg.family == "ssm_hybrid" else 0
+    return TPLayout(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab,
+                    cfg.d_ff_expert * cfg.n_shared_experts, ssm)
 
 
 def tp_layout(cfg, mesh) -> TPLayout:
     """``cfg``'s tensor-parallel layout on ``mesh`` (anything with
     ``axis_names`` and ``shape``), from the rules alone: heads, the FFN
-    and the vocab are split where ``DEFAULT_RULES`` put them on "model"
-    and the split falls on whole heads (``n_heads % m``); the kv heads
-    where ``n_kv_heads % m`` (else each rank keeps them whole and reads
-    the one its q heads use, which needs every rank's q heads inside one
-    kv head, else it raises).  Whole everywhere for a family outside
-    ``TP_FAMILIES``, MLA, and a mesh without a "model" extent."""
-    whole = TPLayout(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab)
+    widths, the Mamba2 heads and the vocab are split where
+    ``DEFAULT_RULES`` put them on "model" and the split falls on whole
+    heads (``n_heads % m``; xLSTM's 4 heads stay whole on a 16-way axis,
+    where ``repro`` cuts quarter heads); the kv heads where ``n_kv_heads %
+    m`` (else each rank keeps them whole and reads the one its q heads
+    use, which needs every rank's q heads inside one kv head, else it
+    raises).  Whole everywhere for a mesh without a "model" extent."""
+    whole = tp_whole(cfg)
     m = mesh.shape["model"] if "model" in mesh.axis_names else 1
-    if m == 1 or cfg.family not in TP_FAMILIES or cfg.mla:
+    if m == 1 or cfg.family not in TP_FAMILIES:
         return whole
 
     def split(n, axis):
-        ok = spec_pspec(P((n,), (axis,)), mesh) == PartitionSpec("model")
+        ok = n and spec_pspec(P((n,), (axis,)), mesh) == \
+            PartitionSpec("model")
         return n // m if ok else n
     heads, kv = cfg.n_heads, cfg.n_kv_heads
     if cfg.n_heads % m == 0 and split(cfg.n_heads * cfg.hd, "heads") < \
@@ -192,25 +236,39 @@ def tp_layout(cfg, mesh) -> TPLayout:
             raise ValueError(
                 f"{cfg.name}: {heads} q heads a rank straddle kv heads of "
                 f"{cfg.n_heads // cfg.n_kv_heads} (model axis {m})")
+    ssm = whole.ssm_heads
+    if ssm % m == 0 and split(ssm * cfg.ssm_head_dim, "mlp") < \
+            ssm * cfg.ssm_head_dim:
+        ssm //= m
     return TPLayout(heads, kv, split(cfg.d_ff, "mlp"),
-                    split(cfg.vocab, "vocab"))
+                    split(cfg.vocab, "vocab"),
+                    split(whole.shared_ffn, "mlp"), ssm)
+
+
+def _leaf_kind(name: str, table: dict):
+    """``table``'s entry for the parameter ``name`` (its layer indices
+    dropped), matched by suffix; None for none."""
+    bare = ".".join(s for s in name.split(".") if not s.isdigit())
+    return next((v for k, v in table.items()
+                 if bare == k or bare.endswith("." + k)), None)
+
+
+def _split_field(field: str, cfg, mesh) -> bool:
+    return getattr(tp_layout(cfg, mesh), field) != \
+        getattr(tp_whole(cfg), field)
 
 
 def tp_block(name: str, spec, cfg, mesh) -> bool:
     """Whether the parameter ``name`` (placed by ``spec``) stays this
     rank's block over "model" in the compute tree (its consumer computes
     on the block), by ``tp_layout``; False for a leaf every model rank
-    reads whole.  Raises where the layout splits a leaf its spec does not
-    put on "model"."""
-    kind = next((v for k, v in _TP_LEAVES.items()
-                 if name == k or name.endswith("." + k)), None)
-    if kind is None:
+    reads whole and for a re-blocked one (``tp_pieces``).  Raises where
+    the layout splits a leaf its spec does not put on "model"."""
+    table = _XLSTM_LEAVES if cfg.family == "xlstm" else _TP_LEAVES
+    kind = _leaf_kind(name, table)
+    if kind is None or not _split_field(kind[0], cfg, mesh):
         return False
     field, dim = kind
-    lay = tp_layout(cfg, mesh)
-    whole = TPLayout(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab)
-    if getattr(lay, field) == getattr(whole, field):
-        return False
     part = spec[dim] if dim < len(spec) else None
     if part != "model":
         raise ValueError(f"{name}: the tensor-parallel layout splits its "
@@ -223,6 +281,43 @@ def tp_leaves(model, mesh) -> frozenset:
     blocks over "model" on ``mesh``."""
     return frozenset(name for name, sh in model_shardings(model, mesh)
                      .items() if tp_block(name, sh.spec, model.cfg, mesh))
+
+
+def tp_piece(name: str, cfg, mesh, index: int):
+    """(dimension, ((start, stop), ...)) of the re-blocked leaf ``name``
+    that the rank at ``index`` on "model" computes on, the ranges
+    concatenated in order; None where the leaf is no re-blocked one on
+    ``mesh``: MLA's ``wuq``, its heads' columns; Mamba2's ``in_proj``, its
+    heads' z, x and dt columns and the B / C columns whole (cut by the
+    split sizes [di, di, n, n, h], never by ``repro``'s block)."""
+    kind = _leaf_kind(name, _TP_PIECES)
+    if kind is None or not _split_field(kind[0], cfg, mesh):
+        return None
+    lay = tp_layout(cfg, mesh)
+    if kind[0] == "heads":
+        w = cfg.qk_nope_dim + cfg.qk_rope_dim
+        return 1, ((index * lay.heads * w, (index + 1) * lay.heads * w),)
+    h, hl, n = tp_whole(cfg).ssm_heads, lay.ssm_heads, cfg.ssm_state
+    di, dl = h * cfg.ssm_head_dim, hl * cfg.ssm_head_dim
+    return 1, ((index * dl, (index + 1) * dl),
+               (di + index * dl, di + (index + 1) * dl),
+               (2 * di, 2 * di + 2 * n),
+               (2 * di + 2 * n + index * hl, 2 * di + 2 * n + (index + 1)
+                * hl))
+
+
+def tp_pieces(model, mesh, index=None) -> dict:
+    """{name: ``tp_piece``} of ``model``'s re-blocked parameters on
+    ``mesh``, for the rank at ``index`` on "model" (this rank's,
+    ``mesh.coords``, by default)."""
+    if index is None:
+        index = mesh.coords.get("model", 0)
+    out = {}
+    for name in model_shardings(model, mesh):
+        piece = tp_piece(name, model.cfg, mesh, index)
+        if piece is not None:
+            out[name] = piece
+    return out
 
 
 def batch_pspec(mesh, batch: int, ndim: int) -> PartitionSpec:
@@ -253,11 +348,11 @@ def cache_shardings(mesh, cache_specs, batch: int):
     than the rows where one comes before them at the same size, e.g. the
     vlm's groups; kv heads (axis -2) of a KV cache, and the widest
     divisible trailing axis of an SSM / xLSTM state, on "model").  The
-    port's steps hold these kv-head blocks for the dense, MoE (GQA), vlm
-    and encdec families (``runtime.steps.local_cache``: each rank its
-    rows and, where the kv heads split, its kv heads of the self, image
-    and cross caches); MLA, ssm_hybrid and xlstm keep the cache whole over
-    "model"."""
+    port's steps hold these kv-head blocks (``runtime.steps.local_cache``:
+    each rank its rows and, where the kv heads split, its kv heads of the
+    self, image, cross and shared-block caches), MLA's ``ckv`` / ``kr``
+    whole over "model" as here, and the recurrent state split by the
+    heads its blocks compute on instead of this rule's axis."""
     model = mesh.shape.get("model", 1)
     dp = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
     dp_size = mesh_extent(mesh, dp) if dp else 1

@@ -35,6 +35,48 @@ RUN_KNOBS = dict(remat="none", attn_chunk_q=16, attn_chunk_kv=16,
                  learning_rate=1e-3, warmup_steps=2, total_steps=100)
 DECODE_STEPS, DECODE_LEN = 4, 8
 DATA_MESH = (8,)              # launch/train.py's ("data",) mesh
+# The last three families (reduced) on (2, 4), tensor-parallel over
+# "model": DeepSeek-V2 (MLA, 1 of 4 heads a rank, wuq re-blocked, the
+# shared experts split), Zamba2 (2 of 8 Mamba2 heads and 1 of 4 attention
+# heads a rank, in_proj re-blocked) and xLSTM (1 of 4 heads a rank):
+# prefill, DECODE_STEPS of the serve loop and one train step against
+# repro under the same mesh (DeepSeek-V2 routed as repro routed each call,
+# LAST_ROUTES_FILE), remat "full" for two of them and "dots" for zamba2,
+# the SSD / mLSTM chunk LAST_CHUNK (4 chunks a row).  zamba2's a_log /
+# dt_bias are drawn from U(-1, 1) and its LoRA b_q from N(0, 0.1^2)
+# (ssm_pair.live_leaves: repro's zeros hide those paths).
+LAST_ARCHS = ("deepseek-v2-236b", "zamba2-1.2b", "xlstm-1.3b")
+LAST_CHUNK = 8
+LAST_REMAT = {"deepseek-v2-236b": "full", "zamba2-1.2b": "dots",
+              "xlstm-1.3b": "full"}
+LAST_ROUTES_FILE = "jax_routes_last.npz"
+# The archs whose prefill and decode logits are held whole against
+# repro's (LAST_LOGITS) and whose every gradient is (LAST_GRADS).  The
+# recurrent families are chaotic at random init (ssm_pair's doc: repro
+# jitted and op by op 0.189 apart at the reduced zamba2's logits), and
+# the mesh's bf16 partial sums round otherwise than one process: zamba2's
+# logits (0.23 from repro's) and both families' gradients (the reduced
+# zamba2's grad norm 1.0 % from one process's, which is 0.2 % from
+# repro's; single leaves up to 24 %) are held block by block against one
+# process instead (LAST_BLOCKS), their loss and ce against repro.
+LAST_LOGITS = ("deepseek-v2-236b", "xlstm-1.3b")
+LAST_GRADS = ("deepseek-v2-236b",)
+# Blocks held on each rank against one process in f32 (no cast: the
+# split's arithmetic, not bf16 rounding; zamba2's shared block casts its
+# input to bf16 itself): the output rows and each rank's block of every
+# leaf's gradient, among them the two traps (a re-blocked leaf, wuq /
+# in_proj, whose gather slices its gradient instead of reduce-scattering
+# it; a split norm whose sum passes its gradient through psum_fwd alone)
+# and the whole leaves a rank reads in part (conv_w / conv_b, a_log,
+# d_skip, dt_bias, the norms' scales, the mLSTM's wi / wf, the sLSTM's
+# r{z,i,f,o} and its wo); and one decode step's output and new state.
+# (arch, the blocks' parameter prefixes, kind.)
+LAST_BLOCKS = (("deepseek-v2-236b", ("blocks.0.attn",), "mla"),
+               ("deepseek-v2-236b", ("blocks.0.moe.shared",), "shared_ffn"),
+               ("zamba2-1.2b", ("groups.0.mambas.0",), "mamba2"),
+               ("zamba2-1.2b", ("shared", "groups.1.lora"), "shared_attn"),
+               ("xlstm-1.3b", ("groups.0.mlstms.0",), "mlstm"),
+               ("xlstm-1.3b", ("groups.1.slstm",), "slstm"))
 # The tensor-parallel trees: the two train archs, a reduced MiniCPM
 # whose vocab (513) the rules leave whole (its 6 heads are whole on a
 # 4-way axis too; its FFN of 180 splits), the reduced vlm (q heads split,
@@ -43,7 +85,8 @@ DATA_MESH = (8,)              # launch/train.py's ("data",) mesh
 # whole).
 TREE_CASES = {"qwen1.5-0.5b": {}, "mixtral-8x7b": {},
               "minicpm-2b": {"vocab": 513}, "llama-3.2-vision-90b": {},
-              "seamless-m4t-medium": {"vocab": 513}}
+              "seamless-m4t-medium": {"vocab": 513},
+              **{a: {} for a in LAST_ARCHS}}
 # The cross-attention families (reduced) on (2, 4): prefill, DECODE_STEPS
 # of the serve loop and one train step with remat "full", against repro
 # under the same mesh; the prefill on the (8,) data mesh against one
@@ -77,25 +120,29 @@ class ArraySource:
 @contextlib.contextmanager
 def routes(force=None):
     """The port's router calls inside the block, in order ([T, k] ids,
-    recorded); with ``force`` (another run's calls), each call routes as
-    that run's did, weighted by this run's probabilities at those ids
-    (renormalized, as the router does)."""
+    recorded); with ``force`` (another run's calls, one a layer), each
+    call routes as that run's did, weighted by this run's probabilities
+    at those ids (renormalized, as the router does), its load-balance
+    counts those ids'.  A layer is known by its router weight, so a remat
+    backward's recomputation routes as its forward did."""
     import torch
 
     from repro_torch.models import moe
-    calls, real = [], moe._router
+    calls, real, layer = [], moe._router, {}
 
     def rec(params, cfg, x2d):
         out = real(params, cfg, x2d)
         calls.append(out[1].detach().clone())
         if force is None:
             return out
-        ids = force[len(calls) - 1]
+        ids = force[layer.setdefault(id(params["router"]["w"]), len(layer))]
         probs = torch.softmax(x2d.float() @ params["router"]["w"].float(),
                               dim=-1)
         p = probs.gather(1, ids.long())
+        ce = torch.bincount(ids.reshape(-1).long(), minlength=cfg.n_experts
+                            ).float() / ids.numel()
         return p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-9), ids, \
-            out[2]
+            (out[2][0], ce)
     moe._router = rec
     try:
         yield calls
@@ -224,11 +271,12 @@ def jax_moe_inputs():
         j_tf.moe_ffn = real
 
 
-def jax_routes(cfg, router_ws, seen, n_data):
+def jax_routes(cfg, router_ws, seen, n_data, dtype="bfloat16"):
     """[(ids [B * S, k], the k-th minus (k+1)-th probability [B * S])]
     a MoE layer: ``repro``'s router (``moe._router``) on each data
     shard's rows of that layer's input (the seen call whose router weight
-    is the layer's, ``router_ws[layer]``, as the step cast it)."""
+    is the layer's, ``router_ws[layer]``, as the step cast it: to
+    ``dtype``, bf16 in a train step, f32 in the serving steps)."""
     import jax
     import jax.numpy as jnp
 
@@ -240,7 +288,7 @@ def jax_routes(cfg, router_ws, seen, n_data):
         for rows in np.split(x, n_data):
             x2d = jnp.asarray(rows.reshape(-1, x.shape[-1]), jnp.bfloat16)
             _, top_i, _ = j_moe._router({"router": {"w": jnp.asarray(
-                w, jnp.bfloat16)}}, cfg, x2d)
+                w, dtype)}}, cfg, x2d)
             probs = np.sort(np.asarray(jax.nn.softmax(
                 x2d.astype(jnp.float32) @ jnp.asarray(w), axis=-1)), -1)
             ids.append(np.asarray(top_i, np.int32))
@@ -298,7 +346,106 @@ def make_inputs(path: str) -> None:
         else:
             out[f"in/{arch}/frames"] = rng.normal(size=(
                 TRAIN_B, XATTN_ENC_S, cfg.d_model)).astype(np.float32)
+    for arch in LAST_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        params = init_params(build_model(cfg).specs, jax.random.key(0))
+        rng = np.random.default_rng(6)
+        for k, v in flat(params).items():
+            v, leaf = np.asarray(v), k.rsplit("/", 1)[-1]
+            if leaf in ("a_log", "dt_bias"):
+                v = rng.uniform(-1, 1, v.shape).astype(np.float32)
+            elif leaf == "b_q":
+                v = (rng.normal(size=v.shape) / 10).astype(np.float32)
+            out[f"w/{arch}/{k}"] = v
+        out[f"in/{arch}/tokens"], out[f"in/{arch}/labels"] = \
+            train_batch(cfg, seed=4)
     np.savez(path, **out)
+
+
+def last_run(arch, run_config):
+    """The run knobs of a LAST_ARCHS case."""
+    return run_config(**dict(XATTN_KNOBS, remat=LAST_REMAT[arch],
+                             ssm_chunk=LAST_CHUNK))
+
+
+def jax_reference_last(ref, mesh, out, out_dir) -> None:
+    """The LAST_ARCHS cases through ``repro`` on ``mesh``, jitted: the
+    train step's loss function's metrics (``vma_unchecked``, as the other
+    train steps) and its lr at OPT_STEP0, for LAST_GRADS its gradients
+    (their global norm is the step's grad norm), for LAST_LOGITS the
+    prefill step and DECODE_STEPS of ``decode_step``; DeepSeek-V2's
+    routing of every call (``jax_routes``) handed to the port's ranks in
+    LAST_ROUTES_FILE."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs
+    from repro.configs.base import RunConfig
+    from repro.launch.mesh import use_mesh
+    from repro.models.model import build_model
+    from repro.optim import adamw
+    from repro.runtime import steps
+    from repro.sharding.rules import param_shardings
+    routes = {}
+    for arch in LAST_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        model = build_model(cfg)
+        run = last_run(arch, RunConfig)
+        pre = f"w/{arch}/"
+        raw = nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
+                    if k.startswith(pre)})
+        batch = {k: jnp.asarray(ref[f"in/{arch}/{k}"])
+                 for k in ("tokens", "labels")}
+        toks = batch["tokens"]
+        loss_fn = steps.make_loss_fn(model, run, mesh)
+        grad_fn = jax.value_and_grad(loss_fn, has_aux=True)
+
+        def routed(tag, dtype):
+            """The routes of the MoE calls seen since the last tag."""
+            jax.effects_barrier()
+            if not cfg.n_experts:
+                return
+            new = seen[routed.at:]
+            routed.at = len(seen)
+            ws = np.asarray(raw["blocks"]["moe"]["router"]["w"]).astype(
+                dtype).astype(np.float32)
+            for i, (ids, gap) in enumerate(jax_routes(
+                    cfg, list(ws), new, MESH[0], dtype)):
+                routes[f"{arch}/{tag}/ids{i}"] = ids
+                routes[f"{arch}/{tag}/gap{i}"] = gap
+        routed.at = 0
+        with use_mesh(mesh), vma_unchecked(), jax_moe_inputs() as seen:
+            params = jax.device_put(raw, param_shardings(model.specs, mesh))
+            if arch in LAST_GRADS:
+                (_, metrics), grads = jax.jit(grad_fn)(params, batch)
+            else:
+                _, metrics = jax.jit(loss_fn)(params, batch)
+            routed("train", jnp.bfloat16)
+            if arch in LAST_LOGITS:
+                out[f"{arch}/prefill"] = np.asarray(jax.jit(
+                    steps.make_prefill_step(model, run, mesh))(
+                        params, {"tokens": toks}))
+                routed("prefill", np.float32)
+                dec = jax.jit(lambda p, t, c: model.decode_step(
+                    p, run, t, c, mesh=mesh))
+                cache = model.init_cache(TRAIN_B, DECODE_LEN)
+                for t in range(DECODE_STEPS):
+                    logits, cache = dec(params, toks[:, t:t + 1], cache)
+                    out[f"{arch}/decode{t}"] = np.asarray(logits[:, -1],
+                                                          np.float32)
+                    routed(f"decode{t}", np.float32)
+        if cfg.n_experts:
+            part = os.path.join(out_dir, "routes_last.part.npz")
+            np.savez(part, **routes)
+            os.replace(part, os.path.join(out_dir, LAST_ROUTES_FILE))
+            out.update({k: v for k, v in routes.items() if "/train/" in k})
+        for k, v in metrics.items():
+            out[f"{arch}/metrics/{k}"] = np.asarray(v, np.float32)
+        out[f"{arch}/lr"] = np.asarray(adamw.schedule(run, jnp.int32(
+            OPT_STEP0)), np.float32)
+        if arch in LAST_GRADS:
+            for k, v in flat(grads).items():
+                out[f"{arch}/g/{k}"] = np.asarray(v, np.float32)
 
 
 def jax_reference(inputs: str, out_file: str) -> None:
@@ -461,6 +608,7 @@ def jax_reference_steps(inputs: str, out_file: str, tmp: str) -> None:
         return nest({k[len(pre):]: jnp.asarray(v) for k, v in ref.items()
                      if k.startswith(pre)})
 
+    jax_reference_last(ref, mesh, out, tmp)
     for arch in TRAIN_ARCHS:
         cfg = configs.get_reduced_config(arch)
         model = build_model(cfg)
@@ -945,6 +1093,274 @@ def _xattn_rank(mesh, ref, out):
         out[f"{arch}/data_mesh/prefill_one"] = want.numpy()
 
 
+def _last_routes(out_dir, arch, cfg, mesh, tag):
+    """``repro``'s routing of this rank's data shard in each MoE layer of
+    the call ``tag`` ("train", "prefill", "decode{t}") from
+    LAST_ROUTES_FILE (waited for up to RANK_TIMEOUT_S); None for an arch
+    without experts."""
+    import time
+
+    import torch
+    if not cfg.n_experts:
+        return None
+    path = os.path.join(out_dir, LAST_ROUTES_FILE)
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} from the JAX child")
+        time.sleep(0.2)
+    with np.load(path) as z:
+        got = [z[f"{arch}/{tag}/ids{i}"]
+               for i in range(cfg.n_layers - cfg.first_dense_layers)]
+    n = got[0].shape[0] // mesh.shape["data"]
+    lo = mesh.coords["data"] * n
+    return [torch.from_numpy(ids[lo:lo + n]) for ids in got]
+
+
+def _last_rank(mesh, ref, out, out_dir):
+    """The LAST_ARCHS cases on this rank (``jax_reference_last``'s, the
+    port's side): the prefill, decode and serve steps (DeepSeek-V2 routed
+    as ``repro`` routed each call; each rank's cache leaf shapes, "/rank"
+    keys), one train step's metrics (for LAST_GRADS its two halves,
+    ``make_grad_fn`` and ``adamw.update``, with the gradients gathered
+    and the port's own routing before the forcing); then LAST_BLOCKS
+    (``_block_rank``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (gather_params, gather_rows,
+                                            model_shardings, shard_params,
+                                            split_batch)
+    for arch in LAST_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        run = last_run(arch, RunConfig)
+        model = build_model(cfg, "meta", trainable=True)
+        sh = model_shardings(model, mesh)
+        full = port_model(arch, ref)
+        whole = {k: p.detach() for k, p in full.named_parameters()}
+        params = shard_params(whole, sh)
+        batch = {k: torch.from_numpy(ref[f"in/{arch}/{k}"])
+                 for k in ("tokens", "labels")}
+        toks = batch["tokens"]
+
+        def force(tag):
+            return _last_routes(out_dir, arch, cfg, mesh, tag)
+        with routes(force("prefill")):
+            out[f"{arch}/prefill"] = steps.make_prefill_step(
+                model, run, mesh)(params, {"tokens": toks}).numpy()
+        tree = steps.compute_params(model, params, mesh)
+        serve = steps.make_serve_step(model, run, mesh)
+        cache = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        cache2 = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        for path, c in _cache_leaves(cache):
+            out[f"{arch}/cache_{path}/rank{mesh.rank}"] = np.array(c.shape)
+        for t in range(DECODE_STEPS):
+            view, rows = split_batch(mesh, {"tokens": toks[:, t:t + 1]})
+            with torch.inference_mode(), steps.bound(model, tree), \
+                    routes(force(f"decode{t}")):
+                logits, cache = model.decode_step(run, rows["tokens"], cache,
+                                                  mesh=view)
+            out[f"{arch}/decode{t}"] = gather_rows(view, steps._last_row(
+                model, view, logits).float()).numpy()
+            with routes(force(f"decode{t}")):
+                nxt, cache2 = serve(tree, toks[:, t:t + 1], cache2)
+            out[f"{arch}/serve{t}"] = nxt.numpy()
+        for p in params.values():
+            p.requires_grad_(True)
+        opt = adamw.init(params)._replace(step=torch.tensor(
+            OPT_STEP0, dtype=torch.int32))
+        if arch in LAST_GRADS:
+            # make_train_step's two halves, the gradients kept between.
+            with routes(force("train")) as own:
+                grad_fn = steps.make_grad_fn(model, run, mesh)
+                grads, m2 = grad_fn(params, batch)
+            for i, ids in enumerate(
+                    own[:cfg.n_layers - cfg.first_dense_layers]):
+                out[f"{arch}/own_ids{i}/rank{mesh.rank}"] = ids.numpy()
+            for k, g in gather_params(grads, sh).items():
+                out[f"{arch}/g/{k}"] = g.float().numpy()
+            lr = adamw.schedule(run, opt.step)
+            _, _, gnorm = adamw.update(grads, opt, params, run, lr,
+                                       grad_fn.shardings)
+            m2 = dict(m2, grad_norm=gnorm, lr=lr)
+        else:
+            with routes(force("train")):
+                _, _, m2 = steps.make_train_step(model, run, mesh)(
+                    params, opt, batch)
+        for k, v in m2.items():
+            out[f"{arch}/step/{k}"] = v.detach().numpy()
+        for a, prefixes, kind in LAST_BLOCKS:
+            if a == arch:
+                _block_rank(mesh, cfg, whole, sh, prefixes, kind, out)
+
+
+def _subtree(tree, prefix):
+    for k in prefix.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _block_fn(kind, cfg, run):
+    """``fn(tree, x, mesh) -> y`` of a LAST_BLOCKS kind (``tree``: the
+    nested parameters, full names) and, for the recurrent kinds, ``step(
+    tree, x, state, mesh) -> (y, state)``."""
+    import torch
+    from repro_torch.models import attention, ffn, ssm, xlstm
+    from repro_torch.models import transformer as tf
+
+    def pos(x):
+        return torch.arange(x.shape[1], dtype=torch.int32)
+    if kind == "mla":
+        return (lambda t, x, m: attention.mla_self_attn(
+            _subtree(t, "blocks.0.attn"), cfg, x, positions=pos(x),
+            chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv,
+            mesh=m)), None
+    if kind == "shared_ffn":
+        return (lambda t, x, m: ffn.ffn(
+            _subtree(t, "blocks.0.moe.shared"), x, "swiglu", m,
+            cfg.d_ff_expert * cfg.n_shared_experts)), None
+    if kind == "shared_attn":
+        def fn(t, x, m):
+            return tf._shared_attn(t["shared"], _subtree(t, "groups.1.lora"),
+                                   cfg, run, x, pos(x), m)
+
+        def step(t, x, st, m):
+            y, k, v = tf._shared_attn_decode(
+                t["shared"], _subtree(t, "groups.1.lora"), cfg, x,
+                st["k"], st["v"], torch.tensor(3, dtype=torch.int32), m)
+            return y, {"k": k, "v": v}
+        return fn, step
+    mod, name, prefix = {"mamba2": (ssm, "mamba2", "groups.0.mambas.0"),
+                         "mlstm": (xlstm, "mlstm", "groups.0.mlstms.0"),
+                         "slstm": (xlstm, "slstm", "groups.1.slstm")}[kind]
+    kw = {} if kind == "slstm" else {"chunk": LAST_CHUNK}
+    return (lambda t, x, m: getattr(mod, name)(
+        _subtree(t, prefix), cfg, x, mesh=m, **kw)), \
+        (lambda t, x, st, m: getattr(mod, name + "_step")(
+            _subtree(t, prefix), cfg, x, st, mesh=m))
+
+
+def _block_state(kind, cfg, b, rng):
+    """A random whole decode state of a recurrent LAST_BLOCKS kind (b rows;
+    the stabilizers finite) and, per leaf, (the heads axis, the channels
+    the conv splits: (di, n) or None)."""
+    import torch
+    from repro_torch.models import ssm, xlstm
+    if kind == "mamba2":
+        st = ssm.mamba2_init_state(cfg, b, cfg.d_model)
+        di = cfg.ssm_expand * cfg.d_model
+        axes = {"S": (1, None), "conv": (None, (di, cfg.ssm_state))}
+    elif kind == "shared_attn":
+        shape = (b, DECODE_LEN, cfg.n_kv_heads, cfg.hd)
+        st = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
+        axes = {"k": (2, None), "v": (2, None)}
+    else:
+        st = (xlstm.mlstm_init_state if kind == "mlstm"
+              else xlstm.slstm_init_state)(cfg, b)
+        axes = {k: (1, None) for k in st}
+    return {k: torch.from_numpy(rng.normal(size=v.shape).astype(
+        np.float32)) for k, v in st.items()}, axes
+
+
+def _state_block(t, axis, conv, mesh, m):
+    """This rank's block of a whole state leaf: its heads (axis), or its
+    x channels and the B / C ones (conv)."""
+    import torch
+    i = mesh.index("model")
+    if conv is None:
+        n = t.shape[axis] // m
+        return t.narrow(axis, i * n, n)
+    di, ns = conv
+    dl = di // m
+    return torch.cat([t[..., i * dl:(i + 1) * dl], t[..., di:di + 2 * ns]],
+                     -1)
+
+
+def _block_rank(mesh, cfg, whole, sh, prefixes, kind, out):
+    """One LAST_BLOCKS case on this rank, in f32 (its leaves as placed
+    blocks through ``_compute_tree``, the train step's tree: re-blocked
+    pieces, whole leaves read in part), against one process's block on
+    the whole batch: the output's rows (max error over the max of one
+    process's), each leaf's gradient block normwise beside its norm and
+    the largest leaf gradient norm of the block; for the recurrent kinds
+    one decode step from a random state (output rows, each state leaf's
+    block)."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (local_shard, split_batch,
+                                            tp_leaves, tp_pieces)
+    from repro_torch.models.model import build_model
+    run = last_run(cfg.name.removesuffix("-reduced"), RunConfig)
+    fn, step = _block_fn(kind, cfg, run)
+    model = build_model(cfg, "meta", trainable=True)
+    keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
+    names = [k for k in whole if any(k.startswith(p + ".") for p in prefixes)]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(TRAIN_B, TRAIN_S, cfg.d_model))
+                         .astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    view, rows = split_batch(mesh, {"x": x, "cot": cot})
+    blocks = {k: local_shard(whole[k], sh[k].spec, mesh).clone()
+              .requires_grad_(True) for k in names}
+    tree = steps._compute_tree(blocks, {k: sh[k] for k in names},
+                               view.batch_axes, keep, pieces)
+    y = fn(_nest_names(tree), rows["x"], view)
+    g = torch.autograd.grad(torch.sum(y.float() * rows["cot"]),
+                            list(blocks.values()))
+    one = {k: whole[k].clone().requires_grad_(True) for k in names}
+    y1 = fn(_nest_names(one), x, None)
+    g1 = torch.autograd.grad(torch.sum(y1.float() * cot), list(one.values()))
+    lo = mesh.coords["data"] * rows["x"].shape[0]
+    half = slice(lo, lo + rows["x"].shape[0])
+    tag, r = f"block/{cfg.name}/{kind}", mesh.rank
+    out[f"{tag}/y/rank{r}"] = np.float64(
+        (y.detach() - y1.detach()[half]).abs().max()
+        / y1.detach().abs().max())
+    top = max(float(w.norm()) for w in g1)
+    for k, got, want in zip(names, g, g1):
+        want = local_shard(want, sh[k].spec, mesh)
+        out[f"{tag}/g/{k}/rank{r}"] = np.array([
+            float((got - want).norm() / want.norm()),
+            float((got - want).norm()), float(want.norm()), top])
+    if step is None:
+        return
+    st, axes = _block_state(kind, cfg, TRAIN_B, rng)
+    m = mesh.shape["model"]
+    xs = x[:, :1]
+    with torch.inference_mode():
+        tree = steps._compute_tree(blocks, {k: sh[k] for k in names}, (),
+                                   keep, pieces)
+        mine = {k: _state_block(v[half], *axes[k], mesh, m).clone()
+                for k, v in st.items()}
+        y, new = step(_nest_names(tree), xs[half], mine, view)
+        y1, new1 = step(_nest_names({k: v.detach() for k, v in
+                                     one.items()}), xs,
+                        {k: v.clone() for k, v in st.items()}, None)
+    out[f"{tag}/step_y/rank{r}"] = np.float64(
+        (y - y1[half]).abs().max() / y1.abs().max())
+    for k, v in new.items():
+        want = _state_block(new1[k][half], *axes[k], mesh, m)
+        out[f"{tag}/step_{k}/rank{r}"] = np.float64(
+            (v - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _nest_names(flat_tree: dict) -> dict:
+    """A nested dict of {"a.b.c": leaf} (the port's parameter names)."""
+    return nest({k.replace(".", "/"): v for k, v in flat_tree.items()})
+
+
+def _cache_leaves(cache, pre=""):
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v, f"{pre}{k}/")
+        elif k != "pos":
+            yield pre + k, v
+
+
 def _partials_vs_one(mesh, full, rec, out, arch):
     """Layer 0's row-parallel products on this rank against one process's
     product of the same slices: its input columns by the rows of the
@@ -982,7 +1398,8 @@ def _tp_rank(mesh, out):
     from repro_torch.models.model import build_model
     from repro_torch.runtime import steps
     from repro_torch.sharding.rules import (init_sharded, model_shardings,
-                                            split_batch, tp_leaves)
+                                            split_batch, tp_leaves,
+                                            tp_pieces)
     for arch, changes in TREE_CASES.items():
         cfg = dataclasses.replace(configs.get_reduced_config(arch),
                                   **changes)
@@ -994,7 +1411,7 @@ def _tp_rank(mesh, out):
         trees = {"serve": steps.compute_params(model, params, mesh),
                  "train": steps._compute_tree(
                      steps.cast_params(params), sh, ("data",),
-                     tp_leaves(model, mesh))}
+                     tp_leaves(model, mesh), tp_pieces(model, mesh))}
         for tag, tree in trees.items():
             for name, t in tree.items():
                 if mesh.rank == 0:
@@ -1091,6 +1508,7 @@ def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
             _train_rank(mesh, ref, out, ckpt_dir, out_dir)
             _steps_rank(mesh, ref, out, out_dir)
             _xattn_rank(mesh, ref, out)
+            _last_rank(mesh, ref, out, out_dir)
             x = torch.arange(24.0).reshape(2, 3, 4) + rank
             for dim in range(3):
                 g = mesh.all_gather(x, AXES, dim)

@@ -108,7 +108,7 @@ from repro_torch.sharding import rules
 from subproc import REPO_ROOT
 
 JAX_TIMEOUT_S = 600
-SPAWN_TIMEOUT_S = {8: 300, 4: 240}
+SPAWN_TIMEOUT_S = {8: 420, 4: 240}
 OUT_ATOL_ULPS = 2.0 ** -7
 LB_ATOL = 1e-3
 MOE_GRAD_NORMWISE = 0.02
@@ -670,9 +670,11 @@ def test_tp_trees_hold_model_blocks(runs, arch, tag):
     """Each rank's compute tree on (2, 4) (the serving tree of
     ``compute_params`` and the training tree): the tensor-parallel leaves
     hold their "model" block, 1/4 of their elements, where the rules
-    split whole heads and the vocab; the leaf whole where they do not
-    (mixtral's 2 kv heads, MiniCPM's 6 q heads, a vocab of 513); every
-    other leaf whole but the experts (their blocks as placed)."""
+    split whole heads and the vocab, and the re-blocked ones their piece
+    (MLA's wuq 1/4, Mamba2's in_proj 98 of 296 columns); the leaf whole
+    where they do not (mixtral's 2 kv heads, MiniCPM's 6 q heads, a vocab
+    of 513); every other leaf whole but the experts (their blocks as
+    placed)."""
     t = runs[8]
     cfg = dataclasses.replace(configs.get_reduced_config(arch),
                               **pair.TREE_CASES[arch])
@@ -683,6 +685,20 @@ def test_tp_trees_hold_model_blocks(runs, arch, tag):
     assert set(got) == set(dict(model.named_parameters()))
     split = {"qwen1.5-0.5b": ("attn.wq", "attn.wk", "attn.wv", "attn.wo",
                               "ffn.", "embed.table", "unembed.w"),
+             # The dense layer's GQA and FFN, MLA's wuk / wuv / wo and its
+             # re-blocked wuq (its head columns), the shared experts.
+             "deepseek-v2-236b": ("attn.wq.", "attn.wk.", "attn.wv.",
+                                  "attn.wo.", "ffn.", "attn.wuq.",
+                                  "attn.wuk.", "attn.wuv.", "moe.shared.",
+                                  "embed.table", "unembed.w"),
+             # The shared block's attention, FFN and LoRA b_q, out_proj.
+             "zamba2-1.2b": ("attn.w", "ffn.", "lora.b_q", "out_proj",
+                             "embed.table", "unembed.w"),
+             # The sLSTM's wo (its o gate's columns and its output's rows)
+             # whole, its gates' wz / wi / wf blocks.
+             "xlstm-1.3b": ("wq.", "wk.", "wv.", "wo_gate.", "mlstms.0.wo.",
+                            "slstm.wz", "slstm.wi", "slstm.wf", "embed.table",
+                            "unembed.w"),
              "mixtral-8x7b": ("attn.wq", "attn.wo", "embed.table",
                               "unembed.w"),
              "minicpm-2b": ("ffn.",),
@@ -692,10 +708,16 @@ def test_tp_trees_hold_model_blocks(runs, arch, tag):
              # Encoder, decoder self and cross; the vocab of 513 whole.
              "seamless-m4t-medium": ("attn.w", "self.w", "cross.w",
                                      "ffn.")}[arch]
+    # Mamba2's in_proj: its 2 heads' z / x / dt columns and B / C whole.
+    di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    h = di // cfg.ssm_head_dim
+    in_proj = (2 * di / 4 + 2 * n + h / 4) / (2 * di + 2 * n + h) if h \
+        else None
     for name, share in got.items():
         if ".moe.w_" in name:
             continue
-        want = 0.25 if any(k in name for k in split) else 1.0
+        want = in_proj if name.endswith("in_proj.w") else \
+            0.25 if any(k in name for k in split) else 1.0
         assert share == want, (name, share)
 
 
@@ -830,6 +852,187 @@ def test_xattn_data_mesh_prefill_is_one_process(runs, arch):
     t = runs[8]
     assert np.array_equal(t[f"{arch}/data_mesh/prefill"],
                           t[f"{arch}/data_mesh/prefill_one"])
+
+
+@pytest.mark.parametrize("arch", pair.LAST_LOGITS)
+def test_last_prefill_and_serve_steps_match_repro(runs, arch):
+    """DeepSeek-V2 (MLA, routed as ``repro`` routed each call) and the
+    xLSTM on (2, 4), tensor-parallel over "model": ``make_prefill_step``'s
+    last logits and DECODE_STEPS of ``decode_step``'s within LOGIT_ATOL of
+    ``repro``'s under the mesh; ``make_serve_step``'s tokens equal wherever
+    ``repro``'s top-2 margin is clear of twice that."""
+    j, t = runs["jax"], runs[8]
+    vocab = configs.get_reduced_config(arch).vocab
+    assert t[f"{arch}/prefill"].shape == (pair.TRAIN_B, vocab)
+    assert np.abs(t[f"{arch}/prefill"] - j[f"{arch}/prefill"]).max() \
+        <= LOGIT_ATOL
+    clear = 0
+    for s in range(pair.DECODE_STEPS):
+        want = j[f"{arch}/decode{s}"]
+        assert np.abs(t[f"{arch}/decode{s}"] - want).max() <= LOGIT_ATOL, s
+        top = np.sort(want, -1)[:, -2:]
+        ok = top[:, 1] - top[:, 0] > 2 * LOGIT_ATOL
+        clear += int(ok.sum())
+        assert np.array_equal(t[f"{arch}/serve{s}"][ok, 0],
+                              want.argmax(-1)[ok])
+    assert clear >= pair.DECODE_STEPS * pair.TRAIN_B // 4
+
+
+def test_zamba2_steps_run_tensor_parallel(runs):
+    """Zamba2's prefill and serve steps on (2, 4): finite logits of the
+    whole vocab, and every served token the argmax of the same step's
+    decode logits (its values are held block by block, LAST_BLOCKS: see
+    ``pair.LAST_LOGITS``)."""
+    t = runs[8]
+    arch = "zamba2-1.2b"
+    vocab = configs.get_reduced_config(arch).vocab
+    assert t[f"{arch}/prefill"].shape == (pair.TRAIN_B, vocab)
+    assert np.isfinite(t[f"{arch}/prefill"]).all()
+    for s in range(pair.DECODE_STEPS):
+        logits = t[f"{arch}/decode{s}"]
+        assert logits.shape == (pair.TRAIN_B, vocab)
+        assert np.array_equal(t[f"{arch}/serve{s}"][:, 0], logits.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", pair.LAST_ARCHS)
+def test_last_train_step_matches_repro(runs, arch):
+    """One train step of the last three families on (2, 4),
+    tensor-parallel over "model", against ``repro``'s under the mesh: the
+    step's loss and ce within LOSS_ATOL of ``repro``'s loss function's
+    and its lr within ULPS of ``repro``'s schedule; for DeepSeek-V2
+    (routed as ``repro`` routed: the port's own choices differ only at
+    near ties) also the grad norm within GNORM_RTOL of the global norm of
+    ``repro``'s gradients, ``lb_loss`` within LB_ATOL, ``dropped`` equal
+    and every gradient within GRAD_NORMWISE.  The recurrent families'
+    gradients are held block by block (``test_last_blocks_match_one_
+    process``; ``pair.LAST_LOGITS`` says why)."""
+    j, t = runs["jax"], runs[8]
+    for key in ("loss", "ce"):
+        k = f"{arch}/step/{key}"
+        assert abs(float(t[k]) - float(j[f"{arch}/metrics/{key}"])) \
+            <= LOSS_ATOL, k
+    lr, jlr = np.float32(t[f"{arch}/step/lr"]), np.float32(j[f"{arch}/lr"])
+    assert jlr > 0 and abs(lr - jlr) <= ULPS * np.spacing(jlr)
+    assert np.isfinite(float(t[f"{arch}/step/grad_norm"]))
+    if arch not in pair.LAST_GRADS:
+        assert not any(k.startswith(f"{arch}/g/") for k in t)
+        return
+    cfg = configs.get_reduced_config(arch)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    for i in range(n_moe):
+        ids, gap = j[f"{arch}/train/ids{i}"], j[f"{arch}/train/gap{i}"]
+        own = np.concatenate([t[f"{arch}/own_ids{i}/rank{r}"]
+                              for r in (0, 4)])
+        flip = (np.sort(own, -1) != np.sort(ids, -1)).any(-1)
+        assert not (flip & (gap >= ROUTE_GAP)).any(), (i, gap[flip])
+    assert abs(float(t[f"{arch}/step/lb_loss"])
+               - float(j[f"{arch}/metrics/lb_loss"])) <= LB_ATOL
+    assert float(t[f"{arch}/step/dropped"]) == float(
+        j[f"{arch}/metrics/dropped"])
+    names = [k[len(f"{arch}/g/"):] for k in t if k.startswith(f"{arch}/g/")]
+    # repro's grad norm: the global norm of its gradients (its step's
+    # adamw.update computes the same before clipping).
+    jn = float(np.sqrt(sum(float(np.sum(np.square(v.astype(np.float64))))
+                           for k, v in j.items()
+                           if k.startswith(f"{arch}/g/"))))
+    assert abs(float(t[f"{arch}/step/grad_norm"]) - jn) <= GNORM_RTOL * jn
+    assert len(names) == len(dict(build_model(cfg, "meta")
+                                  .named_parameters()))
+    for name in names:
+        got, want = t[f"{arch}/g/{name}"], _repro_leaf(j, arch, "g", name)
+        assert got.shape == want.shape
+        assert _nw(got, want) <= GRAD_NORMWISE, name
+
+
+@pytest.mark.parametrize("case", pair.LAST_BLOCKS,
+                         ids=[f"{a}-{k}" for a, _, k in pair.LAST_BLOCKS])
+def test_last_blocks_match_one_process(runs, case):
+    """Each LAST_BLOCKS block on every (2, 4) rank, in f32, its leaves
+    entering as the train step's tree gives them (the re-blocked wuq /
+    in_proj gathered and cut, the whole leaves read in part through
+    ``psum_bwd``, the split norms' sums over "model"), against one
+    process's block on the whole batch: the output's rows within
+    BLOCK_F32_TOL of one process's scale (zamba2's shared block casts to
+    bf16 itself: two bf16 ulps, BF16_RTOL), and each rank's own block of
+    every leaf's gradient within GRAD_NORMWISE normwise.  One leaf has no
+    normwise bound: the sLSTM's input-gate bias, whose gradient is a sum
+    over positions that cancels (the stabilized cell is nearly invariant
+    to a shift of log i shared by every position: its norm is under 1e-3
+    of the block's largest); it is held within GRAD_NORMWISE of that
+    largest norm.  The recurrent blocks' decode step from a random state:
+    its output rows and each state leaf's block (this rank's heads; the
+    conv's x channels and the B / C ones) within BLOCK_F32_TOL (bf16 for
+    the shared block's).  A gather of a re-blocked leaf that slices its
+    gradient instead of reduce-scattering it, or a norm sum through
+    ``psum_fwd`` alone, fails this test."""
+    from xattn_pair import BF16_RTOL, BLOCK_F32_TOL
+    arch, prefixes, kind = case
+    t = runs[8]
+    tag = f"block/{configs.get_reduced_config(arch).name}/{kind}"
+    tol = BF16_RTOL if kind == "shared_attn" else BLOCK_F32_TOL
+    leaves, cancelled = set(), set()
+    for r in range(8):
+        assert float(t[f"{tag}/y/rank{r}"]) <= tol, r
+        for k, v in t.items():
+            if not (k.startswith(f"{tag}/g/") and k.endswith(f"/rank{r}")):
+                continue
+            name = k[len(f"{tag}/g/"):-len(f"/rank{r}")]
+            leaves.add(name)
+            nw, err, norm, top = (float(x) for x in v)
+            if norm < 1e-3 * top:
+                cancelled.add(name)
+                assert err <= GRAD_NORMWISE * top, (name, r)
+            else:
+                assert nw <= GRAD_NORMWISE, (name, r, nw)
+        for k, v in t.items():
+            if k.startswith(f"{tag}/step_") and k.endswith(f"/rank{r}"):
+                assert float(v) <= tol, (k, r)
+    model = build_model(configs.get_reduced_config(arch), "meta")
+    assert leaves == {k for k in dict(model.named_parameters())
+                      if any(k.startswith(p + ".") for p in prefixes)}
+    assert cancelled == ({"groups.1.slstm.wi.b"} if kind == "slstm"
+                         else set())
+    steps_ = {k[len(f"{tag}/step_"):-len("/rank0")] for k in t
+              if k.startswith(f"{tag}/step_") and k.endswith("/rank0")}
+    assert steps_ == {"mla": set(), "shared_ffn": set(),
+                      "mamba2": {"y", "S", "conv"},
+                      "shared_attn": {"y", "k", "v"},
+                      "mlstm": {"y", "C", "n", "m"},
+                      "slstm": {"y", "c", "n", "h", "m"}}[kind]
+
+
+@pytest.mark.parametrize("arch", pair.LAST_ARCHS)
+def test_last_cache_holds_head_blocks(runs, arch):
+    """``local_cache`` of the last three families on (2, 4): this rank's 4
+    of 8 rows and its heads of every state leaf (Mamba2's S at 2 of 8
+    heads, its conv at its 32 x channels and the 32 B / C ones, the
+    shared block's k / v at 1 of 4 kv heads; the mLSTM's C / n / m and the
+    sLSTM's c / n / h / m at 1 of 4 heads); DeepSeek-V2's ckv / kr whole
+    over "model", its dense layer's k / v at 1 of 4 kv heads."""
+    cfg = configs.get_reduced_config(arch)
+    rows, t_len = pair.TRAIN_B // 2, pair.DECODE_LEN
+    if arch == "deepseek-v2-236b":
+        want = {"ckv": [2, rows, t_len, cfg.kv_lora],
+                "kr": [2, rows, t_len, cfg.qk_rope_dim],
+                "dense_k": [1, rows, t_len, 1, cfg.hd]}
+        want["dense_v"] = want["dense_k"]
+    elif arch == "zamba2-1.2b":
+        s = [rows, 2, cfg.ssm_state, cfg.ssm_head_dim]
+        conv = [rows, cfg.ssm_conv - 1, 32 + 2 * cfg.ssm_state]
+        want = {"ssm/S": [2, 2] + s, "ssm/conv": [2, 2] + conv,
+                "tail_ssm/S": [1] + s, "tail_ssm/conv": [1] + conv,
+                "attn_k": [2, rows, t_len, 1, cfg.hd]}
+        want["attn_v"] = want["attn_k"]
+    else:
+        dk = cfg.d_model // cfg.n_heads
+        want = {"m/C": [2, 1, rows, 1, dk, dk], "m/n": [2, 1, rows, 1, dk],
+                "m/m": [2, 1, rows, 1],
+                **{f"s/{k}": [2, rows, 1, dk] for k in "cnhm"}}
+    for r in range(8):
+        got = {k[len(f"{arch}/cache_"):-len(f"/rank{r}")]: v.tolist()
+               for k, v in runs[8].items()
+               if k.startswith(f"{arch}/cache_") and k.endswith(f"/rank{r}")}
+        assert got == want, r
 
 
 def test_data_mesh_moe_is_one_process_routed_alike(runs):
