@@ -382,6 +382,19 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         peak memory a rank, each cache leaf's bytes a rank beside one
         process's; flash at (g)'s rank shape on rank 0's first call
         (the kernels line's ``mesh_zamba2_shape``).
+ 15. the dry-run (``launch.dryrun``, after phase 14; no kernel launched):
+     a. ``count_step`` on the meta device for phase 14 (a)'s cell (the
+        serving build of Mixtral-8x7B at MESH_MOE_LAYERS layers, the
+        (1, 4) mesh, MESH_MOE_BATCH x MESH_MOE_SEQ prefill) at each rank:
+        its blocks' and compute tree's bytes and its collectives' bytes
+        and calls by kind equal to what that rank measured in phase 14
+        (a) (``dryrun.counted_collectives`` around its compute tree and
+        first step call); its argument + temp bytes printed beside the
+        rank's peak allocation, with their ratio (reported, not held);
+     b. the CLI's ``main`` over DRYRUN_CLI in this process: exit 0, and
+        ``torch.cuda.memory_allocated()`` unchanged across it, its peak
+        too (nothing allocated on the card);
+     c. the phase's seconds.
 
 Kernel calls are held against their twins as they happen when their
 arguments are too large to keep (the simple path's gathered state edges
@@ -4226,6 +4239,7 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
     """Phase 14a on one rank: Mixtral's prefill on each of MESH_SHAPES,
     tensor-parallel over "model", and the token loop on (1, 4)."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build_model
@@ -4252,7 +4266,10 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
         gathered = gathered_layout(params, shardings)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        tree = steps.compute_params(model, params, mesh)
+        # The collectives the compute tree and the first step call, by
+        # kind (phase 15 holds the dry-run's count against them).
+        with dryrun.counted_collectives() as tally:
+            tree = steps.compute_params(model, params, mesh)
         torch.cuda.synchronize()
         gather_s = time.perf_counter() - t0
         step = steps.make_prefill_step(model, run, mesh)
@@ -4266,9 +4283,15 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
         torch.cuda.synchronize()
         smoke.build.reset_launches()
         with smoke.capture(keep=["flash_attn_bhsd"]) as cap, \
-                log.record(force) as rc, moe_dropped() as dropped:
+                log.record(force) as rc, moe_dropped() as dropped, \
+                dryrun.counted_collectives() as step_tally:
             last = step(tree, {"tokens": toks})
             torch.cuda.synchronize()
+        collectives = {
+            "bytes": {k: tally.bytes[k] + step_tally.bytes[k]
+                      for k in dryrun.KINDS},
+            "counts": {k: tally.counts[k] + step_tally.counts[k]
+                       for k in dryrun.KINDS}}
         counts = dict(smoke.build.LAUNCHES)
         routes = dict(smoke.build.ROUTE_LAUNCHES)
         b_loc = MESH_MOE_BATCH // shape[0]
@@ -4309,6 +4332,7 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
             flash_max_abs_err=err, flash_over=over, near_tie_flips=flips,
             dropped=sum(dropped), block_bytes=block_bytes,
             tree_bytes=tree_bytes(tree), gather_s=gather_s,
+            collectives=collectives,
             gathered_layout=gathered, peak_total_bytes=torch.cuda
             .max_memory_allocated() - base, last=last.float().cpu().numpy().tolist()
             if rank == 0 else None, **timing)
@@ -5520,6 +5544,90 @@ def host_map():
     return sc, cov, t1 - t0, time.perf_counter() - t1
 
 
+# -- phase 15: the dry-run ----------------------------------------------------
+DRYRUN_CLI = ("--arch", MOE_ARCH, "--shape", "train_4k", "--single-pod-only")
+
+
+def dryrun_phase(result) -> None:
+    """Phase 15: ``launch.dryrun`` on the meta device against phase 14
+    (a)'s (1, 4) prefill, rank by rank, then its CLI on the card box."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model
+    t_start = time.perf_counter()
+    out = result["dryrun"] = {"ranks": []}
+    # (a) phase 14 (a)'s cell: the serving build its ranks drew, their
+    # run knobs, the (1, 4) mesh, counted at each rank.
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    model = build_model(cfg, "meta")
+    shape = ShapeConfig("mesh_moe_prefill", MESH_MOE_SEQ, MESH_MOE_BATCH,
+                        "prefill")
+    run = serve_mod.run_config(MESH_MOE_SEQ)
+    tag = "x".join(map(str, MESH_SHAPES[0]))
+    for rank, meas in enumerate(result["mesh"][tag]["ranks"]):
+        mesh = dryrun.CountingMesh(MESH_SHAPES[0], ("data", "model"), rank)
+        pred = dryrun.count_step(model, shape, mesh, run)
+        got = meas["collectives"]
+        check(pred["block_bytes"] == meas["block_bytes"]
+              and pred["tree_bytes"] == meas["tree_bytes"],
+              f"dryrun rank {rank}: blocks / tree bytes "
+              f"{pred['block_bytes']} / {pred['tree_bytes']}, measured "
+              f"{meas['block_bytes']} / {meas['tree_bytes']}")
+        check(pred["collective_bytes_per_device"] == got["bytes"]
+              and pred["collective_counts"] == got["counts"],
+              f"dryrun rank {rank}: collectives {pred['collective_counts']}"
+              f" / {pred['collective_bytes_per_device']} B, measured "
+              f"{got['counts']} / {got['bytes']} B")
+        mem = pred["memory"]
+        predicted = mem["argument_size"] + mem["temp_size"]
+        out["ranks"].append(dict(
+            block_bytes=pred["block_bytes"], tree_bytes=pred["tree_bytes"],
+            collective_bytes=pred["collective_bytes_per_device"],
+            collective_counts=pred["collective_counts"],
+            flops=pred["flops_per_device"], memory=mem,
+            predicted_bytes=predicted,
+            measured_peak_bytes=meas["peak_total_bytes"],
+            ratio=predicted / meas["peak_total_bytes"]))
+        print(f"phase 15: dryrun of phase 14 (a)'s {tag} prefill, rank "
+              f"{rank}: blocks {pred['block_bytes']} B, compute tree "
+              f"{pred['tree_bytes']} B, collectives "
+              f"{pred['collective_counts']} calls / "
+              f"{pred['collective_bytes_per_device']} B, each = measured; "
+              f"argument + temp {predicted / 2**30:.3f} GiB vs measured "
+              f"peak {meas['peak_total_bytes'] / 2**30:.3f} GiB "
+              f"(ratio {predicted / meas['peak_total_bytes']:.3f}, "
+              f"reported), {pred['flops_per_device']:.4g} FLOPs")
+    # (b) the CLI (``python -m repro_torch.launch.dryrun``'s ``main``, in
+    # this process) allocates nothing on the card.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    argv, sys.argv = sys.argv, ["repro_torch.launch.dryrun", *DRYRUN_CLI]
+    t0 = time.perf_counter()
+    try:
+        dryrun.main()
+    except SystemExit as e:
+        check(not e.code, f"dryrun {' '.join(DRYRUN_CLI)}: exit {e.code}")
+    finally:
+        sys.argv = argv
+    cli_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), \
+        torch.cuda.max_memory_allocated()
+    check(after == before and peak == before,
+          f"dryrun {' '.join(DRYRUN_CLI)}: card memory {before} -> {after} "
+          f"B, peak {peak} B")
+    out.update(cli=list(DRYRUN_CLI), cli_s=cli_s,
+               card_bytes_before=before, card_bytes_after=after,
+               card_peak_bytes=peak)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 15: dryrun {' '.join(DRYRUN_CLI)} in {cli_s:.1f} s, card "
+          f"memory {before} B before, {after} B after, peak {peak} B; "
+          f"phase 15 {out['seconds']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results as JSON")
@@ -6159,6 +6267,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh = mesh_phase(smoke, result)
     phase_s["mesh"] = time.perf_counter() - t_start
+    # -- 15. the dry-run ------------------------------------------------------
+    torch.cuda.empty_cache()
+    dryrun_phase(result)
+    phase_s["dryrun"] = time.perf_counter() - t_start
     # The two PIP kernels' launches on the sharded path at (1, 1) beside
     # their main path's.
     for row in kernels:
@@ -6191,7 +6303,7 @@ def main() -> int:
     kernels.append(flash_kernel)
     result["kernels"] = kernels
     result["card"] = card
-    result["total_s"] = phase_s["mesh"]
+    result["total_s"] = phase_s["dryrun"]
     result["phase_end_s"] = phase_s
     print(f"smoke ran {result['total_s']:.1f} s; each phase ended at "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} } s")

@@ -46,9 +46,9 @@ from repro_torch.kernels import _build, ref
 
 def bbox_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """[N, M] int8 membership of [N, 2] f32 points in a shared [M, 4] f32
-    box table.  CPU tensors go to the plain twin; CUDA tensors launch the
-    kernel on the current stream, without synchronizing."""
-    if points.device.type == "cpu":
+    box table.  CPU and meta tensors go to the plain twin; CUDA tensors
+    launch the kernel on the current stream, without synchronizing."""
+    if points.device.type != "cuda":
         return ref.bbox_mask(points, boxes)
     dev = points.device
     n = points.shape[0]
@@ -74,10 +74,10 @@ def bbox_mask(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
 
 def bbox_count_select(points: torch.Tensor, boxes: torch.Tensor):
     """(count [N] i32, sel [N] i32) of [N, 2] f32 points over their own
-    [N, C, 4] f32 boxes (padded slots empty).  CPU tensors go to the
+    [N, C, 4] f32 boxes (padded slots empty).  CPU and meta tensors go to the
     plain twin; CUDA tensors launch the kernel on the current stream,
     without synchronizing."""
-    if points.device.type == "cpu":
+    if points.device.type != "cuda":
         return ref.bbox_count_select(points, boxes)
     dev = points.device
     n = points.shape[0]

@@ -74,11 +74,11 @@ def assign_cascade(points, quant, cell_lo, cell_hi, cell_val, top_start,
     Inputs must be well formed (``ops.assign_cascade`` normalizes empty
     tables): ``cand`` [B>=1, K>=1] i32, ``bbox`` [P, 4] f32 aligned with
     ``first``/``count`` [P>=1] i32, ``blocks`` [NB, 4, BE] f32, and
-    ``search_iters`` already ``effective_iters``-normalized.  CPU tensors
-    go to the plain twin (``ref.assign_cascade``); CUDA tensors launch
-    the kernel on the current stream, without synchronizing.
+    ``search_iters`` already ``effective_iters``-normalized.  CPU and meta
+    tensors go to the plain twin (``ref.assign_cascade``); CUDA tensors
+    launch the kernel on the current stream, without synchronizing.
     """
-    if points.device.type == "cpu":
+    if points.device.type != "cuda":
         from repro_torch.kernels import ref   # ref imports this module
         max_blocks = max(int(count.max()), 1) if count.numel() else 1
         return ref.assign_cascade(

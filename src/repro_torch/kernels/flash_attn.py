@@ -48,10 +48,12 @@ through ``models.attention.blockwise_attn`` at ``chunk = min(chunk, S)``
 and returns that program's gradients.  ``repro`` has no backward kernel,
 and neither has the port.
 
-CPU tensors go to the plain twin ``ref.flash_attn_bhsd`` at the KV tile
-of the route the call would take on the card (``kv_tile``), so the CPU
-computes what the card computes up to summation order; CUDA tensors
-launch the route's kernel on the current stream, without synchronizing.
+Tensors off the card (CPU or meta) go to the plain twin
+``ref.flash_attn_bhsd`` at the KV tile of the route the call would take
+on the card (``kv_tile``), so the CPU computes what the card computes up
+to summation order (``ops.resolve_backend``'s rule); CUDA tensors launch
+the route's kernel on the current stream, without synchronizing, and
+never fall back.
 """
 from __future__ import annotations
 
@@ -141,7 +143,7 @@ def flash_attn_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attn_bhsd is not differentiable: use "
                            "make_flash_attn_trainable under autograd")
-    if q.device.type == "cpu":
+    if q.device.type != "cuda":
         return ref.flash_attn_bhsd(q, k, v, causal=causal,
                                    bk=kv_tile(q.dtype, d))
     dev = q.device

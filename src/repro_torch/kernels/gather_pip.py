@@ -148,11 +148,11 @@ def crossings_candidates(pids: torch.Tensor, points: torch.Tensor,
     them), read from a pool's ``first`` / ``count`` / ``live`` [P >= 1]
     i32 and ``blocks``.  Returns [R] i32.
 
-    CPU tensors go to the plain twin (``ref.crossings_candidates``, the
-    same arguments); CUDA tensors launch the kernel on the current
-    stream, without synchronizing.
+    CPU and meta tensors go to the plain twin
+    (``ref.crossings_candidates``, the same arguments); CUDA tensors
+    launch the kernel on the current stream, without synchronizing.
     """
-    if points.device.type == "cpu":
+    if points.device.type != "cuda":
         return ref.crossings_candidates(pids, points, first, count, live,
                                         blocks, max_blocks)
     dev = points.device

@@ -41,10 +41,10 @@ def crossings_gathered(points: torch.Tensor,
     """Crossing counts where each of N [N, 2] f32 points brings its own
     [E, 4] f32 edge table (``edges`` [N, E, 4]).  Returns [N] i32.
 
-    CPU tensors go to the plain twin; CUDA tensors launch the kernel on
-    the current stream, without synchronizing.
+    CPU and meta tensors go to the plain twin; CUDA tensors launch the
+    kernel on the current stream, without synchronizing.
     """
-    if points.device.type == "cpu":
+    if points.device.type != "cuda":
         return ref.crossings_gathered(points, edges)
     dev = points.device
     n = points.shape[0]
@@ -67,10 +67,10 @@ def crossings_one(points: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """Crossing counts of [N, 2] f32 points against one shared [E, 4] f32
     edge table.  Returns [N] i32.
 
-    CPU tensors go to the plain twin; CUDA tensors launch the kernel on
-    the current stream, without synchronizing.
+    CPU and meta tensors go to the plain twin; CUDA tensors launch the
+    kernel on the current stream, without synchronizing.
     """
-    if points.device.type == "cpu":
+    if points.device.type != "cuda":
         return ref.crossings_one(points, edges)
     dev = points.device
     n = points.shape[0]

@@ -78,12 +78,12 @@ def segment_reduce_sorted(ids: torch.Tensor, values: Optional[torch.Tensor],
     ``ids`` must be sorted ascending.  Rows whose id lies outside [0,
     n_segments) land in no segment (the caller parks invalid ids at
     ``n_segments``).  Empty segments come back (0, 0.0, +inf, -inf).
-    CPU tensors go to the plain twin; CUDA tensors launch the kernel on
-    the current stream, without synchronizing: one launch without
-    values (or with an empty column), two with (``_build.LAUNCHES``
-    counts each).
+    CPU and meta tensors go to the plain twin; CUDA tensors launch the
+    kernel on the current stream, without synchronizing: one launch
+    without values (or with an empty column), two with
+    (``_build.LAUNCHES`` counts each).
     """
-    if ids.device.type == "cpu":
+    if ids.device.type != "cuda":
         return ref.segment_reduce(ids, values, n_segments)
     dev = ids.device
     check_args(ids, values, n_segments)

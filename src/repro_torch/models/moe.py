@@ -94,8 +94,13 @@ def _router(params, cfg, x2d):
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     # Switch-style load-balance terms.
     me = probs_all.mean(dim=0)                                 # [E]
-    ce = torch.bincount(top_i.reshape(-1), minlength=cfg.n_experts).float() \
-        / (x2d.shape[0] * cfg.top_k)
+    # Counts of each expert's picks, summed as f32 ones: exact below 2^24,
+    # so bit-equal to a ``bincount``, which the meta device lacks.
+    ids = top_i.reshape(-1)
+    ce = torch.zeros(cfg.n_experts, dtype=torch.float32,
+                     device=ids.device).index_add_(
+        0, ids, torch.ones(ids.shape, dtype=torch.float32,
+                           device=ids.device)) / (x2d.shape[0] * cfg.top_k)
     return top_p, top_i.to(torch.int32), (me, ce)
 
 

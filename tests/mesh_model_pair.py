@@ -99,6 +99,21 @@ XATTN_ARCHS = ("llama-3.2-vision-90b", "seamless-m4t-medium")
 XATTN_ENC_S = 40
 XATTN_KNOBS = dict(RUN_KNOBS, remat="full")
 VOCAB_CE = (8, 6, 512)        # vocab-parallel CE: rows, positions, vocab
+# The dry-run (``launch.dryrun``) on (2, 4) at TRAIN_B x TRAIN_S with
+# RUN_KNOBS.  The gloo ranks step DRYRUN_GLOO_ARCHS' cells with real
+# weights, unforced, their collectives, FLOPs and argument bytes counted
+# (``_dryrun_rank``); repro's ``run_cell`` on the reduced configs
+# (``jax_dryrun``): the train cells of the dense and MoE families in the
+# first JAX child, every arch's prefill and decode in the second.
+DRYRUN_KINDS = ("train", "prefill", "decode")
+DRYRUN_ARCHS = ("yi-9b", "qwen1.5-0.5b", "nemotron-4-15b", "minicpm-2b",
+                "llama-3.2-vision-90b", "seamless-m4t-medium",
+                "zamba2-1.2b", "xlstm-1.3b", "deepseek-v2-236b",
+                "mixtral-8x7b")
+DRYRUN_TRAIN_ARCHS = ("yi-9b", "qwen1.5-0.5b", "nemotron-4-15b",
+                      "minicpm-2b", "deepseek-v2-236b", "mixtral-8x7b")
+DRYRUN_GLOO_ARCHS = TRAIN_ARCHS
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter")
 # Mixtral's routing in repro's train step, written by the JAX child
 # beside its outputs and read by the port's ranks.
 ROUTES_FILE = "jax_routes.npz"
@@ -448,6 +463,32 @@ def jax_reference_last(ref, mesh, out, out_dir) -> None:
                 out[f"{arch}/g/{k}"] = np.asarray(v, np.float32)
 
 
+def dryrun_shape(kind: str, shape_cls):
+    """The dry-run's reduced cell of ``kind`` (``shape_cls``: either
+    package's ``ShapeConfig``)."""
+    return shape_cls(f"reduced_{kind}", TRAIN_S, TRAIN_B, kind)
+
+
+def jax_dryrun(mesh, cells, out: dict) -> None:
+    """``repro``'s ``launch.dryrun.run_cell`` of each (arch, kind) of
+    ``cells`` on ``mesh``, its ``get_config`` replaced by
+    ``get_reduced_config``: "dryrun/{arch}/{kind}/{field}".  The module
+    is imported here, after jax made its 8 devices (it sets XLA_FLAGS at
+    import)."""
+    import repro.launch.dryrun as jd
+    from repro import configs
+    from repro.configs.base import RunConfig, ShapeConfig
+    jd.get_config = configs.get_reduced_config
+    for arch, kind in cells:
+        rec = jd.run_cell(arch, dryrun_shape(kind, ShapeConfig), mesh,
+                          RunConfig(**RUN_KNOBS), verbose=False)
+        pre = f"dryrun/{arch}/{kind}/"
+        for key in ("params", "param_bytes", "flops_per_device"):
+            out[pre + key] = np.int64(rec[key])
+        for key, v in rec["memory"].items():
+            out[pre + key] = np.int64(v)
+
+
 def jax_reference(inputs: str, out_file: str) -> None:
     """Every case through ``repro`` on the (2, 4) mesh, jitted, with
     ``backend="ref"`` kernels (none of the cases reaches a Pallas kernel:
@@ -572,6 +613,7 @@ def jax_reference(inputs: str, out_file: str) -> None:
             out[f"moe_{name}/{tag}/x"] = np.asarray(gx.astype(jnp.float32))
             for k, v in flat(gp).items():
                 out[f"moe_{name}/{tag}/{k}"] = np.asarray(v, np.float32)
+    jax_dryrun(mesh, [(a, "train") for a in DRYRUN_TRAIN_ARCHS], out)
 
     np.savez(out_file, **out)
     print("jax reference done")
@@ -720,6 +762,8 @@ def jax_reference_steps(inputs: str, out_file: str, tmp: str) -> None:
             out[f"{arch}/step/{k}"] = np.asarray(v, np.float32)
         for k, v in flat(grads).items():
             out[f"{arch}/g/{k}"] = np.asarray(v, np.float32)
+    jax_dryrun(mesh, [(a, k) for a in DRYRUN_ARCHS
+                      for k in ("prefill", "decode")], out)
     np.savez(out_file, **out)
     print("jax reference done")
 
@@ -857,6 +901,70 @@ def _train_rank(mesh, ref, out, ckpt_dir, out_dir):
             mgr.save(1, state, shardings={
                 "params": sh, "opt": adamw.state_shardings(sh)})
             mgr.wait()
+
+
+def _dryrun_rank(mesh, ref, out):
+    """The dry-run's cells of DRYRUN_GLOO_ARCHS stepped on this rank with
+    ``repro``'s weights, unforced: the collectives the step calls by kind
+    (``launch.dryrun.counted_collectives``: "dryrun/{arch}/{kind}/rank{r}
+    /bytes/{kind}" and ".../calls/{kind}"), FlopCounterMode's total and
+    the bytes of the step's inputs on this rank (its blocks, AdamW's
+    state, its batch rows, its cache)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (model_shardings, shard_params,
+                                            split_batch)
+    run = RunConfig(**RUN_KNOBS)
+
+    def size(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    for arch in DRYRUN_GLOO_ARCHS:
+        model = build_model(configs.get_reduced_config(arch), "meta",
+                            trainable=True)
+        full = port_model(arch, ref)
+        toks = torch.from_numpy(ref[f"in/{arch}/tokens"])
+        for kind in DRYRUN_KINDS:
+            params = shard_params({k: p.detach() for k, p in
+                                   full.named_parameters()},
+                                  model_shardings(model, mesh))
+            held = list(params.values())
+            if kind == "train":
+                for p in held:
+                    p.requires_grad_(True)
+                opt = adamw.init(params)
+                batch = {"tokens": toks, "labels": torch.from_numpy(
+                    ref[f"in/{arch}/labels"])}
+                held += [*opt.m.values(), *opt.v.values(), opt.step]
+                step = steps.make_train_step(model, run, mesh)
+                args = (params, opt, batch)
+            elif kind == "prefill":
+                batch = {"tokens": toks}
+                step = steps.make_prefill_step(model, run, mesh)
+                args = (params, batch)
+            else:
+                batch = {"tokens": toks[:, :1].contiguous()}
+                cache = steps.local_cache(model, mesh, TRAIN_B, TRAIN_S,
+                                          "cpu")
+                held += [t for _, t in steps._leaves(cache)]
+                step = steps.make_serve_step(model, run, mesh)
+                args = (params, batch["tokens"], cache)
+            held += list(split_batch(mesh, batch)[1].values())
+            with dryrun.counted_collectives() as tally, \
+                    FlopCounterMode(display=False) as flops:
+                step(*args)
+            pre = f"dryrun/{arch}/{kind}/rank{mesh.rank}/"
+            out[pre + "flops"] = np.int64(flops.get_total_flops())
+            out[pre + "argument_size"] = np.int64(size(held))
+            for c in COLLECTIVE_KINDS:
+                out[pre + f"bytes/{c}"] = np.int64(tally.bytes[c])
+                out[pre + f"calls/{c}"] = np.int64(tally.counts[c])
 
 
 def _repro_routes(out_dir, arch, cfg, mesh):
@@ -1509,6 +1617,7 @@ def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
             _steps_rank(mesh, ref, out, out_dir)
             _xattn_rank(mesh, ref, out)
             _last_rank(mesh, ref, out, out_dir)
+            _dryrun_rank(mesh, ref, out)
             x = torch.arange(24.0).reshape(2, 3, 4) + rank
             for dim in range(3):
                 g = mesh.all_gather(x, AXES, dim)

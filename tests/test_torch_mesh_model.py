@@ -35,6 +35,14 @@ JAX package's, on the CPU.
   ``cross_entropy`` (1e-6 of the whole vocab's) and embedding (bit for
   bit), the kv-head blocks of the cache.  ``launch/train.py`` under 4
   gloo ranks.
+* The dry-run (``launch.dryrun``) on (2, 4): its counting mesh against
+  the gloo ranks stepping the same cells (collective bytes and calls by
+  kind, FLOPs, argument bytes: exact, first and last rank), and against
+  ``repro``'s ``run_cell`` on the reduced configs (in the JAX children):
+  ``params`` / ``param_bytes`` exact for all ten archs, the train and
+  prefill arguments of the dense and MoE families exact, decode's
+  arguments exact or apart by the pinned ``DECODE_ARGUMENT_GAPS``,
+  FLOPs within 1 % or apart by the named ``FLOP_GAPS``, exactly.
 
 Tolerances:
 
@@ -96,6 +104,7 @@ from repro.sharding import rules as j_rules
 from repro_torch import configs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import (AbstractMesh, Mesh, gather_fwd,
                                      make_production_mesh, psum_bwd,
                                      psum_fwd)
@@ -1172,6 +1181,124 @@ def test_train_launcher_on_a_data_mesh(tmp_path):
         "step_00000000", "step_00000002", "step_00000003"]
     resumed = run(4, str(tmp_path / "four"), steps_=4)
     assert "resumed from checkpoint step 3" in resumed
+
+
+# -------------------------------------------------------------- dry-run
+# The port's per-rank FLOPs above repro's where the gap passes 1 %, by
+# (arch, kind): exact, from this mesh's reduced cells (PERF.md §6 names
+# each).  The port keeps the residual whole over "model" and computes a
+# leaf whole on every model rank where its heads do not split (ROADMAP
+# §3), where repro's partitioner splits the rank's tokens (ROADMAP item
+# 7d):
+#   * the K / V projections of 2 kv heads on the 4-way axis (yi, mixtral,
+#     the vlm's self and image-side cross attention);
+#   * the whole attention of 6 heads (nemotron, minicpm);
+#   * MLA's down projections wdq / wdkv (deepseek);
+#   * Mamba2's in_proj B / C columns and the shared block's (zamba2);
+#   * the sLSTM's recurrent products (xlstm's prefill).
+# A train cell adds the two backward products of each.
+FLOP_GAPS = {
+    ("yi-9b", "train"): 4980736, ("yi-9b", "prefill"): 1572864,
+    ("yi-9b", "decode"): 49152,
+    ("nemotron-4-15b", "train"): 38141952,
+    ("nemotron-4-15b", "prefill"): 11796480,
+    ("nemotron-4-15b", "decode"): 368640,
+    ("minicpm-2b", "train"): 31260672, ("minicpm-2b", "prefill"): 9732096,
+    ("minicpm-2b", "decode"): 285696,
+    ("llama-3.2-vision-90b", "prefill"): 2162688,
+    ("llama-3.2-vision-90b", "decode"): 49152,
+    ("zamba2-1.2b", "prefill"): 2818048, ("zamba2-1.2b", "decode"): 67584,
+    ("xlstm-1.3b", "prefill"): 139264,
+    ("deepseek-v2-236b", "train"): 6291456,
+    ("deepseek-v2-236b", "prefill"): 2162688,
+    ("deepseek-v2-236b", "decode"): 67584,
+    ("mixtral-8x7b", "train"): 4980736, ("mixtral-8x7b", "prefill"): 1572864,
+    ("mixtral-8x7b", "decode"): 49152,
+}
+FLOP_RTOL = 0.01
+# The port's decode arguments above repro's, by design: the recurrent
+# state blocks of local_cache (ROADMAP §3: zamba2's conv state holds the
+# rank's x channels and B / C whole; the xLSTM's n / m and the sLSTM's
+# state split by heads, where repro keeps them whole), and the weights
+# repro's jit drops as unused (keep_unused=False: the vlm's image-side
+# k / v projections and the encdec's encoder, which decode never reads).
+DECODE_ARGUMENT_GAPS = {"llama-3.2-vision-90b": 3072,
+                        "seamless-m4t-medium": 58624, "zamba2-1.2b": 5760,
+                        "xlstm-1.3b": -7776}
+@pytest.fixture(scope="module")
+def port_dryrun():
+    """``record(arch, kind, rank=0)``: the port's dry-run record of a
+    reduced cell on (2, 4) at ``rank``, each made once."""
+    made = {}
+
+    def record(arch, kind, rank=0):
+        if (arch, kind, rank) not in made:
+            made[arch, kind, rank] = dryrun.cell_record(
+                configs.get_reduced_config(arch),
+                pair.dryrun_shape(kind, ShapeConfig),
+                dryrun.CountingMesh(pair.MESH, pair.AXES, rank),
+                RunConfig(**pair.RUN_KNOBS))
+        return made[arch, kind, rank]
+    return record
+
+
+@pytest.mark.parametrize("kind", pair.DRYRUN_KINDS)
+@pytest.mark.parametrize("arch", pair.DRYRUN_GLOO_ARCHS)
+def test_counting_mesh_counts_the_gloo_ranks(runs, port_dryrun, arch, kind):
+    """The dry-run's counting mesh against the gloo ranks stepping the
+    same cell (first and last rank): equal collective bytes and calls by
+    kind, FlopCounterMode totals and argument bytes."""
+    last = pair.MESH[0] * pair.MESH[1] - 1
+    for rank in (0, last):
+        rec = port_dryrun(arch, kind, rank)
+        pre = f"dryrun/{arch}/{kind}/rank{rank}/"
+        got = runs[8]
+        assert rec["collective_bytes_per_device"] == {
+            c: int(got[pre + f"bytes/{c}"]) for c in pair.COLLECTIVE_KINDS}
+        assert rec["collective_counts"] == {
+            c: int(got[pre + f"calls/{c}"]) for c in pair.COLLECTIVE_KINDS}
+        assert rec["flops_per_device"] == int(got[pre + "flops"])
+        assert rec["memory"]["argument_size"] == int(
+            got[pre + "argument_size"])
+
+
+@pytest.mark.parametrize("arch", pair.DRYRUN_ARCHS)
+def test_dryrun_params_match_repro(runs, port_dryrun, arch):
+    rec, j = port_dryrun(arch, "prefill"), runs["jax"]
+    assert rec["params"] == int(j[f"dryrun/{arch}/prefill/params"])
+    assert rec["param_bytes"] == int(j[f"dryrun/{arch}/prefill/param_bytes"])
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+@pytest.mark.parametrize("arch", pair.DRYRUN_TRAIN_ARCHS)
+def test_dryrun_arguments_match_repro(runs, port_dryrun, arch, kind):
+    """A rank's blocks, AdamW state and batch rows: the bytes repro's
+    compiled step takes on a device."""
+    assert port_dryrun(arch, kind)["memory"]["argument_size"] == int(
+        runs["jax"][f"dryrun/{arch}/{kind}/argument_size"])
+
+
+@pytest.mark.parametrize("arch", pair.DRYRUN_ARCHS)
+def test_dryrun_decode_arguments_match_repro(runs, port_dryrun, arch):
+    got = port_dryrun(arch, "decode")["memory"]["argument_size"]
+    want = int(runs["jax"][f"dryrun/{arch}/decode/argument_size"])
+    assert got - want == DECODE_ARGUMENT_GAPS.get(arch, 0)
+
+
+@pytest.mark.parametrize("cell", [(a, "train") for a in
+                                  pair.DRYRUN_TRAIN_ARCHS]
+                         + [(a, k) for a in pair.DRYRUN_ARCHS
+                            for k in ("prefill", "decode")])
+def test_dryrun_flops_match_repro(runs, port_dryrun, cell):
+    """Per-rank FLOPs within FLOP_RTOL of repro's, or above them by
+    exactly the named FLOP_GAPS."""
+    arch, kind = cell
+    got = port_dryrun(arch, kind)["flops_per_device"]
+    want = int(runs["jax"][f"dryrun/{arch}/{kind}/flops_per_device"])
+    if cell in FLOP_GAPS:
+        assert got - want == FLOP_GAPS[cell]
+    else:
+        assert abs(got - want) <= FLOP_RTOL * want, (got, want)
 
 
 def _free_port():

@@ -46,6 +46,23 @@ One more, found training on a data mesh (a rank's batch of one row):
   test hands ``attend_bshd`` a function that refuses what the card's
   wrapper refuses, at B = 1 and 3, with the twin's values.
 
+Two more, found running the model on the meta device (the dry-run,
+``launch.dryrun``):
+
+* F12, the kernel wrappers sent only CPU tensors to their twins: a meta
+  tensor took the CUDA route and failed building the kernels ("nvcc not
+  found"), where ``ops.resolve_backend`` sends every tensor off the card
+  to ``ref``.  Every wrapper now takes the twin for any tensor not on
+  CUDA; the tests call flash (both routes' dtypes, a padded head dim),
+  the two bbox kernels, the two pip kernels, the segment kernel (with
+  and without a value column) and the candidate test on meta tensors,
+  with ``_build.load`` refusing, and get meta tensors of the twin's
+  shapes and dtypes;
+* F13, the router's expert counts came from ``torch.bincount``, which
+  the meta device lacks: they are now f32 ones added per expert
+  (``index_add_``), exact below 2^24 and so bit-equal to the
+  ``bincount``'s on the CPU, and the router runs on meta.
+
 The cases marked ``cuda`` repeat each on the card, against the twins,
 and skip here; chip_smoke.py runs the same on the H100.
 """
@@ -70,7 +87,12 @@ from repro.serving import ServeConfig as JServeConfig
 from repro_torch.core.cells import CellCovering
 from repro_torch.core.engine import EngineConfig, GeoEngine
 from repro_torch.core.resolve import resolve_candidates as t_resolve
-from repro_torch.kernels import _build, flash_attn, ops, ref
+from repro_torch import configs
+from repro_torch.kernels import _build, flash_attn, gather_pip, ops, ref
+from repro_torch.kernels import bbox as bbox_kernels
+from repro_torch.kernels import pip as pip_kernels
+from repro_torch.kernels import segment as segment_kernels
+from repro_torch.models import moe as t_moe
 from repro_torch.serving import GeoServer, ServeConfig
 
 NEEDS_CUDA = "needs a CUDA device; chip_smoke.py checks it"
@@ -408,6 +430,94 @@ def test_attend_bshd_hands_the_kernel_contiguous_heads(b):
     got = flash_attn.attend_bshd(kernel, q, k, v, causal=True)
     assert torch.equal(got, flash_attn.attend_bshd(twin, q, k, v,
                                                    causal=True))
+
+
+# ----------------------------------------------------------------- F12
+META_CALLS = ("flash_f32_d12", "flash_bf16_d64", "bbox_mask",
+              "bbox_count_select", "crossings_gathered", "crossings_one",
+              "segment_counts", "segment_values", "crossings_candidates")
+
+
+def _kernel_calls(rng) -> dict:
+    """{name: (wrapper, CPU arguments, keywords)} of every kernel wrapper
+    whose twin runs on meta (the cascade's reads its candidate counts)."""
+    def f32(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, size=shape),
+                               dtype=torch.float32)
+
+    def i32(hi, *shape):
+        return torch.as_tensor(rng.integers(0, hi, size=shape),
+                               dtype=torch.int32)
+    ids = torch.sort(i32(5, 40)).values
+    qkv_bf16 = [f32(6, 40, 64).to(torch.bfloat16) for _ in range(3)]
+    flash = flash_attn.flash_attn_bhsd
+    i32s = [torch.tensor(v, dtype=torch.int32)
+            for v in ([0, 1, 3], [1, 2, 1], [16, 20, 9])]
+    return {
+        "flash_f32_d12": (flash, [f32(6, 40, 12) for _ in range(3)],
+                          {"causal": True}),
+        "flash_bf16_d64": (flash, qkv_bf16, {"causal": False}),
+        "bbox_mask": (bbox_kernels.bbox_mask, [f32(40, 2), f32(7, 4)], {}),
+        "bbox_count_select": (bbox_kernels.bbox_count_select,
+                              [f32(40, 2), f32(40, 3, 4)], {}),
+        "crossings_gathered": (pip_kernels.crossings_gathered,
+                               [f32(40, 2), f32(40, 5, 4)], {}),
+        "crossings_one": (pip_kernels.crossings_one,
+                          [f32(40, 2), f32(5, 4)], {}),
+        "segment_counts": (segment_kernels.segment_reduce_sorted,
+                           [ids, None, 4], {}),
+        "segment_values": (segment_kernels.segment_reduce_sorted,
+                           [ids, f32(40), 4], {}),
+        "crossings_candidates": (gather_pip.crossings_candidates,
+                                 [i32(3, 40), f32(40, 2), *i32s,
+                                  f32(4, 4, 16), 2], {}),
+    }
+
+
+@pytest.mark.parametrize("name", META_CALLS)
+def test_meta_tensors_take_the_twin(monkeypatch, name):
+    """F12: a wrapper called on meta tensors runs its twin there (meta
+    results of the twin's shapes and dtypes) and builds no kernel."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a meta call reached the kernel build")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "nvcc_path", refuse)
+    fn, args, kw = _kernel_calls(np.random.default_rng(12))[name]
+    want = fn(*args, **kw)
+    meta = [torch.empty(a.shape, dtype=a.dtype, device="meta")
+            if isinstance(a, torch.Tensor) else a for a in args]
+    got = fn(*meta, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"
+        assert (g.shape, g.dtype) == (w.shape, w.dtype)
+
+
+# ----------------------------------------------------------------- F13
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_router_expert_counts_equal_bincount(seed):
+    """F13: the router's ``ce`` bit-equal to the ``bincount`` it replaced
+    (routing tilted so some experts get many picks and some none), and
+    the router runs on meta."""
+    cfg = configs.get_reduced_config("mixtral-8x7b")
+    rng = np.random.default_rng(seed)
+    t = 515
+    x = torch.as_tensor(rng.normal(size=(t, cfg.d_model)),
+                        dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(cfg.d_model, cfg.n_experts)),
+                        dtype=torch.float32)
+    w[:, 0] += 2.0 * seed
+    params = {"router": {"w": w}}
+    _, ids, (_, ce) = t_moe._router(params, cfg, x)
+    want = torch.bincount(ids.reshape(-1).long(),
+                          minlength=cfg.n_experts).float() / (t * cfg.top_k)
+    assert torch.equal(ce, want)
+    meta = {"router": {"w": w.to("meta")}}
+    top_p, ids_m, (me, ce_m) = t_moe._router(meta, cfg, x.to("meta"))
+    assert ce_m.device.type == "meta" and ce_m.shape == ce.shape
+    assert ids_m.shape == ids.shape and top_p.shape == ids.shape
 
 
 # ------------------------------------------------------- on the card
