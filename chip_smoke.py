@@ -284,7 +284,12 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
      mesh does; (d) / (e)'s models: each forward's last logits and
      token loop), then MESH_RANKS gloo ranks spawned on cuda:0 (time-
      shared: no scaling figure) draw their blocks of the same weights
-     (``sharding.rules.init_sharded``) and run:
+     (``sharding.rules.init_sharded``) and run the steps with the
+     residual sequence-parallel wherever ``repro`` pins it (every
+     transformer block of (a), (b'), (d), (e)'s encoder, (f) and (g)'s
+     shared blocks: S = 2,048 divides the 4-way and 2-way axes), each
+     printing its ranks' collective calls and result bytes by kind
+     (``dryrun.counted_collectives`` around the forward or step):
      a. ``make_prefill_step`` over MESH_MOE_BATCH x MESH_MOE_SEQ on a
         (1, 4) and a (2, 2) mesh, tensor-parallel over "model" (each
         rank its heads, vocab block and experts), routed as one process
@@ -323,7 +328,8 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         "full", MESH_TRAIN_BATCH x MESH_TRAIN_SEQ, 48 wgmma flash
         launches a rank at [B_loc * H / 2, S, hd], each against the
         twin): its loss, ce and grad norm within phase 9's bounds of one
-        process's first step; the blocks', compute tree's and peak bytes;
+        process's first step; the blocks', compute tree's and peak bytes
+        a rank;
      d. Llama-3.2-Vision-90B at its published widths, VLM_GROUPS of its
         20 groups (both gates of each cross block drawn live), on a
         (1, 4) mesh, tensor-parallel over "model" (16 q heads, 2 kv heads
@@ -2577,6 +2583,24 @@ def step_timing(step, batch, n_tokens) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated() - base)
 
 
+def tally_of(*tallies) -> dict:
+    """{"bytes": {kind: B}, "counts": {kind: calls}} summed over
+    ``launch.dryrun.Collectives`` tallies."""
+    from repro_torch.launch.dryrun import KINDS
+    return {"bytes": {k: sum(t.bytes[k] for t in tallies) for k in KINDS},
+            "counts": {k: sum(t.counts[k] for t in tallies) for k in KINDS}}
+
+
+def collectives_line(runs) -> str:
+    """Each rank's collectives (calls, MB of results) by kind."""
+    return "; ".join(
+        f"rank {i} " + ", ".join(
+            f"{k} {r['collectives']['counts'][k]} / "
+            f"{r['collectives']['bytes'][k] / 1e6:.2f} MB"
+            for k in r["collectives"]["counts"])
+        for i, r in enumerate(runs))
+
+
 class RouteLog:
     """The port's router calls inside ``record()``: ([T, k] ids, [T] gap
     between the k-th and (k+1)-th probability), on the host, in call
@@ -2656,8 +2680,8 @@ def op_log(model):
                                h.clone()))
         return h
 
-    def moe_ffn(params, cfg, x, mesh=None):
-        y, aux = real_moe(params, cfg, x, mesh)
+    def moe_ffn(params, cfg, x, *a, **kw):
+        y, aux = real_moe(params, cfg, x, *a, **kw)
         ops["moe_in"].append(x.clone())
         ops["moe_out"].append(y.clone())
         return y, aux
@@ -2666,8 +2690,8 @@ def op_log(model):
         ops["unembed"].append((x.clone(), params["w"]))
         return real_unembed(params, x)
 
-    def logits(x, mesh=None):
-        out = real_logits(x, mesh)
+    def logits(x, *a, **kw):
+        out = real_logits(x, *a, **kw)
         ops["final"].append(x.clone())
         ops["logits"].append(out[:, -1].float())
         return out
@@ -4079,6 +4103,7 @@ def mesh_xattn_rank(smoke, ref, rank, tmp):
     "model", and its token loop on this rank's block of the caches."""
     import torch.distributed as dist
 
+    from repro_torch.launch import dryrun
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build_model
@@ -4122,7 +4147,8 @@ def mesh_xattn_rank(smoke, ref, rank, tmp):
         step = steps.make_prefill_step(model, run, mesh)
         torch.cuda.synchronize()
         smoke.build.reset_launches()
-        with smoke.capture(keep=["flash_attn_bhsd"]) as cap:
+        with smoke.capture(keep=["flash_attn_bhsd"]) as cap, \
+                dryrun.counted_collectives() as tally:
             last = step(tree, batch)
             torch.cuda.synchronize()
         counts = dict(smoke.build.LAUNCHES)
@@ -4170,6 +4196,7 @@ def mesh_xattn_rank(smoke, ref, rank, tmp):
             flash_shapes=sorted(set(want)), flash_max_abs_err=err,
             flash_over=over, logits_vs_one=diff, unembed_shape=unembed,
             unembed_whole=unembed == (cfg.d_model, cfg.vocab),
+            collectives=tally_of(tally),
             block_bytes=block_bytes, tree_bytes=tree_bytes(tree),
             gather_s=gather_s, gathered_layout=gathered,
             peak_total_bytes=torch.cuda.max_memory_allocated() - base,
@@ -4287,11 +4314,8 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
                 dryrun.counted_collectives() as step_tally:
             last = step(tree, {"tokens": toks})
             torch.cuda.synchronize()
-        collectives = {
-            "bytes": {k: tally.bytes[k] + step_tally.bytes[k]
-                      for k in dryrun.KINDS},
-            "counts": {k: tally.counts[k] + step_tally.counts[k]
-                       for k in dryrun.KINDS}}
+        collectives = tally_of(tally, step_tally)
+        step_collectives = tally_of(step_tally)
         counts = dict(smoke.build.LAUNCHES)
         routes = dict(smoke.build.ROUTE_LAUNCHES)
         b_loc = MESH_MOE_BATCH // shape[0]
@@ -4333,6 +4357,7 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
             dropped=sum(dropped), block_bytes=block_bytes,
             tree_bytes=tree_bytes(tree), gather_s=gather_s,
             collectives=collectives,
+            step_collectives=step_collectives,
             gathered_layout=gathered, peak_total_bytes=torch.cuda
             .max_memory_allocated() - base, last=last.float().cpu().numpy().tolist()
             if rank == 0 else None, **timing)
@@ -4543,6 +4568,7 @@ def mesh_tp_train_rank(smoke, ref):
     0's batch: its loss, ce and grad norm, the step's seconds, the
     blocks' and the compute tree's bytes, peak memory."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime import steps
@@ -4566,7 +4592,8 @@ def mesh_tp_train_rank(smoke, ref):
     torch.cuda.synchronize()
     smoke.build.reset_launches()
     t0 = time.perf_counter()
-    with smoke.capture(keep=[]) as cap:
+    with smoke.capture(keep=[]) as cap, \
+            dryrun.counted_collectives() as tally:
         params, opt, m = step(params, opt, batch)
         loss = float(m["loss"])
     dt = time.perf_counter() - t0
@@ -4588,6 +4615,7 @@ def mesh_tp_train_rank(smoke, ref):
                 flash_shape=shape, flash_max_abs_err=c["max_abs_err"],
                 block_bytes=tree_bytes(params), tree_bytes=tree_b,
                 peak_bytes=torch.cuda.max_memory_allocated(),
+                collectives=tally_of(tally),
                 routes=dict(mesh.routes), coords=mesh.coords)
 
 
@@ -4865,7 +4893,9 @@ def mesh_xattn_checks(ranks, ref, out) -> None:
               f"{[round(r['gathered_layout']['tree_bytes'] / 2**30, 3) for r in runs]}"
               f" GiB in "
               f"{[round(r['gathered_layout']['gather_s'], 2) for r in runs]}"
-              f" s), routes {r0['routes']} ({card_line()})")
+              f" s), routes {r0['routes']}; the forward's collectives "
+              f"(calls / MB by kind) {collectives_line(runs)} "
+              f"({card_line()})")
         bs, s_, gen = MESH_SERVE
         print(f"phase 14: {cfg.name} token loop on (1, 4), {bs} prompts of "
               f"{s_} + {gen} generated, fed one process's tokens: each "
@@ -4941,6 +4971,7 @@ def mesh_phase(smoke, result) -> dict:
                         dropped_one=want_drop, ranks=[
                             {k: v for k, v in r.items() if k != "last"}
                             for r in runs])
+        steps_of = [dict(collectives=r["step_collectives"]) for r in runs]
         print(f"phase 14: mixtral {MESH_MOE_LAYERS} of 32 layers on a {tag} "
               f"mesh ({MESH_RANKS} gloo ranks on cuda:0), make_prefill_step "
               f"over {MESH_MOE_BATCH} x {MESH_MOE_SEQ}: last logits within "
@@ -4962,7 +4993,9 @@ def mesh_phase(smoke, result) -> dict:
               f"{[round(r['gathered_layout']['tree_bytes'] / 2**30, 3) for r in runs]}"
               f" GiB in "
               f"{[round(r['gathered_layout']['gather_s'], 2) for r in runs]}"
-              f" s), routes {runs[0]['routes']}")
+              f" s), routes {runs[0]['routes']}; the forward's collectives "
+              f"(calls / MB by kind; sequence-parallel residual) "
+              f"{collectives_line(steps_of)}")
     # (a) the token loop on (1, 4), fed one process's tokens and routed
     # as it routed: every step's logits within LOGIT_TOL of its own.
     b, s, gen = MESH_SERVE
@@ -5060,8 +5093,10 @@ def mesh_phase(smoke, result) -> dict:
           f"{[round(t['step_s'], 2) for t in tps]}, blocks GiB "
           f"{[round(t['block_bytes'] / 2**30, 3) for t in tps]}, compute "
           f"tree GiB {[round(t['tree_bytes'] / 2**30, 3) for t in tps]}, "
-          f"peak GiB {[round(t['peak_bytes'] / 2**30, 2) for t in tps]}, "
-          f"routes {tps[0]['routes']}")
+          f"peak GiB a rank "
+          f"{[round(t['peak_bytes'] / 2**30, 2) for t in tps]}, "
+          f"routes {tps[0]['routes']}; the step's collectives (calls / MB "
+          f"by kind) {collectives_line(tps)}")
     # (d) / (e) the cross-attention families on (1, 4).
     mesh_xattn_checks(ranks, ref, out)
     # (f)-(h) the last three families on (1, 4).
@@ -5154,9 +5189,9 @@ def last_references(ref, out, tmp) -> None:
             return fn
         logits_fn = model._logits
 
-        def logits_rec(x, mesh=None):
+        def logits_rec(x, *a, **kw):
             head.append(x[:, -1:].cpu())
-            return logits_fn(x, mesh)
+            return logits_fn(x, *a, **kw)
         model._logits = logits_rec
         log = RouteLog()
         try:
@@ -5234,6 +5269,7 @@ def mesh_last_case(smoke, ref, rank, tmp, mesh, tag, arch, layers, serve):
     timing, bytes and peak; then the token loop."""
     import torch.distributed as dist
 
+    from repro_torch.launch import dryrun
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models.model import build_model
     from repro_torch.runtime import steps
@@ -5272,7 +5308,8 @@ def mesh_last_case(smoke, ref, rank, tmp, mesh, tag, arch, layers, serve):
     torch.cuda.synchronize()
     smoke.build.reset_launches()
     with smoke.capture(keep=["flash_attn_bhsd"]) as cap, \
-            log.record(force or None) as rc:
+            log.record(force or None) as rc, \
+            dryrun.counted_collectives() as tally:
         last = step(tree, batch)
         torch.cuda.synchronize()
     counts = dict(smoke.build.LAUNCHES)
@@ -5344,6 +5381,7 @@ def mesh_last_case(smoke, ref, rank, tmp, mesh, tag, arch, layers, serve):
                flash_shape=bhsd if n_flash else None, flash_max_abs_err=err,
                flash_over=over, near_tie_flips=flips, logits_vs_one=diff,
                head_vs_one=head_diff, block_ratio=worst,
+               collectives=tally_of(tally),
                block_bytes=block_bytes, tree_bytes=tree_bytes(tree),
                gather_s=gather_s, gathered_layout=gathered,
                peak_total_bytes=torch.cuda.max_memory_allocated() - base,
@@ -5511,7 +5549,9 @@ def mesh_last_checks(ranks, ref, out) -> None:
               f"{[round(r['gathered_layout']['tree_bytes'] / 2**30, 3) for r in runs]}"
               f" GiB in "
               f"{[round(r['gathered_layout']['gather_s'], 2) for r in runs]}"
-              f" s), routes {r0['routes']} ({card_line()})")
+              f" s), routes {r0['routes']}; the forward's collectives "
+              f"(calls / MB by kind) {collectives_line(runs)} "
+              f"({card_line()})")
         bs, s_, gen = serve
         print(f"phase 14: {cfg.name} token loop on (1, 4), {bs} prompts of "
               f"{s_} + {gen} generated, fed one process's tokens"

@@ -23,10 +23,13 @@ drawn from U(0.5, 1.5) and its N_IMG x d_vision image tokens a row from
 normals, both from SEED alike on every rank.  Printed:
 the median host milliseconds of REPS forwards after a warm-up (each
 ending in a sync), tok/s, the kernel launches of one forward by route,
-the MoE layers' dropped (token, choice) pairs of that forward, peak
-device memory, the gather's seconds and the collectives' routes, per
-rank.  Rank 0 prints them, with the card's name and power limit, as
-one JSON line and writes ``--out``.
+the MoE layers' dropped (token, choice) pairs of that forward, its
+collectives' calls and result bytes by kind
+(``launch.dryrun.counted_collectives``; the residual is
+sequence-parallel at SEQ in every arch here), peak device memory, the
+gather's seconds and the collectives' routes, per rank.  Rank 0 prints
+them, with the card's name and power limit, as one JSON line and writes
+``--out``.
 """
 import argparse
 import dataclasses
@@ -91,6 +94,7 @@ def vlm_inputs(model, params, batch: int, device) -> torch.Tensor:
 def rank_main(rank, args, addr, out_file):
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as tf
@@ -137,8 +141,9 @@ def rank_main(rank, args, addr, out_file):
             return y, aux
         tf.moe_ffn = moe_ffn
         try:
-            last = step(tree, inputs)
-            torch.cuda.synchronize()
+            with dryrun.counted_collectives() as tally:
+                last = step(tree, inputs)
+                torch.cuda.synchronize()
         finally:
             tf.moe_ffn = real
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
@@ -161,6 +166,8 @@ def rank_main(rank, args, addr, out_file):
                    flash_shape=[batch * cfg.n_heads // args.mesh[1], SEQ,
                                 cfg.hd] if launches else None,
                    dropped=sum(dropped), moe_layers=len(dropped),
+                   collective_calls=dict(tally.counts),
+                   collective_bytes=dict(tally.bytes),
                    block_bytes=block_bytes,
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    draw_s=draw_s, gather_s=gather_s,

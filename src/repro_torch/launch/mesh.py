@@ -29,12 +29,19 @@ backend's own collective first; where gloo refuses a CUDA tensor it
 goes through ``psum`` (a zero buffer holding this rank's block for a
 gather, a slice of the sum for a scatter), and ``routes`` says so:
 "direct" or "psum" per collective, beside ``route`` ("direct" or
-"host") for ``all_reduce`` itself.  Three ``torch.autograd.Function``s
+"host") for ``all_reduce`` itself.  Five ``torch.autograd.Function``s
 carry them through a backward, Megatron's pairs:
 
   * ``gather_fwd``: all-gather forward; reduce-scatter backward (the
     axes the batch is split on: every rank's gradient is a share), or
     this rank's slice of the gradient (axes every rank computes alike);
+  * ``scatter_fwd``: reduce-scatter forward, all-gather backward (a sum
+    of partial results of which each rank keeps its block: the
+    sequence-parallel residual's row-parallel products), the partner of
+    ``gather_fwd(..., reduce=True)``;
+  * ``block_fwd``: this rank's block forward, all-gather backward (a
+    value every rank holds alike, of which each rank goes on with its
+    block);
   * ``psum_fwd``: psum forward, identity backward (a sum of partial
     results whose consumers are the same on every rank);
   * ``psum_bwd``: identity forward, psum backward (a value every rank
@@ -57,8 +64,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["AbstractMesh", "Mesh", "gather_fwd", "make_mesh",
-           "make_production_mesh", "make_test_mesh", "psum_bwd", "psum_fwd"]
+__all__ = ["AbstractMesh", "Mesh", "block_fwd", "gather_fwd", "make_mesh",
+           "make_production_mesh", "make_test_mesh", "psum_bwd", "psum_fwd",
+           "scatter_fwd"]
 
 
 class AbstractMesh:
@@ -312,6 +320,29 @@ class _GatherFwd(torch.autograd.Function):
         return gx, None, None, None, None
 
 
+class _ScatterFwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, key, dim):
+        ctx.mesh, ctx.key, ctx.dim = mesh, key, dim
+        return mesh.psum_scatter(x, key, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.key, ctx.dim), None, None, None
+
+
+class _BlockFwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, key, dim):
+        ctx.mesh, ctx.key, ctx.dim = mesh, key, dim
+        n = x.shape[dim] // mesh.axis_size(key)
+        return x.narrow(dim, mesh.index(key) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.key, ctx.dim), None, None, None
+
+
 class _PsumFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, key):
@@ -340,6 +371,29 @@ def gather_fwd(x: torch.Tensor, mesh: Mesh, axes, dim: int,
     it) or takes this rank's slice of it (each rank holds all of it)."""
     key = mesh._key(axes)
     return _GatherFwd.apply(x, mesh, key, dim, reduce) if key else x
+
+
+def scatter_fwd(x: torch.Tensor, mesh: Mesh, axes, dim: int
+                ) -> torch.Tensor:
+    """``mesh.psum_scatter(x, axes, dim)`` whose backward all-gathers the
+    gradient: each rank holds its block's, and every rank's partial
+    reads the whole."""
+    key = mesh._key(axes)
+    return _ScatterFwd.apply(x, mesh, key, dim) if key else x
+
+
+def block_fwd(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes`` (in the
+    slice's row-major order, as ``all_gather`` concatenates), for an x
+    every rank holds alike: the backward all-gathers the gradient, each
+    rank's covering its block."""
+    key = mesh._key(axes)
+    if not key:
+        return x
+    if x.shape[dim] % mesh.axis_size(key):
+        raise ValueError(f"block_fwd: dimension {dim} of {tuple(x.shape)} "
+                         f"over {mesh.axis_size(key)} ranks")
+    return _BlockFwd.apply(x, mesh, key, dim)
 
 
 def psum_fwd(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:

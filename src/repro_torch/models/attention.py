@@ -58,6 +58,33 @@ encdec decoder's over the encoder's output) has the same layout:
 where they are whole), ``cross_attn`` / ``cross_decode_attn`` its q
 heads of the residual, ``blockwise_attn`` / ``decode_attn`` over the kv
 head they read, and ``wo``'s row block summed by ``dense_rows``.
+
+Under the sequence-parallel residual (``sp``: ``layers.seq_parallel``,
+the block's call) the input is this rank's sequence block [B, S / m, D]
+of the normed residual, and the output leaves as one:
+
+* heads that split: the input is all-gathered along the sequence
+  (``layers.seq_gather``) into q / k / v of the rank's heads over the
+  whole sequence, the attention is unchanged (flash at [B * H / m, S,
+  hd]), and ``wo``'s partials leave by a reduce-scatter along the
+  sequence (``dense_rows(..., sp=True)``).  Where the kv heads are whole
+  on every rank, k / v are projected on the rank's own tokens and
+  all-gathered (``repro``'s "kv-gather"), ``wk`` / ``wv`` entering
+  through ``layers.sp_tree`` (each rank's gradient a share);
+* q heads that do not split (6 on a 4-way axis): every leaf enters
+  through ``sp_tree``, the rank projects q / k / v on its own tokens,
+  all-gathers k / v, attends its queries over every key with
+  ``blockwise_attn(..., q_offset=)`` (its block's first position) and
+  applies the whole ``wo`` to its own rows, with no collective on the
+  output;
+* MLA: the down projections ``wdq`` / ``wdkv``, their norms and ``wkr``
+  run on the rank's tokens (through ``sp_tree``), and the latents ``cq``
+  (where the heads split), ``ckv`` and the rope key ``kr`` are
+  all-gathered along the sequence;
+* cross-attention: the query side as above; the other input's k / v
+  (``cross_kv``) are as they were.
+
+Decode (one token) never takes ``sp``.
 """
 from __future__ import annotations
 
@@ -70,7 +97,8 @@ from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import psum_bwd
 from repro_torch.models.layers import apply_rope, dense, dense_rows, \
-    dense_spec, model_block, rmsnorm, rmsnorm_spec, rope_tables
+    dense_spec, model_block, rmsnorm, rmsnorm_spec, rope_tables, \
+    seq_gather, sp_tree
 
 NEG_INF = -1.0e30
 
@@ -258,48 +286,101 @@ def tp_heads(params, cfg, mesh):
     return True, slice(first, first + 1)
 
 
-def _tp_qkv(params, cfg, x, rope, mesh):
-    """(q, k, v) of this rank's heads, its kv-head slice, and whether the
-    attention is tensor-parallel (``tp_heads``)."""
+def sp_params(params, cfg, mesh, sp=False):
+    """(params, tp, kv): ``tp_heads``' (tp, kv), and the attention's
+    leaves with those a rank reads on its own tokens under ``sp``
+    through ``layers.sp_tree``: every leaf where the q heads do not
+    split, ``wk`` / ``wv`` where the kv heads are whole (see the module
+    doc)."""
     tp, kv = tp_heads(params, cfg, mesh)
-    if not tp:
-        return gqa_project_qkv(params, cfg, x, rope=rope), kv, False
-    xt = psum_bwd(x, mesh, "model")
-    if kv is None:
-        return gqa_project_qkv(params, cfg, xt, rope=rope), kv, True
-    # Every kv head, from the input as every rank holds it.
+    if sp and not tp:
+        params = sp_tree(params, mesh)
+    elif sp and kv is not None:
+        params = {k: sp_tree(params[k], mesh, k in ("wk", "wv"))
+                  for k in ("wq", "wk", "wv", "wo")}
+    return params, tp, kv
+
+
+def _rows(rope, mesh):
+    """The rope tables (sin, cos) [S, hd / 2] of this rank's sequence
+    block (None stays None)."""
+    if rope is None:
+        return None
+    n = rope[0].shape[0] // mesh.axis_size("model")
+    i = mesh.index("model")
+    return tuple(t[i * n:(i + 1) * n] for t in rope)
+
+
+def _proj(p, x, cfg, rope=None):
+    """dense(p, x) [B, S, .] as heads [B, S, ., hd], RoPE'd if given."""
     b, s = x.shape[:2]
-    q = dense(params["wq"], xt).reshape(b, s, -1, cfg.hd)
-    k = dense(params["wk"], x).reshape(b, s, -1, cfg.hd)
-    v = dense(params["wv"], x).reshape(b, s, -1, cfg.hd)
-    if rope is not None:
-        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    return (q, psum_bwd(k, mesh, "model"), psum_bwd(v, mesh, "model")), \
-        kv, True
+    y = dense(p, x).reshape(b, s, -1, cfg.hd)
+    return y if rope is None else apply_rope(y, *rope)
+
+
+def _tp_qkv(params, cfg, x, rope, mesh, sp=False):
+    """(params, (q, k, v), tp, kv): ``sp_params``' leaves, tp and kv, and
+    q / k / v of this rank's heads (rope (sin, cos) over the whole
+    sequence, or None).  With ``sp`` x is this rank's sequence block: q
+    over the whole sequence where the heads split, over its own tokens
+    where they do not; k / v over the whole sequence (projected on the
+    own tokens and all-gathered where every rank computes every kv
+    head)."""
+    params, tp, kv = sp_params(params, cfg, mesh, sp)
+    own = _rows(rope, mesh) if sp else rope
+    if tp:
+        xt = seq_gather(x, mesh, sp)
+        q = _proj(params["wq"], xt, cfg, rope)
+        if kv is None:
+            return params, (q, _proj(params["wk"], xt, cfg, rope),
+                            _proj(params["wv"], xt, cfg)), tp, kv
+    else:
+        q = _proj(params["wq"], x, cfg, own)
+    # Every kv head, from the input as this rank holds it.
+    k, v = _proj(params["wk"], x, cfg, own), _proj(params["wv"], x, cfg)
+    if sp or tp:
+        k, v = seq_gather(k, mesh, sp), seq_gather(v, mesh, sp)
+    return params, (q, k, v), tp, kv
+
+
+def _q_offset(q, k, mesh):
+    """The position of q's first row: this rank's sequence block's where
+    q holds fewer rows than k (the own-token queries of heads that do
+    not split), else 0."""
+    return mesh.index("model") * q.shape[1] if q.shape[1] != k.shape[1] \
+        else 0
 
 
 def gqa_self_attn(params, cfg, x, *, positions, chunk_q, chunk_kv,
-                  causal=True, mesh=None):
-    """Self-attention of x [B, S, D]; with ``mesh``, tensor-parallel over
-    its "model" axis where the blocks say so (see the module doc)."""
+                  causal=True, mesh=None, sp=False):
+    """Self-attention of x [B, S, D] (this rank's sequence block [B, S /
+    m, D] with ``sp``; ``positions`` [S] the whole sequence's); with
+    ``mesh``, tensor-parallel over its "model" axis where the blocks say
+    so (see the module doc)."""
     sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    (q, k, v), kv, tp = _tp_qkv(params, cfg, x, (sin, cos), mesh)
+    params, (q, k, v), tp, kv = _tp_qkv(params, cfg, x, (sin, cos), mesh, sp)
     if kv is not None:
         k, v = k[:, :, kv], v[:, :, kv]
+    if q.shape[1] != k.shape[1]:
+        o = blockwise_attn(q, k, v, causal=causal, window=cfg.sliding_window,
+                           chunk_q=chunk_q, chunk_kv=chunk_kv,
+                           q_offset=_q_offset(q, k, mesh))
+        return _attn_out(params, o, tp, mesh, sp)
     h = q.shape[2]
     k = repeat_kv(k, h)
     v = repeat_kv(v, h)
     o = self_attn(q, k, v, causal=causal, window=cfg.sliding_window,
                   chunk_q=chunk_q, chunk_kv=chunk_kv)
-    return _attn_out(params, o, tp, mesh)
+    return _attn_out(params, o, tp, mesh, sp)
 
 
-def _attn_out(params, o, tp, mesh):
+def _attn_out(params, o, tp, mesh, sp=False):
     """``wo`` of the attention output o [B, S, H, hd]: this rank's row
-    block summed over "model" (``dense_rows``) where ``tp``."""
+    block summed over "model" (``dense_rows``; reduce-scattered along
+    the sequence with ``sp``) where ``tp``."""
     b, s = o.shape[:2]
     if tp:
-        return dense_rows(params["wo"], o.reshape(b, s, -1), mesh)
+        return dense_rows(params["wo"], o.reshape(b, s, -1), mesh, sp)
     return dense(params["wo"], o.reshape(b, s, -1))
 
 
@@ -318,31 +399,38 @@ def cross_kv(params, cfg, kv_x, mesh=None):
     return k, v
 
 
-def _cross_q(params, cfg, h, k, v, mesh):
-    """(q of this rank's heads from h [B, S, D], the kv heads they read of
-    k / v [B, T, KH, hd], whether tensor-parallel)."""
-    tp, kv = tp_heads(params, cfg, mesh)
-    b, s = h.shape[:2]
-    q = dense(params["wq"], psum_bwd(h, mesh, "model") if tp else h)
+def _cross_q(params, cfg, h, k, v, mesh, sp=False):
+    """(the leaves, q of this rank's heads from h [B, S, D] (its sequence
+    block with ``sp``: q over the whole sequence where the heads split,
+    its own tokens where they do not), the kv heads they read of k / v
+    [B, T, KH, hd], whether tensor-parallel)."""
+    params, tp, kv = sp_params(params, cfg, mesh, sp)
+    if sp and not tp:
+        # Each rank's queries read every key: its gradient of k / v a
+        # share.
+        k, v = psum_bwd(k, mesh, "model"), psum_bwd(v, mesh, "model")
+    q = dense(params["wq"], seq_gather(h, mesh, sp) if tp else h)
     if kv is not None:
         k, v = k[:, :, kv], v[:, :, kv]
-    return q.reshape(b, s, -1, cfg.hd), k, v, tp
+    return params, q.reshape(q.shape[0], q.shape[1], -1, cfg.hd), k, v, tp
 
 
-def cross_attn(params, cfg, h, k, v, *, chunk_q, chunk_kv, mesh=None):
-    """Cross-attention of the normed residual h [B, S, D] over k, v
-    (``cross_kv``'s), through ``blockwise_attn`` (no RoPE, no mask): the
-    key length differs from the query length."""
-    q, k, v, tp = _cross_q(params, cfg, h, k, v, mesh)
+def cross_attn(params, cfg, h, k, v, *, chunk_q, chunk_kv, mesh=None,
+               sp=False):
+    """Cross-attention of the normed residual h [B, S, D] (its sequence
+    block with ``sp``) over k, v (``cross_kv``'s), through
+    ``blockwise_attn`` (no RoPE, no mask): the key length differs from
+    the query length."""
+    params, q, k, v, tp = _cross_q(params, cfg, h, k, v, mesh, sp)
     o = blockwise_attn(q, k, v, causal=False, chunk_q=chunk_q,
                        chunk_kv=chunk_kv)
-    return _attn_out(params, o, tp, mesh)
+    return _attn_out(params, o, tp, mesh, sp)
 
 
 def cross_decode_attn(params, cfg, h, k_cache, v_cache, mesh=None):
     """One token's cross-attention (h [B, 1, D]) over every slot of the
     caches [B, T, KH, hd] (this rank's kv heads where they split)."""
-    q, k, v, tp = _cross_q(params, cfg, h, k_cache, v_cache, mesh)
+    params, q, k, v, tp = _cross_q(params, cfg, h, k_cache, v_cache, mesh)
     o = decode_attn(q, k, v, k.shape[1])
     return _attn_out(params, o, tp, mesh)
 
@@ -356,7 +444,7 @@ def gqa_decode_self_attn(params, cfg, x, k_cache, v_cache, pos, mesh=None):
     b = x.shape[0]
     hd = cfg.hd
     sin, cos = rope_tables(pos[None], hd, cfg.rope_theta)
-    (q, k, v), kv, tp = _tp_qkv(params, cfg, x, (sin, cos), mesh)
+    params, (q, k, v), tp, kv = _tp_qkv(params, cfg, x, (sin, cos), mesh)
     if k.shape[2] != k_cache.shape[2]:
         raise ValueError(f"{k.shape[2]} kv heads into a cache of "
                          f"{k_cache.shape[2]}")
@@ -410,54 +498,76 @@ def _mla_tp(params, cfg, mesh):
     return h, model_block(mesh, h, cfg.n_heads)
 
 
-def _mla_qkr(params, cfg, x, positions, mesh=None):
-    """Shared q / rope-key computation. x [B,S,D]: q of this rank's heads
-    (``wuq``'s head columns, its re-blocked piece under a mesh), and the
-    rope key.  Under a mesh the latents are read whole on every rank
-    (``wdq`` gathered whole: its q_lora columns split would need the
-    norm summed over "model" and ``cq`` gathered), and ``cq`` and ``kr``
-    feed this rank's heads through ``psum_bwd``."""
+def _mla_params(params, mesh, sp, tp):
+    """MLA's leaves, those a rank reads on its own tokens under ``sp``
+    through ``layers.sp_tree``: the down projections, their norms and
+    ``wkr``, and every other leaf too where the heads do not split."""
+    if not sp:
+        return params
+    if not tp:
+        return sp_tree(params, mesh)
+    own = ("wdq", "q_norm", "wdkv", "kv_norm", "wkr")
+    return {k: sp_tree(params[k], mesh, k in own)
+            for k in own + ("wuq", "wuk", "wuv", "wo")}
+
+
+def _mla_qkr(params, cfg, x, positions, mesh=None, sp=False):
+    """Shared q / rope-key computation. x [B,S,D] (this rank's sequence
+    block with ``sp``; ``positions`` the whole sequence's): q of this
+    rank's heads (``wuq``'s head columns, its re-blocked piece under a
+    mesh), and the rope key.  Under a mesh the latents are read whole on
+    every rank (``wdq`` gathered whole: its q_lora columns split would
+    need the norm summed over "model" and ``cq`` gathered), and ``cq``
+    and ``kr`` feed this rank's heads through ``psum_bwd``; with ``sp``
+    they are computed on the rank's tokens and all-gathered along the
+    sequence (``cq`` only where the heads split: else q is the own
+    tokens')."""
     b, s, _ = x.shape
     h, tp = _mla_tp(params, cfg, mesh)
     cq = rmsnorm(params["q_norm"], dense(params["wdq"], x), cfg.norm_eps)
+    sin, cos = rope_tables(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    own = _rows((sin, cos), mesh) if sp else (sin, cos)
     if tp:
-        cq = psum_bwd(cq, mesh, "model")
+        cq = seq_gather(cq, mesh, sp)
     q = dense(params["wuq"], cq).reshape(
-        b, s, h, cfg.qk_nope_dim + cfg.qk_rope_dim)
+        b, cq.shape[1], h, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = q[..., cfg.qk_nope_dim:]
-    sin, cos = rope_tables(positions, cfg.qk_rope_dim, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, sin, cos)
+    q_rope = apply_rope(q_rope, *(own if cq.shape[1] == s else (sin, cos)))
     kr = dense(params["wkr"], x).reshape(b, s, 1, cfg.qk_rope_dim)
-    kr = apply_rope(kr, sin, cos)
-    if tp:
-        kr = psum_bwd(kr, mesh, "model")
+    kr = apply_rope(kr, *own)
+    if sp or tp:
+        kr = seq_gather(kr, mesh, sp)
     return q_nope, q_rope, kr, (sin, cos)
 
 
-def _mla_ckv(params, cfg, x, tp, mesh):
+def _mla_ckv(params, cfg, x, tp, mesh, sp=False):
     """The normed latent c_kv of x, whole on every rank (``psum_bwd``
-    where it feeds this rank's heads)."""
+    where it feeds this rank's heads; with ``sp`` computed on the rank's
+    tokens and all-gathered along the sequence)."""
     ckv = rmsnorm(params["kv_norm"], dense(params["wdkv"], x), cfg.norm_eps)
-    return psum_bwd(ckv, mesh, "model") if tp else ckv
+    return seq_gather(ckv, mesh, sp) if sp or tp else ckv
 
 
 def mla_self_attn(params, cfg, x, *, positions, chunk_q, chunk_kv,
-                  mesh=None):
+                  mesh=None, sp=False):
     """Training / prefill MLA in the expanded (naive) form, through
     ``blockwise_attn`` as in ``repro``; with ``mesh``, on this rank's
-    heads where the blocks say so (see the module doc)."""
-    b, s, _ = x.shape
+    heads where the blocks say so, and with ``sp`` on this rank's
+    sequence block of x (see the module doc)."""
+    b = x.shape[0]
     h, tp = _mla_tp(params, cfg, mesh)
-    q_nope, q_rope, kr, _ = _mla_qkr(params, cfg, x, positions, mesh)
-    ckv = _mla_ckv(params, cfg, x, tp, mesh)
-    k_nope = dense(params["wuk"], ckv).reshape(b, s, h, cfg.qk_nope_dim)
-    v = dense(params["wuv"], ckv).reshape(b, s, h, cfg.v_head_dim)
+    params = _mla_params(params, mesh, sp, tp)
+    q_nope, q_rope, kr, _ = _mla_qkr(params, cfg, x, positions, mesh, sp)
+    ckv = _mla_ckv(params, cfg, x, tp, mesh, sp)
+    t = ckv.shape[1]
+    k_nope = dense(params["wuk"], ckv).reshape(b, t, h, cfg.qk_nope_dim)
+    v = dense(params["wuv"], ckv).reshape(b, t, h, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, kr.expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
+    k = torch.cat([k_nope, kr.expand(b, t, h, cfg.qk_rope_dim)], dim=-1)
     o = blockwise_attn(q, k, v, causal=True, chunk_q=chunk_q,
-                       chunk_kv=chunk_kv)
-    return _attn_out(params, o, tp, mesh)
+                       chunk_kv=chunk_kv, q_offset=_q_offset(q, k, mesh))
+    return _attn_out(params, o, tp, mesh, sp)
 
 
 def mla_decode_self_attn(params, cfg, x, ckv, kr, pos, mesh=None):

@@ -11,7 +11,12 @@ Under a mesh whose "model" axis splits the hidden width
 (``sharding.rules.tp_layout``), ``ffn`` takes this rank's column blocks
 of ``w_gate`` / ``w_up`` and its row block of ``w_down`` (Megatron's
 column / row layout): the input enters through ``psum_bwd``, the bf16
-partials leave through ``layers.dense_rows``.
+partials leave through ``layers.dense_rows``.  Under the
+sequence-parallel residual (``sp``: the input is this rank's sequence
+block) the input is all-gathered along the sequence and the partials
+leave by a reduce-scatter along it; an FFN whose hidden width does not
+split runs on the rank's own tokens, its leaves through
+``layers.sp_tree``.
 """
 from __future__ import annotations
 
@@ -19,9 +24,8 @@ import math
 
 import torch
 
-from repro_torch.launch.mesh import psum_bwd
 from repro_torch.models.layers import dense, dense_rows, dense_spec, \
-    model_block, sigmoid
+    model_block, seq_gather, sigmoid, sp_tree
 
 
 def ffn_spec(d, d_ff, act: str):
@@ -52,14 +56,17 @@ def gelu_tanh(x):
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
-def ffn(params, x, act: str, mesh=None, d_ff=None):
+def ffn(params, x, act: str, mesh=None, d_ff=None, sp=False):
     """x [..., D] -> [..., D].  With ``d_ff`` (the config's width) and a
     ``w_down`` whose rows are this rank's block of it, tensor-parallel
-    over ``mesh``'s "model" axis (see the module doc)."""
+    over ``mesh``'s "model" axis; with ``sp``, x [B, S / m, D] is this
+    rank's sequence block and so is the output (see the module doc)."""
     tp = d_ff is not None and model_block(
         mesh, params["w_down"]["w"].shape[0], d_ff)
     if tp:
-        x = psum_bwd(x, mesh, "model")
+        x = seq_gather(x, mesh, sp)
+    else:
+        params = sp_tree(params, mesh, sp)
     if act == "swiglu":
         g = dense(params["w_gate"], x)
         u = dense(params["w_up"], x)
@@ -71,5 +78,5 @@ def ffn(params, x, act: str, mesh=None, d_ff=None):
     else:
         raise ValueError(act)
     if tp:
-        return dense_rows(params["w_down"], h, mesh)
+        return dense_rows(params["w_down"], h, mesh, sp)
     return dense(params["w_down"], h)

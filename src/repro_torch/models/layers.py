@@ -9,13 +9,25 @@ product that ``repro`` takes in bf16 with an f32 result
 operands, which is the same arithmetic.  ``act_spec`` is ``repro``'s
 (the spec ``shard_act`` would pin); ``shard_act`` is the identity (see
 its doc).  ``params`` is a ``ParamTree`` or a plain dict of tensors.
+
+The sequence-parallel residual (Megatron's SP, what GSPMD makes of
+``repro``'s ``shard_act(x, BATCH, "model", None)`` at every transformer
+block): where ``seq_parallel`` holds, each rank of the "model" axis
+holds its sequence block [B, S / m, D] of the residual between
+sublayers (``seq_block`` cuts it from a whole one), a column-parallel
+product reads the stream all-gathered along the sequence
+(``gather_fwd``), and a row-parallel one leaves by a reduce-scatter
+along it (``dense_rows(..., sp=True)``); a leaf every rank holds whole
+and reads on its own tokens only (a norm's scale, a gate, the
+projections of heads that do not split) enters through ``sp_tree``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.launch.mesh import psum_bwd, psum_fwd
-from repro_torch.models.module import P
+from repro_torch.launch.mesh import block_fwd, gather_fwd, psum_bwd, \
+    psum_fwd, scatter_fwd
+from repro_torch.models.module import P, tree_map
 
 ACT_DTYPE = torch.bfloat16
 
@@ -57,13 +69,74 @@ def act_spec(shape, parts, mesh):
 
 def shard_act(x, *parts):
     """The identity.  In ``repro`` a sharding constraint for GSPMD, which
-    changes no value; the port's activations are already this rank's
-    rows (``runtime.steps`` splits the batch over ``BATCH``), and where
-    GSPMD shards heads, mlp and vocab over "model" the port's families
-    compute on their parameter blocks
+    changes no value.  The port lays its activations out itself: they
+    are this rank's rows (``runtime.steps`` splits the batch over
+    ``BATCH``); where GSPMD shards heads, mlp and vocab over "model" the
+    families compute on their parameter blocks
     (``sharding.rules.tp_layout``; the attention, ``ffn`` and the head
-    below read the blocks' shapes)."""
+    read the blocks' shapes); and where ``repro`` pins the residual to
+    [BATCH, "model", None] the blocks hold its sequence block
+    (``seq_parallel``, ``seq_block``; the module doc)."""
     return x
+
+
+def seq_parallel(mesh, s: int) -> bool:
+    """Whether a residual [B, s, D] is sequence-parallel on ``mesh``: the
+    "model" axis is on it, longer than 1, and ``act_spec`` puts it on
+    the sequence (it divides ``s``), as ``repro``'s pin
+    ``shard_act(x, BATCH, "model", None)`` does.  Decode's one token and
+    a prompt the axis does not divide keep the residual whole."""
+    if mesh is None or "model" not in mesh.axis_names \
+            or mesh.shape["model"] == 1:
+        return False
+    return act_spec((1, s, 1), (None, "model", None), mesh)[1] == "model"
+
+
+def seq_block(x, mesh):
+    """(x, sp): this rank's sequence block [B, S / m, D] of a residual x
+    [B, S, D] every rank of "model" holds whole, and True, where
+    ``seq_parallel(mesh, S)``; else x itself and False.  The block's
+    backward all-gathers the gradient (``block_fwd``)."""
+    sp = seq_parallel(mesh, x.shape[1])
+    return (block_fwd(x, mesh, "model", 1) if sp else x), sp
+
+
+def seq_whole(x, mesh, sp: bool):
+    """The whole residual [B, S, D] of this rank's sequence block x (an
+    all-gather along the sequence; the backward takes this rank's block
+    of the gradient, which every rank holds whole) where ``sp``; else
+    x."""
+    return gather_fwd(x, mesh, "model", 1, reduce=False) if sp else x
+
+
+def seq_gather(x, mesh, sp: bool):
+    """The whole sequence of a sequence block x that enters this rank's
+    heads or columns (an all-gather whose backward reduce-scatters each
+    rank's partial gradient) where ``sp``; else x through ``psum_bwd``
+    (whole on every rank already)."""
+    if sp:
+        return gather_fwd(x, mesh, "model", 1, reduce=True)
+    return psum_bwd(x, mesh, "model")
+
+
+def sp_tree(params, mesh, sp: bool = True):
+    """``params`` (a leaf, or a tree of leaves every rank of "model"
+    holds whole) with each leaf through ``psum_bwd`` where ``sp``: read
+    on this rank's tokens only, each rank's gradient is a share."""
+    if not sp:
+        return params
+    if isinstance(params, torch.Tensor):
+        return psum_bwd(params, mesh, "model")
+    return tree_map(lambda t: psum_bwd(t, mesh, "model"),
+                    _as_dict(params))
+
+
+def _as_dict(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree
+    keys = list(tree._parameters) + list(tree._modules) \
+        if isinstance(tree, torch.nn.Module) else list(tree)
+    return {k: _as_dict(tree[k]) for k in keys}
 
 
 def model_block(mesh, local: int, whole: int) -> bool:
@@ -136,20 +209,27 @@ def embed_spec(vocab, d):
     return {"table": P((vocab, d), ("vocab", "embed"), init="normal")}
 
 
-def embed(params, tokens, mesh=None, vocab=None):
+def embed(params, tokens, mesh=None, vocab=None, sp=False):
     """The rows of ``tokens``: gather, then cast (the same bits as
     ``repro``'s cast-then-gather without casting the whole table).  Where
     the table is this rank's vocab block of ``vocab`` rows (``mesh``'s
     "model" axis), the rank looks up the tokens in its range, puts zeros
-    elsewhere and sums over "model": exactly one process's rows."""
+    elsewhere and sums over "model": exactly one process's rows.  With
+    ``sp`` the rows are this rank's sequence block (``seq_parallel``):
+    the vocab block's rows leave by a reduce-scatter along the sequence,
+    whole rows are cut (``seq_block``)."""
     table = params["table"]
     if vocab is None or not model_block(mesh, table.shape[0], vocab):
-        return table[tokens].to(ACT_DTYPE)
+        rows = table[tokens].to(ACT_DTYPE)
+        return block_fwd(rows, mesh, "model", 1) if sp else rows
     n = table.shape[0]
     idx = tokens.long() - mesh.index("model") * n
     mine = (idx >= 0) & (idx < n)
     rows = table[torch.where(mine, idx, 0)].to(ACT_DTYPE)
-    return psum_fwd(rows.masked_fill(~mine[..., None], 0), mesh, "model")
+    rows = rows.masked_fill(~mine[..., None], 0)
+    if sp:
+        return scatter_fwd(rows, mesh, "model", 1)
+    return psum_fwd(rows, mesh, "model")
 
 
 def unembed_spec(vocab, d):
@@ -217,13 +297,19 @@ def dense(params, x):
     return y
 
 
-def dense_rows(params, x, mesh):
+def dense_rows(params, x, mesh, sp=False):
     """``dense`` of this rank's columns of ``x`` by its row block of
     ``w`` (no bias), summed over ``mesh``'s "model" axis (Megatron's g):
     each partial product rounded to x's dtype (bf16), the partials added
     in f32 and the sum rounded once, as XLA lowers ``repro``'s
     partitioned ``dense`` (a bf16 partial, an all-reduce promoted to
     f32).  The f32 sum of a few bf16 values is exact but for far-apart
-    exponents, so it does not depend on the collective's order."""
-    return psum_fwd((x @ params["w"].to(x.dtype)).float(), mesh,
-                    "model").to(x.dtype)
+    exponents, so it does not depend on the collective's order.  With
+    ``sp`` (x [B, S, .] over the whole sequence, ``seq_parallel``) the
+    f32 partials are reduce-scattered along the sequence instead, each
+    rank keeping its block [B, S / m, D]: the bits of the all-reduce's
+    rows."""
+    part = (x @ params["w"].to(x.dtype)).float()
+    if sp:
+        return scatter_fwd(part, mesh, "model", 1).to(x.dtype)
+    return psum_fwd(part, mesh, "model").to(x.dtype)

@@ -82,7 +82,8 @@ from repro_torch.models.attention import cross_attn, cross_decode_attn, \
     gqa_spec, repeat_kv, self_attn
 from repro_torch.models.ffn import ffn, ffn_spec
 from repro_torch.models.layers import ACT_DTYPE, dense, embed, embed_spec, \
-    model_block, rmsnorm, rmsnorm_spec, rope_tables, unembed, unembed_spec
+    model_block, rmsnorm, rmsnorm_spec, rope_tables, seq_block, \
+    seq_parallel, seq_whole, unembed, unembed_spec
 from repro_torch.models.module import ParamTree, abstract_params, \
     param_count, stack
 
@@ -199,15 +200,20 @@ class Model(nn.Module):
         return (torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
                 torch.zeros(shape, dtype=CACHE_DTYPE, device=device))
 
-    def _embed(self, tokens, mesh=None):
+    def _embed(self, tokens, mesh=None, sp=False):
+        """The token rows; with ``sp`` this rank's sequence block of them
+        (``layers.embed``)."""
         if mesh is None:
             return embed(self.embed, tokens)
-        return embed(self.embed, tokens, mesh, self.cfg.vocab)
+        return embed(self.embed, tokens, mesh, self.cfg.vocab, sp)
 
-    def _logits(self, x, mesh=None):
-        """f32 logits of the hidden state x; this rank's vocab block where
-        the unembedding (or the tied table) is a block over "model" (x
-        enters it through ``psum_bwd``)."""
+    def _logits(self, x, mesh=None, sp=False):
+        """f32 logits of the hidden state x (with ``sp`` this rank's
+        sequence block, gathered whole first, as ``repro``'s
+        ``shard_act(x, BATCH, None, None)``); this rank's vocab block
+        where the unembedding (or the tied table) is a block over "model"
+        (x enters it through ``psum_bwd``)."""
+        x = seq_whole(x, mesh, sp)
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         tied = self.cfg.tie_embeddings
         w = self.embed["table"] if tied else self.unembed["w"]
@@ -230,13 +236,14 @@ class DenseModel(Model):
 
     def forward(self, run, batch, mesh=None):
         tokens = batch["tokens"]
-        x = self._embed(tokens, mesh)
+        sp = seq_parallel(mesh, tokens.shape[1])
+        x = self._embed(tokens, mesh, sp)
         pos = _positions(tokens.shape[1], x.device)
         blk = _wrap_remat(
             lambda p, x: tf.dense_block(p, self.cfg, run, x, pos, mesh), run)
         for p in self.blocks:
             x = blk(p, x)
-        return self._logits(x, mesh), {}
+        return self._logits(x, mesh, sp), {}
 
     @torch.inference_mode()
     def init_cache(self, batch, max_len, device=None, kv_heads=None):
@@ -315,7 +322,8 @@ class MoEModel(Model):
         (token, choice) pairs (i32)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = self._embed(tokens, mesh)
+        sp = seq_parallel(mesh, tokens.shape[1])
+        x = self._embed(tokens, mesh, sp)
         pos = _positions(tokens.shape[1], x.device)
         dblk = _wrap_remat(
             lambda p, x: tf.dense_block(p, cfg, run, x, pos, mesh), run)
@@ -330,7 +338,7 @@ class MoEModel(Model):
             dropped.append(aux["dropped"])
         aux = {"lb_loss": torch.stack(lb).mean(),
                "dropped": torch.stack(dropped).sum(dtype=torch.int32)}
-        return self._logits(x, mesh), aux
+        return self._logits(x, mesh, sp), aux
 
     @torch.inference_mode()
     def init_cache(self, batch, max_len, device=None, kv_heads=None):
@@ -402,7 +410,8 @@ class VLMModel(Model):
         cfg = self.cfg
         tokens = batch["tokens"]
         img = batch["img"].to(ACT_DTYPE)
-        x = self._embed(tokens, mesh)
+        sp = seq_parallel(mesh, tokens.shape[1])
+        x = self._embed(tokens, mesh, sp)
         pos = _positions(tokens.shape[1], x.device)
         sblk = _wrap_remat(
             lambda p, x: tf.dense_block(p, cfg, run, x, pos, mesh), run)
@@ -410,8 +419,8 @@ class VLMModel(Model):
             for p in group["selfs"]:
                 x = sblk(p, x)
             kv = tf.cross_img_kv(group["cross"], cfg, img, mesh)
-            x = tf.cross_block(group["cross"], cfg, run, x, kv, mesh)
-        return self._logits(x, mesh), {}
+            x = tf.cross_block(group["cross"], cfg, run, x, kv, mesh, sp)
+        return self._logits(x, mesh, sp), {}
 
     @torch.inference_mode()
     def init_cache(self, batch, max_len, device=None, kv_heads=None):
@@ -484,10 +493,12 @@ class EncDecModel(Model):
         blk = _wrap_remat(
             lambda p, x: tf.dense_block_bidir(p, cfg, run, x, pos, mesh),
             run)
-        x = frames
+        # The encoder's residual is sequence-parallel where its length
+        # divides; the decoder's cross K / V read its output whole.
+        x, sp = seq_block(frames, mesh)
         for p in self.enc_blocks:
             x = blk(p, x)
-        return rmsnorm(self.enc_norm, x, cfg.norm_eps)
+        return rmsnorm(self.enc_norm, seq_whole(x, mesh, sp), cfg.norm_eps)
 
     def _dec_block(self, p, x, enc_out, pos, run, mesh=None):
         cfg = self.cfg

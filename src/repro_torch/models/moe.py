@@ -46,6 +46,14 @@ gradient where the batch is split on "data" and slices it where it is
 replicated.  Virtual experts come from weights every model rank holds
 whole, so their slice's gradient is summed over "model" too.
 
+Under the sequence-parallel residual (``sp``: the input is this rank's
+sequence block) the input is all-gathered whole along the sequence, as
+``repro``'s ``shard_map`` in_specs take it (the gradient: this rank's
+block, every rank's being whole after the body's sums), the body runs
+as above, and each rank keeps its sequence block of the output (the
+backward all-gathers it: every rank's partial output reads the whole).
+The shared experts take the sequence-parallel ``ffn``.
+
 With a mesh that has no "model" axis, ``repro`` runs the one-rank path
 over the whole batch (capacity from all B rows, routing across the data
 shards).  The port gathers the rows over the batch axes, runs that path
@@ -60,9 +68,10 @@ import torch
 
 from repro_torch.distributed.dispatch import gather_from_buckets, \
     plan_routes, scatter_to_buckets, slot_tables
-from repro_torch.launch.mesh import gather_fwd, psum_bwd, psum_fwd
+from repro_torch.launch.mesh import block_fwd, gather_fwd, psum_bwd, \
+    psum_fwd
 from repro_torch.models.ffn import ffn, ffn_spec, silu
-from repro_torch.models.layers import dense_spec
+from repro_torch.models.layers import dense_spec, seq_whole
 from repro_torch.models.module import P
 from repro_torch.sharding.rules import mesh_extent
 
@@ -252,13 +261,18 @@ def _moe_gathered(params, cfg, x, mesh):
     return y, lb, dropped
 
 
-def moe_ffn(params, cfg, x, mesh=None):
+def moe_ffn(params, cfg, x, mesh=None, sp=False):
     """x [B, S, D] -> ([B, S, D], aux dict).  With a mesh, ``x`` is this
     rank's rows (see the module doc) and ``aux`` holds the whole batch's
-    load-balance loss and dropped count."""
+    load-balance loss and dropped count; with ``sp``, x and the output
+    are this rank's sequence blocks [B, S / m, D]."""
     b, s, d = x.shape
     e = cfg.n_experts
-    if mesh is not None and "model" in mesh.axis_names:
+    if sp:
+        y, lb, dropped = _moe_mesh(params, cfg, seq_whole(x, mesh, sp),
+                                   mesh)
+        y = block_fwd(y, mesh, "model", 1)
+    elif mesh is not None and "model" in mesh.axis_names:
         y, lb, dropped = _moe_mesh(params, cfg, x, mesh)
     elif mesh is not None and mesh.size > 1:
         y, lb, dropped = _moe_gathered(params, cfg, x, mesh)
@@ -269,5 +283,5 @@ def moe_ffn(params, cfg, x, mesh=None):
     aux = {"lb_loss": lb, "dropped": dropped}
     if cfg.n_shared_experts:
         y = y + ffn(params["shared"], x, "swiglu", mesh,
-                    cfg.d_ff_expert * cfg.n_shared_experts)
+                    cfg.d_ff_expert * cfg.n_shared_experts, sp)
     return y, aux

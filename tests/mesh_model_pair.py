@@ -114,6 +114,34 @@ DRYRUN_TRAIN_ARCHS = ("yi-9b", "qwen1.5-0.5b", "nemotron-4-15b",
                       "minicpm-2b", "deepseek-v2-236b", "mixtral-8x7b")
 DRYRUN_GLOO_ARCHS = TRAIN_ARCHS
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+# The sequence-parallel residual (``layers.seq_parallel``) block by block
+# on (2, 4), TRAIN_B x TRAIN_S (S / 4 = 8 tokens a rank) and SP_ODD_S
+# (30: the 4-way axis does not divide it, the residual stays whole): each
+# layer-0 block of the pinned families, (arch, kind, its parameter
+# prefixes), against the same block with the residual whole
+# (``whole_residual``: the layout before the sequence-parallel one) and
+# against one process on the rank's rows.  MiniCPM (reduced) splits none
+# of its 6 q heads on the 4-way axis; its weights are drawn here
+# (SP_SEED), the others' are repro's.  The kinds in SP_BIT_EQUAL change
+# only a collective (an all-reduce becomes a reduce-scatter, the input
+# all-gathered), the others also project k / v, MLA's latents, zamba2's
+# LoRA or undivided heads on the rank's own rows.  Gradients (SP_GRADS:
+# all but the MoE blocks, whose capacity is per data shard) in f32
+# (``f32_blocks``) against one process on the whole batch.
+SP_BLOCKS = (("qwen1.5-0.5b", "dense", ("blocks.0",)),
+             ("minicpm-2b", "dense", ("blocks.0",)),
+             ("mixtral-8x7b", "moe", ("blocks.0",)),
+             ("deepseek-v2-236b", "moe", ("blocks.0",)),
+             ("deepseek-v2-236b", "mla", ("blocks.0.attn",)),
+             ("llama-3.2-vision-90b", "dense", ("groups.0.selfs.0",)),
+             ("llama-3.2-vision-90b", "cross", ("groups.0.cross",)),
+             ("seamless-m4t-medium", "encoder", ("enc_blocks.0",)),
+             ("zamba2-1.2b", "shared", ("shared", "groups.0.lora")))
+SP_BIT_EQUAL = (("qwen1.5-0.5b", "dense"), ("llama-3.2-vision-90b", "cross"),
+                ("seamless-m4t-medium", "encoder"))
+SP_GRADS = tuple(c for c in SP_BLOCKS if c[1] != "moe")
+SP_ODD_S = 30
+SP_SEED = 11
 # Mixtral's routing in repro's train step, written by the JAX child
 # beside its outputs and read by the port's ranks.
 ROUTES_FILE = "jax_routes.npz"
@@ -170,28 +198,66 @@ def partials():
     """The port's row-parallel products inside the block, in call order:
     [tag ("wo" or "w_down"), this rank's input columns, its weight block,
     the partial it sums over "model" (bf16 values, handed to the sum in
-    f32)]."""
+    f32; an all-reduce, or a reduce-scatter along the sequence)]."""
     from repro_torch.models import attention, ffn, layers
     calls = []
     real_rows, real_psum = layers.dense_rows, layers.psum_fwd
 
+    real_scatter = layers.scatter_fwd
+
     def rows_for(tag):
-        def rec(params, x, mesh):
+        def rec(params, x, mesh, sp=False):
             calls.append([tag, x.clone(), params["w"]])
-            return real_rows(params, x, mesh)
+            return real_rows(params, x, mesh, sp)
         return rec
 
-    def psum(x, mesh, axes):
+    def keep(x):
         if calls and len(calls[-1]) == 3:
             calls[-1].append(x.clone())
+
+    def psum(x, mesh, axes):
+        keep(x)
         return real_psum(x, mesh, axes)
+
+    def scatter(x, mesh, axes, dim):
+        keep(x)
+        return real_scatter(x, mesh, axes, dim)
     attention.dense_rows, ffn.dense_rows = rows_for("wo"), rows_for("w_down")
-    layers.psum_fwd = psum
+    layers.psum_fwd, layers.scatter_fwd = psum, scatter
     try:
         yield calls
     finally:
         attention.dense_rows = ffn.dense_rows = real_rows
-        layers.psum_fwd = real_psum
+        layers.psum_fwd, layers.scatter_fwd = real_psum, real_scatter
+
+
+@contextlib.contextmanager
+def whole_residual():
+    """The blocks with the residual whole over "model" whatever its
+    length (``layers.seq_parallel`` False): the tensor-parallel layout
+    the sequence-parallel one replaced."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    real = layers.seq_parallel
+    layers.seq_parallel = tf.seq_parallel = lambda mesh, s: False
+    try:
+        yield
+    finally:
+        layers.seq_parallel = tf.seq_parallel = real
+
+
+@contextlib.contextmanager
+def f32_blocks():
+    """The blocks' activations in f32 (``ACT_DTYPE``): the split's
+    arithmetic without bf16 rounding."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    layers.ACT_DTYPE = tf.ACT_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        layers.ACT_DTYPE = tf.ACT_DTYPE = torch.bfloat16
 
 
 def flat(tree, pre=()) -> dict:
@@ -1456,6 +1522,169 @@ def _block_rank(mesh, cfg, whole, sh, prefixes, kind, out):
             (v - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
+def _sp_fn(arch, kind, cfg, run, img):
+    """``fn(tree, x, mesh, s) -> y`` of an SP_BLOCKS block (``tree``: the
+    nested parameters, full names; ``s`` the whole sequence's length;
+    ``img`` the vlm's image rows, as x's)."""
+    import torch
+    from repro_torch.models import attention, layers
+    from repro_torch.models import transformer as tf
+    pre = dict((c[0], c[2][0]) for c in SP_BLOCKS if c[1] == kind
+               and c[0] == arch)[arch]
+
+    def pos(s):
+        return torch.arange(s, dtype=torch.int32)
+
+    def fn(t, x, m, s):
+        p = _subtree(t, pre)
+        if kind == "dense":
+            return tf.dense_block(p, cfg, run, x, pos(s), m)
+        if kind == "encoder":
+            return tf.dense_block_bidir(p, cfg, run, x, pos(s), m)
+        if kind == "moe":
+            return tf.moe_block(p, cfg, run, x, pos(s), m)[0]
+        if kind == "mla":
+            return attention.mla_self_attn(
+                p, cfg, x, positions=pos(s), chunk_q=run.attn_chunk_q,
+                chunk_kv=run.attn_chunk_kv, mesh=m,
+                sp=layers.seq_parallel(m, s))
+        if kind == "cross":
+            kv = tf.cross_img_kv(p, cfg, img.to(x.dtype), m)
+            return tf.cross_block(p, cfg, run, x, kv, m,
+                                  layers.seq_parallel(m, s))
+        return tf._shared_attn(p, _subtree(t, "groups.0.lora"), cfg, run, x,
+                               pos(s), m)
+    return fn
+
+
+def _sp_rank(mesh, ref, out):
+    """The sequence-parallel residual on this rank: ``scatter_fwd`` /
+    ``block_fwd`` against ``psum`` / ``all_gather`` (forward and
+    backward, bit for bit), then each SP_BLOCKS block (see SP_BLOCKS):
+    the output's shape (zamba2's shared block: the residual's inside it),
+    its distance from the same block with the residual whole and from
+    one process on the rank's rows (the serving tree, bf16), at TRAIN_S
+    and at SP_ODD_S; for SP_GRADS each leaf's gradient block in f32
+    against one process on the whole batch.  The MoE blocks route as the
+    whole-residual run routed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import block_fwd, scatter_fwd
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import init_params_into
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (local_shard, model_shardings,
+                                            split_batch, tp_leaves,
+                                            tp_pieces)
+    r, i = mesh.rank, mesh.index("model")
+    # Integers: every order of the sum gives the same bits.
+    x = torch.arange(96.0).reshape(2, 16, 3) * (r + 1)
+    cot = torch.arange(24.0).reshape(2, 4, 3) - 3 * r
+    mine = slice(4 * i, 4 * i + 4)
+    for tag, op, want in (("scatter", scatter_fwd,
+                           mesh.psum(x, "model")[:, mine]),
+                          ("block", block_fwd, x[:, mine])):
+        xg = x.clone().requires_grad_(True)
+        y = op(xg, mesh, "model", 1)
+        g, = torch.autograd.grad(y, xg, cot)
+        out[f"sp/{tag}/rank{r}"] = np.array([
+            torch.equal(y, want), y.is_contiguous(),
+            torch.equal(g, mesh.all_gather(cot, "model", 1))])
+    run = RunConfig(**RUN_KNOBS)
+    m = mesh.shape["model"]
+    models = {}
+    for arch, kind, prefixes in SP_BLOCKS:
+        cfg = configs.get_reduced_config(arch)
+        if arch not in models:
+            if f"w/{arch}/embed/table" in ref:
+                full = port_model(arch, ref)
+            else:
+                full = build_model(cfg, "cpu", trainable=True)
+                init_params_into(full, torch.Generator().manual_seed(SP_SEED))
+            models[arch] = full
+        whole = {k: p.detach() for k, p in models[arch].named_parameters()}
+        model = build_model(cfg, "meta", trainable=True)
+        sh = model_shardings(model, mesh)
+        keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
+        names = [k for k in whole
+                 if any(k.startswith(p + ".") for p in prefixes)]
+        blocks = {k: local_shard(whole[k], sh[k].spec, mesh) for k in names}
+        rng = np.random.default_rng(8)
+        tag = f"sp/{arch}/{kind}"
+        for s in (TRAIN_S, SP_ODD_S):
+            xs = torch.from_numpy(rng.normal(size=(
+                TRAIN_B, s, cfg.d_model)).astype(np.float32))
+            img = torch.from_numpy(rng.normal(size=(
+                TRAIN_B, cfg.n_img_tokens or 1, cfg.d_vision or 1)).astype(
+                    np.float32))
+            view, rows = split_batch(mesh, {"x": xs, "img": img})
+            fn = _sp_fn(arch, kind, cfg, run, rows["img"])
+            n = s // m if s % m == 0 else s
+            blk = rows["x"][:, i * n:(i + 1) * n] if n != s else rows["x"]
+            inner = []
+            real_out = tf._shared_out
+
+            def shared_out(shared, attn, cfg_, xx, *a, **k):
+                inner.append(tuple(xx.shape))
+                return real_out(shared, attn, cfg_, xx, *a, **k)
+            tree = _nest_names(steps._compute_tree(
+                blocks, {k: sh[k] for k in names}, (), keep, pieces))
+            one = _nest_names(whole)
+            with torch.inference_mode():
+                with routes() as rc, whole_residual():
+                    y_whole = fn(tree, rows["x"], view, s)
+                tf._shared_out = shared_out
+                try:
+                    with routes(rc or None):
+                        y = fn(tree, rows["x"] if kind == "shared" else blk,
+                               view, s)
+                finally:
+                    tf._shared_out = real_out
+                with routes(rc or None):
+                    y_one = fn(one, rows["x"], None, s)
+            if kind != "shared":
+                y_whole, y_one = (t[:, i * n:(i + 1) * n] if n != s else t
+                                  for t in (y_whole, y_one))
+            out[f"{tag}/{s}/shape/rank{r}"] = np.array(
+                inner[0] if kind == "shared" else y.shape)
+            out[f"{tag}/{s}/vs_whole/rank{r}"] = np.array([
+                float((y.float() - y_whole.float()).abs().max()),
+                torch.equal(y, y_whole)])
+            out[f"{tag}/{s}/vs_one/rank{r}"] = np.float64(
+                (y.float() - y_one.float()).abs().max())
+            if (arch, kind, prefixes) not in SP_GRADS or s != TRAIN_S:
+                continue
+            cot = torch.from_numpy(rng.normal(size=xs.shape).astype(
+                np.float32))
+            _, crow = split_batch(mesh, {"c": cot})
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in blocks.items()}
+            with f32_blocks():
+                tree = _nest_names(steps._compute_tree(
+                    leaves, {k: sh[k] for k in names}, view.batch_axes, keep,
+                    pieces))
+                xin = rows["x"] if kind == "shared" else blk
+                cin = crow["c"] if kind == "shared" else \
+                    crow["c"][:, i * n:(i + 1) * n]
+                y = fn(tree, xin, view, s)
+                g = torch.autograd.grad(torch.sum(y.float() * cin),
+                                        list(leaves.values()))
+                lone = {k: whole[k].clone().requires_grad_(True)
+                        for k in names}
+                fn1 = _sp_fn(arch, kind, cfg, run, img)
+                y1 = fn1(_nest_names(lone), xs, None, s)
+                g1 = torch.autograd.grad(torch.sum(y1.float() * cot),
+                                         list(lone.values()))
+            top = max(float(w.norm()) for w in g1)
+            for k, got, want in zip(names, g, g1):
+                want = local_shard(want, sh[k].spec, mesh)
+                out[f"{tag}/g/{k}/rank{r}"] = np.array([
+                    float((got - want).norm() / want.norm()),
+                    float((got - want).norm()), float(want.norm()), top])
+
+
 def _nest_names(flat_tree: dict) -> dict:
     """A nested dict of {"a.b.c": leaf} (the port's parameter names)."""
     return nest({k.replace(".", "/"): v for k, v in flat_tree.items()})
@@ -1617,6 +1846,7 @@ def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
             _steps_rank(mesh, ref, out, out_dir)
             _xattn_rank(mesh, ref, out)
             _last_rank(mesh, ref, out, out_dir)
+            _sp_rank(mesh, ref, out)
             _dryrun_rank(mesh, ref, out)
             x = torch.arange(24.0).reshape(2, 3, 4) + rank
             for dim in range(3):
