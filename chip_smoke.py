@@ -292,16 +292,20 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
      (``dryrun.counted_collectives`` around the forward or step):
      a. ``make_prefill_step`` over MESH_MOE_BATCH x MESH_MOE_SEQ on a
         (1, 4) and a (2, 2) mesh, tensor-parallel over "model" (each
-        rank its heads, vocab block and experts), routed as one process
-        routed the same rows (each choice of their own that differs must
-        be a near tie): flash_attn_bhsd launched once a layer a rank at
-        [B_loc * H / m, S, hd] (wgmma, each call against the twin) and
-        nothing else, the last logits (gathered over the vocab and the
-        rows) within LOGIT_TOL of one process's, dropped equal to one
-        process's at the same per-shard capacity; ms a forward, the
-        compute tree's bytes and gather seconds beside the gathered
+        rank its heads, vocab block and experts), from the rank's blocks
+        (the step gathers each block just before it runs and frees it
+        after: no two blocks' gathered leaves alive at once, by weakrefs),
+        routed as one process routed the same rows (each choice of their
+        own that differs must be a near tie): flash_attn_bhsd launched
+        once a layer a rank at [B_loc * H / m, S, hd] (wgmma, each call
+        against the twin) and nothing else, the last logits (gathered
+        over the vocab and the rows) within LOGIT_TOL of one process's,
+        dropped equal to one process's at the same per-shard capacity; ms
+        a forward, the most compute-tree bytes held at once beside the
+        whole tree's (gathered at once, its seconds) and the gathered
         layout's (every leaf but the experts whole over "model"), peak
-        memory and the collectives' routes per rank; flash timed at the
+        memory of the timed forwards (blocks included) and the
+        collectives' routes per rank; flash timed at the
         (1, 4) shape on rank 0's first call (the kernels line's
         ``mesh_tp_shape``); then the token loop (MESH_SERVE) on (1, 4)
         through ``make_serve_step`` on each rank's block of the cache
@@ -327,9 +331,11 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         on a (2, 2) ("data", "model") mesh, tensor-parallel (remat
         "full", MESH_TRAIN_BATCH x MESH_TRAIN_SEQ, 48 wgmma flash
         launches a rank at [B_loc * H / 2, S, hd], each against the
-        twin): its loss, ce and grad norm within phase 9's bounds of one
-        process's first step; the blocks', compute tree's and peak bytes
-        a rank;
+        twin), from the rank's blocks (a block gathered at a time, in the
+        forward and again in the recompute, never two at once): its loss,
+        ce and grad norm within phase 9's bounds of one process's first
+        step; the blocks' bytes, the most compute-tree bytes held at once
+        beside the whole tree's, and the step's peak bytes a rank;
      d. Llama-3.2-Vision-90B at its published widths, VLM_GROUPS of its
         20 groups (both gates of each cross block drawn live), on a
         (1, 4) mesh, tensor-parallel over "model" (16 q heads, 2 kv heads
@@ -389,14 +395,16 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         process's; flash at (g)'s rank shape on rank 0's first call
         (the kernels line's ``mesh_zamba2_shape``).
  15. the dry-run (``launch.dryrun``, after phase 14; no kernel launched):
-     a. ``count_step`` on the meta device for phase 14 (a)'s cell (the
+     a. ``count_step`` on the meta device for phase 14 (a)'s cells (the
         serving build of Mixtral-8x7B at MESH_MOE_LAYERS layers, the
-        (1, 4) mesh, MESH_MOE_BATCH x MESH_MOE_SEQ prefill) at each rank:
-        its blocks' and compute tree's bytes and its collectives' bytes
-        and calls by kind equal to what that rank measured in phase 14
-        (a) (``dryrun.counted_collectives`` around its compute tree and
-        first step call); its argument + temp bytes printed beside the
-        rank's peak allocation, with their ratio (reported, not held);
+        (1, 4) and (2, 2) meshes, MESH_MOE_BATCH x MESH_MOE_SEQ prefill)
+        at each rank: its blocks' bytes, the most compute-tree bytes its
+        step holds at once (``tree_bytes``) and the whole tree's, and its
+        collectives' bytes and calls by kind equal to what that rank
+        measured in phase 14 (a) (``held_tree``; ``dryrun.
+        counted_collectives`` around its first step call, its gathers
+        included); its argument + temp bytes printed beside the rank's
+        peak allocation, with their ratio (reported, not held);
      b. the CLI's ``main`` over DRYRUN_CLI in this process: exit 0, and
         ``torch.cuda.memory_allocated()`` unchanged across it, its peak
         too (nothing allocated on the card);
@@ -4034,6 +4042,58 @@ def tree_bytes(tree: dict) -> int:
     return sum(t.numel() * t.element_size() for t in tree.values())
 
 
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
+@contextlib.contextmanager
+def held_tree():
+    """What the steps that gather block by block
+    (``runtime.steps.PerBlock``) hold of their compute tree inside the
+    block: ``step_bytes``, the leaves outside the stacks (gathered once a
+    step); ``block_bytes``, the largest stacked block's leaves as gathered;
+    ``most``, their sum, the most compute-tree bytes held at once;
+    ``blocks``, the blocks gathered; ``overlap``, the most stacked blocks
+    whose gathered copies (new tensors, not the rank's blocks) were alive
+    at once, by weakrefs, checked at each gather."""
+    import types
+    import weakref
+
+    from repro_torch.runtime import steps
+    rec = types.SimpleNamespace(step_bytes=0, block_bytes=0, blocks=0,
+                                overlap=0, most=0)
+    alive = []
+    real_step, real_call = steps.PerBlock.step_tree, steps.PerBlock.__call__
+
+    def step_tree(self):
+        tree = real_step(self)
+        rec.step_bytes = max(rec.step_bytes, tree_bytes(tree))
+        return tree
+
+    def call(self, block):
+        nonlocal alive
+        out = real_call(self, block)
+        leaves = _tensors(out)
+        rec.block_bytes = max(rec.block_bytes, sum(
+            t.numel() * t.element_size() for t in leaves))
+        rec.blocks += 1
+        mine = {t.untyped_storage()._cdata for t in self.params.values()}
+        alive = [(b, r) for b, r in alive if r() is not None] + [
+            (id(block), weakref.ref(t if t._base is None else t._base))
+            for t in leaves if t.untyped_storage()._cdata not in mine]
+        rec.overlap = max(rec.overlap, len({b for b, _ in alive}))
+        rec.most = rec.step_bytes + rec.block_bytes
+        return out
+    steps.PerBlock.step_tree, steps.PerBlock.__call__ = step_tree, call
+    try:
+        yield rec
+    finally:
+        steps.PerBlock.step_tree, steps.PerBlock.__call__ = real_step, \
+            real_call
+
+
 def kv_bytes(cache: dict, keys=("k", "v")) -> int:
     """The bytes of a cache's k / v leaves (``keys``)."""
     return tree_bytes({k: cache[k] for k in keys})
@@ -4264,7 +4324,9 @@ def mesh_xattn_serve(smoke, model, mesh, tree, ref, tmp, tag, rank):
 
 def mesh_moe_rank(smoke, ref, rank, tmp):
     """Phase 14a on one rank: Mixtral's prefill on each of MESH_SHAPES,
-    tensor-parallel over "model", and the token loop on (1, 4)."""
+    tensor-parallel over "model", from the rank's blocks (the step
+    gathers a block at a time), and the token loop on (1, 4) on the
+    compute tree gathered once."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch import serve as serve_mod
@@ -4292,13 +4354,14 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
         # beside the tensor-parallel one.
         gathered = gathered_layout(params, shardings)
         torch.cuda.empty_cache()
+        # The whole compute tree, every leaf at once (the token loop's,
+        # gathered once for its steps), beside what the step holds.
         t0 = time.perf_counter()
-        # The collectives the compute tree and the first step call, by
-        # kind (phase 15 holds the dry-run's count against them).
-        with dryrun.counted_collectives() as tally:
-            tree = steps.compute_params(model, params, mesh)
+        tree = steps.compute_params(model, params, mesh)
         torch.cuda.synchronize()
         gather_s = time.perf_counter() - t0
+        whole_tree = tree_bytes(tree)
+        del tree
         step = steps.make_prefill_step(model, run, mesh)
         # The rows this rank routes: the whole batch on (1, 4), its half
         # on (2, 2); routed as the one-process forward of those rows.
@@ -4309,13 +4372,18 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
         log = RouteLog()
         torch.cuda.synchronize()
         smoke.build.reset_launches()
+        # The first step call's collectives by kind, its gathers included
+        # (phase 15 holds the dry-run's count against them).
         with smoke.capture(keep=["flash_attn_bhsd"]) as cap, \
                 log.record(force) as rc, moe_dropped() as dropped, \
-                dryrun.counted_collectives() as step_tally:
-            last = step(tree, {"tokens": toks})
+                dryrun.counted_collectives() as step_tally, \
+                held_tree() as held:
+            last = step(params, {"tokens": toks})
             torch.cuda.synchronize()
-        collectives = tally_of(tally, step_tally)
-        step_collectives = tally_of(step_tally)
+        check(held.overlap <= 1 and held.blocks == cfg.n_layers,
+              f"mesh {tag} prefill: {held.blocks} blocks gathered, up to "
+              f"{held.overlap} held at once")
+        collectives = step_collectives = tally_of(step_tally)
         counts = dict(smoke.build.LAUNCHES)
         routes = dict(smoke.build.ROUTE_LAUNCHES)
         b_loc = MESH_MOE_BATCH // shape[0]
@@ -4348,22 +4416,30 @@ def mesh_moe_rank(smoke, ref, rank, tmp):
               and last.shape == (MESH_MOE_BATCH, cfg.vocab),
               f"mesh {tag} prefill: last logits {tuple(last.shape)} not "
               f"finite")
-        timing = step_timing(lambda b: step(tree, b), {"tokens": toks},
+        # The peak of the timed forwards, the rank's blocks included.
+        torch.cuda.synchronize()
+        held_before = torch.cuda.memory_allocated() - base
+        timing = step_timing(lambda b: step(params, b), {"tokens": toks},
                              MESH_MOE_BATCH * MESH_MOE_SEQ)
         out[tag] = dict(
             coords=mesh.coords, routes=dict(mesh.routes),
             flash_launches=counts["flash_attn_bhsd"], flash_shape=bhsd,
             flash_max_abs_err=err, flash_over=over, near_tie_flips=flips,
             dropped=sum(dropped), block_bytes=block_bytes,
-            tree_bytes=tree_bytes(tree), gather_s=gather_s,
+            tree_bytes=held.most, step_tree_bytes=held.step_bytes,
+            largest_block_bytes=held.block_bytes,
+            whole_tree_bytes=whole_tree, gather_s=gather_s,
             collectives=collectives,
             step_collectives=step_collectives,
-            gathered_layout=gathered, peak_total_bytes=torch.cuda
-            .max_memory_allocated() - base, last=last.float().cpu().numpy().tolist()
+            gathered_layout=gathered,
+            peak_total_bytes=held_before + timing["peak_bytes"],
+            last=last.float().cpu().numpy().tolist()
             if rank == 0 else None, **timing)
         if shape == (1, 4):
+            tree = steps.compute_params(model, params, mesh)
             out["serve"] = mesh_serve(smoke, model, run, mesh, tree, ref)
-        del params, tree, last
+            del tree
+        del params, last
     return out
 
 
@@ -4565,8 +4641,10 @@ def mesh_tp_train_rank(smoke, ref):
     ``make_train_step`` on a (2, 2) ("data", "model") mesh, tensor-
     parallel over "model" (remat "full"; 2 flash launches a layer a rank
     at [B_loc * H / 2, S, hd], each call held against the twin), on step
-    0's batch: its loss, ce and grad norm, the step's seconds, the
-    blocks' and the compute tree's bytes, peak memory."""
+    0's batch, from the rank's blocks (the step gathers a block at a
+    time, again in the remat recompute): its loss, ce and grad norm, the
+    step's seconds, the blocks' bytes, the most compute-tree bytes held
+    at once beside the whole tree's, peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as train_mod
@@ -4581,22 +4659,28 @@ def mesh_tp_train_rank(smoke, ref):
     torch.cuda.reset_peak_memory_stats()
     model, params, opt, _ = train_mod.setup_mesh(cfg, mesh, seed=TRAIN_SEED,
                                                  device="cuda")
-    tree = steps._compute_tree(steps.cast_params(params),
-                               model_shardings(model, mesh), ("data",),
-                               tp_leaves(model, mesh))
+    # The whole compute tree, every leaf at once, for its bytes.
+    with torch.no_grad():
+        tree = steps._compute_tree(steps.cast_params(params),
+                                   model_shardings(model, mesh), ("data",),
+                                   tp_leaves(model, mesh))
     tree_b = tree_bytes(tree)
     del tree
     step = steps.make_train_step(model, run, mesh)
     batch = {k: torch.from_numpy(ref[f"train_{k}"][0]).cuda()
              for k in ("tokens", "labels")}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     smoke.build.reset_launches()
     t0 = time.perf_counter()
     with smoke.capture(keep=[]) as cap, \
-            dryrun.counted_collectives() as tally:
+            dryrun.counted_collectives() as tally, held_tree() as held:
         params, opt, m = step(params, opt, batch)
         loss = float(m["loss"])
     dt = time.perf_counter() - t0
+    check(held.overlap == 1 and held.blocks == 2 * cfg.n_layers,
+          f"mesh TP train step: {held.blocks} blocks gathered (forward and "
+          f"recompute), up to {held.overlap} held at once")
     launches = dict(smoke.build.LAUNCHES)
     routes = dict(smoke.build.ROUTE_LAUNCHES)
     n_flash = 2 * cfg.n_layers            # forward + the remat recompute
@@ -4613,7 +4697,8 @@ def mesh_tp_train_rank(smoke, ref):
                 grad_norm=float(m["grad_norm"]),
                 flash_launches=launches["flash_attn_bhsd"],
                 flash_shape=shape, flash_max_abs_err=c["max_abs_err"],
-                block_bytes=tree_bytes(params), tree_bytes=tree_b,
+                block_bytes=tree_bytes(params), tree_bytes=held.most,
+                whole_tree_bytes=tree_b,
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 collectives=tally_of(tally),
                 routes=dict(mesh.routes), coords=mesh.coords)
@@ -4983,11 +5068,18 @@ def mesh_phase(smoke, result) -> dict:
               f"the tolerance), near-tie flips "
               f"{[r['near_tie_flips'] for r in runs]}, ms a forward "
               f"{[round(r['step_s'] * 1e3, 1) for r in runs]}, peak GiB "
-              f"{[round(r['peak_total_bytes'] / 2**30, 2) for r in runs]}, "
-              f"blocks "
+              f"{[round(r['peak_total_bytes'] / 2**30, 3) for r in runs]} "
+              f"(from the rank's blocks, a block gathered at a time), blocks "
               f"GiB {[round(r['block_bytes'] / 2**30, 2) for r in runs]}, "
-              f"compute tree GiB "
-              f"{[round(r['tree_bytes'] / 2**30, 3) for r in runs]} in "
+              f"compute tree held at once GiB "
+              f"{[round(r['tree_bytes'] / 2**30, 3) for r in runs]} (the "
+              f"leaves outside the stacks "
+              f"{[round(r['step_tree_bytes'] / 2**30, 3) for r in runs]} + "
+              f"the largest block's "
+              f"{[round(r['largest_block_bytes'] / 2**30, 3) for r in runs]})"
+              f" beside the whole tree's "
+              f"{[round(r['whole_tree_bytes'] / 2**30, 3) for r in runs]}, "
+              f"gathered at once in "
               f"{[round(r['gather_s'], 2) for r in runs]} s (the gathered "
               f"layout's, every leaf but the experts whole over 'model': "
               f"{[round(r['gathered_layout']['tree_bytes'] / 2**30, 3) for r in runs]}"
@@ -5092,7 +5184,10 @@ def mesh_phase(smoke, result) -> dict:
           f"{max(t['flash_max_abs_err'] for t in tps):.3g}), step s "
           f"{[round(t['step_s'], 2) for t in tps]}, blocks GiB "
           f"{[round(t['block_bytes'] / 2**30, 3) for t in tps]}, compute "
-          f"tree GiB {[round(t['tree_bytes'] / 2**30, 3) for t in tps]}, "
+          f"tree held at once GiB "
+          f"{[round(t['tree_bytes'] / 2**30, 3) for t in tps]} (a block at "
+          f"a time, from the rank's blocks) beside the whole tree's "
+          f"{[round(t['whole_tree_bytes'] / 2**30, 3) for t in tps]}, "
           f"peak GiB a rank "
           f"{[round(t['peak_bytes'] / 2**30, 2) for t in tps]}, "
           f"routes {tps[0]['routes']}; the step's collectives (calls / MB "
@@ -5598,47 +5693,52 @@ def dryrun_phase(result) -> None:
     from repro_torch.models.model import build_model
     t_start = time.perf_counter()
     out = result["dryrun"] = {"ranks": []}
-    # (a) phase 14 (a)'s cell: the serving build its ranks drew, their
-    # run knobs, the (1, 4) mesh, counted at each rank.
+    # (a) phase 14 (a)'s cells: the serving build its ranks drew, their
+    # run knobs, each mesh, counted at each rank.
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
     model = build_model(cfg, "meta")
     shape = ShapeConfig("mesh_moe_prefill", MESH_MOE_SEQ, MESH_MOE_BATCH,
                         "prefill")
     run = serve_mod.run_config(MESH_MOE_SEQ)
-    tag = "x".join(map(str, MESH_SHAPES[0]))
-    for rank, meas in enumerate(result["mesh"][tag]["ranks"]):
-        mesh = dryrun.CountingMesh(MESH_SHAPES[0], ("data", "model"), rank)
-        pred = dryrun.count_step(model, shape, mesh, run)
-        got = meas["collectives"]
-        check(pred["block_bytes"] == meas["block_bytes"]
-              and pred["tree_bytes"] == meas["tree_bytes"],
-              f"dryrun rank {rank}: blocks / tree bytes "
-              f"{pred['block_bytes']} / {pred['tree_bytes']}, measured "
-              f"{meas['block_bytes']} / {meas['tree_bytes']}")
-        check(pred["collective_bytes_per_device"] == got["bytes"]
-              and pred["collective_counts"] == got["counts"],
-              f"dryrun rank {rank}: collectives {pred['collective_counts']}"
-              f" / {pred['collective_bytes_per_device']} B, measured "
-              f"{got['counts']} / {got['bytes']} B")
-        mem = pred["memory"]
-        predicted = mem["argument_size"] + mem["temp_size"]
-        out["ranks"].append(dict(
-            block_bytes=pred["block_bytes"], tree_bytes=pred["tree_bytes"],
-            collective_bytes=pred["collective_bytes_per_device"],
-            collective_counts=pred["collective_counts"],
-            flops=pred["flops_per_device"], memory=mem,
-            predicted_bytes=predicted,
-            measured_peak_bytes=meas["peak_total_bytes"],
-            ratio=predicted / meas["peak_total_bytes"]))
-        print(f"phase 15: dryrun of phase 14 (a)'s {tag} prefill, rank "
-              f"{rank}: blocks {pred['block_bytes']} B, compute tree "
-              f"{pred['tree_bytes']} B, collectives "
-              f"{pred['collective_counts']} calls / "
-              f"{pred['collective_bytes_per_device']} B, each = measured; "
-              f"argument + temp {predicted / 2**30:.3f} GiB vs measured "
-              f"peak {meas['peak_total_bytes'] / 2**30:.3f} GiB "
-              f"(ratio {predicted / meas['peak_total_bytes']:.3f}, "
-              f"reported), {pred['flops_per_device']:.4g} FLOPs")
+    for mshape in MESH_SHAPES:
+        tag = "x".join(map(str, mshape))
+        for rank, meas in enumerate(result["mesh"][tag]["ranks"]):
+            mesh = dryrun.CountingMesh(mshape, ("data", "model"), rank)
+            pred = dryrun.count_step(model, shape, mesh, run)
+            got = meas["collectives"]
+            keys = ("block_bytes", "tree_bytes", "whole_tree_bytes")
+            check(all(pred[k] == meas[k] for k in keys),
+                  f"dryrun {tag} rank {rank}: blocks / tree held at once / "
+                  f"whole tree bytes {[pred[k] for k in keys]}, measured "
+                  f"{[meas[k] for k in keys]}")
+            check(pred["collective_bytes_per_device"] == got["bytes"]
+                  and pred["collective_counts"] == got["counts"],
+                  f"dryrun {tag} rank {rank}: collectives "
+                  f"{pred['collective_counts']} / "
+                  f"{pred['collective_bytes_per_device']} B, measured "
+                  f"{got['counts']} / {got['bytes']} B")
+            mem = pred["memory"]
+            predicted = mem["argument_size"] + mem["temp_size"]
+            out["ranks"].append(dict(
+                mesh=tag, rank=rank, block_bytes=pred["block_bytes"],
+                tree_bytes=pred["tree_bytes"],
+                whole_tree_bytes=pred["whole_tree_bytes"],
+                collective_bytes=pred["collective_bytes_per_device"],
+                collective_counts=pred["collective_counts"],
+                flops=pred["flops_per_device"], memory=mem,
+                predicted_bytes=predicted,
+                measured_peak_bytes=meas["peak_total_bytes"],
+                ratio=predicted / meas["peak_total_bytes"]))
+            print(f"phase 15: dryrun of phase 14 (a)'s {tag} prefill, rank "
+                  f"{rank}: blocks {pred['block_bytes']} B, compute tree "
+                  f"held at once {pred['tree_bytes']} B (whole "
+                  f"{pred['whole_tree_bytes']} B), collectives "
+                  f"{pred['collective_counts']} calls / "
+                  f"{pred['collective_bytes_per_device']} B, each = "
+                  f"measured; argument + temp {predicted / 2**30:.3f} GiB vs "
+                  f"measured peak {meas['peak_total_bytes'] / 2**30:.3f} GiB "
+                  f"(ratio {predicted / meas['peak_total_bytes']:.3f}, "
+                  f"reported), {pred['flops_per_device']:.4g} FLOPs")
     # (b) the CLI (``python -m repro_torch.launch.dryrun``'s ``main``, in
     # this process) allocates nothing on the card.
     torch.cuda.synchronize()

@@ -6,16 +6,24 @@ one NCCL rank a GPU: the multi-card record of PERF.md.
       --mesh 1 4
   python3 scripts/torch_mesh_prefill.py --arch deepseek-v2-236b \
       --layers 20 --mesh 1 4
+  python3 scripts/torch_mesh_prefill.py --tree blocks --mesh 2 2
+  python3 scripts/torch_mesh_prefill.py --arch llama-3.2-vision-90b \
+      --tree blocks --mesh 2 2
 
 ``--arch`` is Mixtral-8x7B (the default), Llama-3.2-Vision-90B or
 DeepSeek-V2-236B.  Each rank draws its own blocks of random weights
 (each block from a seed and the rank: no single process could hold any
 of them, 93 GB, 179 GB and, at 20 of DeepSeek-V2's 60 layers, 157 GB in
 bf16; a leaf every rank reads whole is then not the same on every rank,
-which changes no shape or launch), gathers its compute tree once
+which changes no shape or launch) and runs ``make_prefill_step`` over
+the arch's BATCHES x SEQ tokens.  ``--tree whole`` (the default) gathers
+the rank's compute tree once, every leaf at once
 (``runtime.steps.compute_params``: MLA's re-blocked ``wuq`` gathered and
-cut to the rank's heads), and runs ``make_prefill_step`` over the arch's
-BATCHES x SEQ tokens, tensor-parallel over "model" (each rank its heads,
+cut to the rank's heads), and hands it to each forward; ``--tree
+blocks`` hands each forward the rank's blocks, and the step gathers what
+it reads inside the forward (a block at a time, the leaves outside the
+stacks once a forward), so each timed forward includes its gathers.  The
+forward runs tensor-parallel over "model" (each rank its heads,
 FFN and vocab blocks, the experts, DeepSeek-V2's shared experts' width;
 flash at [B_loc * H / m, S, hd], none for MLA's head dim of 192).  The
 vlm's gates, which start at zero and would hide the image path, are
@@ -27,12 +35,15 @@ the MoE layers' dropped (token, choice) pairs of that forward, its
 collectives' calls and result bytes by kind
 (``launch.dryrun.counted_collectives``; the residual is
 sequence-parallel at SEQ in every arch here), peak device memory, the
-gather's seconds and the collectives' routes, per rank.  Rank 0 prints
-them, with the card's name and power limit, as one JSON line and writes
-``--out``.
+gather's seconds (``--tree whole``) and the collectives' routes, per
+rank.  Rank 0 prints them, with the card's name and power limit, as one
+JSON line and writes ``--out``.  A rank that runs out of device memory
+reports it as its result (``error``, the peak and the step it reached)
+and the script exits 1.
 """
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import socket
@@ -93,11 +104,8 @@ def vlm_inputs(model, params, batch: int, device) -> torch.Tensor:
 
 def rank_main(rank, args, addr, out_file):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.launch import dryrun
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import transformer as tf
     from repro_torch.models.model import build_model
     from repro_torch.runtime import steps
     from repro_torch.sharding.rules import model_shardings
@@ -106,7 +114,7 @@ def rank_main(rank, args, addr, out_file):
     torch.cuda.set_device(device)
     dist.init_process_group("nccl", init_method=addr, rank=rank,
                             world_size=world,
-                            timeout=timedelta(minutes=10))
+                            timeout=timedelta(minutes=5))
     try:
         cfg = get_config(args.arch)
         cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
@@ -120,58 +128,24 @@ def rank_main(rank, args, addr, out_file):
                           for p in params.values())
         torch.cuda.synchronize()
         draw_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tree = steps.compute_params(model, params, mesh)
-        torch.cuda.synchronize()
-        gather_s = time.perf_counter() - t0
         run = serve_mod.run_config(SEQ)
         step = steps.make_prefill_step(model, run, mesh)
         inputs = {"tokens": serve_mod.make_prompts(cfg, batch, SEQ, SEED,
                                                    device)}
         if cfg.family == "vlm":
             inputs["img"] = vlm_inputs(model, params, batch, device)
-        step(tree, inputs)                      # warm-up
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        dropped, real = [], tf.moe_ffn
-
-        def moe_ffn(*a, **kw):
-            y, aux = real(*a, **kw)
-            dropped.append(int(aux["dropped"]))
-            return y, aux
-        tf.moe_ffn = moe_ffn
+        rec = dict(rank=rank, coords=mesh.coords, tree=args.tree,
+                   block_bytes=block_bytes, draw_s=draw_s)
         try:
-            with dryrun.counted_collectives() as tally:
-                last = step(tree, inputs)
-                torch.cuda.synchronize()
-        finally:
-            tf.moe_ffn = real
-        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        routes = {k: v for k, v in _build.ROUTE_LAUNCHES.items() if v}
-        if not bool(torch.isfinite(last).all()):
-            raise RuntimeError("prefill logits not finite")
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(tree, inputs)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        ms = float(np.median(times)) * 1e3
-        rec = dict(rank=rank, coords=mesh.coords, ms=ms,
-                   ms_all=[t * 1e3 for t in times],
-                   tok_s=batch * SEQ / (ms / 1e3),
-                   launches=launches, launch_routes=routes,
-                   flash_shape=[batch * cfg.n_heads // args.mesh[1], SEQ,
-                                cfg.hd] if launches else None,
-                   dropped=sum(dropped), moe_layers=len(dropped),
-                   collective_calls=dict(tally.counts),
-                   collective_bytes=dict(tally.bytes),
-                   block_bytes=block_bytes,
-                   peak_bytes=torch.cuda.max_memory_allocated(),
-                   draw_s=draw_s, gather_s=gather_s,
-                   routes=dict(mesh.routes))
+            measure(args, cfg, model, mesh, step, params, inputs, batch, rec)
+        except torch.cuda.OutOfMemoryError as e:
+            rec.update(error=f"OutOfMemoryError: {str(e).splitlines()[0]}",
+                       peak_bytes=torch.cuda.max_memory_allocated())
+        if "error" in rec:
+            # NCCL allocates outside PyTorch's cache: hand back what the
+            # failed step held before the ranks exchange their records.
+            gc.collect()
+            torch.cuda.empty_cache()
         recs = [None] * world
         dist.all_gather_object(recs, rec)
         if rank == 0:
@@ -181,14 +155,80 @@ def rank_main(rank, args, addr, out_file):
                 text=True).stdout.strip().splitlines()
             summary = dict(arch=cfg.name, layers=cfg.n_layers,
                            params=model.param_count(), mesh=args.mesh,
-                           backend="nccl", batch=batch, seq=SEQ,
-                           cards=card, ranks=recs)
+                           tree=args.tree, backend="nccl", batch=batch,
+                           seq=SEQ, cards=card, ranks=recs)
             print(json.dumps(summary))
             if out_file:
                 with open(out_file, "w") as f:
                     json.dump(summary, f, indent=1)
+        if any("error" in r for r in recs):
+            raise SystemExit(1)
     finally:
         dist.destroy_process_group()
+
+
+def measure(args, cfg, model, mesh, step, params, inputs, batch,
+            out: dict) -> None:
+    """One rank's record, into ``out``: the tree's gather (``--tree
+    whole``), a warm-up forward, one counted forward, REPS timed ones;
+    ``stage`` says how far it got while it runs (where device memory
+    runs out, it stays)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import steps
+    out["stage"] = "gather"
+    torch.cuda.reset_peak_memory_stats()
+    gather_s, tree = None, params
+    if args.tree == "whole":
+        t0 = time.perf_counter()
+        tree = steps.compute_params(model, params, mesh)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+    out["stage"] = "warm-up"
+    step(tree, inputs)
+    torch.cuda.synchronize()
+    out["stage"] = "counted forward"
+    _build.reset_launches()
+    dropped, real = [], tf.moe_ffn
+
+    def moe_ffn(*a, **kw):
+        y, aux = real(*a, **kw)
+        dropped.append(int(aux["dropped"]))
+        return y, aux
+    tf.moe_ffn = moe_ffn
+    try:
+        with dryrun.counted_collectives() as tally:
+            last = step(tree, inputs)
+            torch.cuda.synchronize()
+    finally:
+        tf.moe_ffn = real
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    routes = {k: v for k, v in _build.ROUTE_LAUNCHES.items() if v}
+    if not bool(torch.isfinite(last).all()):
+        raise RuntimeError("prefill logits not finite")
+    out["stage"] = "timed forwards"
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(tree, inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    del out["stage"]
+    out.update(ms=ms, ms_all=[t * 1e3 for t in times],
+               tok_s=batch * SEQ / (ms / 1e3),
+               launches=launches, launch_routes=routes,
+               flash_shape=[batch // args.mesh[0] * cfg.n_heads
+                            // args.mesh[1], SEQ, cfg.hd]
+               if launches else None,
+               dropped=sum(dropped), moe_layers=len(dropped),
+               collective_calls=dict(tally.counts),
+               collective_bytes=dict(tally.bytes),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               gather_s=gather_s, routes=dict(mesh.routes))
 
 
 def main(argv=None):
@@ -197,6 +237,9 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="layers (default: the config's)")
     ap.add_argument("--mesh", type=int, nargs=2, default=[1, 4])
+    ap.add_argument("--tree", default="whole", choices=("whole", "blocks"),
+                    help="hand each forward the compute tree gathered "
+                    "once (whole) or the rank's blocks (blocks)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     world = int(np.prod(args.mesh))

@@ -42,10 +42,26 @@ For each cell it records, per rank:
     bytes live above the arguments during the step (every storage an op
     makes, counted until it is freed; outputs included while live).  The
     caching allocator's rounding is not modelled;
-  * ``block_bytes`` / ``tree_bytes``: the bytes of this rank's
-    parameter blocks and of the compute tree the forward reads
-    (``runtime.steps``' gathered blocks), beside ``params`` /
-    ``param_bytes``, the whole model's count and bytes.
+  * ``block_bytes``: the bytes of this rank's parameter blocks, beside
+    ``params`` / ``param_bytes``, the whole model's count and bytes;
+    ``tree_bytes``: the most bytes of the compute tree the forward reads
+    that the step holds at once (``runtime.steps.PerBlock``: the leaves
+    outside the stacks, gathered once a step, and the largest stacked
+    block's gathered leaves), and ``whole_tree_bytes`` the whole tree's,
+    every leaf gathered at once (what ``compute_params`` holds, and every
+    step held before it gathered block by block).
+
+The steps gather each stacked block's leaves just before the block runs
+and free them after it, so ``temp_size`` holds one block's gathered
+leaves where the whole tree's used to sit: it is lower by about
+``whole_tree_bytes`` less ``tree_bytes`` (less where leaves of the whole
+tree are the rank's blocks themselves, as the experts are), and FLOPs
+do not move.  A train step under remat "full" (or "dots") gathers each
+block's leaves twice, in the forward and again in the backward's
+recompute: the block leaves' all-gather calls and bytes double, their
+gradients' reduce-scatters do not.  A block that is not rematerialized
+(remat "none"; the vlm's cross blocks, zamba2's LoRA, the sLSTM)
+gathers a leaf again for each tensor its backward reads of it.
 
 ``xla_cost_analysis`` and ``generated_code_size`` have no counterpart;
 ``lower_s`` / ``compile_s`` are ``trace_s``.
@@ -304,11 +320,15 @@ def _rows(mesh, inputs: dict) -> dict:
 
 
 def tree_bytes(model: Model, params: dict, mesh,
-               shape: ShapeConfig) -> int:
-    """The bytes of the compute tree the step's forward reads on this rank
-    (train: the bf16-cast blocks gathered over their axes; serving: the
-    blocks gathered, uncast), built on a copy of ``mesh`` whose
-    collectives are counted apart."""
+               shape: ShapeConfig) -> tuple:
+    """(the most bytes of compute tree the step holds at once on this
+    rank, the whole tree's bytes).  The whole tree is every leaf by the
+    steps' rule (train: the bf16-cast blocks gathered over their axes;
+    serving: the blocks gathered, uncast), built on a copy of ``mesh``
+    whose collectives are counted apart; the step holds the leaves
+    outside the stacks and one stacked block's at a time
+    (``runtime.steps.PerBlock``), so at most those and the largest
+    block's."""
     view = CountingMesh(tuple(mesh.shape.values()), mesh.axis_names,
                         mesh.rank)
     with torch.no_grad():
@@ -320,7 +340,13 @@ def tree_bytes(model: Model, params: dict, mesh,
                 tp_leaves(model, view), tp_pieces(model, view))
         else:
             tree = steps.compute_params(model, params, view)
-    return tree_size(dict(tree))
+    blocks = [[n for _, n in leaves]
+              for leaves in steps.block_leaves(model).values()]
+    inside = {n for names in blocks for n in names}
+    most = tree_size({n: t for n, t in tree.items() if n not in inside}) \
+        + max((tree_size({n: tree[n] for n in names}) for names in blocks),
+              default=0)
+    return most, tree_size(dict(tree))
 
 
 def count_step(model: Model, shape: ShapeConfig, mesh: CountingMesh,
@@ -332,7 +358,7 @@ def count_step(model: Model, shape: ShapeConfig, mesh: CountingMesh,
     inputs = rank_inputs(model, shape, mesh)
     params = inputs["params"]
     argument = tree_size(_rows(mesh, inputs))
-    tb = tree_bytes(model, params, mesh, shape)
+    tb, whole = tree_bytes(model, params, mesh, shape)
     # The step is built outside the count: its builder's stand-ins of the
     # stacked leaves (``model_shardings``) are bookkeeping, not the step's.
     if shape.kind == "train":
@@ -363,6 +389,7 @@ def count_step(model: Model, shape: ShapeConfig, mesh: CountingMesh,
                    "temp_size": tally.peak},
         "block_bytes": tree_size(params),
         "tree_bytes": tb,
+        "whole_tree_bytes": whole,
         "trace_s": round(trace_s, 1),
     }
 

@@ -40,7 +40,11 @@ block [B, S, V / m] (whole where the vocab does not split, as
 SeamlessM4T's 256,206) and the cache holds this rank's kv heads
 (``init_cache(kv_heads=)``: the vlm's image caches, the encdec's cross
 caches, zamba2's shared-block caches too) and the heads of its
-recurrent state (``init_cache(heads=)``).  ``cache_specs`` /
+recurrent state (``init_cache(heads=)``).  Every loop reads a stacked
+block through ``_take``, inside the function ``_wrap_remat`` wraps: a
+mesh step handed the rank's blocks gathers the block's leaves there
+(``runtime.steps.PerBlock``), so a rematerialized block gathers them
+again when its backward recomputes.  ``cache_specs`` /
 ``abstract_params`` are meta-device stand-ins (shapes, no memory), and
 ``input_specs`` those of a cell's inputs.  Two builds:
 
@@ -182,6 +186,23 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return param_count(self.specs)
 
+    def stacked_blocks(self) -> dict:
+        """{name: ParamTree} of every block of the stacks, in the order
+        they were built (``blocks.3``, ``groups.1.selfs.0``,
+        ``groups.1.cross``, ``groups.0.lora``, ``tail.2``); the head's
+        leaves and zamba2's ``shared`` block are in none."""
+        return {name: mod for name, mod in self.named_modules()
+                if isinstance(mod, ParamTree) and "." in name
+                and not isinstance(self.get_submodule(
+                    name.rpartition(".")[0]), ParamTree)}
+
+    def _take(self, p):
+        """The leaves the stacked block ``p`` computes on: gathered for
+        this call where a mesh step gathers block by block
+        (``runtime.steps.PerBlock``), else ``p`` itself."""
+        per_block = self.__dict__.get("_per_block")
+        return p if per_block is None else per_block(p)
+
     def abstract_params(self):
         """Meta-device stand-ins of ``repro``'s param tree (the specs'
         shapes and dtypes, the stacks unsplit)."""
@@ -240,7 +261,8 @@ class DenseModel(Model):
         x = self._embed(tokens, mesh, sp)
         pos = _positions(tokens.shape[1], x.device)
         blk = _wrap_remat(
-            lambda p, x: tf.dense_block(p, self.cfg, run, x, pos, mesh), run)
+            lambda p, x: tf.dense_block(self._take(p), self.cfg, run, x, pos,
+                                        mesh), run)
         for p in self.blocks:
             x = blk(p, x)
         return self._logits(x, mesh, sp), {}
@@ -260,7 +282,8 @@ class DenseModel(Model):
         x = self._embed(tokens, mesh)
         pos = cache["pos"]
         for i, p in enumerate(self.blocks):
-            x, _, _ = tf.dense_block_decode(p, self.cfg, x, cache["k"][i],
+            x, _, _ = tf.dense_block_decode(self._take(p), self.cfg, x,
+                                            cache["k"][i],
                                             cache["v"][i], pos, mesh)
         return self._logits(x, mesh), {"k": cache["k"], "v": cache["v"],
                                        "pos": pos + 1}
@@ -326,11 +349,13 @@ class MoEModel(Model):
         x = self._embed(tokens, mesh, sp)
         pos = _positions(tokens.shape[1], x.device)
         dblk = _wrap_remat(
-            lambda p, x: tf.dense_block(p, cfg, run, x, pos, mesh), run)
+            lambda p, x: tf.dense_block(self._take(p), cfg, run, x, pos,
+                                        mesh), run)
         for p in self._dense():
             x = dblk(p, x)
         mblk = _wrap_remat(
-            lambda p, x: tf.moe_block(p, cfg, run, x, pos, mesh), run)
+            lambda p, x: tf.moe_block(self._take(p), cfg, run, x, pos, mesh),
+            run)
         lb, dropped = [], []
         for p in self.blocks:
             x, aux = mblk(p, x)
@@ -367,11 +392,12 @@ class MoEModel(Model):
         x = self._embed(tokens, mesh)
         pos = cache["pos"]
         for i, p in enumerate(self._dense()):
-            x, _, _ = tf.dense_block_decode(p, cfg, x, cache["dense_k"][i],
+            x, _, _ = tf.dense_block_decode(self._take(p), cfg, x,
+                                            cache["dense_k"][i],
                                             cache["dense_v"][i], pos, mesh)
         names = ("ckv", "kr") if cfg.mla else ("k", "v")
         for i, p in enumerate(self.blocks):
-            x, _ = tf.moe_block_decode(p, cfg, x,
+            x, _ = tf.moe_block_decode(self._take(p), cfg, x,
                                        {k: cache[k][i] for k in names}, pos,
                                        mesh)
         return self._logits(x, mesh), dict(cache, pos=pos + 1)
@@ -414,12 +440,16 @@ class VLMModel(Model):
         x = self._embed(tokens, mesh, sp)
         pos = _positions(tokens.shape[1], x.device)
         sblk = _wrap_remat(
-            lambda p, x: tf.dense_block(p, cfg, run, x, pos, mesh), run)
+            lambda p, x: tf.dense_block(self._take(p), cfg, run, x, pos,
+                                        mesh), run)
         for group in self.groups:
             for p in group["selfs"]:
                 x = sblk(p, x)
-            kv = tf.cross_img_kv(group["cross"], cfg, img, mesh)
-            x = tf.cross_block(group["cross"], cfg, run, x, kv, mesh, sp)
+            # Not rematerialized, as in repro.
+            c = self._take(group["cross"])
+            kv = tf.cross_img_kv(c, cfg, img, mesh)
+            x = tf.cross_block(c, cfg, run, x, kv, mesh, sp)
+            del c, kv
         return self._logits(x, mesh, sp), {}
 
     @torch.inference_mode()
@@ -445,9 +475,10 @@ class VLMModel(Model):
         pos = cache["pos"]
         for g, group in enumerate(self.groups):
             for j, p in enumerate(group["selfs"]):
-                x, _, _ = tf.dense_block_decode(p, cfg, x, cache["k"][g, j],
+                x, _, _ = tf.dense_block_decode(self._take(p), cfg, x,
+                                                cache["k"][g, j],
                                                 cache["v"][g, j], pos, mesh)
-            x = tf.cross_block_decode(group["cross"], cfg, x,
+            x = tf.cross_block_decode(self._take(group["cross"]), cfg, x,
                                       cache["img_k"][g], cache["img_v"][g],
                                       mesh)
         return self._logits(x, mesh), dict(cache, pos=pos + 1)
@@ -491,8 +522,8 @@ class EncDecModel(Model):
         cfg = self.cfg
         pos = _positions(frames.shape[1], frames.device)
         blk = _wrap_remat(
-            lambda p, x: tf.dense_block_bidir(p, cfg, run, x, pos, mesh),
-            run)
+            lambda p, x: tf.dense_block_bidir(self._take(p), cfg, run, x, pos,
+                                              mesh), run)
         # The encoder's residual is sequence-parallel where its length
         # divides; the decoder's cross K / V read its output whole.
         x, sp = seq_block(frames, mesh)
@@ -520,7 +551,8 @@ class EncDecModel(Model):
         x = self._embed(tokens, mesh)
         pos = _positions(tokens.shape[1], x.device)
         blk = _wrap_remat(
-            lambda p, x: self._dec_block(p, x, enc_out, pos, run, mesh), run)
+            lambda p, x: self._dec_block(self._take(p), x, enc_out, pos, run,
+                                         mesh), run)
         for p in self.dec_blocks:
             x = blk(p, x)
         return self._logits(x, mesh), {}
@@ -542,6 +574,7 @@ class EncDecModel(Model):
         x = self._embed(tokens, mesh)
         pos = cache["pos"]
         for i, p in enumerate(self.dec_blocks):
+            p = self._take(p)
             a, _, _ = gqa_decode_self_attn(
                 p["self"], cfg, rmsnorm(p["self_norm"], x, cfg.norm_eps),
                 cache["k"][i], cache["v"][i], pos, mesh)
@@ -613,13 +646,13 @@ class SSMHybridModel(Model):
         x = self._embed(tokens, mesh)
         pos = _positions(tokens.shape[1], x.device)
         mblk = _wrap_remat(
-            lambda p, x: x + ssm.mamba2(p, cfg, x, chunk=run.ssm_chunk,
-                                        mesh=mesh), run)
+            lambda p, x: x + ssm.mamba2(self._take(p), cfg, x,
+                                        chunk=run.ssm_chunk, mesh=mesh), run)
         for group in self.groups:
             for p in group["mambas"]:
                 x = mblk(p, x)
-            x = tf._shared_attn(self.shared, group["lora"], cfg, run, x, pos,
-                                mesh)
+            x = tf._shared_attn(self.shared, self._take(group["lora"]), cfg,
+                                run, x, pos, mesh)
         for p in self._tail():
             x = mblk(p, x)
         return self._logits(x, mesh), {}
@@ -651,13 +684,14 @@ class SSMHybridModel(Model):
         step = functools.partial(ssm.mamba2_step, mesh=mesh)
         for g, group in enumerate(self.groups):
             for j, p in enumerate(group["mambas"]):
-                x = _step_into(step, p, cfg, x,
+                x = _step_into(step, self._take(p), cfg, x,
                                {k: t[g, j] for k, t in cache["ssm"].items()})
             x, _, _ = tf._shared_attn_decode(
-                self.shared, group["lora"], cfg, x, cache["attn_k"][g],
+                self.shared, self._take(group["lora"]), cfg, x,
+                cache["attn_k"][g],
                 cache["attn_v"][g], pos, mesh)
         for j, p in enumerate(self._tail()):
-            x = _step_into(step, p, cfg, x,
+            x = _step_into(step, self._take(p), cfg, x,
                            {k: t[j] for k, t in cache["tail_ssm"].items()})
         return self._logits(x, mesh), dict(cache, pos=pos + 1)
 
@@ -704,8 +738,8 @@ class XLSTMModel(Model):
         cfg = self.cfg
         x = self._embed(batch["tokens"], mesh)
         mblk = _wrap_remat(
-            lambda p, x: x + xlstm.mlstm(p, cfg, x, chunk=run.ssm_chunk,
-                                         mesh=mesh), run)
+            lambda p, x: x + xlstm.mlstm(self._take(p), cfg, x,
+                                         chunk=run.ssm_chunk, mesh=mesh), run)
         if not self.n_groups:
             for p in self.blocks:
                 x = mblk(p, x)
@@ -713,7 +747,7 @@ class XLSTMModel(Model):
             for group in self.groups:
                 for p in group["mlstms"]:
                     x = mblk(p, x)
-                x = x + xlstm.slstm(group["slstm"], cfg, x, mesh)
+                x = x + xlstm.slstm(self._take(group["slstm"]), cfg, x, mesh)
         return self._logits(x, mesh), {}
 
     @torch.inference_mode()
@@ -740,16 +774,16 @@ class XLSTMModel(Model):
         mstep = functools.partial(xlstm.mlstm_step, mesh=mesh)
         if not self.n_groups:
             for i, p in enumerate(self.blocks):
-                x = _step_into(mstep, p, cfg, x,
+                x = _step_into(mstep, self._take(p), cfg, x,
                                {k: t[i] for k, t in cache["m"].items()})
         else:
             sstep = functools.partial(xlstm.slstm_step, mesh=mesh)
             for g, group in enumerate(self.groups):
                 for j, p in enumerate(group["mlstms"]):
-                    x = _step_into(mstep, p, cfg, x,
+                    x = _step_into(mstep, self._take(p), cfg, x,
                                    {k: t[g, j]
                                     for k, t in cache["m"].items()})
-                x = _step_into(sstep, group["slstm"], cfg, x,
+                x = _step_into(sstep, self._take(group["slstm"]), cfg, x,
                                {k: t[g] for k, t in cache["s"].items()})
         return self._logits(x, mesh), dict(cache, pos=cache["pos"] + 1)
 

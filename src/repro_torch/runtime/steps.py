@@ -30,14 +30,15 @@ parameter blocks first, as ``repro``'s steps take params:
   * ``prefill_step(params, batch) -> [B, V]`` and ``serve_step(params,
     tokens [B, 1], cache) -> (next tokens [B, 1], cache)``: the global
     batch in and out (the rows gathered back), the cache this rank's
-    rows and kv heads (``local_cache``); ``params`` may also be ``compute_params``'s
-    tree, gathered once for many steps.
+    rows and kv heads (``local_cache``); ``params`` may also be
+    ``compute_params``'s tree, gathered once for many steps.
 
 The forward reads the compute tree: ``cast_params`` (every >= 2-D f32
 block cast to bf16, as ``repro`` casts before GSPMD's gathers, so the
 f32 unembedding reads bf16-rounded weights with a mesh and f32 ones
 without), then each block all-gathered over the axes it is split on
-(``launch.mesh.gather_fwd``), except the expert weights, which
+(``launch.mesh.gather_fwd``; ``_leaf``'s rule), except the expert
+weights, which
 ``moe_ffn`` takes as they are placed, and the tensor-parallel leaves of
 every family (``sharding.rules.tp_block``: the attention's q / k / v / o
 weights and biases, self, cross, MLA's ``wuk`` / ``wuv`` / ``wo`` and
@@ -55,10 +56,16 @@ reduce-scattered over "model", each rank's covering only its piece.  A
 whole leaf the model reads only in part (Mamba2's conv, ``a_log``,
 ``d_skip``, ``dt_bias``, the split norms' scales, the mLSTM's ``wi`` /
 ``wf``, the sLSTM's ``r*`` and ``wo``) is cut in the model, through
-``psum_bwd`` (``layers.model_part``).  The tree is put in place of the
-template's parameters for the forward and its backward (a remat block's
-backward recomputes from it, collectives included, on every rank alike)
-and taken out after.  Gradients land on each parameter's own block
+``psum_bwd`` (``layers.model_part``).  A step handed the rank's blocks
+gathers that tree a stacked block at a time (``PerBlock``), as GSPMD
+gathers each layer inside ``repro``'s scan: the leaves outside the
+stacks are gathered once a step and put in place of the template's
+parameters (taken out after the backward), and each block's leaves
+just before it runs, freed after it; a remat block's backward gathers
+them again when it recomputes (collectives included, on every rank
+alike), and a block that is not rematerialized gathers a saved leaf
+again when its backward reads it.  No step falls back to the whole
+tree.  Gradients land on each parameter's own block
 (``repro``'s ``constrain_grads``), by the collectives' backward: summed
 over the axes the batch is split on (each rank's loss is its share of
 the global one: ``cross_entropy`` averages over the batch axes with
@@ -78,6 +85,8 @@ decoder layer's, through ``psum_bwd``.
 from __future__ import annotations
 
 import contextlib
+import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -106,69 +115,166 @@ def cast_params(params: dict) -> dict:
             and p.dim() >= 2 else p for k, p in params.items()}
 
 
-def _compute_tree(params: dict, shardings: dict, axes: tuple,
-                  keep=frozenset(), pieces=None) -> ComputeParams:
-    """Each block gathered over the axes it is split on: the gradient
-    summed over those of ``axes`` (the batch's) and sliced over the
-    others; a block whole along a batch axis sums its gradient over it
-    (``psum_bwd``).  The expert weights stay as placed; the leaves named
-    in ``keep`` (``sharding.rules.tp_leaves``) keep their "model" block;
-    a re-blocked leaf (``pieces``: ``sharding.rules.tp_pieces``) is
+def _leaf(name: str, x, sh, axes: tuple, keep, pieces: dict):
+    """One leaf of the compute tree: ``x`` (this rank's block of
+    ``name``, placed by ``sh``) gathered over the axes it is split on, the
+    gradient summed over those of ``axes`` (the batch's) and sliced over
+    the others; a block whole along a batch axis sums its gradient over it
+    (``psum_bwd``).  The expert weights stay as placed; a leaf named in
+    ``keep`` (``sharding.rules.tp_leaves``) keeps its "model" block; a
+    re-blocked leaf (``pieces``: ``sharding.rules.tp_pieces``) is
     gathered whole, its gradient reduce-scattered over "model" too (each
     rank's covers only its piece), and cut to this rank's piece."""
-    out = ComputeParams()
+    split = set()
+    for dim, part in enumerate(sh.spec):
+        if part is None:
+            continue
+        parts = (part,) if isinstance(part, str) else tuple(part)
+        split.update(parts)
+        if name.endswith(_EXPERT_LEAVES):
+            continue
+        if name in keep and "model" in parts:
+            if len(parts) > 1:
+                raise ValueError(f"{name}: 'model' shares dimension "
+                                 f"{dim} with {parts}")
+            continue
+        red = {a in axes or (name in pieces and a == "model")
+               for a in parts}
+        if len(red) > 1:
+            raise ValueError(f"{name}: {parts} mixes batch and other "
+                             f"axes")
+        x = gather_fwd(x, sh.mesh, parts, dim, reduce=red.pop())
+    rest = tuple(a for a in axes if a not in split)
+    if rest:
+        x = psum_bwd(x, sh.mesh, rest)
+    if name in pieces:
+        dim, ranges = pieces[name]
+        x = torch.cat([x.narrow(dim, a, b - a) for a, b in ranges], dim)
+    return x
+
+
+def _compute_tree(params: dict, shardings: dict, axes: tuple,
+                  keep=frozenset(), pieces=None) -> ComputeParams:
+    """Every leaf of ``params`` gathered at once by ``_leaf``'s rule."""
     pieces = pieces or {}
-    for name, x in params.items():
-        sh = shardings[name]
-        split = set()
-        for dim, part in enumerate(sh.spec):
-            if part is None:
-                continue
-            parts = (part,) if isinstance(part, str) else tuple(part)
-            split.update(parts)
-            if name.endswith(_EXPERT_LEAVES):
-                continue
-            if name in keep and "model" in parts:
-                if len(parts) > 1:
-                    raise ValueError(f"{name}: 'model' shares dimension "
-                                     f"{dim} with {parts}")
-                continue
-            red = {a in axes or (name in pieces and a == "model")
-                   for a in parts}
-            if len(red) > 1:
-                raise ValueError(f"{name}: {parts} mixes batch and other "
-                                 f"axes")
-            x = gather_fwd(x, sh.mesh, parts, dim, reduce=red.pop())
-        rest = tuple(a for a in axes if a not in split)
-        if rest:
-            x = psum_bwd(x, sh.mesh, rest)
-        if name in pieces:
-            dim, ranges = pieces[name]
-            x = torch.cat([x.narrow(dim, a, b - a) for a, b in ranges], dim)
-        out[name] = x
-    return out
+    return ComputeParams((name, _leaf(name, x, shardings[name], axes, keep,
+                                      pieces))
+                         for name, x in params.items())
+
+
+def block_leaves(model: Model) -> dict:
+    """{id of a stacked block (``Model.stacked_blocks``): [(leaf name in
+    the block, parameter name)]}."""
+    return {id(block): [(rel, f"{pre}.{rel}")
+                        for rel, _ in block.named_parameters()]
+            for pre, block in model.stacked_blocks().items()}
+
+
+def _root(t: torch.Tensor) -> torch.Tensor:
+    return t if t._base is None else t._base
+
+
+class _Regather(NamedTuple):
+    """A saved gathered leaf, kept as its name and its view's geometry."""
+    name: str
+    size: torch.Size
+    stride: tuple
+    offset: int
+
+
+class PerBlock:
+    """One mesh step's gathers of its stacked blocks, a block at a time.
+
+    ``step_tree()`` is the compute tree of the leaves outside the stacks
+    (the embedding, the unembedding, the final norms, zamba2's ``shared``
+    block), gathered once a step.  Called on a block (``Model._take``,
+    inside the function ``_wrap_remat`` wraps), it returns that block's
+    compute leaves (nested as the block's ``ParamTree``), each by
+    ``_leaf``'s rule (cast first to train, as ``cast_params`` casts); a
+    rematerialized block's backward calls it again.  Under ``hooks()`` a
+    gathered leaf that autograd saves for the backward of a block that is
+    not rematerialized (remat "none"; the vlm's cross blocks, zamba2's
+    LoRA, the sLSTM) is saved as its name and gathered again when the
+    backward reads it, so no block's gathered copy waits for the
+    backward."""
+
+    def __init__(self, blocks: dict, params: dict, shardings: dict,
+                 axes: tuple, keep, pieces: dict, cast: bool):
+        self.blocks, self.params, self.shardings = blocks, params, shardings
+        self.axes, self.keep, self.pieces = axes, keep, pieces
+        self.cast = cast
+        self._held = {}
+
+    def leaf(self, name: str) -> torch.Tensor:
+        x = self.params[name]
+        if self.cast:
+            x = cast_params({name: x})[name]
+        return _leaf(name, x, self.shardings[name], self.axes, self.keep,
+                     self.pieces)
+
+    def step_tree(self) -> ComputeParams:
+        inside = {n for leaves in self.blocks.values() for _, n in leaves}
+        return ComputeParams((n, self.leaf(n)) for n in self.params
+                             if n not in inside)
+
+    def __call__(self, block) -> dict:
+        out = {}
+        for rel, name in self.blocks[id(block)]:
+            t = self.leaf(name)
+            root = _root(t)
+            if root.untyped_storage()._cdata != \
+                    self.params[name].untyped_storage()._cdata:
+                self._held[id(root)] = (weakref.ref(root), name)
+            node = out
+            *path, last = rel.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = t
+        return out
+
+    def _pack(self, t):
+        root = _root(t)
+        hit = self._held.get(id(root))
+        if hit is None or hit[0]() is not root:
+            return t
+        return _Regather(hit[1], t.size(), t.stride(), t.storage_offset())
+
+    def _unpack(self, saved):
+        if not isinstance(saved, _Regather):
+            return saved
+        with torch.no_grad():
+            t = self.leaf(saved.name)
+        return t.as_strided(saved.size, saved.stride, saved.offset)
+
+    def hooks(self):
+        return torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                        self._unpack)
 
 
 def compute_params(model: Model, params: dict, mesh) -> ComputeParams:
     """The serving steps' compute tree of this rank's blocks (no cast, as
-    ``repro``'s prefill and serve steps do none): gather it once and hand
-    it to many steps."""
+    ``repro``'s prefill and serve steps do none), every leaf at once:
+    gather it once and hand it to many steps."""
     return _compute_tree(params, model_shardings(model, mesh), (),
                          tp_leaves(model, mesh), tp_pieces(model, mesh))
 
 
-def _bind(model: Model, tree: dict) -> None:
+def _bind(model: Model, tree: dict, per_block=None) -> None:
     """Put ``tree``'s tensors in place of the model's parameters (the
-    originals kept until ``_release``)."""
+    originals kept until ``_release``) and ``per_block`` (a ``PerBlock``)
+    in the model's reach: ``Model._take`` calls it on each block."""
     saved = model.__dict__.setdefault("_unbound", {})
     for name, t in tree.items():
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner) if owner else model
         saved.setdefault(name, mod._parameters[leaf])
         mod._parameters[leaf] = t
+    if per_block is not None:
+        model.__dict__["_per_block"] = per_block
 
 
 def _release(model: Model) -> None:
+    model.__dict__.pop("_per_block", None)
     for name, p in model.__dict__.pop("_unbound", {}).items():
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner) if owner else model
@@ -176,9 +282,10 @@ def _release(model: Model) -> None:
 
 
 @contextlib.contextmanager
-def bound(model: Model, tree: dict):
-    """``model`` reading ``tree`` in place of its parameters."""
-    _bind(model, tree)
+def bound(model: Model, tree: dict, per_block=None):
+    """``model`` reading ``tree`` in place of its parameters (and its
+    stacked blocks through ``per_block``, where given)."""
+    _bind(model, tree, per_block)
     try:
         yield model
     finally:
@@ -327,12 +434,15 @@ def make_loss_fn(model: Model, run: RunConfig, mesh=None):
         return lambda batch: forward_loss(batch, None)
     shardings = model_shardings(model, mesh)
     keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
+    blocks = block_leaves(model)
 
     def loss_fn(params, batch):
         view, rows = split_batch(mesh, batch)
-        _bind(model, _compute_tree(cast_params(params), shardings,
-                                   view.batch_axes, keep, pieces))
-        return forward_loss(rows, view)
+        per = PerBlock(blocks, params, shardings, view.batch_axes, keep,
+                       pieces, cast=True)
+        _bind(model, per.step_tree(), per)
+        with per.hooks():
+            return forward_loss(rows, view)
 
     loss_fn.shardings = shardings
     return loss_fn
@@ -404,9 +514,19 @@ def make_train_step(model: Model, run: RunConfig, mesh=None):
     return train_step
 
 
-def _tree_for(params, shardings, keep, pieces):
-    return params if isinstance(params, ComputeParams) \
-        else _compute_tree(params, shardings, (), keep, pieces)
+def _serving(model, shardings, keep, pieces):
+    """``trees(params) -> (the tree to bind, the PerBlock or None)`` of
+    the serving steps: a ``ComputeParams`` tree bound as it is, this
+    rank's blocks gathered block by block (uncast)."""
+    blocks = block_leaves(model)
+
+    def trees(params):
+        if isinstance(params, ComputeParams):
+            return params, None
+        per = PerBlock(blocks, params, shardings, (), keep, pieces,
+                       cast=False)
+        return per.step_tree(), per
+    return trees
 
 
 def _last_row(model: Model, view, logits):
@@ -431,13 +551,13 @@ def make_prefill_step(model: Model, run: RunConfig, mesh=None):
             return logits[:, -1, :]
 
         return prefill_step
-    shardings = model_shardings(model, mesh)
-    keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
+    trees = _serving(model, model_shardings(model, mesh),
+                     tp_leaves(model, mesh), tp_pieces(model, mesh))
 
     @torch.inference_mode()
     def prefill_mesh(params, batch):
         view, rows = split_batch(mesh, batch)
-        with bound(model, _tree_for(params, shardings, keep, pieces)):
+        with bound(model, *trees(params)):
             logits, _ = model.forward(run, rows, mesh=view)
         return gather_rows(view, _last_row(model, view, logits))
 
@@ -457,13 +577,13 @@ def make_serve_step(model: Model, run: RunConfig, mesh=None):
             return nxt[:, None], cache
 
         return serve_step
-    shardings = model_shardings(model, mesh)
-    keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
+    trees = _serving(model, model_shardings(model, mesh),
+                     tp_leaves(model, mesh), tp_pieces(model, mesh))
 
     @torch.inference_mode()
     def serve_mesh(params, tokens, cache):
         view, rows = split_batch(mesh, {"tokens": tokens})
-        with bound(model, _tree_for(params, shardings, keep, pieces)):
+        with bound(model, *trees(params)):
             logits, cache = model.decode_step(run, rows["tokens"], cache,
                                               mesh=view)
         # The greedy token of the whole row: the first index on ties.

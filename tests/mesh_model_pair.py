@@ -142,6 +142,18 @@ SP_BIT_EQUAL = (("qwen1.5-0.5b", "dense"), ("llama-3.2-vision-90b", "cross"),
 SP_GRADS = tuple(c for c in SP_BLOCKS if c[1] != "moe")
 SP_ODD_S = 30
 SP_SEED = 11
+# The per-block gathers (``runtime.steps.PerBlock``) on a (2, 2) mesh of
+# the 4-rank spawn, each family's reduced cell on its weights above:
+# the steps from this rank's blocks against the whole compute tree
+# gathered before the forward (``_compute_tree`` bound), bit for bit:
+# prefill logits, DECODE_STEPS serve steps' logits and caches, and a
+# train step's metrics and every leaf's gradient under each remat of
+# PER_BLOCK_REMATS; and, by weakrefs on the gathered leaves, that no rank
+# holds two stacked blocks' at once.
+PER_BLOCK_MESH = (2, 2)
+PER_BLOCK_ARCHS = ("qwen1.5-0.5b", "deepseek-v2-236b", "llama-3.2-vision-90b",
+                   "seamless-m4t-medium", "zamba2-1.2b", "xlstm-1.3b")
+PER_BLOCK_REMATS = ("full", "dots", "none")
 # Mixtral's routing in repro's train step, written by the JAX child
 # beside its outputs and read by the port's ranks.
 ROUTES_FILE = "jax_routes.npz"
@@ -166,8 +178,10 @@ def routes(force=None):
     recorded); with ``force`` (another run's calls, one a layer), each
     call routes as that run's did, weighted by this run's probabilities
     at those ids (renormalized, as the router does), its load-balance
-    counts those ids'.  A layer is known by its router weight, so a remat
-    backward's recomputation routes as its forward did."""
+    counts those ids'.  A layer is known by its router weight's bits (a
+    step that gathers block by block hands each call a new tensor of the
+    same bits), so a remat backward's recomputation routes as its forward
+    did."""
     import torch
 
     from repro_torch.models import moe
@@ -178,7 +192,9 @@ def routes(force=None):
         calls.append(out[1].detach().clone())
         if force is None:
             return out
-        ids = force[layer.setdefault(id(params["router"]["w"]), len(layer))]
+        w = params["router"]["w"].detach()
+        key = (w.dtype, w.float().numpy().tobytes())
+        ids = force[layer.setdefault(key, len(layer))]
         probs = torch.softmax(x2d.float() @ params["router"]["w"].float(),
                               dim=-1)
         p = probs.gather(1, ids.long())
@@ -1794,6 +1810,158 @@ def _layer(a, i):
     return np.ascontiguousarray(a if i is None else a[i])
 
 
+@contextlib.contextmanager
+def held_blocks(model):
+    """Every leaf ``runtime.steps.PerBlock`` gathers inside the block (a
+    new tensor, not this rank's block itself), by weakref: yields a
+    record whose ``most`` is the most stacked blocks whose gathered
+    leaves were alive at once, checked at each gather, and ``calls`` the
+    gathers of stacked-block leaves."""
+    import types
+    import weakref
+
+    from repro_torch.runtime import steps
+    prefix = {f"{pre}.{rel}": pre for pre, blk in model.stacked_blocks()
+              .items() for rel, _ in blk.named_parameters()}
+    rec = types.SimpleNamespace(most=0, calls=0, alive=[])
+    real = steps.PerBlock.leaf
+
+    def leaf(self, name):
+        t = real(self, name)
+        pre = prefix.get(name)
+        if pre is None:
+            return t
+        rec.calls += 1
+        root = t if t._base is None else t._base
+        if root.untyped_storage()._cdata != \
+                self.params[name].untyped_storage()._cdata:
+            rec.alive.append((pre, weakref.ref(root)))
+        rec.alive = [(p, r) for p, r in rec.alive if r() is not None]
+        rec.most = max(rec.most, len({p for p, _ in rec.alive}))
+        return t
+    steps.PerBlock.leaf = leaf
+    try:
+        yield rec
+    finally:
+        steps.PerBlock.leaf = real
+
+
+def _same(a, b) -> list:
+    """[bit-equal, max |a - b|] of two tensors."""
+    import torch
+    a, b = a.detach(), b.detach()
+    return [bool(torch.equal(a, b)), float((a.float() - b.float()).abs()
+                                           .max()) if a.numel() else 0.0]
+
+
+def _per_block_rank(mesh, ref, out):
+    """The PER_BLOCK cases on this rank ("per_block/{arch}/{what}/rank{r}":
+    [bit-equal, max |difference|]; "/held": [the most blocks held at
+    once, the gathers of block leaves])."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (model_shardings, shard_params,
+                                            split_batch, tp_leaves,
+                                            tp_pieces)
+    r = mesh.rank
+    for arch in PER_BLOCK_ARCHS:
+        cfg = configs.get_reduced_config(arch)
+        run = RunConfig(**dict(XATTN_KNOBS, ssm_chunk=LAST_CHUNK))
+        model = build_model(cfg, "meta", trainable=True)
+        sh = model_shardings(model, mesh)
+        keep, pieces = tp_leaves(model, mesh), tp_pieces(model, mesh)
+        full = port_model(arch, ref)
+        params = shard_params({k: p.detach() for k, p in
+                               full.named_parameters()}, sh)
+        del full
+        batch = xattn_batch(ref, arch, torch.from_numpy) \
+            if arch in XATTN_ARCHS else {
+                k: torch.from_numpy(ref[f"in/{arch}/{k}"])
+                for k in ("tokens", "labels")}
+        fwd = {k: v for k, v in batch.items() if k != "labels"}
+        toks = batch["tokens"]
+        tag = f"per_block/{arch}"
+        held = []
+
+        def whole_tree(axes, cast=False):
+            p = steps.cast_params(params) if cast else params
+            return steps._compute_tree(p, sh, axes, keep, pieces)
+        # Prefill.
+        with held_blocks(model) as h:
+            got = steps.make_prefill_step(model, run, mesh)(params, fwd)
+        held.append(h)
+        view, rows = split_batch(mesh, fwd)
+        with torch.inference_mode(), steps.bound(model, whole_tree(())):
+            logits, _ = model.forward(run, rows, mesh=view)
+            want = steps.gather_rows(view, steps._last_row(model, view,
+                                                           logits))
+        out[f"{tag}/prefill/rank{r}"] = np.array(_same(got, want))
+        # The serve step's logits (as ``_last_row`` hands them on) and
+        # cache against the model's decode on the whole tree.
+        serve = steps.make_serve_step(model, run, mesh)
+        cache = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        cache2 = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        seen, real_last = [], steps._last_row
+
+        def last_row(m, v, lg):
+            seen.append(lg.clone())
+            return real_last(m, v, lg)
+        tree = whole_tree(())
+        for t in range(DECODE_STEPS):
+            steps._last_row = last_row
+            try:
+                with held_blocks(model) as h:
+                    _, cache = serve(params, toks[:, t:t + 1], cache)
+            finally:
+                steps._last_row = real_last
+            held.append(h)
+            view, rows = split_batch(mesh, {"tokens": toks[:, t:t + 1]})
+            with torch.inference_mode(), steps.bound(model, tree):
+                lg, cache2 = model.decode_step(run, rows["tokens"], cache2,
+                                               mesh=view)
+            out[f"{tag}/serve{t}/rank{r}"] = np.array(_same(seen[-1], lg))
+        same = [_same(a, b) for (_, a), (_, b) in zip(
+            steps._leaves(cache), steps._leaves(cache2))]
+        out[f"{tag}/cache/rank{r}"] = np.array(
+            [all(s for s, _ in same), max(d for _, d in same)])
+        del tree
+        # A train step's metrics and gradients under each remat.
+        for p in params.values():
+            p.requires_grad_(True)
+        for remat in PER_BLOCK_REMATS:
+            rr = dataclasses.replace(run, remat=remat)
+            with held_blocks(model) as h:
+                grads, metrics = steps.make_grad_fn(model, rr, mesh)(params,
+                                                                    batch)
+            held.append(h)
+            view, rows = split_batch(mesh, batch)
+            with steps.bound(model, whole_tree(view.batch_axes, cast=True)):
+                logits, aux = model(rr, rows, mesh=view)
+                loss, ce = steps.cross_entropy(logits, rows["labels"],
+                                               rr.z_loss, view, cfg.vocab)
+                want = {"ce": ce}
+                if "lb_loss" in aux:
+                    loss = loss + cfg.router_aux_coef * aux["lb_loss"]
+                    want["lb_loss"] = aux["lb_loss"]
+                    want["dropped"] = aux["dropped"].float()
+                want["loss"] = loss
+                g1 = torch.autograd.grad(loss, list(params.values()))
+            for k, m in want.items():
+                out[f"{tag}/{remat}/metrics/{k}/rank{r}"] = np.array(
+                    _same(metrics[k], m))
+            same = [_same(grads[k], g) for k, g in zip(params, g1)]
+            out[f"{tag}/{remat}/grads/rank{r}"] = np.array(
+                [all(s for s, _ in same), max(d for _, d in same),
+                 len(same)])
+        for p in params.values():
+            p.requires_grad_(False)
+        out[f"{tag}/held/rank{r}"] = np.array(
+            [max(h.most for h in held), min(h.calls for h in held)])
+
+
 def _restore_rank(mesh, ref, out, ckpt_dir):
     """Restore the checkpoint the (2, 4) ranks saved into this mesh's
     blocks; gather them whole."""
@@ -1822,7 +1990,8 @@ def _restore_rank(mesh, ref, out, ckpt_dir):
 def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
                ckpt_dir: str, out_dir: str) -> None:
     """One gloo CPU rank: the (2, 4) cases with 8 ranks, the (1, 4)
-    restore with 4; rank 0 writes ``out_dir/world{world}.npz``."""
+    restore and the (2, 2) PER_BLOCK cases with 4; rank 0 writes
+    ``out_dir/world{world}.npz``."""
     from datetime import timedelta
 
     import torch
@@ -1857,6 +2026,7 @@ def torch_rank(rank: int, world: int, init_file: str, ref_file: str,
         else:
             mesh = make_mesh((1, 4), AXES)
             _restore_rank(mesh, ref, out, ckpt_dir)
+            _per_block_rank(make_mesh(PER_BLOCK_MESH, AXES), ref, out)
         out["routes"] = np.array(sorted(mesh.routes.items()))
         blocks = {k: v for k, v in out.items() if "/rank" in k}
         gathered = [None] * world

@@ -11,6 +11,13 @@ the meta device:
 * the record of the last rank of a (2, 4) mesh equal to rank 0's for
   every reduced config's train and decode cells, and every tensor the
   step makes on meta;
+* ``tree_bytes``, the most compute-tree bytes a step holds at once (the
+  leaves outside the stacks and the largest stacked block's, gathered
+  block by block), and ``whole_tree_bytes``, the whole tree's, on one
+  reduced cell of each family; ``temp_size`` below the whole-tree
+  step's (every leaf gathered before the forward and bound, as the
+  steps did before they gathered block by block) by at least their
+  difference less one block, FLOPs equal;
 * ``main()``: a failing cell recorded with ``ok: false`` and its error,
   exit 1; the CLI at full width (Qwen1.5-0.5B's ``train_4k`` on the
   single-pod mesh) exits 0 and records the published config's
@@ -178,6 +185,60 @@ def test_last_rank_record_is_rank_zero_and_all_on_meta(arch):
             del rec["rank"], rec["trace_s"]
         assert last == first, kind
         assert first["route"] == "ref" and first["flops_per_device"] > 0
+
+
+# One reduced cell of each family for the per-block tree bytes.
+FAMILY_ARCHS = ("qwen1.5-0.5b", "deepseek-v2-236b", "llama-3.2-vision-90b",
+                "seamless-m4t-medium", "zamba2-1.2b", "xlstm-1.3b")
+
+
+def _whole_tree_steps(monkeypatch):
+    """The steps as they were before they gathered block by block: the
+    whole compute tree (``_compute_tree``) bound before the forward
+    (``PerBlock.step_tree``), each block reading it as bound."""
+    from repro_torch.runtime import steps
+
+    def whole(self):
+        p = steps.cast_params(self.params) if self.cast else self.params
+        return steps._compute_tree(p, self.shardings, self.axes, self.keep,
+                                   self.pieces)
+    monkeypatch.setattr(steps.PerBlock, "step_tree", whole)
+    monkeypatch.setattr(steps.PerBlock, "__call__", lambda self, b: b)
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_tree_bytes_are_one_block_at_a_time(monkeypatch, arch, kind):
+    from repro_torch.runtime import steps
+    from repro_torch.sharding import rules
+    cfg = configs.get_reduced_config(arch)
+    run = RunConfig(**dict(KNOBS, remat="full"))
+    shape = ShapeConfig(f"reduced_{kind}", 8, 8, kind)
+    mesh = dryrun.CountingMesh((2, 4), ("data", "model"))
+    rec = dryrun.cell_record(cfg, shape, mesh, run)
+    # The tree leaf by leaf, as the steps gather it.
+    model = build_model(cfg, "meta", trainable=True)
+    params = dryrun.rank_inputs(model, shape, mesh)["params"]
+    with torch.no_grad():
+        p = {k: v.detach() for k, v in params.items()}
+        if kind == "train":
+            p = steps.cast_params(p)
+        tree = steps._compute_tree(
+            p, rules.model_shardings(model, mesh),
+            rules.batch_axes(mesh, 8) if kind == "train" else (),
+            rules.tp_leaves(model, mesh), rules.tp_pieces(model, mesh))
+    size = {k: dryrun.nbytes(t) for k, t in tree.items()}
+    blocks = [sum(size[f"{pre}.{rel}"] for rel, _ in b.named_parameters())
+              for pre, b in model.stacked_blocks().items()]
+    whole = sum(size.values())
+    assert rec["whole_tree_bytes"] == whole
+    assert rec["tree_bytes"] == whole - sum(blocks) + max(blocks)
+    assert rec["tree_bytes"] < whole
+    _whole_tree_steps(monkeypatch)
+    before = dryrun.cell_record(cfg, shape, mesh, run)
+    assert before["flops_per_device"] == rec["flops_per_device"]
+    fall = before["memory"]["temp_size"] - rec["memory"]["temp_size"]
+    assert fall >= whole - rec["tree_bytes"] - max(blocks), (fall, whole)
 
 
 def test_main_records_a_failing_cell(monkeypatch, tmp_path):

@@ -12,7 +12,10 @@ JAX package's, on the CPU.
   bit for bit); placement and refusals.
 * Multi-rank: ``repro`` on 8 fake devices in one child interpreter,
   jitted, on a (2, 4) ("data", "model") mesh, beside the port on one
-  spawn of 8 gloo CPU ranks, then a spawn of 4 for a (1, 4) restore:
+  spawn of 8 gloo CPU ranks, then a spawn of 4 for a (1, 4) restore
+  and the per-block gathers on (2, 2) (one reduced cell of each family,
+  the steps from the rank's blocks bit for bit equal to the steps on the
+  whole compute tree, no rank holding two blocks' gathered leaves):
   each rank's blocks; ``moe_ffn`` with experts split over "model" (E 8),
   with virtual experts (E 2) and with a batch replicated over "data";
   one train step of reduced qwen and mixtral; AdamW alone on equal
@@ -1179,6 +1182,47 @@ def test_train_loop_matches_repro(runs):
                            "x", "p", name)
         assert np.all(np.abs(p - want) <= bound + ULPS * np.spacing(
             np.abs(want).astype(np.float32))), name
+
+
+PER_BLOCK_KINDS = ("prefill", "serve") + tuple(
+    f"train_{r}" for r in pair.PER_BLOCK_REMATS)
+
+
+@pytest.mark.parametrize("kind", PER_BLOCK_KINDS)
+@pytest.mark.parametrize("arch", pair.PER_BLOCK_ARCHS)
+def test_per_block_steps_are_the_whole_tree(runs, arch, kind):
+    """On every (2, 2) rank, the steps gathering each stacked block just
+    before it runs equal, bit for bit, the same steps on the whole
+    compute tree gathered before the forward: the prefill's last logits,
+    each serve step's logits and the cache after them, a train step's
+    loss, ce (``lb_loss``, ``dropped``) and every leaf's gradient under
+    remat "full", "dots" and "none"."""
+    got = runs[4]
+    tag = f"per_block/{arch}"
+    if kind.startswith("train_"):
+        remat = kind[len("train_"):]
+        names = [k for k in got if k.startswith(f"{tag}/{remat}/")]
+        assert len(names) >= 4 * 3, names
+    elif kind == "serve":
+        names = [k for k in got if k.startswith(f"{tag}/serve")
+                 or k.startswith(f"{tag}/cache/")]
+        assert len(names) == 4 * (pair.DECODE_STEPS + 1), names
+    else:
+        names = [k for k in got if k.startswith(f"{tag}/prefill/")]
+        assert len(names) == 4, names
+    for k in names:
+        assert got[k][0] == 1, (k, got[k].tolist())
+
+
+@pytest.mark.parametrize("arch", pair.PER_BLOCK_ARCHS)
+def test_per_block_steps_hold_one_block_at_once(runs, arch):
+    """No (2, 2) rank ever held the gathered leaves of two stacked blocks
+    at once (weakrefs on every gathered leaf, checked at each gather:
+    the forward's, a remat recompute's and those of the saved-tensor
+    hook of a block that is not rematerialized), in any of the steps."""
+    for r in range(4):
+        most, calls = runs[4][f"per_block/{arch}/held/rank{r}"]
+        assert most == 1 and calls > 0, (r, most, calls)
 
 
 def test_checkpoint_restores_on_other_meshes(runs, tmp_path):
