@@ -321,7 +321,18 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         MESH_TRAIN_STEPS steps of ``make_train_step`` (remat "full"; 48
         wgmma flash launches a step a rank, the first step's each
         against the twin): step 0's loss, ce and grad norm within
-        phase 9's bounds of one process's;
+        phase 9's bounds of one process's; on the same mesh Mixtral-8x7B
+        at its published widths, each rank's experts on its slice of
+        one global capacity plan's slots (ROADMAP item 7f): (a)'s
+        prefill over MESH_MOE_BATCH x MESH_MOE_SEQ, routed as one
+        process's forward of the whole batch routed (each differing
+        choice a near tie), every expert call on [8, ceil(C / 4), 4096]
+        (C = 2,560), dropped equal to one process's, the last logits
+        within LOGIT_TOL of its own (the largest difference printed, and
+        whether they are bit-equal); then one ``make_train_step`` of
+        MESH_DATA_MOE_TRAIN (remat "full"), routed as one process's step
+        on a (1,) mesh routed: loss and ce within phase 9's bounds,
+        ``lb_loss`` within tests/moe_pair.py's bound, dropped equal;
      c. that state saved from the mesh (``CheckpointManager.save(...,
         shardings=)``: rank 0 writes whole arrays), restored on a (2, 2)
         mesh (each rank its blocks) and in one process, all three equal
@@ -649,6 +660,14 @@ MESH_RANKS, MESH_TIMEOUT_S = 4, 900
 MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 4, 2048
 MESH_SERVE = (4, 128, 32)
 MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4, 1024
+# (b) also runs Mixtral-8x7B at its published widths on the same (4,)
+# ("data",) mesh, where each rank runs the experts on its slice of one
+# global capacity plan's slots (ROADMAP item 7f): (a)'s prefill
+# (MESH_MOE_LAYERS layers, MESH_MOE_BATCH x MESH_MOE_SEQ) against one
+# process's forward of the whole batch, and one train step of
+# MESH_DATA_MOE_TRAIN (layers, rows, sequence) against one process's
+# step on a (1,) mesh, both routed as one process routed.
+MESH_DATA_MOE_TRAIN = (1, 4, 512)
 MESH_SHAPES = ((1, 4), (2, 2))
 MESH_XATTN_SHAPE, MESH_VLM_BATCH, MESH_ENCDEC_BATCH = (1, 4), 2, 2
 GATHER_PIECE_BYTES = 1 << 28     # gathered_layout's piece, 256 MiB
@@ -4636,6 +4655,199 @@ def mesh_train_rank(smoke, ref, rank, tmp):
     return out
 
 
+@contextlib.contextmanager
+def expert_buffers():
+    """The shapes of the buffers each ``moe._expert_ffn`` call runs on
+    inside the block, in call order."""
+    from repro_torch.models import moe
+    seen, real = [], moe._expert_ffn
+
+    def rec(w_gate, w_up, w_down, buf):
+        seen.append(tuple(buf.shape))
+        return real(w_gate, w_up, w_down, buf)
+    moe._expert_ffn = rec
+    try:
+        yield seen
+    finally:
+        moe._expert_ffn = real
+
+
+def lb_bound(cfg, n_tokens, flips) -> float:
+    """How far two runs' ``lb_loss`` may lie apart (tests/moe_pair.py's
+    ``lb_tol``): 1e-3, plus 2 E / T for each choice routed otherwise."""
+    return 1e-3 + 2 * cfg.n_experts * flips / n_tokens
+
+
+def mesh_data_moe_rank(smoke, ref, rank):
+    """Phase 14b's Mixtral on one rank of the (MESH_RANKS,) ("data",)
+    mesh: (a)'s prefill from the rank's blocks, routed as one process's
+    forward of the whole batch routed, and one train step routed as one
+    process's step routed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import init_sharded, model_shardings
+    mesh = make_mesh((MESH_RANKS,), ("data",))
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    model = build_model(cfg, "meta")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_sharded(model, model_shardings(model, mesh),
+                          torch.Generator(device="cuda").manual_seed(
+                              MOE_SEED), "cuda")
+    step = steps.make_prefill_step(model, serve_mod.run_config(
+        MESH_MOE_SEQ), mesh)
+    toks = torch.from_numpy(ref["moe_tokens"]).cuda()
+    force = [(torch.from_numpy(ref[f"moe_full_ids{i}"]),
+              torch.from_numpy(ref[f"moe_full_gap{i}"]))
+             for i in range(cfg.n_layers)]
+    log = RouteLog()
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    t0 = time.perf_counter()
+    with smoke.capture(keep=[]) as cap, log.record(force) as rc, \
+            moe_dropped() as dropped, expert_buffers() as bufs, \
+            dryrun.counted_collectives() as tally:
+        last = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = dict(smoke.build.LAUNCHES)
+    c = cap.checked["flash_attn_bhsd"]
+    check(launches["flash_attn_bhsd"] == cfg.n_layers == c["calls"]
+          and sum(launches.values()) == cfg.n_layers,
+          f"data mesh prefill: launches {launches}, not {cfg.n_layers} "
+          f"flash calls")
+    check(bool(torch.isfinite(last).all())
+          and last.shape == (MESH_MOE_BATCH, cfg.vocab),
+          f"data mesh prefill: last logits {tuple(last.shape)} not finite")
+    out = dict(prefill=dict(
+        flips=route_flips(force, rc, "data mesh prefill vs one process"),
+        dropped=sum(dropped), buffers=bufs, fwd_s=fwd_s,
+        flash_launches=launches["flash_attn_bhsd"],
+        flash_max_abs_err=c["max_abs_err"], collectives=tally_of(tally),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        routes=dict(mesh.routes),
+        last=last.float().cpu().numpy().tolist() if rank == 0 else None))
+    del params, step, last, cap
+    torch.cuda.empty_cache()
+    # One train step, routed as one process's (1,) mesh step routed.
+    layers, b, s = MESH_DATA_MOE_TRAIN
+    tcfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=layers)
+    trun = train_mod.run_config(MOE_ARCH, 1, s, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    tmodel, params, opt, _ = train_mod.setup_mesh(tcfg, mesh, seed=MOE_SEED,
+                                                  device="cuda")
+    batch = {k: torch.from_numpy(ref[f"moe_train_{k}"]).cuda()
+             for k in ("tokens", "labels")}
+    force = [(torch.from_numpy(ref[f"moe_train_ids{i}"]),
+              torch.from_numpy(ref[f"moe_train_gap{i}"]))
+             for i in range(int(ref["moe_train_calls"]))]
+    torch.cuda.synchronize()
+    smoke.build.reset_launches()
+    t0 = time.perf_counter()
+    with smoke.capture(keep=[]) as cap, log.record(force) as rc, \
+            expert_buffers() as bufs, \
+            dryrun.counted_collectives() as tally:
+        _, _, m = steps.make_train_step(tmodel, trun, mesh)(params, opt,
+                                                            batch)
+        metrics = {k: float(m[k]) for k in ("loss", "ce", "lb_loss",
+                                            "dropped", "grad_norm")}
+    launches = dict(smoke.build.LAUNCHES)
+    c = cap.checked["flash_attn_bhsd"]
+    check(launches["flash_attn_bhsd"] == 2 * layers == c["calls"]
+          and sum(launches.values()) == 2 * layers,
+          f"data mesh train: launches {launches}, not {2 * layers} flash "
+          f"calls (forward + recompute)")
+    out["train"] = dict(
+        metrics, step_s=time.perf_counter() - t0,
+        flips=route_flips(force, rc, "data mesh train vs one process"),
+        buffers=bufs, flash_launches=launches["flash_attn_bhsd"],
+        flash_max_abs_err=c["max_abs_err"], collectives=tally_of(tally),
+        peak_bytes=torch.cuda.max_memory_allocated())
+    del params, opt, m, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_data_moe_checks(ranks, ref, out) -> None:
+    """Phase 14b's Mixtral on the data mesh against one process's runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity_of
+    cfg = get_config(MOE_ARCH)
+    runs = [r["data_moe"]["prefill"] for r in ranks]
+    n_tok = MESH_MOE_BATCH * MESH_MOE_SEQ
+    cap = capacity_of(cfg, n_tok)
+    c = -(-cap // MESH_RANKS)
+    want = [(cfg.n_experts, c, cfg.d_model)] * MESH_MOE_LAYERS
+    check(all(r["buffers"] == [list(w) for w in want] for r in runs),
+          f"data mesh prefill: expert buffers {runs[0]['buffers']}, not "
+          f"{want}")
+    check(all(r["dropped"] == ref["full_dropped"] for r in runs),
+          f"data mesh prefill: dropped {[r['dropped'] for r in runs]} vs one "
+          f"process's {ref['full_dropped']}")
+    got = np.asarray(runs[0]["last"])
+    diff = float(np.abs(got - ref["full_last"]).max())
+    same = bool(np.array_equal(got, ref["full_last"]))
+    check(diff <= LOGIT_TOL, f"data mesh prefill: last logits {diff} from "
+                             f"one process's (tol {LOGIT_TOL})")
+    trains = [r["data_moe"]["train"] for r in ranks]
+    one = ref["moe_train_one"]
+    layers, b, s = MESH_DATA_MOE_TRAIN
+    tcap = capacity_of(cfg, b * s)
+    for t in trains:
+        for key in ("loss", "ce"):
+            check(abs(t[key] - one[key]) <= TRAIN_LOSS_ATOL,
+                  f"data mesh train: {key} {t[key]} vs one process's "
+                  f"{one[key]}")
+        check(abs(t["lb_loss"] - one["lb_loss"])
+              <= lb_bound(cfg, b * s, t["flips"]),
+              f"data mesh train: lb_loss {t['lb_loss']} vs one process's "
+              f"{one['lb_loss']} ({t['flips']} choices routed otherwise)")
+        check(t["dropped"] == one["dropped"],
+              f"data mesh train: dropped {t['dropped']} vs one process's "
+              f"{one['dropped']}")
+        check(set(map(tuple, t["buffers"])) == {
+            (cfg.n_experts, -(-tcap // MESH_RANKS), cfg.d_model)},
+              f"data mesh train: expert buffers {t['buffers']}")
+    out["data_moe"] = dict(logits_vs_one=diff, bit_equal=same,
+                           capacity=cap, slots_a_rank=c, prefill=[
+                               {k: v for k, v in r.items() if k != "last"}
+                               for r in runs], train=trains, train_one=one)
+    print(f"phase 14: mixtral {MESH_MOE_LAYERS} of 32 layers on the "
+          f"({MESH_RANKS},) ('data',) mesh, each rank's experts on its "
+          f"{c} of every expert's {cap} slots (one global plan), "
+          f"make_prefill_step over {MESH_MOE_BATCH} x {MESH_MOE_SEQ} from "
+          f"the rank's blocks: last logits within {diff:.4g} of one "
+          f"process's forward of the whole batch (tol {LOGIT_TOL}; "
+          f"bit-equal {same}), dropped {runs[0]['dropped']} = one "
+          f"process's, near-tie flips {[r['flips'] for r in runs]}, flash "
+          f"x{runs[0]['flash_launches']} a rank (each == twin), s a "
+          f"forward {[round(r['fwd_s'], 2) for r in runs]}, peak GiB "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in runs]}, routes "
+          f"{runs[0]['routes']}; collectives (calls / MB by kind) "
+          f"{collectives_line(runs)}")
+    print(f"phase 14: mixtral {layers} layer, one make_train_step of {b} x "
+          f"{s} on the ({MESH_RANKS},) data mesh (remat full; experts on "
+          f"{-(-tcap // MESH_RANKS)} of {tcap} slots a rank): loss "
+          f"{[round(t['loss'], 5) for t in trains]} / ce "
+          f"{[round(t['ce'], 5) for t in trains]} / lb_loss "
+          f"{[round(t['lb_loss'], 6) for t in trains]} / dropped "
+          f"{[t['dropped'] for t in trains]} / grad norm "
+          f"{[round(t['grad_norm'], 5) for t in trains]} vs one process's "
+          f"(1,) mesh {one['loss']:.5f} / {one['ce']:.5f} / "
+          f"{one['lb_loss']:.6f} / {one['dropped']} / "
+          f"{one['grad_norm']:.5f}; near-tie flips "
+          f"{[t['flips'] for t in trains]}, flash x"
+          f"{trains[0]['flash_launches']} a rank, s a step "
+          f"{[round(t['step_s'], 2) for t in trains]}, peak GiB "
+          f"{[round(t['peak_bytes'] / 2**30, 2) for t in trains]}; "
+          f"collectives {collectives_line(trains)}")
+
+
 def mesh_tp_train_rank(smoke, ref):
     """Phase 14b' on one rank: Qwen1.5-0.5B at its published width, one
     ``make_train_step`` on a (2, 2) ("data", "model") mesh, tensor-
@@ -4721,6 +4933,7 @@ def mesh_rank(rank, addr, tmp):
             ref = {k: z[k] for k in z.files}
         out = {"moe": mesh_moe_rank(smoke, ref, rank, tmp)}
         out["train"] = mesh_train_rank(smoke, ref, rank, tmp)
+        out["data_moe"] = mesh_data_moe_rank(smoke, ref, rank)
         out["tp_train"] = mesh_tp_train_rank(smoke, ref)
         out["xattn"] = mesh_xattn_rank(smoke, ref, rank, tmp)
         out["last"] = mesh_last_rank(smoke, ref, rank, tmp)
@@ -4841,6 +5054,27 @@ def mesh_references(smoke, tmp) -> dict:
         times.append(time.perf_counter() - t0)
     out["train_one"]["step_s"] = times
     del qmodel, params, opt, m
+    torch.cuda.empty_cache()
+    # Mixtral's train step on a (1,) mesh, its routing recorded.
+    layers, b, s = MESH_DATA_MOE_TRAIN
+    mcfg = dataclasses.replace(cfg, n_layers=layers)
+    bt = make_source(mcfg, ShapeConfig("mesh_moe_train", s, b, "train"),
+                     seed=MOE_SEED, device="cpu").batch_at(0)
+    for k in ("tokens", "labels"):
+        ref[f"moe_train_{k}"] = bt[k].numpy()
+    mmodel, params, opt, _ = train_mod.setup_mesh(mcfg, one, seed=MOE_SEED,
+                                                  device="cuda")
+    with log.record() as rc:
+        _, _, m = steps.make_train_step(mmodel, train_mod.run_config(
+            MOE_ARCH, 1, s, remat="full"), one)(
+                params, opt, {k: bt[k].cuda() for k in ("tokens", "labels")})
+        out["moe_train_one"] = {k: float(m[k]) for k in (
+            "loss", "ce", "lb_loss", "dropped", "grad_norm")}
+    ref["moe_train_calls"] = np.array(len(rc))
+    for i, (ids, gap) in enumerate(rc):
+        ref[f"moe_train_ids{i}"] = ids.numpy()
+        ref[f"moe_train_gap{i}"] = gap.detach().numpy()
+    del mmodel, params, opt, m
     torch.cuda.empty_cache()
     xattn_references(ref, out, tmp)
     t0 = time.perf_counter()
@@ -5192,6 +5426,8 @@ def mesh_phase(smoke, result) -> dict:
           f"{[round(t['peak_bytes'] / 2**30, 2) for t in tps]}, "
           f"routes {tps[0]['routes']}; the step's collectives (calls / MB "
           f"by kind) {collectives_line(tps)}")
+    # (b) Mixtral on the data mesh.
+    mesh_data_moe_checks(ranks, ref, out)
     # (d) / (e) the cross-attention families on (1, 4).
     mesh_xattn_checks(ranks, ref, out)
     # (f)-(h) the last three families on (1, 4).

@@ -12,6 +12,7 @@ blocks themselves, such as the experts, included).
         --arch llama-3.2-vision-90b --mesh 2 2
     PYTHONPATH=src python scripts/dryrun_mesh_prefill.py --layers 2 \\
         --batch 4 --mesh 2 2           # chip_smoke.py phase 14 (a)'s cell
+    PYTHONPATH=src python scripts/dryrun_mesh_prefill.py --mesh 4
 """
 import argparse
 import dataclasses
@@ -26,7 +27,7 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from torch_mesh_prefill import BATCHES, SEQ  # noqa: E402
+from torch_mesh_prefill import BATCHES, SEQ, mesh_axes  # noqa: E402
 
 GIB = 2 ** 30
 
@@ -38,15 +39,16 @@ def main(argv=None) -> None:
                     help="layers (default: the config's)")
     ap.add_argument("--batch", type=int, default=0,
                     help="rows (default: the script's for the arch)")
-    ap.add_argument("--mesh", type=int, nargs=2, default=[2, 2])
+    ap.add_argument("--mesh", type=int, nargs="+", default=[2, 2],
+                    help="data extent, or data and model extents")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     shape = ShapeConfig("mesh_prefill", SEQ,
                         args.batch or BATCHES[args.arch], "prefill")
     rec = dryrun.count_step(build_model(cfg, "meta"), shape,
-                            dryrun.CountingMesh(args.mesh, ("data",
-                                                            "model")),
+                            dryrun.CountingMesh(args.mesh,
+                                                mesh_axes(args.mesh)),
                             serve_mod.run_config(SEQ))
     mem = rec["memory"]
     need = mem["argument_size"] + mem["temp_size"]

@@ -1,17 +1,23 @@
-"""The expert FLOPs a rank repeats when `moe_ffn` runs on a mesh without
-"model" (ROADMAP item 7f), counted by the port's dry-run on the meta
-device.
+"""A rank's count of an MoE arch's train_4k step on a mesh without
+"model" (ROADMAP item 7f) against one process's, by the port's dry-run
+on the meta device.
 
-On a ("data",) mesh of n ranks every rank gathers the batch's rows and
-runs all experts over the whole batch, while the rest of the step is
-split n ways.  So a rank's FLOPs on (n,) are E + R / n and one process's
-on (1,) are E + R, where E is the experts' FLOPs over the whole batch
-and R the rest: E = (F_n - F_1 / n) * n / (n - 1).  A global capacity
-plan would leave E / n to a rank.
+On a ("data",) mesh of n ranks, every rank gathers the batch's rows,
+routes them and builds the one capacity plan of C slots an expert that
+one process would build, and runs the experts on its own slice of each
+expert's slots, ceil(C / n) of them (``models.moe``).  So the experts'
+FLOPs a rank are ceil(C / n) / C of one process's, like the rest of the
+step's 1 / n, and each MoE layer adds an all-gather of the experts'
+[E, n ceil(C / n), D] outputs (its backward a reduce-scatter of the same
+size) to the rows' gather.  Printed for (n,) and (1,): a rank's FLOPs,
+its collectives' result bytes and calls by kind, and its argument +
+temp bytes; then the FLOPs ratio.
 
     PYTHONPATH=src python scripts/dryrun_moe_data_mesh.py --arch mixtral-8x7b --ranks 16
+    PYTHONPATH=src python scripts/dryrun_moe_data_mesh.py --arch deepseek-v2-236b --ranks 16
 """
 import argparse
+import json
 
 from repro_torch.configs import ARCH_NAMES
 from repro_torch.configs.base import TRAIN_4K
@@ -25,17 +31,22 @@ def main() -> None:
     ap.add_argument("--ranks", type=int, default=16)
     args = ap.parse_args()
     n = args.ranks
-    flops = {}
+    recs = {}
     for size in (n, 1):
         rec = dryrun.run_cell(args.arch, TRAIN_4K,
                               AbstractMesh((size,), ("data",)),
-                              dryrun.default_run(TRAIN_4K))
-        flops[size] = rec["flops_per_device"]
-    experts = (flops[n] - flops[1] / n) * n / (n - 1)
-    print(f"{args.arch} train_4k on ({n},) ('data',): {flops[n]:.4g} FLOPs "
-          f"a rank, of which {experts:.4g} the experts over the whole "
-          f"batch; a global plan would leave {experts / n:.4g} of those, "
-          f"{flops[n] - experts + experts / n:.4g} a rank in all")
+                              dryrun.default_run(TRAIN_4K), verbose=False)
+        mem = rec["memory"]
+        recs[size] = dict(
+            mesh=[size], flops=rec["flops_per_device"],
+            collective_bytes=rec["collective_bytes_per_device"],
+            collective_counts=rec["collective_counts"],
+            argument_plus_temp=mem["argument_size"] + mem["temp_size"])
+        print(json.dumps(dict(arch=args.arch, shape=TRAIN_4K.name,
+                              **recs[size])))
+    print(f"{args.arch} train_4k on ({n},) ('data',): {recs[n]['flops']:.4g} "
+          f"FLOPs a rank, {recs[n]['flops'] / recs[1]['flops']:.4g} of one "
+          f"process's {recs[1]['flops']:.4g}")
 
 
 if __name__ == "__main__":

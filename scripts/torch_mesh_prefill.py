@@ -1,5 +1,6 @@
-"""A model's prefill at its published widths on a ("data", "model") mesh,
-one NCCL rank a GPU: the multi-card record of PERF.md.
+"""A model's prefill at its published widths on a ("data", "model") mesh
+(or, given one extent, a ("data",) mesh), one NCCL rank a GPU: the
+multi-card record of PERF.md.
 
   python3 scripts/torch_mesh_prefill.py --layers 32 --mesh 1 4
   python3 scripts/torch_mesh_prefill.py --arch llama-3.2-vision-90b \
@@ -9,13 +10,15 @@ one NCCL rank a GPU: the multi-card record of PERF.md.
   python3 scripts/torch_mesh_prefill.py --tree blocks --mesh 2 2
   python3 scripts/torch_mesh_prefill.py --arch llama-3.2-vision-90b \
       --tree blocks --mesh 2 2
+  python3 scripts/torch_mesh_prefill.py --tree blocks --mesh 4
 
 ``--arch`` is Mixtral-8x7B (the default), Llama-3.2-Vision-90B or
 DeepSeek-V2-236B.  Each rank draws its own blocks of random weights
-(each block from a seed and the rank: no single process could hold any
-of them, 93 GB, 179 GB and, at 20 of DeepSeek-V2's 60 layers, 157 GB in
-bf16; a leaf every rank reads whole is then not the same on every rank,
-which changes no shape or launch) and runs ``make_prefill_step`` over
+(each split leaf's block from a seed and the rank: no single process
+could hold any of them, 93 GB, 179 GB and, at 20 of DeepSeek-V2's 60
+layers, 157 GB in bf16; a leaf every rank holds whole from one seed
+alike on every rank, so that on a ("data",) mesh every rank routes the
+gathered batch as one router) and runs ``make_prefill_step`` over
 the arch's BATCHES x SEQ tokens.  ``--tree whole`` (the default) gathers
 the rank's compute tree once, every leaf at once
 (``runtime.steps.compute_params``: MLA's re-blocked ``wuq`` gathered and
@@ -25,7 +28,9 @@ it reads inside the forward (a block at a time, the leaves outside the
 stacks once a forward), so each timed forward includes its gathers.  The
 forward runs tensor-parallel over "model" (each rank its heads,
 FFN and vocab blocks, the experts, DeepSeek-V2's shared experts' width;
-flash at [B_loc * H / m, S, hd], none for MLA's head dim of 192).  The
+flash at [B_loc * H / m, S, hd], none for MLA's head dim of 192).  On a
+("data",) mesh each rank runs the experts on its slice of one global
+capacity plan's slots (``models.moe``), every weight gathered whole.  The
 vlm's gates, which start at zero and would hide the image path, are
 drawn from U(0.5, 1.5) and its N_IMG x d_vision image tokens a row from
 normals, both from SEED alike on every rank.  Printed:
@@ -65,13 +70,22 @@ BATCHES = {"mixtral-8x7b": 8, "llama-3.2-vision-90b": 4,
 SEQ, REPS, SEED = 2048, 3, 0
 
 
-def random_blocks(model, shardings, seed: int, device) -> dict:
+def mesh_axes(shape) -> tuple:
+    """The axis names of a mesh of ``shape``: ("data",) for one extent,
+    ("data", "model") for two."""
+    return ("data", "model")[:len(shape)]
+
+
+def random_blocks(model, shardings, seed: int, device,
+                  whole_seed: int) -> dict:
     """{parameter name: this rank's block}, each drawn with the
     initializer of its spec at the block's shape (scaled by the spec's
-    fan-in) from one generator seeded by ``seed``."""
+    fan-in): a split leaf's from one generator seeded by ``seed``, a
+    whole leaf's from one seeded by ``whole_seed``."""
     from repro_torch.models.module import _init_one, _per_layer, flatten
     from repro_torch.sharding.rules import local_shard
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gens = {False: torch.Generator(device=device).manual_seed(seed),
+            True: torch.Generator(device=device).manual_seed(whole_seed)}
     dtypes = {k: p.dtype for k, p in model.named_parameters()}
     out = {}
     for name, spec in flatten(model.specs).items():
@@ -83,7 +97,7 @@ def random_blocks(model, shardings, seed: int, device) -> dict:
                                   else spec.shape[-1])
             out[pname] = _init_one(dataclasses.replace(
                 spec, shape=shape, axes=(None,) * len(shape), fan_in=fan),
-                gen, device).to(dtypes[pname])
+                gens[shape == tuple(part.shape)], device).to(dtypes[pname])
     return out
 
 
@@ -119,11 +133,12 @@ def rank_main(rank, args, addr, out_file):
         cfg = get_config(args.arch)
         cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
         batch = BATCHES[args.arch]
-        mesh = make_mesh(tuple(args.mesh), ("data", "model"))
+        mesh = make_mesh(tuple(args.mesh), mesh_axes(args.mesh))
         model = build_model(cfg, "meta")
         t0 = time.perf_counter()
         params = random_blocks(model, model_shardings(model, mesh),
-                               SEED * 1000 + rank, device)
+                               SEED * 1000 + rank, device,
+                               SEED * 1000 + world)
         block_bytes = sum(p.numel() * p.element_size()
                           for p in params.values())
         torch.cuda.synchronize()
@@ -222,7 +237,8 @@ def measure(args, cfg, model, mesh, step, params, inputs, batch,
                tok_s=batch * SEQ / (ms / 1e3),
                launches=launches, launch_routes=routes,
                flash_shape=[batch // args.mesh[0] * cfg.n_heads
-                            // args.mesh[1], SEQ, cfg.hd]
+                            // args.mesh[-1] ** (len(args.mesh) - 1),
+                            SEQ, cfg.hd]
                if launches else None,
                dropped=sum(dropped), moe_layers=len(dropped),
                collective_calls=dict(tally.counts),
@@ -236,12 +252,15 @@ def main(argv=None):
     ap.add_argument("--arch", default="mixtral-8x7b", choices=sorted(BATCHES))
     ap.add_argument("--layers", type=int, default=0,
                     help="layers (default: the config's)")
-    ap.add_argument("--mesh", type=int, nargs=2, default=[1, 4])
+    ap.add_argument("--mesh", type=int, nargs="+", default=[1, 4],
+                    help="data extent, or data and model extents")
     ap.add_argument("--tree", default="whole", choices=("whole", "blocks"),
                     help="hand each forward the compute tree gathered "
                     "once (whole) or the rank's blocks (blocks)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
+    if len(args.mesh) not in (1, 2):
+        ap.error("--mesh takes one extent or two")
     world = int(np.prod(args.mesh))
     if torch.cuda.device_count() < world:
         raise SystemExit(f"a {args.mesh} mesh needs {world} GPUs, "

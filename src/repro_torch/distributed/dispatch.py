@@ -13,6 +13,10 @@ order), through an [n_items, per_item] slot table, where ``repro``
 scatter-adds.  A scatter-add on the card (``index_add_``) uses atomics,
 so a sum of three or more bf16 rows would change from run to run; the
 table makes a decode or train step deterministic.
+
+Two helpers split one plan's work over n ranks (``models.moe`` on a
+mesh without "model"): ``slot_slice``, a rank's slice of every bucket's
+slots, and ``items_in``, the slot tables of a rank's own items.
 """
 from __future__ import annotations
 
@@ -95,6 +99,27 @@ def scatter_to_buckets(plan: RoutePlan, payload: torch.Tensor,
     return rows * (item_for_slot >= 0)[:, None].to(payload.dtype)
 
 
+def slot_slice(item_for_slot: torch.Tensor, n_buckets: int, capacity: int,
+               n: int, i: int) -> torch.Tensor:
+    """Part ``i`` of ``n`` of a slot table (``item_for_slot``
+    [n_buckets * capacity]): slots ``[i c, (i + 1) c)`` of every
+    bucket's, ``c = ceil(capacity / n)``, those past ``capacity`` empty
+    (-1); [n_buckets * c] i32.  The parts of all ``i`` together cover
+    every slot once."""
+    c = -(-capacity // n)
+    tab = torch.nn.functional.pad(item_for_slot.reshape(n_buckets, capacity),
+                                  (0, n * c - capacity), value=-1)
+    return tab[:, i * c:(i + 1) * c].reshape(n_buckets * c)
+
+
+def items_in(slot_tabs, lo: int, n_items: int):
+    """The slot tables (``slot_tables``) of items ``[lo, lo + n_items)``
+    alone, renumbered from 0, every other slot empty."""
+    ifs, wfs = slot_tabs
+    mine = (ifs >= lo) & (ifs < lo + n_items)
+    return torch.where(mine, ifs - lo, -1), wfs
+
+
 def _item_slot_table(item_for_slot: torch.Tensor, n_items: int,
                     per_item: int) -> torch.Tensor:
     """[n_items, per_item] i64: each item's buffer slots in slot order,
@@ -122,20 +147,26 @@ def gather_from_buckets(slot_tabs, buf: torch.Tensor, n_items: int,
     slot_tabs: (item_for_slot, weight_for_slot) from slot_tables().
 
     Each row is weighted in ``buf``'s dtype and an item's rows are added
-    in slot order, one rounding per add (see the module doc).
+    in slot order, one rounding per add (see the module doc).  Only the
+    rows the items hold are read, so the tables of some items alone
+    (``items_in``) combine those at their cost.
     ``per_item`` bounds the rows an item holds; without it the bound is
     read from the table (a wait for the device)."""
     ifs, wfs = slot_tabs
-    rows = buf * wfs[:, None].to(buf.dtype)
-    rows = rows * (ifs >= 0)[:, None].to(buf.dtype)
     if per_item is None:
         valid = ifs[ifs >= 0]
         per_item = max(int(torch.bincount(valid.long()).max())
                        if valid.numel() else 1, 1)
     table = _item_slot_table(ifs, n_items, per_item)
-    # The sentinel slot reads a zero row.
-    rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
-    out = rows[table[:, 0]]
-    for j in range(1, per_item):
-        out = out + rows[table[:, j]]
+    n_slots = buf.shape[0]
+    w = wfs.to(buf.dtype)[:, None]
+    out = None
+    for j in range(per_item):
+        # Only the rows an item holds are read and weighted; the
+        # sentinel slot reads a zero row.
+        ix = table[:, j]
+        held = (ix < n_slots)[:, None]
+        ix = torch.clamp(ix, max=n_slots - 1)
+        row = torch.where(held, buf[ix] * w[ix], 0.0)
+        out = row if out is None else out + row
     return out

@@ -56,9 +56,22 @@ The shared experts take the sequence-parallel ``ffn``.
 
 With a mesh that has no "model" axis, ``repro`` runs the one-rank path
 over the whole batch (capacity from all B rows, routing across the data
-shards).  The port gathers the rows over the batch axes, runs that path
-on every rank and keeps its own rows; the load-balance loss, which every
-rank then computes whole, passes 1 / n of its gradient on each rank.
+shards), which GSPMD partitions across the data shards.  The port
+(``_moe_slots``) keeps every decision of that path global and splits
+only the expert work over the n ranks of the batch axes: each rank
+gathers the rows, routes the whole batch and builds the one capacity
+plan of C slots an expert (the routes, drops, ``me`` / ``ce`` and
+load-balance loss are one process's on every rank; ``dropped`` is
+counted once), then runs the experts on its own slice of every
+expert's slots, ``[i c, (i + 1) c)`` with ``c = ceil(C / n)`` (slots
+past C are empty rows): ``E c`` rows, 1 / n of the expert FLOPs
+whatever the routing.  The slices are all-gathered along the slot
+dimension (the backward reduce-scatters the slot gradients, each rank's
+a share) and each rank combines its own tokens' rows in slot order, so
+each output row is one process's; the combine reads only those rows,
+so nothing of the gathered output is saved for the backward.  The
+load-balance loss, which every rank computes whole, passes 1 / n of its
+gradient on each rank.
 """
 from __future__ import annotations
 
@@ -67,7 +80,7 @@ import math
 import torch
 
 from repro_torch.distributed.dispatch import gather_from_buckets, \
-    plan_routes, scatter_to_buckets, slot_tables
+    items_in, plan_routes, scatter_to_buckets, slot_slice, slot_tables
 from repro_torch.launch.mesh import block_fwd, gather_fwd, psum_bwd, \
     psum_fwd
 from repro_torch.models.ffn import ffn, ffn_spec, silu
@@ -155,8 +168,8 @@ def capacity_of(cfg, tokens: int) -> int:
 
 
 def _grad_share(v: torch.Tensor, n: int) -> torch.Tensor:
-    """``v``'s value with 1 / ``n`` of its gradient."""
-    return v if n == 1 else v / n + (v - v / n).detach()
+    """``v``'s value, bit for bit, with 1 / ``n`` of its gradient."""
+    return v if n == 1 else v.detach() + (v - v.detach()) / n
 
 
 def _dp_axes(mesh, b_loc: int) -> tuple:
@@ -241,24 +254,34 @@ def _moe_mesh(params, cfg, x, mesh):
     return y.reshape(b, s, d), e * torch.sum(me * ce), dropped
 
 
-def _moe_gathered(params, cfg, x, mesh):
+def _moe_slots(params, cfg, x, mesh):
     """A mesh without "model": ``repro``'s one-rank path over the whole
-    batch, on every rank (see the module doc)."""
+    batch, its expert slots split over the batch axes (see the module
+    doc)."""
     b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
     axes = tuple(mesh.batch_axes)
-    n = mesh_extent(mesh, axes)
-    xg = gather_fwd(x, mesh, axes, 0, reduce=True) if axes else x
-    bg = xg.shape[0]
-    params = {"router": params["router"], **_gathered_experts(
-        params["w_gate"], params["w_up"], params["w_down"], mesh, d,
-        "data" in axes)}
-    out, me, ce, dropped = _moe_local(params, cfg, xg.reshape(bg * s, d), 0,
-                                      cfg.n_experts,
-                                      capacity_of(cfg, bg * s))
-    i = mesh.index(axes) if axes else 0
-    y = out.reshape(bg, s, d)[i * b:(i + 1) * b]
-    lb = _grad_share(cfg.n_experts * torch.sum(me * ce), n)
-    return y, lb, dropped
+    n, i = mesh_extent(mesh, axes), mesh.index(axes)
+    xg = gather_fwd(x, mesh, axes, 0, reduce=True).reshape(-1, d)
+    t = xg.shape[0]
+    capacity = capacity_of(cfg, t)
+    top_p, top_i, (me, ce) = _router(params, cfg, xg)
+    item_of = torch.arange(t * k, dtype=torch.int32, device=x.device) // k
+    plan = plan_routes(top_i.reshape(-1), e, capacity)
+    tabs = slot_tables(plan, e, capacity, item_of=item_of,
+                       weights=top_p.reshape(-1))
+    mine = slot_slice(tabs[0], e, capacity, n, i)
+    w = _gathered_experts(params["w_gate"], params["w_up"],
+                          params["w_down"], mesh, d, "data" in axes)
+    buf = scatter_to_buckets(plan, xg, e, mine.shape[0] // e,
+                             item_for_slot=mine)
+    h = _expert_ffn(w["w_gate"], w["w_up"], w["w_down"],
+                    buf.reshape(e, -1, d))
+    h = gather_fwd(h, mesh, axes, 1, reduce=True)[:, :capacity]
+    y = gather_from_buckets(items_in(tabs, i * b * s, b * s),
+                            h.reshape(e * capacity, d), b * s, per_item=k)
+    lb = _grad_share(e * torch.sum(me * ce), n)
+    return y.reshape(b, s, d), lb, plan.n_dropped
 
 
 def moe_ffn(params, cfg, x, mesh=None, sp=False):
@@ -275,7 +298,7 @@ def moe_ffn(params, cfg, x, mesh=None, sp=False):
     elif mesh is not None and "model" in mesh.axis_names:
         y, lb, dropped = _moe_mesh(params, cfg, x, mesh)
     elif mesh is not None and mesh.size > 1:
-        y, lb, dropped = _moe_gathered(params, cfg, x, mesh)
+        y, lb, dropped = _moe_slots(params, cfg, x, mesh)
     else:
         out, me, ce, dropped = _moe_local(params, cfg, x.reshape(b * s, d),
                                           0, e, capacity_of(cfg, b * s))

@@ -154,6 +154,13 @@ PER_BLOCK_MESH = (2, 2)
 PER_BLOCK_ARCHS = ("qwen1.5-0.5b", "deepseek-v2-236b", "llama-3.2-vision-90b",
                    "seamless-m4t-medium", "zamba2-1.2b", "xlstm-1.3b")
 PER_BLOCK_REMATS = ("full", "dots", "none")
+# The MoE families (reduced) on the (8,) data mesh, where each rank runs
+# the experts on its slice of one global capacity plan's slots: the
+# prefill (and, where True, DECODE_STEPS decode steps, whose capacity of
+# 5 slots an expert is below the 8 ranks) against one process's forward
+# (and decode loop) of the whole batch: last-position logits, and each
+# MoE call's routes, dropped pairs and load-balance loss, bit for bit.
+DATA_MOE_ARCHS = {"mixtral-8x7b": True, "deepseek-v2-236b": False}
 # Mixtral's routing in repro's train step, written by the JAX child
 # beside its outputs and read by the port's ranks.
 ROUTES_FILE = "jax_routes.npz"
@@ -207,6 +214,26 @@ def routes(force=None):
         yield calls
     finally:
         moe._router = real
+
+
+@contextlib.contextmanager
+def moe_aux():
+    """Each ``moe_ffn`` call's output rows and aux inside the block, in
+    order: {"y": [...], "dropped": [...], "lb_loss": [...]}."""
+    from repro_torch.models import transformer
+    calls = {"y": [], "dropped": [], "lb_loss": []}
+    real = transformer.moe_ffn
+
+    def rec(*args, **kwargs):
+        y, aux = real(*args, **kwargs)
+        for k, v in dict(aux, y=y).items():
+            calls[k].append(v.detach().clone())
+        return y, aux
+    transformer.moe_ffn = rec
+    try:
+        yield calls
+    finally:
+        transformer.moe_ffn = real
 
 
 @contextlib.contextmanager
@@ -1177,6 +1204,7 @@ def _steps_rank(mesh, ref, out, tmp):
             :, -1] for i in range(TRAIN_B)])
     out["data_mesh/prefill"] = got.numpy()
     out["data_mesh/prefill_one"] = want.numpy()
+    _data_moe_rank(dmesh, ref, out)
     for tag, m, r in (("data_mesh", dmesh, run),
                       ("microbatch", mesh, RunConfig(**RUN_KNOBS,
                                                      microbatch=2))):
@@ -1211,6 +1239,67 @@ def _steps_rank(mesh, ref, out, tmp):
         out[f"{tag}/restarts"] = np.asarray(hist["restarts"])
         for k, v in gather_params(params, sh).items():
             out[f"{tag}/p/{k}"] = v.detach().numpy()
+
+
+def _data_moe_rank(mesh, ref, out):
+    """DATA_MOE_ARCHS on the data mesh ``mesh`` and in one process over the
+    whole batch ("data_moe/{arch}/{one,mesh}/..." keys): the prefill step
+    and decode steps' last-position logits ("logits{j}", the prefill
+    first), and every MoE call's routed ids, dropped pairs and
+    load-balance loss."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import steps
+    from repro_torch.sharding.rules import (gather_rows, model_shardings,
+                                            shard_params, split_batch)
+    run = RunConfig(**RUN_KNOBS)
+    for arch, decode in DATA_MOE_ARCHS.items():
+        full = port_model(arch, ref)
+        model = build_model(configs.get_reduced_config(arch), "meta",
+                            trainable=True)
+        params = shard_params({k: p.detach() for k, p in
+                               full.named_parameters()},
+                              model_shardings(model, mesh))
+        toks = torch.from_numpy(ref[f"in/{arch}/tokens"])
+        n_dec = DECODE_STEPS if decode else 0
+        with torch.inference_mode(), routes() as ids, moe_aux() as aux:
+            logits = [full.forward(run, {"tokens": toks})[0][:, -1]]
+            cache = full.init_cache(TRAIN_B, DECODE_LEN)
+            # A decode step's f32 head one row at a time, as each rank
+            # computes it: a one-row product rounds unlike an 8-row one.
+            head = full._logits
+            full._logits = lambda x, *a: torch.cat(
+                [head(x[i:i + 1], *a) for i in range(x.shape[0])])
+            for t in range(n_dec):
+                lg, cache = full.decode_step(run, toks[:, t:t + 1], cache)
+                logits.append(lg[:, -1])
+            del full._logits
+        one = (logits, ids, aux)
+        tree = steps.compute_params(model, params, mesh)
+        cache = steps.local_cache(model, mesh, TRAIN_B, DECODE_LEN, "cpu")
+        with routes() as ids, moe_aux() as aux:
+            logits = [steps.make_prefill_step(model, run, mesh)(
+                params, {"tokens": toks})]
+            for t in range(n_dec):
+                view, rows = split_batch(mesh, {"tokens": toks[:, t:t + 1]})
+                with torch.inference_mode(), steps.bound(model, tree):
+                    lg, cache = model.decode_step(run, rows["tokens"], cache,
+                                                  mesh=view)
+                logits.append(gather_rows(view, steps._last_row(
+                    model, view, lg)))
+        for tag, (logits, ids, aux) in (("one", one),
+                                        ("mesh", (logits, ids, aux))):
+            pre = f"data_moe/{arch}/{tag}"
+            for j, lg in enumerate(logits):
+                out[f"{pre}/logits{j}"] = lg.float().numpy()
+            out[f"{pre}/ids"] = torch.cat(ids).numpy()
+            for j, y in enumerate(aux.pop("y")):
+                y = y if tag == "one" else mesh.all_gather(y, "data", 0)
+                out[f"{pre}/y{j}"] = y.float().numpy()
+            for k, v in aux.items():
+                out[f"{pre}/{k}"] = torch.stack(v).numpy()
 
 
 def _xattn_rank(mesh, ref, out):

@@ -18,6 +18,9 @@ the meta device:
   step's (every leaf gathered before the forward and bound, as the
   steps did before they gathered block by block) by at least their
   difference less one block, FLOPs equal;
+* the reduced Mixtral's expert ``bmm`` FLOPs a rank on (8,) ("data",)
+  exactly ceil(C / 8) / C of one rank's (each rank its slice of the
+  global plan's slots), for a train and a decode cell;
 * ``main()``: a failing cell recorded with ``ok: false`` and its error,
   exit 1; the CLI at full width (Qwen1.5-0.5B's ``train_4k`` on the
   single-pod mesh) exits 0 and records the published config's
@@ -40,6 +43,7 @@ from repro_torch import configs
 from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh, gather_fwd, psum_bwd, psum_fwd
+from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.models.module import param_count
 from subproc import REPO_ROOT
@@ -239,6 +243,47 @@ def test_tree_bytes_are_one_block_at_a_time(monkeypatch, arch, kind):
     assert before["flops_per_device"] == rec["flops_per_device"]
     fall = before["memory"]["temp_size"] - rec["memory"]["temp_size"]
     assert fall >= whole - rec["tree_bytes"] - max(blocks), (fall, whole)
+
+
+class _ExpertFlops(TorchDispatchMode):
+    """The FLOPs of every ``bmm`` with an operand of width ``f`` (the
+    experts' hidden width, which no other product of the reduced Mixtral
+    has), backward included."""
+
+    def __init__(self, f):
+        super().__init__()
+        self.f, self.total, self.calls = f, 0, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.bmm.default and \
+                self.f in args[0].shape + args[1].shape:
+            (b, m, k), n = args[0].shape, args[1].shape[2]
+            self.total += 2 * b * m * k * n
+            self.calls += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kind", ("train", "decode"))
+def test_data_mesh_experts_are_a_slot_slice(kind):
+    """The reduced Mixtral's expert ``bmm`` FLOPs a rank on (8,)
+    ("data",) are exactly ceil(C / 8) / C of one rank's on (1,): C = 160
+    slots an expert for a train step's 8 x 32 tokens, 20 a rank; C = 5
+    for a decode step's 8, 1 a rank (the padded slice)."""
+    cfg = configs.get_reduced_config("mixtral-8x7b")
+    run = RunConfig(**KNOBS)
+    shape = ShapeConfig(f"reduced_{kind}", 32, 8, kind)
+    tokens = 8 * (32 if kind == "train" else 1)
+    cap = moe.capacity_of(cfg, tokens)
+    flops = {}
+    for n in (1, 8):
+        count = _ExpertFlops(cfg.d_ff_expert)
+        with count:
+            dryrun.cell_record(cfg, shape, dryrun.CountingMesh(
+                (n,), ("data",)), run)
+        assert count.calls == cfg.n_layers * (3 if kind == "decode" else 9)
+        flops[n] = count.total
+    assert flops[8] * cap == flops[1] * -(-cap // 8)
+    assert flops[8] < flops[1]
 
 
 def test_main_records_a_failing_cell(monkeypatch, tmp_path):

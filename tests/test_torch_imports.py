@@ -5,12 +5,13 @@ the port's engine, serving, front-end, artifact, enrichment, data,
 analytics, obs, model-stack (the MoE layer and its dispatch, the SSM
 and xLSTM blocks included), mesh, sharding-rule and sharded-lookup or
 training modules (optimizer, checkpoint manager, driver, train launcher)
-loads neither, chip_smoke.py refuses to
-run without a CUDA device, and the serving launcher and the quickstart
-twin run on the CPU only when asked (``--device cpu``).
+loads neither (one interpreter imports them in turn), chip_smoke.py
+refuses to run without a CUDA device, and the serving launcher and the
+quickstart twin run on the CPU only when asked (``--device cpu``).
 """
 import ast
 import glob
+import json
 import os
 import shutil
 import subprocess
@@ -82,39 +83,58 @@ def test_engine_import_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("module", ["repro_torch.serving",
-                                    "repro_torch.serving.frontend",
-                                    "repro_torch.core.artifact",
-                                    "repro_torch.core.enrich",
-                                    "repro_torch.data",
-                                    "repro_torch.analytics",
-                                    "repro_torch.obs",
-                                    "repro_torch.models.model",
-                                    "repro_torch.launch.serve",
-                                    "repro_torch.runtime.steps",
-                                    "repro_torch.optim.adamw",
-                                    "repro_torch.checkpoint.manager",
-                                    "repro_torch.runtime.driver",
-                                    "repro_torch.launch.train",
-                                    "repro_torch.models.moe",
-                                    "repro_torch.distributed.dispatch",
-                                    "repro_torch.models.ssm",
-                                    "repro_torch.models.xlstm",
-                                    "repro_torch.launch.mesh",
-                                    "repro_torch.core.distributed",
-                                    "repro_torch.sharding.rules"])
-def test_slice_import_loads_no_jax(module):
+SLICE_MODULES = ["repro_torch.serving", "repro_torch.serving.frontend",
+                 "repro_torch.core.artifact", "repro_torch.core.enrich",
+                 "repro_torch.data", "repro_torch.analytics",
+                 "repro_torch.obs", "repro_torch.models.model",
+                 "repro_torch.launch.serve", "repro_torch.runtime.steps",
+                 "repro_torch.optim.adamw", "repro_torch.checkpoint.manager",
+                 "repro_torch.runtime.driver", "repro_torch.launch.train",
+                 "repro_torch.models.moe", "repro_torch.distributed.dispatch",
+                 "repro_torch.models.ssm", "repro_torch.models.xlstm",
+                 "repro_torch.launch.mesh", "repro_torch.core.distributed",
+                 "repro_torch.sharding.rules"]
+# One interpreter imports SLICE_MODULES in turn and prints, for each, the
+# forbidden modules that are new in ``sys.modules`` after it (or the
+# import's error).  A forbidden module stays loaded once in, so the
+# module that pulls it in is the one that shows it.
+_IMPORT_IN_TURN = """
+import importlib, json, sys
+def bad():
+    return {m for m in sys.modules if m.split('.')[0] in %r}
+seen, out = bad(), {}
+for name in %r:
+    try:
+        importlib.import_module(name)
+    except Exception as e:
+        out[name] = ['error: %%r' %% (e,)]
+        continue
+    now = bad()
+    out[name] = sorted(now - seen)
+    seen = now
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def slice_imports():
+    """{module: the forbidden modules its import added (or its error)},
+    from one interpreter."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = _run(["-c", _IMPORT_IN_TURN % (FORBIDDEN, SLICE_MODULES)], cwd=REPO,
+             env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_import_loads_no_jax(slice_imports, module):
     """The serving, analytics and obs packages, the model stack and the
     training modules load neither ``jax`` nor ``repro`` (the server pulls
     in the engine, the kernels and numpy copies of the reference's host
     modules; the model stack the configs, which are copies, and the
     kernels; the train launcher the data pipeline)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    r = _run(["-c", f"import sys, {module}; "
-              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'repro')); print(bad); "
-              "sys.exit(1 if bad else 0)"], cwd=REPO, env=env)
-    assert r.returncode == 0, r.stdout + r.stderr
+    assert slice_imports[module] == [], slice_imports[module]
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

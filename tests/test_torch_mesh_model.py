@@ -23,7 +23,11 @@ JAX package's, on the CPU.
   process and by ``repro``.  A second JAX child beside it: qwen's
   ``make_prefill_step`` and ``decode_step`` / ``make_serve_step``;
   mixtral's train step on the (8,) ("data",) mesh and with 2
-  microbatches; ``train_loop(shardings=)`` with a failure.  Mixtral's
+  microbatches; ``train_loop(shardings=)`` with a failure.  On the (8,)
+  data mesh, where each rank runs the experts on its slice of one global
+  capacity plan's slots, Mixtral's prefill and decode steps and
+  DeepSeek-V2's prefill against one process over the whole batch, bit
+  for bit (``pair.DATA_MOE_ARCHS``).  Mixtral's
   routing can flip at near ties between the packages (bf16 rounding,
   ``tests/moe_pair.py``), so its mesh prefill, decode and data-mesh
   gradients are held against one process of the port routed as it
@@ -1139,6 +1143,43 @@ def test_data_mesh_moe_is_one_process_routed_alike(runs):
     for name in names:
         assert _nw(t[f"data_mesh/g/{name}"],
                    t[f"data_one/g/{name}"]) <= MOE_GRAD_NORMWISE, name
+
+
+DATA_MOE_CALLS = [(arch, call) for arch, decode in pair.DATA_MOE_ARCHS.items()
+                  for call in ("prefill", "decode")[:1 + decode]]
+
+
+@pytest.mark.parametrize("arch,call", DATA_MOE_CALLS)
+def test_data_mesh_moe_steps_are_one_process(runs, arch, call):
+    """Mixtral and DeepSeek-V2 (MLA, shared experts) on the (8,) data
+    mesh, each rank's experts on its slice of one global capacity plan's
+    slots, against one process over the whole batch, bit for bit: the
+    prefill step's (or each decode step's) last-position logits, and
+    every MoE call's routes, output rows, dropped pairs and load-balance
+    loss.  A decode step is the padded case: its capacity is below the
+    number of ranks, so some ranks hold only empty slots."""
+    t = runs[8]
+    cfg = configs.get_reduced_config(arch)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    one, mesh = f"data_moe/{arch}/one", f"data_moe/{arch}/mesh"
+    prefill_ids = n_moe * pair.TRAIN_B * pair.TRAIN_S
+    if call == "prefill":
+        logits, calls = ["logits0"], range(n_moe)
+        ids = slice(0, prefill_ids)
+    else:
+        assert t_moe.capacity_of(cfg, pair.TRAIN_B) < pair.DATA_MESH[0]
+        logits = [f"logits{j}" for j in range(1, 1 + pair.DECODE_STEPS)]
+        calls = range(n_moe, n_moe * (1 + pair.DECODE_STEPS))
+        ids = slice(prefill_ids, None)
+    assert len(t[f"{mesh}/dropped"]) == len(t[f"{one}/dropped"]) == \
+        n_moe * (1 + pair.DECODE_STEPS * pair.DATA_MOE_ARCHS[arch])
+    for key in logits + [f"y{i}" for i in calls]:
+        assert np.array_equal(t[f"{mesh}/{key}"], t[f"{one}/{key}"]), key
+    assert t[f"{one}/ids"][ids].size > 0
+    assert np.array_equal(t[f"{mesh}/ids"][ids], t[f"{one}/ids"][ids])
+    for key in ("dropped", "lb_loss"):
+        assert np.array_equal(t[f"{mesh}/{key}"][list(calls)],
+                              t[f"{one}/{key}"][list(calls)]), key
 
 
 @pytest.mark.parametrize("tag", ["data_mesh", "microbatch"])

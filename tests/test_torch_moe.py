@@ -11,6 +11,9 @@ experts + 2 shared, top-2).  Tolerances, as stated per test:
 * dispatch (``plan_routes``, ``slot_tables``, ``scatter_to_buckets``,
   ``gather_from_buckets``): exactly ``repro``'s, bf16 sums included
   (both add an item's rows in slot order);
+* ``moe_ffn`` on a mesh without "model", n ranks' slot slices
+  simulated in one process: the assembled rows ``_moe_local``'s bit for
+  bit, ``dropped`` and ``lb_loss`` exact;
 * ``moe_ffn`` on equal inputs: routed ids and ``dropped`` exact,
   ``lb_loss`` within 1e-6, probabilities within 1e-6, the output within
   two bf16 ulps plus 2^-8 (tests/test_torch_models.py's ffn bound: the
@@ -297,6 +300,77 @@ def test_moe_ffn_refuses_a_mesh():
         moe.moe_ffn(tp, cfg, x, _StubMesh((2, 2, 1),
                                           ("pod", "data", "model"),
                                           ("data",)))
+
+
+class _SimRanks:
+    """Rank ``i`` of n on a ("data",) mesh, all in one process: the row
+    gather returns the whole batch ``x``; the slot gather records this
+    rank's expert outputs in ``slots`` and returns every rank's recorded
+    so far (zeros for the rest), so a second pass over the ranks
+    assembles them all."""
+
+    def __init__(self, n, i, x, slots):
+        self.axis_names, self.batch_axes = ("data",), ("data",)
+        self.shape, self.coords, self.size = {"data": n}, {"data": i}, n
+        self.x, self.slots = x, slots
+
+    def _key(self, axes):
+        return ("data",)
+
+    def index(self, axes):
+        return self.coords["data"]
+
+    def all_gather(self, x, axes, dim):
+        if dim == 0:
+            return self.x
+        self.slots[self.coords["data"]] = x
+        return torch.cat([self.slots.get(r, torch.zeros_like(x))
+                          for r in range(self.shape["data"])], dim)
+
+
+@pytest.mark.parametrize("top_k", [2, 6])
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_slot_slices_assemble_the_local_path(n, top_k):
+    """``moe_ffn`` on a mesh without "model" (``_moe_slots``), n ranks
+    simulated in one process: each rank's experts run on [E, ceil(C / n),
+    D] (C = 83 slots, which none of 2, 3, 8 divides), and the ranks'
+    output rows are ``_moe_local``'s over the whole batch bit for bit,
+    its ``dropped`` and ``lb_loss`` on every rank; at the reduced
+    DeepSeek-V2's top-2 and the published top-6, where a token's rows
+    are added in slot order."""
+    cfg = dataclasses.replace(configs.get_reduced_config("deepseek-v2-236b"),
+                              top_k=top_k, n_shared_experts=0,
+                              capacity_factor=0.23 * 8 / top_k)
+    _, tp = _moe_params(cfg)
+    b, s = 24, 15                      # 360 tokens
+    x = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(b, s, cfg.d_model))).to(torch.bfloat16)
+    cap = moe.capacity_of(cfg, b * s)
+    assert cap == 83
+    want, me, ce, dropped = moe._moe_local(
+        tp, cfg, x.reshape(b * s, cfg.d_model), 0, cfg.n_experts, cap)
+    assert int(dropped) > 0
+    shapes, real = [], moe._expert_ffn
+
+    def ffn(wg, wu, wd, buf):
+        shapes.append(tuple(buf.shape))
+        return real(wg, wu, wd, buf)
+    slots, rows = {}, b // n
+    moe._expert_ffn = ffn
+    try:
+        for _ in range(2):
+            got = [moe.moe_ffn(tp, cfg, x[i * rows:(i + 1) * rows],
+                               _SimRanks(n, i, x, slots)) for i in range(n)]
+    finally:
+        moe._expert_ffn = real
+    c = -(-cap // n)
+    assert set(shapes) == {(cfg.n_experts, c, cfg.d_model)}
+    y = torch.cat([g[0] for g in got]).reshape(b * s, cfg.d_model)
+    assert torch.equal(y, want)
+    for _, aux in got:
+        assert int(aux["dropped"]) == int(dropped)
+        assert float(aux["lb_loss"]) == float(cfg.n_experts
+                                              * torch.sum(me * ce))
 
 
 @pytest.mark.parametrize("tokens", [1, 8, 80, 16384])
