@@ -8,9 +8,10 @@ covering at max_level 9, then for each path (``fast``, ``fast`` with
 ``fused=True``, ``hybrid``; the configs of chip_smoke.py) runs one warm
 batch of ``--n`` points under ``torch.profiler`` and prints the wall
 time of the batch, the device time summed over its kernels (busy share
-= device / wall), and the operators and kernels with the most device
-time, and the operators with the most device time by input shape (which
-tells apart calls of one operator from different call sites).  Needs a
+= device / wall), the operators and kernels with the most device time,
+and the device time under each of the engine's ``geo.*`` phase spans
+(``bench/spans.py``'s reading: a kernel counts under every span its
+launch lies in), with the host syncs inside ``geo.assign``.  Needs a
 CUDA device.
 """
 import argparse
@@ -18,12 +19,13 @@ import dataclasses
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALE = dict(seed=0, n_states=16, counties_per_state=8, blocks_per_county=24)
@@ -44,7 +46,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(REPO, "src"))
+    sys.path[:0] = [os.path.join(REPO, "src"), REPO]
+    from bench import spans, trace as bench_trace
     from repro_torch.core.cells import build_cell_covering
     from repro_torch.core.engine import EngineConfig, GeoEngine
     from repro_torch.core.synth import build_synth_census
@@ -68,40 +71,47 @@ def main() -> int:
         eng.assign(pts)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            t0 = time.perf_counter()
-            eng.assign(pts)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        avgs = prof.key_averages()
-        kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
-                         key=device_us, reverse=True)
-        ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
-                     key=device_us, reverse=True)
-        busy = sum(device_us(e) for e in kernels) / 1e3
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(bench_trace.STRETCH):
+                t0 = time.perf_counter()
+                eng.assign(pts)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            tr = spans.SpanTrace.from_file(path, set())
+        # Kernels from the trace's device events: key_averages() also
+        # lists each span's projection onto the device as a CUDA row.
+        kernels = {}
+        for kname, _, ts, te in tr.device:
+            us, count = kernels.get(kname, (0.0, 0))
+            kernels[kname] = (us + te - ts, count + 1)
+        kernels = sorted(((us, count, kname) for kname, (us, count)
+                          in kernels.items()), reverse=True)
+        ops = sorted(((device_us(e), e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU), reverse=True)
+        busy = tr.device_us() / 1e3
         print(f"== {name}: wall {wall * 1e3:.3f} ms, device {busy:.3f} ms "
               f"(busy {busy / (wall * 1e3):.1%}), {args.n} points, "
               f"{len(kernels)} distinct kernels, "
-              f"{sum(e.count for e in kernels)} launches")
+              f"{sum(k[1] for k in kernels)} launches")
         for title, rows in (("operators", ops), ("kernels", kernels)):
             print(f"  top {title} by device time:")
-            for e in rows[:TOP]:
-                us = device_us(e)
+            for us, count, key in rows[:TOP]:
                 if us <= 0:
                     break
                 print(f"  {us / 1e3:9.3f} ms  {us / 1e3 / busy:6.1%}  "
-                      f"x{e.count:<4d} {e.key[:80]}")
-        by_shape = sorted((e for e in prof.key_averages(
-            group_by_input_shape=True) if e.device_type == DeviceType.CPU),
-            key=device_us, reverse=True)
-        print("  top operators by device time and input shapes:")
-        for e in by_shape[:TOP]:
-            us = device_us(e)
-            if us <= 0:
-                break
+                      f"x{count:<4d} {key[:80]}")
+        print(f"  device time by geo.* span ({tr.span_calls(spans.SYNC_CALLS)}"
+              f" host syncs inside geo.assign; "
+              f"{spans.unspanned_share(tr) or 0.0:.2f} % of geo.assign's "
+              f"device time under no leaf span):")
+        for n in dict.fromkeys(n for n, _, _ in tr.spans):
+            us = tr.span_device_us(n)
             print(f"  {us / 1e3:9.3f} ms  {us / 1e3 / busy:6.1%}  "
-                  f"x{e.count:<4d} {e.key} {str(e.input_shapes)[:100]}")
+                  f"x{sum(1 for s in tr.spans if s[0] == n):<4d} {n}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

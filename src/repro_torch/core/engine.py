@@ -32,8 +32,7 @@ construction, never at the first assign.
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,6 +48,7 @@ from repro_torch.core.registry import available_strategies, get_strategy
 from repro_torch.core.resolve import AssignResult
 from repro_torch.core.simple import SimpleConfig
 from repro_torch.kernels import ops
+from repro_torch.obs.profile import span
 
 # Names an explicit ``GeoEngine.build(strategy=...)`` accepts ("auto"
 # additionally asks the planner).
@@ -121,11 +121,6 @@ class GeoEngine:
         self._impl.validate(indices, self.cfg)
         self.plan = plan if plan is not None else plan_mod.explicit_plan(
             strategy, self.cfg, plan_mod.device_kind_of(indices.device))
-        # Optional observability hook (DESIGN.md §15): when set to a
-        # callable ``f(stage, seconds, batch=b)``, every padded assign is
-        # timed to completion (the device synchronized) and reported.
-        # Off by default — the hot path must not pay a sync unasked.
-        self.stage_timer: Optional[Callable[..., None]] = None
 
     @classmethod
     def build(cls, census: CensusMap, strategy: str = "simple",
@@ -225,39 +220,29 @@ class GeoEngine:
     def assign(self, points) -> AssignResult:
         """Map [N, 2] (lon, lat) points (array or tensor; moved to the
         engine's device) -> AssignResult of [N] i32 id tensors (-1 = not
-        on the map) and a GeoStats."""
-        return self._impl.assign(self.indices, self._points(points),
-                                 self.cfg)
+        on the map) and a GeoStats.  Under a capturing profiler the call
+        is the ``geo.assign`` span (``obs.profile.span``), its phases
+        nested inside."""
+        with span("geo.assign"):
+            return self._impl.assign(self.indices, self._points(points),
+                                     self.cfg)
 
     def assign_padded(self, points, n_valid) -> AssignResult:
         """Shape-stable assign over a padded batch: rows >= ``n_valid``
         are rewritten to ``ops.FAR`` (outside every extent, bbox and
         polygon), so they enter no need mask, compaction or PIP call,
         the GeoStats counters equal an unpadded assign of the valid
-        prefix, and pad rows come back -1 in all three id tensors.  With
-        ``stage_timer`` set, the call synchronizes the engine's device
-        and reports ``("assign_padded", seconds, batch=b)``."""
+        prefix, and pad rows come back -1 in all three id tensors."""
         if not self._impl.caps.supports_padded:
             raise ValueError(f"strategy {self.strategy!r} does not "
                              f"support padded batches")
-        timer = self.stage_timer
-        t0 = time.perf_counter() if timer is not None else 0.0
         pts = self._points(points)
         valid = torch.arange(pts.shape[0], device=self.device) < n_valid
         masked = torch.where(valid[:, None], pts, ops.FAR)
         res = self.assign(masked)
-        out = AssignResult(torch.where(valid, res.state, -1),
-                           torch.where(valid, res.county, -1),
-                           torch.where(valid, res.block, -1), res.stats)
-        if timer is not None:
-            # Sync so the interval covers the device work, not just the
-            # launches — the engine-side truth that the serving layer's
-            # host-observed device_assign brackets.
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            timer("assign_padded", time.perf_counter() - t0,
-                  batch=pts.shape[0])
-        return out
+        return AssignResult(torch.where(valid, res.state, -1),
+                            torch.where(valid, res.county, -1),
+                            torch.where(valid, res.block, -1), res.stats)
 
     # -- index / extent handles ---------------------------------------------
 

@@ -27,6 +27,7 @@ from repro_torch.core.resolve import onepass_stats, resolve_candidates
 from repro_torch.kernels import ops
 from repro_torch.kernels.cascade import OUTSIDE, morton
 from repro_torch.kernels.ref import grid_coord
+from repro_torch.obs.profile import span
 
 # Tensor fields of FastIndex, in order (``from_numpy`` keys).
 INDEX_FIELDS = ("cell_lo", "cell_hi", "cell_val", "cand", "top_start",
@@ -245,8 +246,11 @@ def cell_values(index: FastIndex, points: torch.Tensor) -> torch.Tensor:
 
 def parents_of(index, bid: torch.Tensor):
     """(county, state) ids of block ids via the parent tables."""
-    cid = torch.where(bid >= 0, index.block_parent[bid.clamp(min=0)], -1)
-    sid = torch.where(cid >= 0, index.county_parent[cid.clamp(min=0)], -1)
+    with span("geo.fast.parents"):
+        cid = torch.where(bid >= 0, index.block_parent[bid.clamp(min=0)],
+                          -1)
+        sid = torch.where(cid >= 0, index.county_parent[cid.clamp(min=0)],
+                          -1)
     return cid, sid
 
 
@@ -259,12 +263,13 @@ def assign_fast_onepass(index: FastIndex, points: torch.Tensor,
         raise ValueError('FastConfig.fused="onepass" needs an index '
                          "built by FastIndex.from_covering with a pool "
                          "(with_pool=True / GeoIndexSet.ensure)")
-    bid, flags, nrest, nskip = ops.assign_cascade(
-        points, index.quant, index.cell_lo, index.cell_hi, index.cell_val,
-        index.top_start, index.cand, index.block_bbox, index.edge_pool,
-        max_level=index.max_level, gbits=index.gbits,
-        search_iters=index.search_iters, backend=cfg.backend)
-    stats = onepass_stats(flags, nrest, nskip)
+    with span("geo.fast.onepass"):
+        bid, flags, nrest, nskip = ops.assign_cascade(
+            points, index.quant, index.cell_lo, index.cell_hi,
+            index.cell_val, index.top_start, index.cand, index.block_bbox,
+            index.edge_pool, max_level=index.max_level, gbits=index.gbits,
+            search_iters=index.search_iters, backend=cfg.backend)
+        stats = onepass_stats(flags, nrest, nskip)
     cid, sid = parents_of(index, bid)
     return sid, cid, bid, stats
 
@@ -278,32 +283,32 @@ def assign_fast(index: FastIndex, points: torch.Tensor,
                          "with_pool=True (FastIndex.from_covering)")
     if cfg.fused == "onepass" and cfg.mode == "exact":
         return assign_fast_onepass(index, points, cfg)
-    val = cell_values(index, points)
-    brow = (-(val + 1)).clamp(0, max(index.cand.shape[0] - 1, 0))
-    bid = torch.where(val >= 0, val, -1)
-    need = (val < 0) & (val > OUTSIDE)
-
-    zero = torch.zeros((), dtype=torch.int32, device=points.device)
-    n_boundary = need.sum()
-    n_pip, overflow, phase2_miss = zero, zero, zero
-
-    if index.cand.shape[0] > 0:
-        if cfg.mode == "approx":
+    has_cand = index.cand.shape[0] > 0
+    with span("geo.fast.locate"):
+        val = cell_values(index, points)
+        brow = (-(val + 1)).clamp(0, max(index.cand.shape[0] - 1, 0))
+        bid = torch.where(val >= 0, val, -1)
+        need = (val < 0) & (val > OUTSIDE)
+        zero = torch.zeros((), dtype=torch.int32, device=points.device)
+        n_boundary = need.sum()
+        if has_cand and cfg.mode == "approx":
             # Centre-owner candidate; error <= leaf cell diagonal.
             bid = torch.where(need, index.cand[brow, 0], bid)
-        else:
-            # Two-phase resolution: slot 0 (the centre owner) for every
-            # boundary point, slots 1..K-1 for the slot-0 misses;
-            # unmatched points fall back to the centre owner.
-            bid, rs = resolve_candidates(
-                points, lambda idx, _: index.cand[brow[idx]],
-                index.block_edges, need,
-                cap=capacity_for(n, cfg.cap_boundary),
-                backend=cfg.backend, prior=bid, fallback="first",
-                two_phase=True,
-                edge_pool=index.edge_pool if cfg.fused else None)
-            n_pip, overflow = rs.n_pip, rs.overflow
-            phase2_miss = rs.phase2_miss
+    n_pip, overflow, phase2_miss = zero, zero, zero
+
+    if has_cand and cfg.mode != "approx":
+        # Two-phase resolution: slot 0 (the centre owner) for every
+        # boundary point, slots 1..K-1 for the slot-0 misses; unmatched
+        # points fall back to the centre owner.
+        bid, rs = resolve_candidates(
+            points, lambda idx, _: index.cand[brow[idx]],
+            index.block_edges, need,
+            cap=capacity_for(n, cfg.cap_boundary),
+            backend=cfg.backend, prior=bid, fallback="first",
+            two_phase=True,
+            edge_pool=index.edge_pool if cfg.fused else None)
+        n_pip, overflow = rs.n_pip, rs.overflow
+        phase2_miss = rs.phase2_miss
 
     cid, sid = parents_of(index, bid)
     stats = {"n_boundary": n_boundary, "n_pip": n_pip, "overflow": overflow,

@@ -19,6 +19,12 @@ of the blocked-CSR pool).
 
 Counters are 0-d tensors on the points' device; nothing here reads one
 back to the host.
+
+Under a capturing profiler the primitive is the ``geo.resolve`` span,
+split into ``geo.resolve.compact`` (compaction of the needing rows),
+``.candidates`` (their candidate ids), ``.pip`` (the PIP schedule with
+its gathers and kernels) and ``.scatter`` (fallback, write-back,
+counters).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 from repro_torch.core.compact import (capacity_for, compact_indices,
                                       scatter_filled)
 from repro_torch.kernels import ops
+from repro_torch.obs.profile import span
 
 # Candidate table for N points: a precomputed [N, K] id tensor, or a
 # callable (idx [R], sub_pts [R, 2]) -> [R, K] evaluated after
@@ -293,36 +300,42 @@ def resolve_candidates(points: torch.Tensor, cand_ids: Candidates,
     """
     n = points.shape[0]
     backend = ops.resolve_backend(backend, points.device)
-    if prior is None:
-        prior = torch.full((n,), -1, dtype=torch.int32, device=points.device)
-    idx, slot_ok = compact_indices(need, cap)
-    sub_pts = points[idx]
-    sub_need = need[idx] & slot_ok
-    sub_cand = cand_ids(idx, sub_pts) if callable(cand_ids) \
-        else cand_ids[idx]
-    if k is not None:
-        sub_cand = sub_cand[:, :k]
-    if two_phase:
-        if cap2 is None:
-            cap2 = capacity_for(cap, 0.25, ceiling=cap)
-        resolved, n_pip, p2_miss = _pip_two_phase(
-            sub_pts, sub_cand, edges_table, sub_need, backend, cap2,
-            edge_pool=edge_pool)
-    else:
-        resolved, n_pip, p2_miss = _pip_sequential(
-            sub_pts, sub_cand, edges_table, sub_need, backend,
-            edge_pool=edge_pool)
-    if fallback == "first":
-        fb = torch.where(sub_cand[:, 0] >= 0, sub_cand[:, 0], -1)
-    elif fallback == "prior":
-        fb = prior[idx]
-    else:
-        raise ValueError(f"unknown fallback policy: {fallback!r}")
-    new_val = torch.where(sub_need,
-                          torch.where(resolved >= 0, resolved, fb),
-                          prior[idx])
-    assign = scatter_filled(prior, idx, slot_ok, new_val)
-    n_need = need.sum()
-    overflow = n_need - sub_need.sum()
+    with span("geo.resolve"):
+        with span("geo.resolve.compact"):
+            if prior is None:
+                prior = torch.full((n,), -1, dtype=torch.int32,
+                                   device=points.device)
+            idx, slot_ok = compact_indices(need, cap)
+            sub_pts = points[idx]
+            sub_need = need[idx] & slot_ok
+        with span("geo.resolve.candidates"):
+            sub_cand = cand_ids(idx, sub_pts) if callable(cand_ids) \
+                else cand_ids[idx]
+            if k is not None:
+                sub_cand = sub_cand[:, :k]
+        with span("geo.resolve.pip"):
+            if two_phase:
+                if cap2 is None:
+                    cap2 = capacity_for(cap, 0.25, ceiling=cap)
+                resolved, n_pip, p2_miss = _pip_two_phase(
+                    sub_pts, sub_cand, edges_table, sub_need, backend, cap2,
+                    edge_pool=edge_pool)
+            else:
+                resolved, n_pip, p2_miss = _pip_sequential(
+                    sub_pts, sub_cand, edges_table, sub_need, backend,
+                    edge_pool=edge_pool)
+        with span("geo.resolve.scatter"):
+            if fallback == "first":
+                fb = torch.where(sub_cand[:, 0] >= 0, sub_cand[:, 0], -1)
+            elif fallback == "prior":
+                fb = prior[idx]
+            else:
+                raise ValueError(f"unknown fallback policy: {fallback!r}")
+            new_val = torch.where(sub_need,
+                                  torch.where(resolved >= 0, resolved, fb),
+                                  prior[idx])
+            assign = scatter_filled(prior, idx, slot_ok, new_val)
+            n_need = need.sum()
+            overflow = n_need - sub_need.sum()
     return assign, ResolveStats(n_need=n_need, n_pip=n_pip,
                                 overflow=overflow, phase2_miss=p2_miss)

@@ -32,6 +32,7 @@ from repro_torch.core.compact import capacity_for
 from repro_torch.core.geometry import CensusMap, children_tables
 from repro_torch.core.resolve import first_k_candidates, resolve_candidates
 from repro_torch.kernels import ops
+from repro_torch.obs.profile import span
 
 # Tensor fields of SimpleIndex, in order (``from_numpy`` keys).
 INDEX_FIELDS = ("state_bbox", "county_bbox", "block_bbox", "state_edges",
@@ -157,14 +158,16 @@ def _level_pass(points, parent, children_table, bbox_table, edges_table,
     lost).  Returns (assign [N] i32 child ids, stats dict).
     """
     n_parents = children_table.shape[0] - 1
-    parent_ix = torch.where(parent >= 0, parent, n_parents)   # sentinel row
-    cand = children_table[parent_ix]                           # [N, C]
-    cand_ix = torch.where(cand >= 0, cand, bbox_table.shape[0] - 1)
-    boxes = bbox_table[cand_ix]                                # [N, C, 4]
-    cnt, sel = ops.bbox_count_select(points, boxes, backend=backend)
-    picked = torch.gather(cand, 1, sel.clamp(min=0).long()[:, None])[:, 0]
-    assign = torch.where(sel >= 0, picked, -1)
-    unresolved = cnt > 1
+    with span("geo.simple.bbox"):
+        parent_ix = torch.where(parent >= 0, parent, n_parents)  # sentinel
+        cand = children_table[parent_ix]                         # [N, C]
+        cand_ix = torch.where(cand >= 0, cand, bbox_table.shape[0] - 1)
+        boxes = bbox_table[cand_ix]                              # [N, C, 4]
+        cnt, sel = ops.bbox_count_select(points, boxes, backend=backend)
+        picked = torch.gather(cand, 1,
+                              sel.clamp(min=0).long()[:, None])[:, 0]
+        assign = torch.where(sel >= 0, picked, -1)
+        unresolved = cnt > 1
 
     def cand_fn(idx, sub_pts):
         # Candidates are gathered on the compacted buffer only: the
@@ -187,7 +190,9 @@ def _level_pass(points, parent, children_table, bbox_table, edges_table,
 def cascade_assign(index: SimpleIndex, points: torch.Tensor,
                    cfg: SimpleConfig):
     """The three-level cascade; the hybrid strategy embeds it.  Returns
-    (state, county, block ids, per-level stats dict)."""
+    (state, county, block ids, per-level stats dict).  Each level is a
+    ``geo.simple.<level>`` span holding ``geo.simple.bbox`` and
+    ``geo.resolve``."""
     n = points.shape[0]
     backend = cfg.backend
     if cfg.fused and index.state_pool is None:
@@ -198,29 +203,34 @@ def cascade_assign(index: SimpleIndex, points: torch.Tensor,
 
     # --- Stage 1: states (flat bbox mask over all states) ---
     ns = index.state_bbox.shape[0] - 1
-    mask = ops.bbox_mask(points, index.state_bbox[:ns], backend=backend)
-    cnt = mask.sum(dim=1, dtype=torch.int32)
-    iota = torch.arange(ns, dtype=torch.int32, device=points.device)
-    sid = torch.where(mask != 0, iota[None, :], -1).amax(dim=1)
-    unresolved = cnt > 1
-    # State candidates ARE bbox slots: first_k over the flat mask rows.
-    sid, rs1 = resolve_candidates(
-        points, lambda idx, _: first_k_candidates(mask[idx], cfg.k_cand),
-        index.state_edges, unresolved,
-        cap=capacity_for(n, cfg.cap_state), backend=backend,
-        prior=sid, fallback="prior", edge_pool=pools[0])
+    with span("geo.simple.state"):
+        with span("geo.simple.bbox"):
+            mask = ops.bbox_mask(points, index.state_bbox[:ns],
+                                 backend=backend)
+            cnt = mask.sum(dim=1, dtype=torch.int32)
+            iota = torch.arange(ns, dtype=torch.int32, device=points.device)
+            sid = torch.where(mask != 0, iota[None, :], -1).amax(dim=1)
+            unresolved = cnt > 1
+        # State candidates ARE bbox slots: first_k over the flat mask rows.
+        sid, rs1 = resolve_candidates(
+            points, lambda idx, _: first_k_candidates(mask[idx], cfg.k_cand),
+            index.state_edges, unresolved,
+            cap=capacity_for(n, cfg.cap_state), backend=backend,
+            prior=sid, fallback="prior", edge_pool=pools[0])
 
     # --- Stage 2: counties of the point's state ---
-    cid, c_stats = _level_pass(points, sid, index.county_children,
-                               index.county_bbox, index.county_edges,
-                               capacity_for(n, cfg.cap_county),
-                               cfg.k_cand, backend, edge_pool=pools[1])
+    with span("geo.simple.county"):
+        cid, c_stats = _level_pass(points, sid, index.county_children,
+                                   index.county_bbox, index.county_edges,
+                                   capacity_for(n, cfg.cap_county),
+                                   cfg.k_cand, backend, edge_pool=pools[1])
 
     # --- Stage 3: blocks of the point's county ---
-    bid, b_stats = _level_pass(points, cid, index.block_children,
-                               index.block_bbox, index.block_edges,
-                               capacity_for(n, cfg.cap_block),
-                               cfg.k_cand, backend, edge_pool=pools[2])
+    with span("geo.simple.block"):
+        bid, b_stats = _level_pass(points, cid, index.block_children,
+                                   index.block_bbox, index.block_edges,
+                                   capacity_for(n, cfg.cap_block),
+                                   cfg.k_cand, backend, edge_pool=pools[2])
 
     stats = {"state": _level_stats(rs1), "county": c_stats,
              "block": b_stats}

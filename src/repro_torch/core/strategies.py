@@ -25,6 +25,7 @@ from repro_torch.core.simple import SimpleConfig, SimpleIndex
 from repro_torch.distributed.dispatch import (plan_routes, scatter_to_buckets,
                                               slot_tables)
 from repro_torch.kernels import ops
+from repro_torch.obs.profile import span
 
 
 def _fast_result(sid, cid, bid, st) -> AssignResult:
@@ -41,11 +42,13 @@ class SimpleStrategy(Strategy):
         sid, cid, bid, st = simple_mod.assign_simple(
             indices.simple, points, cfg.simple_cfg())
         levels = simple_mod.LEVELS
-        return AssignResult(sid, cid, bid, GeoStats(
-            n_need=sum(st[l]["n_multi"] for l in levels),
-            n_pip=sum(st[l]["n_pip"] for l in levels),
-            overflow=sum(st[l]["overflow"] for l in levels),
-            extra=st))
+        with span("geo.simple.stats"):
+            stats = GeoStats(
+                n_need=sum(st[l]["n_multi"] for l in levels),
+                n_pip=sum(st[l]["n_pip"] for l in levels),
+                overflow=sum(st[l]["overflow"] for l in levels),
+                extra=st)
+        return AssignResult(sid, cid, bid, stats)
 
 
 @register_strategy("fast", needs=("fast",), needs_edge_pool=True)
@@ -84,33 +87,37 @@ def _assign_hybrid(findex: FastIndex, sindex: SimpleIndex,
     """Hybrid strategy: interior true hits from the cell index; boundary
     points re-resolved through the hierarchical cascade."""
     n = points.shape[0]
-    val = cell_values(findex, points)
-    bid = torch.where(val >= 0, val, -1)
-    need = (val < 0) & (val > fast_mod.OUTSIDE)      # boundary cells
-    n_boundary = need.sum()
+    with span("geo.fast.locate"):
+        val = cell_values(findex, points)
+        bid = torch.where(val >= 0, val, -1)
+        need = (val < 0) & (val > fast_mod.OUTSIDE)      # boundary cells
+        n_boundary = need.sum()
 
     cap = capacity_for(n, cap_frac)
-    idx, slot_ok = compact_indices(need, cap)
-    sub_need = need[idx] & slot_ok
-    # Unfilled compaction slots alias row 0: the cascade gets FAR points
-    # there (and on non-boundary rows), so its stats count only real
-    # boundary work and a padded batch reports the stats of its valid
-    # prefix.  Only sub_need rows' cascade output is kept below.
-    sub_pts = torch.where(sub_need[:, None], points[idx], ops.FAR)
+    with span("geo.hybrid.handoff"):
+        idx, slot_ok = compact_indices(need, cap)
+        sub_need = need[idx] & slot_ok
+        # Unfilled compaction slots alias row 0: the cascade gets FAR
+        # points there (and on non-boundary rows), so its stats count
+        # only real boundary work and a padded batch reports the stats of
+        # its valid prefix.  Only sub_need rows' cascade output is kept
+        # below.
+        sub_pts = torch.where(sub_need[:, None], points[idx], ops.FAR)
     _, _, sub_bid, sub_stats = simple_mod.cascade_assign(sindex, sub_pts,
                                                          scfg)
-    bid = scatter_filled(bid, idx, slot_ok,
-                         torch.where(sub_need & (sub_bid >= 0), sub_bid,
-                                     bid[idx]))
-    overflow = n_boundary - sub_need.sum()
-    if findex.cand.shape[0] > 0:
-        # Cascade misses and capacity overflow degrade to the
-        # centre-owner candidate (the fast-approx answer).
-        brow = (-(val + 1)).clamp(0, findex.cand.shape[0] - 1)
-        bid = torch.where(need & (bid < 0), findex.cand[brow, 0], bid)
+    with span("geo.hybrid.handoff"):
+        bid = scatter_filled(bid, idx, slot_ok,
+                             torch.where(sub_need & (sub_bid >= 0), sub_bid,
+                                         bid[idx]))
+        overflow = n_boundary - sub_need.sum()
+        if findex.cand.shape[0] > 0:
+            # Cascade misses and capacity overflow degrade to the
+            # centre-owner candidate (the fast-approx answer).
+            brow = (-(val + 1)).clamp(0, findex.cand.shape[0] - 1)
+            bid = torch.where(need & (bid < 0), findex.cand[brow, 0], bid)
+        n_pip = sum(lvl["n_pip"] for lvl in sub_stats.values())
 
     cid, sid = parents_of(findex, bid)
-    n_pip = sum(lvl["n_pip"] for lvl in sub_stats.values())
     stats = {"n_boundary": n_boundary, "n_pip": n_pip,
              "overflow": overflow, "cascade": sub_stats}
     return sid, cid, bid, stats

@@ -7,9 +7,15 @@ device stage itself needs opening up (which kernel, how long on the
 card), the PyTorch profiler is the tool.  This module is the thin,
 failure-proof seam between the two:
 
-* ``device_annotation(name, device=None)`` — context manager around
-  ``torch.profiler.record_function`` (a named range in a captured trace)
-  plus ``torch.cuda.nvtx.range`` when ``device`` is a CUDA device, so
+* ``span(name)`` — THE way the port names a range: while a profiler is
+  capturing, ``torch.profiler.record_function(name)`` (a
+  ``user_annotation`` range on the same clock as the device events);
+  otherwise one shared ``contextlib.nullcontext()``, so an untraced call
+  pays a function call and a flag read.  The engine's ``geo.*`` phase
+  spans (``GeoEngine.assign`` down to ``resolve_candidates``' PIP) use
+  it.
+* ``device_annotation(name, device=None)`` — ``span(name)`` plus
+  ``torch.cuda.nvtx.range`` when ``device`` is a CUDA device, so
   device-stage assigns show up as named ranges.  ``GeoServer`` applies
   it around every padded assign when ``ServeConfig.trace_device=True``.
 * ``start_profile(logdir)`` / ``stop_profile()`` — the capture pair: a
@@ -31,10 +37,11 @@ import threading
 
 import torch
 
-__all__ = ["device_annotation", "start_profile", "stop_profile",
+__all__ = ["span", "device_annotation", "start_profile", "stop_profile",
            "profiler_available", "TRACE_FILE"]
 
 TRACE_FILE = "trace.json"      # Chrome trace written under the logdir
+_OFF = contextlib.nullcontext()   # what ``span`` returns when no profiler runs
 
 _warned = set()
 _warn_lock = threading.Lock()
@@ -97,13 +104,22 @@ def profiler_available() -> bool:
     return hasattr(torch.profiler, "record_function")
 
 
+def span(name: str):
+    """A named range while a profiler captures (``torch.profiler`` or
+    ``start_profile``), else the shared null context: no allocation and
+    no profiler call when nothing records."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
 @contextlib.contextmanager
 def device_annotation(name: str, device=None):
-    """Named profiler range (and an NVTX range on a CUDA ``device``)
-    around a device call; no-op when the profiler refuses."""
+    """``span(name)`` (and an NVTX range on a CUDA ``device``) around a
+    device call; no-op when the profiler refuses."""
     with contextlib.ExitStack() as stack:
         try:
-            stack.enter_context(torch.profiler.record_function(name))
+            stack.enter_context(span(name))
             if device is not None and torch.device(device).type == "cuda":
                 stack.enter_context(torch.cuda.nvtx.range(name))
         except Exception as e:         # boundary: never fail the caller

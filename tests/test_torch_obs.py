@@ -4,8 +4,9 @@ tests/test_obs.py: histogram algebra equal to the JAX package's on the
 same feeds, the Prometheus exposition equal to the JAX registry's text,
 tracer span trees through the synchronous serve path, the profiler hooks
 (``torch.profiler`` in place of ``jax.profiler``) and the engine's
-``stage_timer``.  Tolerance: exact equality, except that quantiles are
-exact only within a bucket's resolution (as in the reference).
+``geo.*`` phase spans under a CPU ``torch.profiler``.  Tolerance: exact
+equality, except that quantiles are exact only within a bucket's
+resolution (as in the reference).
 """
 import json
 import os
@@ -14,6 +15,8 @@ from collections import defaultdict
 
 import numpy as np
 import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.obs import LatencyHistogram as JLatencyHistogram
 from repro.obs import Tracer as JTracer
@@ -23,7 +26,8 @@ from repro_torch.core.engine import EngineConfig, GeoEngine
 from repro_torch.obs import (LatencyHistogram, SpanBuffer, Tracer,
                              device_annotation, profiler_available,
                              start_profile, stop_profile)
-from repro_torch.obs.profile import TRACE_FILE
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs.profile import TRACE_FILE, span
 from repro_torch.obs.trace import Span
 from repro_torch.serving import GeoServer, QueueFull, ServeConfig
 from repro_torch.serving.metrics import LatencyWindow, ServerMetrics
@@ -34,12 +38,16 @@ EPS_S = 1e-9
 
 
 @pytest.fixture(scope="module")
-def engine(synth_small):
-    cov = build_cell_covering(synth_small.census, max_level=8)
+def covering(synth_small):
+    return build_cell_covering(synth_small.census, max_level=8)
+
+
+@pytest.fixture(scope="module")
+def engine(synth_small, covering):
     return GeoEngine.build(synth_small.census, "fast",
                            EngineConfig(cap_boundary=1.0, max_level=8,
                                         fused=True),
-                           covering=cov, device="cpu")
+                           covering=covering, device="cpu")
 
 
 def _by_trace(spans):
@@ -324,29 +332,131 @@ def test_profile_capture_writes_chrome_trace(engine, points_small,
     assert "geo_device_assign/b256" in names
 
 
-def test_engine_stage_timer_hook(engine):
-    calls = []
-    engine.stage_timer = lambda stage, s, **kw: calls.append((stage, s, kw))
-    try:
-        res = engine.assign_padded(np.zeros((64, 2), np.float32), 10)
-    finally:
-        engine.stage_timer = None
+def _geo_parent(evt):
+    """The nearest ``geo.*`` range above a profiler event, or None."""
+    p = evt.cpu_parent
+    while p is not None and not p.name.startswith("geo."):
+        p = p.cpu_parent
+    return p
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof.events()
+
+
+def test_assign_padded_shows_one_geo_assign_span(engine):
+    res, events = _profiled(
+        lambda: engine.assign_padded(np.zeros((64, 2), np.float32), 10))
     assert (res.block.numpy() == -1).all()
-    assert len(calls) == 1
-    stage, seconds, kw = calls[0]
-    assert stage == "assign_padded" and seconds > 0 and kw == {"batch": 64}
-    engine.assign_padded(np.zeros((64, 2), np.float32), 10)
-    assert len(calls) == 1                # off again: nothing reported
+    assert [e.name for e in events].count("geo.assign") == 1
 
 
-def test_engine_stage_timer_through_server(engine, points_small):
-    """A timer set on the served engine sees every padded assign the
-    server makes, at its bucket size."""
-    seen = []
-    engine.stage_timer = lambda stage, s, **kw: seen.append(kw["batch"])
-    try:
-        GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=False)).submit(
-            points_small[0][:300])
-    finally:
-        engine.stage_timer = None
-    assert seen == [1024]
+def test_served_padded_assign_spans_nest_in_the_device_stage(engine,
+                                                             points_small):
+    """A traced server's padded assign at its bucket size is one
+    ``geo.assign`` span inside the server's device-stage range."""
+    server = GeoServer(engine, ServeConfig(buckets=BUCKETS, cache=False,
+                                           trace_device=True))
+    _, events = _profiled(lambda: server.submit(points_small[0][:300]))
+    spans = [e for e in events if e.name == "geo.assign"]
+    assert len(spans) == 1
+    stage = spans[0].cpu_parent
+    while stage is not None and not stage.name.startswith("geo_device"):
+        stage = stage.cpu_parent
+    assert stage is not None and stage.name == "geo_device_assign/b1024"
+
+
+# The documented nesting: (span, its nearest geo.* parent) -> count, for
+# one assign of each strategy.
+_RESOLVE = {f"geo.resolve.{p}": "geo.resolve"
+            for p in ("compact", "candidates", "pip", "scatter")}
+
+
+def _cascade(n_resolve):
+    nest = {("geo.simple.bbox", f"geo.simple.{lvl}"): 1
+            for lvl in ("state", "county", "block")}
+    nest.update({(f"geo.simple.{lvl}", "geo.assign"): 1
+                 for lvl in ("state", "county", "block")})
+    nest.update({("geo.resolve", f"geo.simple.{lvl}"): 1
+                 for lvl in ("state", "county", "block")})
+    nest.update({k: n_resolve for k in _RESOLVE.items()})
+    return nest
+
+
+SPAN_NESTING = {
+    "fast": {("geo.fast.locate", "geo.assign"): 1,
+             ("geo.resolve", "geo.assign"): 1,
+             **{k: 1 for k in _RESOLVE.items()},
+             ("geo.fast.parents", "geo.assign"): 1},
+    "fast_onepass": {("geo.fast.onepass", "geo.assign"): 1,
+                     ("geo.fast.parents", "geo.assign"): 1},
+    "simple": {**_cascade(3), ("geo.simple.stats", "geo.assign"): 1},
+    "hybrid": {**_cascade(3), ("geo.fast.locate", "geo.assign"): 1,
+               ("geo.hybrid.handoff", "geo.assign"): 2,
+               ("geo.fast.parents", "geo.assign"): 1},
+}
+LEAF_SPANS = {"geo.fast.locate", "geo.fast.onepass", "geo.fast.parents",
+              "geo.simple.bbox", "geo.simple.stats", "geo.hybrid.handoff",
+              *_RESOLVE}
+
+
+@pytest.fixture(scope="module")
+def span_engines(synth_small, covering):
+    """One CPU engine a strategy, and one profiled assign of each:
+    {strategy: (engine, result, profiler events)}."""
+    pts = synth_small.sample_points(np.random.default_rng(5), 2048)[0]
+    out = {}
+    for strategy in SPAN_NESTING:
+        eng = GeoEngine.build(synth_small.census, strategy,
+                              EngineConfig(max_level=8), covering=covering,
+                              device="cpu")
+        out[strategy] = (eng, pts, *_profiled(lambda: eng.assign(pts)))
+    return out
+
+
+@pytest.mark.parametrize("strategy", list(SPAN_NESTING))
+def test_geo_spans_nest_as_documented_and_cover_every_op(span_engines,
+                                                         strategy):
+    _, _, _, events = span_engines[strategy]
+    geo = [e for e in events if e.name.startswith("geo.")]
+    nest = {}
+    for e in geo:
+        parent = _geo_parent(e)
+        key = (e.name, parent.name if parent is not None else None)
+        nest[key] = nest.get(key, 0) + 1
+    assert nest == {("geo.assign", None): 1, **SPAN_NESTING[strategy]}
+    ops_inside = [e for e in events if e.name.startswith("aten::")
+                  and _geo_parent(e) is not None]
+    assert ops_inside
+    # Only ``_points``' conversion runs in geo.assign before its first
+    # child span; every other operation lies in a leaf span.
+    first_child = min(e.time_range.start for e in geo
+                      if e.name != "geo.assign")
+    outside = sorted({(e.name, _geo_parent(e).name) for e in ops_inside
+                      if _geo_parent(e).name not in LEAF_SPANS
+                      and not (_geo_parent(e).name == "geo.assign"
+                               and e.time_range.end <= first_child)})
+    assert outside == []
+
+
+@pytest.mark.parametrize("strategy", list(SPAN_NESTING))
+def test_spans_off_record_nothing_and_change_no_id(span_engines, strategy,
+                                                   monkeypatch):
+    """With no profiler running, ``span`` is the one shared null context
+    and never reaches ``record_function``; the ids equal the profiled
+    call's bit for bit."""
+    eng, pts, profiled, _ = span_engines[strategy]
+
+    def refuse(*args, **kw):
+        raise AssertionError("record_function called with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch._C._autograd._profiler_enabled()
+    assert span("geo.assign") is span("geo.resolve") is obs_profile._OFF
+    res = eng.assign(pts)
+    for got, want in zip(res, profiled):
+        if isinstance(got, torch.Tensor):
+            assert torch.equal(got, want)
+    assert res.stats.as_dict() == profiled.stats.as_dict()
