@@ -103,9 +103,12 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
      and, for the segment counts, ``torch.bincount`` (timed only: the
      port never calls them) and an empty kernel (the least time a launch
      shows by the same clock), ``bbox_mask`` at a second width (56
-     county boxes), with each ``crossings_candidates`` call's
-     rows, those with a candidate and those at the padding slots' alias
-     point; then ``assign_cascade`` on
+     county boxes), ``bbox_count_select`` (off the main path) on the
+     boxes the cascade's glue gathered before ``bbox_select_children``,
+     ``bbox_select_children`` also at the paper cell's shapes (2^22
+     points of a 56 x 58 x 68 map, k 4), with each
+     ``crossings_candidates`` call's rows, those with a candidate and
+     those at the padding slots' alias point; then ``assign_cascade`` on
      three more batches sampled (seed CASCADE_SEED) from the main path's
      points as its call classified them: 2^20 points all in boundary
      cells, 2^20 all in interior cells, and 2^20 + 37 points with
@@ -711,6 +714,9 @@ KERNELS = {
                   "src/repro/kernels/bbox.py:57"),
     "bbox_count_select": ("src/repro_torch/kernels/csrc/bbox.cu",
                           "src/repro/kernels/bbox.py:80"),
+    "bbox_select_children": ("src/repro_torch/kernels/csrc/bbox.cu",
+                             "none: the glue around bbox_count_select in "
+                             "src/repro_torch/core/simple.py::_level_pass"),
     "segment_reduce_sorted": ("src/repro_torch/kernels/csrc/segment.cu",
                               "src/repro/kernels/segment.py:83"),
     "flash_attn_bhsd": ("src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
@@ -721,10 +727,10 @@ ENGINE_KERNELS = {
     "fast": ("crossings_gathered",),
     "fast_fused": ("crossings_candidates",),
     "fast_onepass": ("assign_cascade",),
-    "simple": ("bbox_mask", "bbox_count_select", "crossings_gathered"),
-    "simple_fused": ("bbox_mask", "bbox_count_select",
+    "simple": ("bbox_mask", "bbox_select_children", "crossings_gathered"),
+    "simple_fused": ("bbox_mask", "bbox_select_children",
                      "crossings_candidates"),
-    "hybrid": ("bbox_mask", "bbox_count_select", "crossings_gathered"),
+    "hybrid": ("bbox_mask", "bbox_select_children", "crossings_gathered"),
     "fused_counts": ("crossings_gathered", "segment_reduce_sorted"),
     "serving": ("crossings_gathered",),
     "lm_prefill": ("flash_attn_bhsd",),
@@ -736,13 +742,22 @@ ENGINE_KERNELS = {
 ROW_PATH = {"assign_cascade": "fast_onepass",
             "crossings_candidates": "fast_fused",
             "crossings_gathered": "fast", "bbox_mask": "simple",
-            "bbox_count_select": "simple", "crossings_one": "pip_one",
+            "bbox_select_children": "simple", "crossings_one": "pip_one",
             "segment_reduce_sorted": "fused_counts"}
+# Kernels off the main path, timed on the inputs the glue they replaced
+# gathered from another kernel's main-path calls (``gathered_boxes``).
+OFF_PATH = {"bbox_count_select": "bbox_select_children"}
 # Positional arguments of each kernel wrapper that are per-row.
 ROW_ARGS = {"assign_cascade": (0,), "crossings_candidates": (0, 1),
             "crossings_gathered": (0, 1), "crossings_one": (0,),
             "bbox_mask": (0,), "bbox_count_select": (0, 1),
+            "bbox_select_children": (0, 1),
             "segment_reduce_sorted": (0, 1)}
+# bbox_select_children at the paper cell's map (56 states, 58 counties a
+# state, 68 blocks a county; map seed 0) and batch, k_cand 4.
+PAPER_MAP = dict(seed=0, n_states=56, counties_per_state=58,
+                 blocks_per_county=68)
+PAPER_BATCH = 1 << 22
 
 
 def check(cond, msg: str) -> None:
@@ -840,6 +855,7 @@ class Smoke:
                         "crossings_candidates": gather_pip,
                         "crossings_gathered": pip, "crossings_one": pip,
                         "bbox_mask": bbox, "bbox_count_select": bbox,
+                        "bbox_select_children": bbox,
                         "segment_reduce_sorted": segment,
                         "flash_attn_bhsd": flash_attn}
 
@@ -1085,7 +1101,9 @@ def bound_ms(name, calls, index, fast_mod) -> tuple:
     crossing tests are those these inputs need: ``crossings_candidates``
     tests each row's candidate's live edges, ``crossings_one`` the
     table's edges with y1 != y2 (the others never straddle, and its
-    staging drops them)."""
+    staging drops them).  ``bbox_select_children`` reads each table once
+    from HBM; its reads of the tables from L2 are not in the bound
+    (``select_children_paper`` gives them)."""
     nbytes = ops = 0
     for args, kw, outs in calls:
         if name == "segment_reduce_sorted":
@@ -1105,6 +1123,8 @@ def bound_ms(name, calls, index, fast_mod) -> tuple:
             ops += args[0].shape[0] * args[1].shape[0] * OPS_PER_BOX_TEST
         elif name == "bbox_count_select":
             ops += args[1].shape[0] * args[1].shape[1] * OPS_PER_BOX_TEST
+        elif name == "bbox_select_children":
+            ops += args[0].shape[0] * args[2].shape[1] * OPS_PER_BOX_TEST
         else:
             bid, flags, _, nskip = outs
             ops += cascade_edge_tests(fast_mod, index, args[0], bid, flags,
@@ -1113,6 +1133,83 @@ def bound_ms(name, calls, index, fast_mod) -> tuple:
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
+
+
+def gathered_boxes(smoke, calls) -> list:
+    """``bbox_count_select`` calls on the boxes the cascade's glue
+    gathered before ``bbox_select_children`` took its place: for each of
+    that kernel's calls, the [N, C, 4] boxes of each point's parent's
+    children, padded slots on the sentinel box."""
+    fn = smoke.modules["bbox_count_select"].bbox_count_select
+    out = []
+    for (pts, parent, children, bbox, _), _, _ in calls:
+        cand = children[torch.where(parent >= 0, parent,
+                                    children.shape[0] - 1).long()]
+        boxes = bbox[torch.where(cand >= 0, cand,
+                                 bbox.shape[0] - 1).long()].contiguous()
+        del cand
+        res = fn(pts, boxes)
+        out.append(((pts, boxes), {}, res))
+    return out
+
+
+def select_children_paper(smoke) -> dict:
+    """``bbox_select_children`` at the paper cell's shapes: the PAPER_MAP
+    census (58 counties a state, 68 blocks a county) on the card,
+    PAPER_BATCH points from its sampler with their true states and
+    counties as parents, k 4.  Both levels' calls bit-equal to the twin
+    and launched once each; timed together and by level beside the
+    twin, the bound (HBM bytes: points, parents and outputs, each table
+    once) and the bytes the kernel reads from L2 ((4 + 16) C a point)."""
+    from repro_torch.core.simple import SimpleIndex
+    from repro_torch.core.synth import build_synth_census
+    t0 = time.perf_counter()
+    sc = build_synth_census(**PAPER_MAP)
+    index = SimpleIndex.from_census(sc.census, device="cuda")
+    xy, _, cid, sid = sc.sample_points(np.random.default_rng(0), PAPER_BATCH)
+    build_s = time.perf_counter() - t0
+    pts = torch.from_numpy(xy).cuda()
+    fn = smoke.modules["bbox_select_children"].bbox_select_children
+    levels = ("county", "block")
+    calls = []
+    smoke.build.reset_launches()
+    for lvl, parent in zip(levels, (sid, cid)):
+        args = (pts, torch.from_numpy(parent).cuda(),
+                getattr(index, f"{lvl}_children"),
+                getattr(index, f"{lvl}_bbox"), 4)
+        calls.append((args, {}, fn(*args)))
+    torch.cuda.synchronize()
+    launches = smoke.build.LAUNCHES["bbox_select_children"]
+    check(launches == 2, f"bbox_select_children: {launches} launches for "
+                         f"two calls")
+    err = smoke.compare("bbox_select_children", calls)
+    check(err == 0, f"bbox_select_children differs from its twin at the "
+                    f"paper's shapes (max abs err {err})")
+    ms = cuda_ms(lambda: [fn(*a) for a, _, _ in calls], KERNEL_REPS)
+    by_level = {lvl: cuda_ms(lambda a=a: fn(*a), KERNEL_REPS)
+                for lvl, (a, _, _) in zip(levels, calls)}
+    plain = cuda_ms(lambda: [smoke.twin("bbox_select_children", a, kw)
+                             for a, kw, _ in calls], 2)
+    bound, bound_by, nbytes, n_ops = bound_ms("bbox_select_children", calls,
+                                              None, None)
+    widths = {lvl: a[2].shape[1] for lvl, (a, _, _) in zip(levels, calls)}
+    l2 = sum(PAPER_BATCH * (4 + 16) * c for c in widths.values())
+    need = {lvl: int((outs[0] > 1).sum())
+            for lvl, (_, _, outs) in zip(levels, calls)}
+    row = dict(rows=PAPER_BATCH, widths=widths, k=4, launches=launches,
+               max_abs_err=err, ms=ms, ms_by_level=by_level, plain_ms=plain,
+               bound_ms=bound, bound_by=bound_by, hbm_bytes=nbytes,
+               ops=n_ops, l2_bytes=l2, need=need, build_s=build_s)
+    print(f"bbox_select_children at the paper's shapes ({PAPER_BATCH} "
+          f"points, C {widths['county']} / {widths['block']}, k 4; map "
+          f"and points {build_s:.1f} s): {ms:.4f} ms for both levels "
+          f"(county {by_level['county']:.4f}, block "
+          f"{by_level['block']:.4f}), {launches} launches, == twin; plain "
+          f"twin {plain:.3f} ms; bound {bound:.4f} ms by {bound_by} "
+          f"({nbytes} B, {n_ops} ops), {bound / ms:.1%} of bound; L2 reads "
+          f"{l2} B ({l2 / ms / 1e9:.2f} TB/s); points in more than one "
+          f"box {need}")
+    return row
 
 
 def segment_phase(n_blocks, tile_rows) -> list:
@@ -6542,6 +6639,9 @@ def main() -> int:
     # spin of 0 cycles), timed as the kernels are.
     result["launch_floor_ms"] = floor = cuda_ms(
         lambda: torch.cuda._sleep(0), KERNEL_REPS)
+    for kname, src in OFF_PATH.items():
+        main_calls[kname] = gathered_boxes(smoke, main_calls[src])
+        launches[kname] = 0
     for kname in KERNELS:
         if kname == "flash_attn_bhsd":
             continue
@@ -6582,8 +6682,11 @@ def main() -> int:
             "replaces": KERNELS[kname][1], "launches": launches[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library})
-        print(f"{kname}: {ms:.4f} ms per batch on the {ROW_PATH[kname]} "
-              f"path ({len(calls)} call(s), {rows} rows) vs plain twin "
+        path = (f"{ROW_PATH[kname]} path" if kname in ROW_PATH else
+                f"boxes gathered from the {OFF_PATH[kname]} calls (off "
+                f"the main path)")
+        print(f"{kname}: {ms:.4f} ms per batch on the {path} "
+              f"({len(calls)} call(s), {rows} rows) vs plain twin "
               f"{plain:.3f} ms; bound {bound:.4f} ms by {bound_by} "
               f"({nbytes} B, {n_ops} ops); {bound / ms:.1%} of bound{extra}")
     # bbox_mask at a second width: the main path's points against the
@@ -6606,10 +6709,13 @@ def main() -> int:
     result["cascade_batches"] = cascade_batches(
         smoke, main_calls["assign_cascade"][0], census.extent,
         next(k["ms"] for k in kernels if k["name"] == "assign_cascade"))
-    phase_s["kernel_timing"] = time.perf_counter() - t_start
     # The kept calls are timed: free them before the deployment paths.
     main_calls.clear()
     torch.cuda.empty_cache()
+    next(k for k in kernels if k["name"] == "bbox_select_children")[
+        "paper_shape"] = select_children_paper(smoke)
+    torch.cuda.empty_cache()
+    phase_s["kernel_timing"] = time.perf_counter() - t_start
     # -- 8. deployment paths ---------------------------------------------------
     cold_start_phase(smoke, engines, census, cov, cfg, xy, pts, result)
     phase_s["cold_start"] = time.perf_counter() - t_start

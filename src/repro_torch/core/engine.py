@@ -12,7 +12,7 @@ fallback to the CPU when no card is found.  On the card every strategy
 runs the hand-written CUDA kernels:
 
   * ``simple`` (the paper's §III cascade): ``bbox_mask`` at the state
-    level, ``bbox_count_select`` at the county and block levels, and
+    level, ``bbox_select_children`` at the county and block levels, and
     candidate PIP per level;
   * ``fast`` exact (§IV): candidate PIP on boundary cells;
   * ``hybrid``: the cell lookup, then the ``simple`` cascade on the

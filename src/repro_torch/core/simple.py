@@ -8,10 +8,11 @@ crossing-number test against at most ``k_cand`` candidate polygons.
 
   * state level: ``ops.bbox_mask`` over all state boxes (the
     ``bbox_mask`` kernel on the card);
-  * county and block levels: the children's boxes are gathered per
-    point into [N, C, 4] and ``ops.bbox_count_select`` (the
-    ``bbox_count_select`` kernel) gives each point's count and selected
-    slot;
+  * county and block levels: ``ops.bbox_select_children`` (the
+    ``bbox_select_children`` kernel) reads each point's children and
+    their boxes by id from the level's tables and gives its count, its
+    pick and its first ``k_cand`` candidates, with no per-point copy of
+    the boxes;
   * points in more than one box go through ``resolve_candidates``: a
     fixed-capacity compaction, then candidate PIP — the gathered path
     (``crossings_gathered``) or, with ``SimpleConfig.fused``, the
@@ -157,33 +158,18 @@ def _level_pass(points, parent, children_table, bbox_table, edges_table,
     points [N, 2]; parent [N] i32 id into the *parent* level (-1 =
     lost).  Returns (assign [N] i32 child ids, stats dict).
     """
-    n_parents = children_table.shape[0] - 1
     with span("geo.simple.bbox"):
-        parent_ix = torch.where(parent >= 0, parent, n_parents)  # sentinel
-        cand = children_table[parent_ix]                         # [N, C]
-        cand_ix = torch.where(cand >= 0, cand, bbox_table.shape[0] - 1)
-        boxes = bbox_table[cand_ix]                              # [N, C, 4]
-        cnt, sel = ops.bbox_count_select(points, boxes, backend=backend)
-        picked = torch.gather(cand, 1,
-                              sel.clamp(min=0).long()[:, None])[:, 0]
-        assign = torch.where(sel >= 0, picked, -1)
+        cnt, assign, first = ops.bbox_select_children(
+            points, parent, children_table, bbox_table, k_cand,
+            backend=backend)
         unresolved = cnt > 1
-
-    def cand_fn(idx, sub_pts):
-        # Candidates are gathered on the compacted buffer only: the
-        # per-box mask is recomputed for the rows that need PIP.
-        sub_mask = ops.bbox_mask_gathered(sub_pts, boxes[idx],
-                                          backend=backend)     # [R, C] i8
-        slots = first_k_candidates(sub_mask, k_cand)           # [R, K]
-        sub_cand = torch.gather(cand[idx], 1, slots.clamp(min=0).long())
-        return torch.where(slots >= 0, sub_cand, -1)
 
     # Points whose PIP finds nothing keep the bbox select (boundary
     # grazing: fallback="prior").
-    assign, rs = resolve_candidates(points, cand_fn, edges_table,
-                                    unresolved, cap=cap, backend=backend,
-                                    prior=assign, fallback="prior",
-                                    edge_pool=edge_pool)
+    assign, rs = resolve_candidates(points, lambda idx, _: first[idx],
+                                    edges_table, unresolved, cap=cap,
+                                    backend=backend, prior=assign,
+                                    fallback="prior", edge_pool=edge_pool)
     return assign, _level_stats(rs)
 
 

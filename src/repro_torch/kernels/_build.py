@@ -49,9 +49,9 @@ LINK_FLAGS = ("-lcuda",)
 LIB_NAME = "librepro_torch_kernels.so"
 
 LAUNCHES = {"assign_cascade": 0, "bbox_count_select": 0, "bbox_mask": 0,
-            "crossings_candidates": 0, "crossings_gathered": 0,
-            "crossings_one": 0, "flash_attn_bhsd": 0,
-            "segment_reduce_sorted": 0}
+            "bbox_select_children": 0, "crossings_candidates": 0,
+            "crossings_gathered": 0, "crossings_one": 0,
+            "flash_attn_bhsd": 0, "segment_reduce_sorted": 0}
 # Launches per route of a kernel with more than one (kernels/flash_attn.py
 # ``flash_route``); each also counts in LAUNCHES under the kernel's name.
 ROUTE_LAUNCHES = {"flash_attn_bhsd:wgmma": 0, "flash_attn_bhsd:simt": 0}
@@ -69,6 +69,7 @@ _SIGNATURES = {
     "repro_crossings_one": [_P] * 3 + [_N, _I, _P],
     "repro_bbox_mask": [_P] * 3 + [_N, _I, _P],
     "repro_bbox_count_select": [_P] * 4 + [_N, _I, _P],
+    "repro_bbox_select_children": [_P] * 7 + [_N] + [_I] * 4 + [_P],
     "repro_segment_reduce_sorted": [_P] * 9 + [_N, _I, _P, _IP],
     "repro_segment_tile_rows": [],
     "repro_flash_attn_simt": [_P] * 4 + [_I] * 5 + [_F, _P],

@@ -40,6 +40,27 @@
 //                          point; lane j loads box j as one float4, so a
 //                          warp reads its row contiguously; a ballot
 //                          gives the containing set 32 slots at a time.
+//                          Not on the cascade's path since
+//                          bbox_select_children took its place.
+//   * bbox_select_children — the county and block levels of the simple
+//                          cascade: per point, its parent's children read
+//                          by id from the level's tables, the count of
+//                          containing children, the child of the largest
+//                          containing slot (-1 if none) and the children
+//                          of the first k containing slots (-1 after
+//                          them).  Replaces no Pallas kernel: it fuses the
+//                          glue around bbox_count_select ([N, C] id and
+//                          [N, C, 4] box gathers, the pick, the mask and
+//                          top-k of the candidates).  What bounds it: the
+//                          tables stay in L2, so HBM sees 36 bytes a point
+//                          at k = 4 and each table once, the L2 (4 + 16) C
+//                          bytes a point.  One warp per point; lane j
+//                          reads slot base + j's id and its box as one
+//                          float4 (a parent's children have consecutive
+//                          ids: contiguous loads); a ballot over 32 slots
+//                          gives the count (__popc), the pick (last set
+//                          bit) and each containing lane's rank among the
+//                          first k.
 #include "pip.cuh"
 
 namespace repro_torch {
@@ -244,6 +265,48 @@ __global__ void __launch_bounds__(kThreads) bbox_count_select_kernel(
   }
 }
 
+// One warp per point r.  A parent outside [0, n_parents) reads the
+// sentinel row n_parents (all -1); a child id outside [0, n_boxes - 1)
+// reads the sentinel box n_boxes - 1.  Writes count[r], pick[r] and the
+// k entries of first[r].
+__global__ void __launch_bounds__(kThreads) bbox_select_children_kernel(
+    const float2* __restrict__ points, const int* __restrict__ parent,
+    const int* __restrict__ children, const float4* __restrict__ boxes,
+    int* __restrict__ count, int* __restrict__ pick, int* __restrict__ first,
+    int64_t rows, int n_parents, int c, int n_boxes, int k) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (r >= rows) return;          // warp-uniform: r is the same on all lanes
+  const float2 p = __ldg(points + r);
+  const int par = __ldg(parent + r);
+  const int* ids = children + static_cast<int64_t>(
+      par >= 0 && par < n_parents ? par : n_parents) * c;
+  const int sentinel = n_boxes - 1;
+  int* out = first + r * k;
+  int found = 0;
+  int best = -1;
+  for (int base = 0; base < c; base += kWarp) {
+    const int j = base + lane;
+    const int cid = j < c ? __ldg(ids + j) : -1;
+    const float4 b = __ldg(boxes + (cid >= 0 && cid < sentinel ? cid
+                                                               : sentinel));
+    const bool inside = j < c && in_box(p.x, p.y, b);
+    const unsigned m = __ballot_sync(0xffffffffu, inside);
+    if (m) {                      // warp-uniform: m is the ballot
+      best = __shfl_sync(0xffffffffu, cid, 31 - __clz(m));
+      const int rank = found + __popc(m & ((1u << lane) - 1u));
+      if (inside && rank < k) out[rank] = cid;
+      found += __popc(m);
+    }
+  }
+  for (int s = found + lane; s < k; s += kWarp) out[s] = -1;
+  if (lane == 0) {
+    count[r] = found;
+    pick[r] = best;
+  }
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -298,5 +361,23 @@ extern "C" int repro_bbox_count_select(const void* points, const void* boxes,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(points), static_cast<const float4*>(boxes),
       static_cast<int*>(count), static_cast<int*>(sel), rows, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// points [rows, 2] f32 (8-byte aligned), parent [rows] i32, children
+// [n_parents + 1, c] i32, boxes [n_boxes, 4] f32 (16-byte aligned, the
+// sentinel last); count, pick [rows] i32, first [rows, k] i32, k <= c;
+// rows > 0, n_boxes > 0.  One launch.
+extern "C" int repro_bbox_select_children(
+    const void* points, const void* parent, const void* children,
+    const void* boxes, void* count, void* pick, void* first, int64_t rows,
+    int n_parents, int c, int n_boxes, int k, void* stream) {
+  using namespace repro_torch;
+  bbox_select_children_kernel<<<warp_grid(rows), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(points), static_cast<const int*>(parent),
+      static_cast<const int*>(children), static_cast<const float4*>(boxes),
+      static_cast<int*>(count), static_cast<int*>(pick),
+      static_cast<int*>(first), rows, n_parents, c, n_boxes, k);
   return static_cast<int>(cudaGetLastError());
 }

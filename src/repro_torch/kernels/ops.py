@@ -189,6 +189,26 @@ def bbox_count_select(points: torch.Tensor, boxes: torch.Tensor,
                                           aligned(boxes.float(), 16))
 
 
+def bbox_select_children(points: torch.Tensor, parent: torch.Tensor,
+                         children_table: torch.Tensor,
+                         bbox_table: torch.Tensor, k: int,
+                         backend: str | None = None):
+    """The cascade's bbox step below the state level: each point against
+    the boxes of its parent's children, read by id from the level's
+    tables (children [P+1, C] i32 and boxes [M+1, 4] f32, each with its
+    sentinel row).  Returns (count [N] i32, pick [N] i32 — the child of
+    the largest containing slot, -1 if none; first [N, min(k, C)] i32 —
+    the first containing children in slot order, -1 after them)."""
+    b = resolve_backend(backend, points.device)
+    if b == "ref":
+        return ref.bbox_select_children(points, parent, children_table,
+                                        bbox_table, k)
+    return bbox_kernels.bbox_select_children(
+        aligned(points.float(), 8), parent.int().contiguous(),
+        children_table.int().contiguous(), aligned(bbox_table.float(), 16),
+        k)
+
+
 class SegmentReduce(NamedTuple):
     """Per-segment aggregates of ``segment_reduce`` (all [S]-shaped
     tensors).  ``min``/``max`` are only meaningful where ``count > 0``

@@ -6,8 +6,11 @@ results.  The twins are the CPU backend (``ops`` picks them for CPU
 tensors), what the CPU tests hold against the JAX reference, and what
 chip_smoke.py holds each CUDA kernel against on the card.
 ``bbox_mask_gathered`` has no kernel: it is a torch op on every
-backend, as in the reference.  ``np_segment_reduce`` is the numpy
-ground truth of the segment reduction (a copy of the reference's).
+backend, as in the reference.  ``bbox_select_children`` has no
+counterpart there: it is the cascade's county and block bbox step as
+``core/simple.py`` composed it from the functions here.
+``np_segment_reduce`` is the numpy ground truth of the segment
+reduction (a copy of the reference's).
 ``flash_attn_bhsd`` has no counterpart in src/repro/kernels/ref.py: it
 is the plain form of the Pallas flash kernel itself (see its doc).
 
@@ -152,6 +155,42 @@ def bbox_count_select(points: torch.Tensor, boxes: torch.Tensor):
                         device=points.device)[None, :]
     sel = torch.where(m != 0, iota, -1).amax(dim=1)
     return count, sel.to(torch.int32)
+
+
+def bbox_select_children(points: torch.Tensor, parent: torch.Tensor,
+                         children_table: torch.Tensor,
+                         bbox_table: torch.Tensor, k: int):
+    """Twin of the ``bbox_select_children`` kernel: the county and block
+    levels' bbox step as the cascade composed it before the kernel — the
+    parent's children and their boxes gathered, ``bbox_count_select``,
+    the pick, and the first min(k, C) containing slots by ``topk``.
+
+    points [N, 2]; parent [N] i32 (-1 = lost); children_table [P+1, C]
+    i32, -1 padded, its last row the sentinel of -1s; bbox_table [M+1, 4]
+    f32, its last row the sentinel (empty) box.  A parent outside [0, P)
+    reads the sentinel row, a child id outside [0, M) the sentinel box.
+    Returns (count [N] i32, pick [N] i32 — the child id of the largest
+    containing slot, -1 if none; first [N, min(k, C)] i32 — the child ids
+    of the first containing slots in slot order, -1 after them).
+    """
+    n_parents = children_table.shape[0] - 1
+    n_boxes = bbox_table.shape[0] - 1
+    parent_ix = torch.where((parent >= 0) & (parent < n_parents), parent,
+                            n_parents)
+    cand = children_table[parent_ix.long()]                     # [N, C]
+    cand_ix = torch.where((cand >= 0) & (cand < n_boxes), cand, n_boxes)
+    boxes = bbox_table[cand_ix.long()]                          # [N, C, 4]
+    count, sel = bbox_count_select(points, boxes)
+    picked = torch.gather(cand, 1, sel.clamp(min=0).long()[:, None])[:, 0]
+    pick = torch.where(sel >= 0, picked, -1)
+    c = cand.shape[1]
+    iota = torch.arange(c, dtype=torch.int32, device=points.device)[None, :]
+    score = torch.where(bbox_mask_gathered(points, boxes) != 0, c - iota, 0)
+    vals, _ = torch.topk(score, min(k, c), dim=1, sorted=True)
+    slots = torch.where(vals > 0, c - vals, -1)          # first k slots
+    first = torch.where(slots >= 0,
+                        torch.gather(cand, 1, slots.clamp(min=0).long()), -1)
+    return count, pick.to(torch.int32), first.to(torch.int32)
 
 
 def grid_coord(f: torch.Tensor, nmax: int) -> torch.Tensor:

@@ -434,8 +434,9 @@ def test_attend_bshd_hands_the_kernel_contiguous_heads(b):
 
 # ----------------------------------------------------------------- F12
 META_CALLS = ("flash_f32_d12", "flash_bf16_d64", "bbox_mask",
-              "bbox_count_select", "crossings_gathered", "crossings_one",
-              "segment_counts", "segment_values", "crossings_candidates")
+              "bbox_count_select", "bbox_select_children",
+              "crossings_gathered", "crossings_one", "segment_counts",
+              "segment_values", "crossings_candidates")
 
 
 def _kernel_calls(rng) -> dict:
@@ -460,6 +461,9 @@ def _kernel_calls(rng) -> dict:
         "bbox_mask": (bbox_kernels.bbox_mask, [f32(40, 2), f32(7, 4)], {}),
         "bbox_count_select": (bbox_kernels.bbox_count_select,
                               [f32(40, 2), f32(40, 3, 4)], {}),
+        "bbox_select_children": (bbox_kernels.bbox_select_children,
+                                 [f32(40, 2), i32(5, 40), i32(6, 6, 3),
+                                  f32(7, 4), 2], {}),
         "crossings_gathered": (pip_kernels.crossings_gathered,
                                [f32(40, 2), f32(40, 5, 4)], {}),
         "crossings_one": (pip_kernels.crossings_one,
