@@ -64,7 +64,7 @@ def main():
     print(json.dumps(server.snapshot(), indent=2, sort_keys=True))
 
     # 5. Cold start: persist the index artifact once, then bring up a
-    #    fresh server from disk — no covering BFS on the restart path.
+    #    fresh server from disk — no covering build on the restart path.
     #    The artifact stores geometry, not engine knobs: pass the same
     #    EngineConfig for bit-identical serving.
     probe = xy[:512]

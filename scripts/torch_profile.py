@@ -3,7 +3,9 @@
     python3 scripts/torch_profile.py [--n 16777216]
 
 Builds the benchmark-scale census (benchmarks/common.py SCALE) and its
-covering at max_level 9, then for each path (``fast``, ``fast`` with
+covering at max_level 9, printing the host ms of the build's
+``geo.cells.build`` span and of each level's ``geo.cells.level``, then
+for each path (``fast``, ``fast`` with
 ``fused=True``, ``fast_onepass``, ``simple``, ``simple`` with
 ``fused=True``, ``hybrid``; the configs of chip_smoke.py) runs one warm
 batch of ``--n`` points under ``torch.profiler`` and prints the wall
@@ -53,7 +55,16 @@ def main() -> int:
     from repro_torch.core.synth import build_synth_census
 
     sc = build_synth_census(**SCALE)
-    cov = build_cell_covering(sc.census, max_level=9)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cov = build_cell_covering(sc.census, max_level=9)
+    build = [e.cpu_time_total / 1e3 for e in prof.events()
+             if e.name == "geo.cells.build"]
+    levels = [e.cpu_time_total / 1e3 for e in prof.events()
+              if e.name == "geo.cells.level"]
+    print(f"== covering build: geo.cells.build {sum(build):.3f} ms (host), "
+          f"{len(cov.lo)} cells, {cov.n_boundary} boundary, "
+          f"{cov.nbytes()} bytes; geo.cells.level by level (ms): "
+          + " ".join(f"{ms:.3f}" for ms in levels))
     cfg = EngineConfig(mode="exact", cap_boundary=0.5)
     scfg = EngineConfig(cap_state=0.5, cap_county=0.5, cap_block=0.5)
     specs = {

@@ -12,12 +12,15 @@ and the planner read.
 
 **Persistence** (``save``/``load``): the artifact writes its host
 primitives (the census polygon soups and the covering arrays) as one
-compressed npz beside a JSON manifest, in the JAX package's format: the
-same npz keys and dtypes, the same manifest keys, so an artifact saved
-by either package loads in the other.  Device indices are not stored:
+npz beside a JSON manifest, in the JAX package's format: the same npz
+keys and dtypes, the same manifest keys, so an artifact saved by either
+package loads in the other.  The port writes the npz uncompressed (the
+JAX package compresses it; ``np.load`` reads either): at the paper's
+220,864 blocks the covering alone is ~270 MB, and inflating it would
+cost every cold start seconds.  Device indices are not stored:
 they are deterministic functions of the saved arrays, rebuilt by
 ``ensure`` on the loading ``device``.  A cold start skips the covering
-BFS, the one build step that scales with the map's complexity.
+build, the one build step that scales with the map's complexity.
 
     idx = GeoIndexSet.build(census, components=("fast",), gbits=4)
     idx.save("artifacts/national")
@@ -34,7 +37,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from repro_torch.core.cells import CellCovering, build_cell_covering
+from repro_torch.core.cells import (CellCovering, build_cell_covering,
+                                   covering_level)
 from repro_torch.core.distributed import ShardedFastIndex, shard_covering
 from repro_torch.core.fast import FastIndex
 from repro_torch.core.geometry import CensusMap, PolygonSoup
@@ -52,6 +56,11 @@ FORMAT_NAME = "geo-index-set"
 _SOUP_FIELDS = ("verts", "n_verts", "bbox", "parent", "fips")
 _COVER_FIELDS = ("lo", "hi", "val", "level", "cand")
 _LEVELS = ("states", "counties", "blocks")
+# What ``covering_facts`` reports (in ``memory_footprint`` and
+# ``GeoEngine.explain``).
+COVERING_KEYS = ("covering_level", "covering_cells",
+                 "covering_boundary_cells", "covering_bytes",
+                 "search_iters")
 
 
 @dataclasses.dataclass
@@ -60,7 +69,10 @@ class GeoIndexSet:
 
     ``max_level`` / ``gbits`` / ``max_cand`` are the covering/index build
     parameters; ``device`` is where the device index lives ("cuda"
-    unless the caller asks for "cpu").
+    unless the caller asks for "cpu").  ``max_level`` None takes the
+    given covering's level, else the one ``cells.covering_level`` gives
+    the census's block count (9 up to 4,096 blocks, where the JAX
+    package always takes 9).
     """
 
     census: Optional[CensusMap] = None
@@ -71,7 +83,7 @@ class GeoIndexSet:
     # ``sharded_index``; never saved).
     sharded: Dict[int, ShardedFastIndex] = dataclasses.field(
         default_factory=dict)
-    max_level: int = 9
+    max_level: Optional[int] = None
     gbits: int = 4
     max_cand: int = 8
     # Autotune record, persisted in the manifest (schema v2) so a
@@ -81,9 +93,17 @@ class GeoIndexSet:
     tuning: Dict[str, Any] = dataclasses.field(default_factory=dict)
     device: Any = "cuda"
 
+    def __post_init__(self):
+        if self.max_level is None:
+            if self.covering is not None:
+                self.max_level = int(self.covering.max_level)
+            elif self.census is not None:
+                self.max_level = covering_level(self.census.blocks.n_poly)
+
     @classmethod
     def build(cls, census: CensusMap, components=(), pools=(), *,
-              max_level: int = 9, gbits: int = 4, max_cand: int = 8,
+              max_level: Optional[int] = None, gbits: int = 4,
+              max_cand: int = 8,
               covering: Optional[CellCovering] = None,
               device="cuda") -> "GeoIndexSet":
         """Build the requested ``components`` ("simple" | "fast" |
@@ -188,10 +208,14 @@ class GeoIndexSet:
         """Bytes of the built device index and its pool (plus the pool's
         block size), counted as the JAX package counts them: the pool's
         ``blocks``, ``first`` and ``count`` (``EdgePool.nbytes()`` also
-        counts the port's ``live``).  A lazy artifact reports 0s."""
+        counts the port's ``live``).  A lazy artifact reports 0s.
+
+        The port adds the covering's facts (``COVERING_KEYS``, which the
+        JAX package does not report): its level, cells, boundary cells
+        and host bytes, and the fast index's ``search_iters``."""
         fp = {"pool_be": self.pool_be(), "edge_pool_bytes": 0,
               "edge_pool_blocks": 0, "edge_pool_max_blocks": 0,
-              "index_bytes": 0}
+              "index_bytes": 0, **self.covering_facts()}
         if self.fast is not None:
             for leaf in (self.fast.cell_lo, self.fast.cell_hi,
                          self.fast.cell_val, self.fast.top_start,
@@ -206,6 +230,21 @@ class GeoIndexSet:
                 fp["edge_pool_blocks"] = int(pool.blocks.shape[0])
                 fp["edge_pool_max_blocks"] = int(pool.max_blocks)
         return fp
+
+    def covering_facts(self) -> Dict[str, int]:
+        """``COVERING_KEYS``: the covering's level, cells, boundary cells
+        and host bytes (0s before it is built) and the fast index's
+        ``search_iters`` (0 before that is built)."""
+        cov = self.covering
+        return {
+            "covering_level": 0 if cov is None else int(cov.max_level),
+            "covering_cells": 0 if cov is None else int(len(cov.lo)),
+            "covering_boundary_cells": (0 if cov is None
+                                        else int(cov.n_boundary)),
+            "covering_bytes": 0 if cov is None else int(cov.nbytes()),
+            "search_iters": (0 if self.fast is None
+                             else int(self.fast.search_iters)),
+        }
 
     def capabilities(self) -> Dict[str, Any]:
         """What is built right now (keys as in the JAX package: census,
@@ -263,7 +302,7 @@ class GeoIndexSet:
             "built": self.capabilities(),
             "tuning": self.tuning,
         }
-        np.savez_compressed(os.path.join(path, ARRAYS_NAME), **arrays)
+        np.savez(os.path.join(path, ARRAYS_NAME), **arrays)
         with open(os.path.join(path, MANIFEST_NAME), "w") as f:
             json.dump(manifest, f, indent=2, sort_keys=True)
         return path

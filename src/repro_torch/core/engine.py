@@ -67,7 +67,9 @@ class EngineConfig:
     cap_block: float = 0.5
     mode: str = "exact"          # fast boundary handling: exact | approx
     cap_boundary: float = 0.25   # fast/hybrid boundary compaction fraction
-    max_level: int = 9           # covering depth
+    max_level: int | None = None  # covering depth; None: the
+    #                              artifact's, else the block count's
+    #                              (cells.covering_level)
     gbits: int = 4               # top-grid bits
     max_cand: int = 8            # boundary candidate list width
     cap_shard: float = 2.0       # sharded assign: capacity factor vs N/S
@@ -118,6 +120,9 @@ class GeoEngine:
                 gbits=self.cfg.gbits, max_cand=self.cfg.max_cand,
                 device=built.device if built is not None else "cuda")
         self.indices = indices
+        if self.cfg.max_level is None and indices.max_level is not None:
+            self.cfg = dataclasses.replace(self.cfg,
+                                           max_level=indices.max_level)
         self._impl.validate(indices, self.cfg)
         self.plan = plan if plan is not None else plan_mod.explicit_plan(
             strategy, self.cfg, plan_mod.device_kind_of(indices.device))
@@ -202,14 +207,19 @@ class GeoEngine:
     def explain(self, n_points: Optional[int] = None) -> dict:
         """The engine's plan as a JSON-ready dict; with a batch-size hint,
         what the planner would choose for that batch against this
-        engine's built capabilities."""
+        engine's built capabilities.  Its ``"covering"`` is the
+        artifact's ``covering_facts()`` (level, cells, boundary cells,
+        bytes, ``search_iters``), which the JAX package does not
+        report."""
         if n_points is None:
-            return self.plan.as_dict()
-        return plan_mod.plan_for(
-            self.cfg, covering=self.indices.covering,
-            capabilities=self.indices.capabilities(), n_points=n_points,
-            tuning=self.indices.tuning,
-            device_kind=plan_mod.device_kind_of(self.device)).as_dict()
+            plan = self.plan
+        else:
+            plan = plan_mod.plan_for(
+                self.cfg, covering=self.indices.covering,
+                capabilities=self.indices.capabilities(),
+                n_points=n_points, tuning=self.indices.tuning,
+                device_kind=plan_mod.device_kind_of(self.device))
+        return {**plan.as_dict(), "covering": self.indices.covering_facts()}
 
     # -- assign ---------------------------------------------------------------
 

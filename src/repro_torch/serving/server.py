@@ -49,7 +49,7 @@ reference's two stages (``_prepare_batch`` — routing + cache, ordered;
 Device tensors: routing, the cache and the analytics windows run on the
 host (numpy); each region's padded assign runs on its engine's device
 and only the [bucket] id rows come back.  ``GeoServer.from_artifact``
-cold-starts a server from a saved ``GeoIndexSet`` (no covering BFS).
+cold-starts a server from a saved ``GeoIndexSet`` (no covering build).
 """
 from __future__ import annotations
 
@@ -267,7 +267,7 @@ class GeoServer:
         """``covering`` optionally provides the covering(s) the hot-cell
         cache needs (one, or one per engine) — for engines without one
         (strategy "simple") it is otherwise built from the engine's
-        census, a one-time host BFS.  ``tracer`` (obs/trace.py) opts the
+        census, a one-time host build.  ``tracer`` (obs/trace.py) opts the
         server into per-request span recording at the tracer's sample
         rate; the per-stage latency histograms in ``metrics`` are
         always on, tracer or not."""

@@ -39,6 +39,8 @@ from repro_torch.data import (GeoEnriched, SyntheticLM, cell_points,
                               lm_tokens, make_source)
 from repro_torch.kernels.cascade import morton
 
+from covering_pair import without_covering
+
 ARCH = "qwen1.5-0.5b"
 
 
@@ -261,6 +263,6 @@ def test_legacy_index_keywords_match_repro(synth_small, points_small,
             np.testing.assert_array_equal(getattr(rt, f).numpy(),
                                           np.asarray(getattr(rj, f)))
         assert rt.stats.as_dict() == rj.stats.as_dict()
-        assert t.explain() == j.explain()
+        assert without_covering(t) == j.explain()
     with pytest.raises(ValueError, match="fast_index"):
         GeoEngine("fast", EngineConfig(), census=census)

@@ -84,6 +84,7 @@ from repro.core.fast import cell_values as j_cell_values
 from repro.core.resolve import resolve_candidates as j_resolve
 from repro.serving import GeoServer as JServer
 from repro.serving import ServeConfig as JServeConfig
+from repro_torch.core.artifact import COVERING_KEYS
 from repro_torch.core.cells import CellCovering
 from repro_torch.core.engine import EngineConfig, GeoEngine
 from repro_torch.core.resolve import resolve_candidates as t_resolve
@@ -94,6 +95,8 @@ from repro_torch.kernels import pip as pip_kernels
 from repro_torch.kernels import segment as segment_kernels
 from repro_torch.models import moe as t_moe
 from repro_torch.serving import GeoServer, ServeConfig
+
+from covering_pair import shared_footprint
 
 NEEDS_CUDA = "needs a CUDA device; chip_smoke.py checks it"
 F32_ATOL = 2e-6
@@ -233,7 +236,8 @@ def test_fused_footprint_and_gauges_match_repro(engines, points_small):
                                               max_level=8), covering=cov)
     t = eng["fast_fused"]
     jfp, tfp = j.indices.memory_footprint(), t.indices.memory_footprint()
-    assert tfp == jfp and tfp["edge_pool_bytes"] > 0
+    assert shared_footprint(t.indices, jfp) == jfp
+    assert tfp["edge_pool_bytes"] > 0
     pool = t.fast_index.edge_pool
     assert pool.nbytes() == tfp["edge_pool_bytes"] + 4 * pool.n_poly
     cfg = dict(buckets=(64, 256, 1024), cache=False)
@@ -247,9 +251,12 @@ def test_fused_footprint_and_gauges_match_repro(engines, points_small):
                 if k.startswith("region0_")}
 
     jg, tg = region_gauges(js.snapshot()), region_gauges(ts.snapshot())
-    assert tg == jg and tg["region0_edge_pool_bytes"] > 0
+    assert set(tg) - set(jg) == {f"region0_{k}" for k in COVERING_KEYS}
+    assert {k: tg[k] for k in jg} == jg and tg["region0_edge_pool_bytes"] > 0
+    own = tuple(f"region0_{k}" for k in COVERING_KEYS)
     lines = [ln for ln in ts.metrics_text().splitlines()
-             if "region0_" in ln and not ln.startswith("#")]
+             if "region0_" in ln and not ln.startswith("#")
+             and not any(k in ln for k in own)]
     assert lines and lines == [
         ln for ln in js.metrics_text().splitlines()
         if "region0_" in ln and not ln.startswith("#")]
