@@ -123,8 +123,10 @@ and the Morton-sharded lookup through ``GeoEngine.assign_sharded`` and
         the card (load + ensure + first assign seconds beside phase 3's
         covering BFS): its plan is the winner's strategy, its served ids
         on 2^20 of the main path's points equal the warm engine's, and
-        only that strategy's kernel launched; a copy whose tuning names
-        device kind "tpu" replans to ``fast`` (``crossings_gathered``);
+        only the one-pass kernel launched (the planner's CUDA rule puts
+        exact ``fast`` on it too); a copy whose tuning names device kind
+        "tpu" replans to ``fast``, on the one-pass kernel
+        (``assign_cascade``);
      b. ``AsyncGeoServer`` over ``fast`` with phase 6's ServeConfig
         (analytics mounted), 4 submitters and 2 replicas: phase 6's
         stream from one client in order (ids and analytics snapshot
@@ -2098,7 +2100,9 @@ def cold_start_phase(smoke, engines, census, cov, cfg, xy, pts, result):
     """Phase 8a: record the measured winner among the three fast paths in
     a GeoIndexSet, save it, cold-start a GeoServer from it on cuda
     (``strategy="auto"``), and serve 2^20 of the main path's points; then
-    a copy whose tuning names another device kind replans to ``fast``."""
+    a copy whose tuning names another device kind replans to ``fast``.
+    On cuda either plan runs the one-pass kernel: the record's
+    ``fast_onepass``, or the planner's CUDA rule for exact ``fast``."""
     import shutil
     from repro_torch.core.artifact import GeoIndexSet, MANIFEST_NAME
     from repro_torch.serving import GeoServer, ServeConfig
@@ -2106,7 +2110,8 @@ def cold_start_phase(smoke, engines, census, cov, cfg, xy, pts, result):
              for n in ("fast", "fast_fused", "fast_onepass")}
     winner = max(rates, key=rates.get)
     want_strategy = "fast_onepass" if winner == "fast_onepass" else "fast"
-    be = engines["fast_onepass"].fast_index.edge_pool.be
+    onepass = engines["fast_onepass"]
+    be = onepass.fast_index.edge_pool.be
     iset = GeoIndexSet(census=census, covering=cov, max_level=MAX_LEVEL,
                        gbits=cfg.gbits, max_cand=cfg.max_cand)
     iset.record_tuning({"winner": winner, "be": int(be),
@@ -2134,19 +2139,21 @@ def cold_start_phase(smoke, engines, census, cov, cfg, xy, pts, result):
         served = cold.submit(xy[:N_COLD])
         torch.cuda.synchronize()
         out["launches"] = launched_only(smoke, "cold start",
-                                        ENGINE_KERNELS[want_strategy])
+                                        ENGINE_KERNELS["fast_onepass"])
         out.update(from_artifact_s=t1 - t0, first_assign_s=t2 - t1,
                    cold_start_s=t2 - t0, plan=engine.explain())
         check(engine.device.type == "cuda", "cold-start index not on cuda")
         check(out["plan"]["strategy"] == want_strategy,
               f"cold start planned {out['plan']['strategy']}, the recorded "
               f"winner is {winner}")
-        warm = engines[want_strategy].assign(pts[:N_COLD])
+        check(out["plan"]["fused"] == "onepass",
+              f"cold start planned fused={out['plan']['fused']} on cuda")
+        warm = onepass.assign(pts[:N_COLD])
         warm_ids = (warm.state, warm.county, warm.block)
         same_ids(first, warm_ids, "cold-start assign vs the warm engine")
         same_ids(served, warm_ids, "cold-start server vs the warm engine")
         check(engine.indices.memory_footprint()
-              == engines[want_strategy].indices.memory_footprint(),
+              == onepass.indices.memory_footprint(),
               "cold-start footprint differs from the warm engine's")
         # Another device kind's record must not steer the plan on cuda.
         other = os.path.join(tmp, "artifact_tpu")
@@ -2160,14 +2167,16 @@ def cold_start_phase(smoke, engines, census, cov, cfg, xy, pts, result):
         foreign = GeoServer.from_artifact(other, strategy="auto",
                                           cfg=serve_cfg, engine_cfg=cfg)
         plan = foreign.regions[0].engine.explain()
-        check(plan["strategy"] == "fast" and plan["fused"] is False,
+        check(plan["strategy"] == "fast" and plan["fused"] == "onepass",
               f"a tpu tuning record replanned to {plan['strategy']} "
-              f"fused={plan['fused']} on cuda, not fast")
+              f"fused={plan['fused']} on cuda, not fast on the one-pass "
+              f"kernel")
         smoke.build.reset_launches()
         served = foreign.submit(xy[:N_KERNEL])
         torch.cuda.synchronize()
         out["foreign_launches"] = launched_only(
-            smoke, "cold start with a tpu record", ENGINE_KERNELS["fast"])
+            smoke, "cold start with a tpu record",
+            ENGINE_KERNELS["fast_onepass"])
         same_ids(served, [t[:N_KERNEL] for t in warm_ids],
                  "tpu-record cold start vs the warm engine")
     result["cold_start"] = out

@@ -120,8 +120,8 @@ class GeoIndexSet:
     def ensure(self, component: str, pool: bool = False) -> None:
         """Build ``component`` ("covering" | "simple" | "fast") if
         missing, and its edge pools when ``pool``.  Pools attach to a
-        built index in place, packed from the same edge arrays at
-        ``pool_be()``."""
+        built index in place, packed from its edge tables on its own
+        device at ``pool_be()``."""
         if component == "covering":
             if self.covering is None:
                 self._need_census("the cell covering")
@@ -138,9 +138,8 @@ class GeoIndexSet:
             if pool and self.fast.edge_pool is None:
                 self.fast = dataclasses.replace(
                     self.fast,
-                    edge_pool=ops.build_edge_pool(
-                        self.fast.block_edges.cpu().numpy(),
-                        be=self.pool_be(), device=self.device))
+                    edge_pool=ops.build_edge_pool(self.fast.block_edges,
+                                                  be=self.pool_be()))
         elif component == "simple":
             if self.simple is None:
                 self._need_census("the simple (cascade) index")
@@ -172,9 +171,8 @@ class GeoIndexSet:
         sidx = self.sharded[n_shards]
         if with_pool and sidx.edge_pool is None:
             self.sharded[n_shards] = dataclasses.replace(
-                sidx, edge_pool=ops.build_edge_pool(
-                    sidx.block_edges.cpu().numpy(), be=self.pool_be(),
-                    device=self.device))
+                sidx, edge_pool=ops.build_edge_pool(sidx.block_edges,
+                                                    be=self.pool_be()))
         return self.sharded[n_shards]
 
     # -- autotune record ----------------------------------------------------

@@ -117,16 +117,15 @@ def shard_covering(cov: CellCovering, census: CensusMap, n_shards: int,
     def on_device(a):
         return torch.as_tensor(np.array(a), device=device)
 
-    block_edges = ops.edges_from_soup_np(census.blocks.verts)
+    block_edges = on_device(ops.edges_from_soup_np(census.blocks.verts))
     return ShardedFastIndex(
         cell_lo=torch.from_numpy(cell_lo), cell_hi=torch.from_numpy(cell_hi),
         cell_val=torch.from_numpy(cell_val), cand=torch.from_numpy(cand),
-        range_lo=on_device(range_lo), block_edges=on_device(block_edges),
+        range_lo=on_device(range_lo), block_edges=block_edges,
         block_parent=on_device(census.blocks.parent),
         county_parent=on_device(census.counties.parent),
         quant=on_device(quant_for_extent(cov.extent, cov.max_level)),
-        edge_pool=(ops.build_edge_pool(block_edges, device=device)
-                   if with_pool else None),
+        edge_pool=ops.build_edge_pool(block_edges) if with_pool else None,
         max_level=cov.max_level, n_shards=n_shards)
 
 

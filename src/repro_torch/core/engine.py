@@ -26,8 +26,10 @@ runs the hand-written CUDA kernels:
 
 Candidate PIP runs the gathered PIP kernel with ``fused=False`` and the
 candidate PIP kernel over the edge pools with ``fused=True``; the
-results are identical.  Capability gaps surface as ValueError at
-construction, never at the first assign.
+results are identical.  On a card, ``strategy="auto"`` plans exact
+``fast`` on the one-pass kernel (``core/plan.py``'s CUDA rule), and that
+engine's ``assign_sharded`` keeps the gathered path.  Capability gaps
+surface as ValueError at construction, never at the first assign.
 """
 from __future__ import annotations
 
@@ -292,8 +294,13 @@ class GeoEngine:
         capacity and drop accounting."""
         impl = self._impl if self._impl.caps.supports_sharded \
             else get_strategy("sharded")
+        cfg = self.cfg
+        if self.plan.device_rule:
+            # The sharded lookup has no one-pass route: it keeps the
+            # gathered path the config asked for.
+            cfg = dataclasses.replace(cfg, fused=False)
         return impl.assign_sharded(self.indices, self._points(points), mesh,
-                                   self.cfg)
+                                   cfg)
 
 
 __all__ = ["EngineConfig", "GeoEngine", "GeoIndexSet", "STRATEGIES",

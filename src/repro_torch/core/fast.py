@@ -95,12 +95,11 @@ class FastIndex:
             "quant": quant_for_extent(cov.extent, cov.max_level),
             "block_bbox": np.asarray(census.blocks.bbox, np.float32),
         }
+        index = cls.from_numpy(arrays, max_level=cov.max_level, gbits=gbits,
+                               search_iters=iters, device=device)
         if with_pool:
-            pool = ops.build_edge_pool(block_edges, device="cpu")
-            arrays.update({f"edge_pool_{f}": getattr(pool, f).numpy()
-                           for f in POOL_FIELDS})
-        return cls.from_numpy(arrays, max_level=cov.max_level, gbits=gbits,
-                              search_iters=iters, device=device)
+            index.edge_pool = ops.build_edge_pool(index.block_edges)
+        return index
 
     @classmethod
     def from_numpy(cls, arrays: dict, *, max_level: int, gbits: int,

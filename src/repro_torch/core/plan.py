@@ -6,8 +6,12 @@ of src/repro/core/plan.py; DESIGN.md §11).
 the covering's measured boundary fraction, a recorded autotune — and
 returns a ``GeoPlan`` whose reasons say why.
 
-The CUDA rule for ``fused`` keeps the JAX package's off-TPU default (the
-gathered path, ``fused=False``) until a measured H100 rule replaces it.
+The CUDA rule for ``fused`` is the port's own, measured on an H100:
+exact ``fast`` with an edge pool at hand and no ``fused`` in the config
+takes the one-pass cascade kernel (``fused="onepass"``,
+``ONEPASS_CUDA_REASON``).  Every other plan, and every plan for the CPU,
+keeps the JAX package's off-TPU rule (the gathered path unless the
+config asks for a fused one).
 """
 from __future__ import annotations
 
@@ -21,6 +25,16 @@ import torch
 HYBRID_BOUNDARY_FRAC = 0.35
 SMALL_BATCH = 1024
 SHARD_MIN_POINTS = 1 << 17
+
+# The measurement behind the CUDA rule (PERF.md §5, traced with
+# scripts/fast_paths_trace.py): device ms a 2^24-point batch of exact
+# ``fast`` on an H100, one state (3,944 blocks, covering level 9) / the
+# national map (220,864 blocks, level 12).
+ONEPASS_CUDA_REASON = (
+    "device 'cuda': exact fast takes the one-pass cascade kernel "
+    "(kernels/cascade.py), measured on an H100 at 5.48 / 11.07 device ms "
+    "a 2^24-point batch against the gathered path's 26.17 / 31.77 (one "
+    "state at covering level 9 / the national map at level 12)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +51,9 @@ class GeoPlan:
     boundary_fraction: Optional[float] = None
     auto: bool = True
     reasons: Tuple[str, ...] = ()
+    # fused came from the CUDA rule, not the config (``as_dict`` leaves
+    # it out: the reasons say so).
+    device_rule: bool = False
 
     def as_dict(self) -> dict:
         """JSON-ready rendering (``GeoEngine.explain``)."""
@@ -169,6 +186,7 @@ def plan_for(cfg, *, covering=None, capabilities: Optional[dict] = None,
                       or caps.get("census", False))
     onepass_ok = (strategy in ("fast", "fast_onepass")
                   and mode == "exact" and pool_available)
+    device_rule = False
     if strategy == "fast_onepass":
         fused = "onepass"
         reasons.append("fast_onepass pins the one-pass fused cascade "
@@ -190,6 +208,10 @@ def plan_for(cfg, *, covering=None, capabilities: Optional[dict] = None,
                        if fused else
                        "fused requested but unusable here (no candidate "
                        "PIP or no edge pool built): dropped")
+    elif device_kind == "cuda" and onepass_ok:
+        fused = "onepass"
+        device_rule = True
+        reasons.append(ONEPASS_CUDA_REASON)
     else:
         fused = False
         if runs_candidate_pip:
@@ -211,4 +233,4 @@ def plan_for(cfg, *, covering=None, capabilities: Optional[dict] = None,
                    sharded=sharded, n_shards=n_shards,
                    device_kind=device_kind, n_points=n_points,
                    boundary_fraction=bf, auto=True,
-                   reasons=tuple(reasons))
+                   reasons=tuple(reasons), device_rule=device_rule)

@@ -125,9 +125,8 @@ class SimpleIndex:
         """This index with the three edge pools packed at block size
         ``be`` from its own edge tables."""
         return dataclasses.replace(self, **{
-            f"{lvl}_pool": ops.build_edge_pool(
-                getattr(self, f"{lvl}_edges").cpu().numpy(), be=be,
-                device=self.device)
+            f"{lvl}_pool": ops.build_edge_pool(getattr(self, f"{lvl}_edges"),
+                                               be=be)
             for lvl in LEVELS})
 
 

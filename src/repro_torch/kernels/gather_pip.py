@@ -1,7 +1,8 @@
 """Candidate PIP over a blocked-CSR edge pool: candidate ids in, crossing
 counts out (port of src/repro/kernels/gather_pip.py).
 
-Data layout (``EdgePool``, built on the host by ``build_edge_pool``):
+Data layout (``EdgePool``, packed by ``build_edge_pool`` on the device
+of the edges it is given):
 
   * ``blocks [NB, 4, BE]`` f32 — every polygon's non-degenerate edges
     packed struct-of-arrays (x1/y1/x2/y2 rows of BE edges), zero-padded
@@ -13,8 +14,8 @@ Data layout (``EdgePool``, built on the host by ``build_edge_pool``):
     ``0 .. live[p]-1`` of its blocks (edge ``i`` at block
     ``first + i // BE``, lane ``i % BE``).  ``blocks`` / ``first`` /
     ``count`` are array-equal to the JAX package's pool; ``live`` is the
-    port's own, computed on the host.  The one-pass cascade
-    (``csrc/cascade.cu``) does not read it yet.
+    port's own.  The one-pass cascade (``csrc/cascade.cu``) does not read
+    it yet.
 
 Kernel: ``csrc/gather_pip.cu``, replacing the Pallas
 ``crossings_candidates`` (src/repro/kernels/gather_pip.py:151).  What
@@ -104,38 +105,40 @@ def live_from_blocks(blocks: np.ndarray, first: np.ndarray,
     return live.astype(np.int32)
 
 
-def build_edge_pool(edges: np.ndarray, be: int = DEF_BE,
-                    device="cuda") -> EdgePool:
-    """Pack a dense ``[P, E, 4]`` edge table into a blocked-CSR EdgePool
-    on ``device``.  Degenerate (zero-length) padding edges are dropped; a
-    polygon with ``e`` live edges owns ``ceil(e / be)`` blocks.  The
-    packing is host numpy, array-equal to the reference's; ``live`` is
-    each polygon's ``e``."""
-    e = np.asarray(edges, np.float32)
+def build_edge_pool(edges, be: int = DEF_BE, device=None) -> EdgePool:
+    """Pack a dense ``[P, E, 4]`` edge table into a blocked-CSR EdgePool.
+    Degenerate (zero-length) padding edges are dropped; a polygon with
+    ``e`` live edges owns ``ceil(e / be)`` blocks and ``live`` is its
+    ``e``.  The packing runs in torch on ``device``: by default the
+    device of a tensor ``edges``, and "cuda" for a host array.  Its
+    ``blocks`` / ``first`` / ``count`` are array-equal to the JAX
+    package's host packing."""
+    if device is None:
+        device = edges.device if isinstance(edges, torch.Tensor) else "cuda"
+    if not isinstance(edges, torch.Tensor):
+        edges = torch.from_numpy(np.array(edges, np.float32))
+    e = edges.to(device=device, dtype=torch.float32)
     p = e.shape[0]
-    live = ~((e[..., 0] == e[..., 2]) & (e[..., 1] == e[..., 3]))
-    n_live = live.sum(axis=1).astype(np.int64) if p else np.zeros(0, np.int64)
-    count = np.ceil(n_live / be).astype(np.int32)
-    first = np.ones(p, np.int32)                 # block 0 is reserved
-    if p:
-        first[1:] += np.cumsum(count)[:-1].astype(np.int32)
-    nb = 1 + int(count.sum())
-    blocks = np.zeros((nb, 4, be), np.float32)
-    if p and n_live.sum():
-        # e[live] is polygon-major, so each live edge's (block, lane)
-        # destination follows from its rank within its polygon.
-        el = e[live]                                        # [total, 4]
-        poly_of = np.repeat(np.arange(p), n_live)
-        starts = np.concatenate([[0], np.cumsum(n_live)[:-1]])
-        pos = np.arange(len(el)) - starts[poly_of]          # rank in poly
-        blk = first[poly_of] + pos // be
-        blocks[blk, :, pos % be] = el
-    return EdgePool(blocks=torch.as_tensor(blocks, device=device),
-                    first=torch.as_tensor(first, device=device),
-                    count=torch.as_tensor(count, device=device),
-                    live=torch.as_tensor(n_live.astype(np.int32),
-                                         device=device),
-                    max_blocks=max(int(count.max()) if p else 1, 1), be=be)
+    live = (e[..., 0] != e[..., 2]) | (e[..., 1] != e[..., 3])  # [P, E]
+    n_live = live.sum(dim=1)                                    # i64
+    count = (n_live + be - 1) // be
+    first = 1 + torch.cumsum(count, 0) - count   # block 0 is reserved
+    n_blocks, max_blocks = (int(v) for v in torch.stack(
+        [count.sum(), count.max()]).tolist()) if p else (0, 1)
+    blocks = torch.zeros((1 + n_blocks, 4, be), dtype=torch.float32,
+                         device=device)
+    el = e[live]                                 # [total, 4] poly-major
+    if el.shape[0]:
+        # Each live edge's (block, lane) follows from its rank within
+        # its polygon; destinations are unique.
+        poly_of = torch.repeat_interleave(
+            torch.arange(p, device=device), n_live,
+            output_size=el.shape[0])
+        starts = torch.cumsum(n_live, 0) - n_live
+        pos = torch.arange(el.shape[0], device=device) - starts[poly_of]
+        blocks[first[poly_of] + pos // be, :, pos % be] = el
+    return EdgePool(blocks=blocks, first=first.int(), count=count.int(),
+                    live=n_live.int(), max_blocks=max(max_blocks, 1), be=be)
 
 
 def crossings_candidates(pids: torch.Tensor, points: torch.Tensor,

@@ -301,3 +301,108 @@ def test_fused_over_poolless_index_fails_at_build(engines):
                   indices=dataclasses.replace(
                       t.indices, fast=dataclasses.replace(
                           t.fast_index, edge_pool=None)))
+
+
+# ---------------------------------------------- the CUDA rule for fused
+def _cuda_plan(covering, capabilities=None, **kw):
+    """``plan_for`` on the ``synth_small`` covering, planned for a card."""
+    return t_plan.plan_for(EngineConfig(max_level=8, **kw),
+                           covering=CellCovering(
+                               **dataclasses.asdict(covering)),
+                           capabilities=capabilities, device_kind="cuda")
+
+
+CAPS = {"census": dict(census=True, covering=True),
+        "pool": dict(fast=True, fast_pool=True),
+        "fresh": None}
+
+
+@pytest.mark.parametrize("caps", list(CAPS))
+def test_cuda_rule_plans_onepass_for_exact_fast(covering, caps):
+    """Exact ``fast`` on a card with a census to pack a pool from, a
+    built pool, or a fresh build: the one-pass kernel, for the rule's
+    measured reason."""
+    plan = _cuda_plan(covering, CAPS[caps])
+    assert (plan.strategy, plan.mode, plan.fused) == ("fast", "exact",
+                                                      "onepass")
+    assert plan.reasons[-1] == t_plan.ONEPASS_CUDA_REASON
+    assert plan.device_rule and plan.as_dict()["fused"] == "onepass"
+    assert "device_rule" not in plan.as_dict()
+
+
+@pytest.mark.parametrize("case, kw, caps, device, want", [
+    ("no_pool", {}, dict(fast=True), "cuda", False),
+    ("approx", dict(mode="approx"), CAPS["census"], "cuda", False),
+    ("cpu", {}, CAPS["census"], "cpu", False),
+    ("fused_true", dict(fused=True), CAPS["census"], "cuda", True),
+    ("fused_onepass", dict(fused="onepass"), CAPS["census"], "cuda",
+     "onepass"),
+])
+def test_cuda_rule_leaves_other_plans_alone(covering, case, kw, caps,
+                                            device, want):
+    """No pool at hand, approx mode, the CPU and an explicit ``fused``
+    plan as before the rule; the CPU plan equals the JAX package's."""
+    cov = CellCovering(**dataclasses.asdict(covering))
+    plan = t_plan.plan_for(EngineConfig(max_level=8, **kw), covering=cov,
+                           capabilities=caps, device_kind=device)
+    assert plan.strategy == "fast" and plan.fused == want
+    assert not plan.device_rule
+    assert t_plan.ONEPASS_CUDA_REASON not in plan.reasons
+    if device == "cpu":
+        j = JPlanFor(JConfig(backend="ref", max_level=8, **kw),
+                     covering=covering, capabilities=caps,
+                     device_kind="cpu").as_dict()
+        assert {k: v for k, v in j.items() if k != "reasons"} == \
+            {k: v for k, v in plan.as_dict().items() if k != "reasons"}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_rule_keeps_heavy_boundary_on_hybrid(covering, fused):
+    """A heavy-boundary covering plans ``hybrid`` on a card, its
+    ``fused`` as the config has it."""
+    heavy = dataclasses.replace(covering, val=-np.ones_like(covering.val))
+    plan = _cuda_plan(heavy, CAPS["census"], fused=fused)
+    assert (plan.strategy, plan.fused) == ("hybrid", fused)
+    assert not plan.device_rule
+
+
+def test_explicit_strategies_ignore_the_cuda_rule():
+    """A pinned ``fast`` keeps the config's ``fused`` on a card; a pinned
+    ``fast_onepass`` is the one-pass kernel by request, not by rule."""
+    fast = t_plan.explicit_plan("fast", EngineConfig(), "cuda")
+    onepass = t_plan.explicit_plan("fast_onepass", EngineConfig(), "cuda")
+    assert (fast.fused, fast.device_rule) == (False, False)
+    assert (onepass.fused, onepass.device_rule) == ("onepass", False)
+
+
+@pytest.mark.parametrize("fused, planned, with_pool", [
+    (False, "onepass", False),       # the rule: the sharded route as before
+    (True, True, True),
+    ("onepass", "onepass", True),    # an explicit onepass: the pool path
+])
+def test_auto_engine_sharded_route_keeps_its_data_path(
+        synth_small, covering, points, monkeypatch, fused, planned,
+        with_pool):
+    """An engine planned for a card (its index on the CPU, so the twins
+    run) asks ``sharded_index`` for the pool exactly when a config's
+    ``fused`` did before the rule; the sharded ids equal its own."""
+    monkeypatch.setattr(t_plan, "device_kind_of", lambda device=None:
+                        "cuda")
+    idx = GeoIndexSet(census=synth_small.census,
+                      covering=CellCovering(**dataclasses.asdict(covering)),
+                      max_level=8, device="cpu")
+    eng = GeoEngine.from_index_set(idx, "auto", EngineConfig(fused=fused))
+    assert (eng.strategy, eng.explain()["fused"]) == ("fast", planned)
+    asked = []
+    real = idx.sharded_index
+
+    def spy(n_shards, with_pool=False):
+        asked.append(with_pool)
+        return real(n_shards, with_pool=with_pool)
+
+    monkeypatch.setattr(idx, "sharded_index", spy)
+    res = eng.assign_sharded(points, make_test_mesh((1, 1)))
+    assert asked == [with_pool]
+    assert (idx.sharded[1].edge_pool is not None) == with_pool
+    for a, b in zip(_ids(res), _ids(eng.assign(points))):
+        np.testing.assert_array_equal(a, b)

@@ -7,6 +7,12 @@ without its edges with y1 == y2.
   table, and ``EdgePool.from_numpy`` derives the same counts from the
   blocks of a pool packed by ``repro`` (no ``live`` there), at BE 16, 64
   and 256, with a polygon of 0 live edges among them.
+* The torch packer (``build_edge_pool``) on the CPU, given an array or a
+  tensor, is array-equal to ``repro``'s host packer at BE 16, 64 and
+  256: on the census, an empty table, a polygon with no live edge and
+  polygons over two or more blocks.  The card-packed pool against the
+  CPU-packed one is ``tests/test_torch_onepass_route.py``'s (this file
+  imports JAX, which the card's machine lacks).
 * The candidate twin with live counts equals ``repro``'s on
   ``backend="ref"`` for every candidate id, -1 and ids past the table
   included, on the census, a random table whose polygons span several
@@ -84,6 +90,54 @@ def test_live_counts(synth_small, table, be):
     np.testing.assert_array_equal(t.live.numpy(), want)
     assert (t.max_blocks, t.be) == (j.max_blocks, j.be)
     assert t.nbytes() == j.nbytes() + 4 * t.n_poly
+
+
+def _two_block_table(be):
+    """Polygon 0 spans two blocks (BE + 1 live edges, padding between
+    them), polygon 1 has no live edge, polygon 2 fills one block."""
+    rng = np.random.default_rng(be)
+    edges = rng.uniform(-1.0, 1.0, (3, 2 * be + 4, 4)).astype(np.float32)
+    edges[0, 1::2, 2:] = edges[0, 1::2, :2]
+    edges[0, 2 * be + 2:, 2:] = edges[0, 2 * be + 2:, :2]
+    edges[1] = 0.0
+    edges[2, be:, 2:] = edges[2, be:, :2]
+    return edges
+
+
+PACK_TABLES = ("census", "census_one_empty", "random", "two_blocks",
+               "empty")
+
+
+@pytest.mark.parametrize("be", BES)
+@pytest.mark.parametrize("table", PACK_TABLES)
+@pytest.mark.parametrize("given", ["array", "tensor"])
+def test_torch_packer_matches_repro(synth_small, table, be, given):
+    """The torch packer on the CPU, from a host array or a tensor, is
+    array-equal to the JAX package's ``build_edge_pool`` (``blocks``,
+    ``first``, ``count``, ``max_blocks``, ``be``), and its ``live`` is
+    ``live_from_blocks`` of its own blocks and the dense table's count."""
+    edges = {"two_blocks": _two_block_table(be),
+             "empty": np.zeros((0, 4, 4), np.float32),
+             **(_tables(synth_small) if table not in ("two_blocks", "empty")
+                else {})}[table]
+    j = j_ops.build_edge_pool(edges, be=be)
+    arg = torch.from_numpy(edges.copy()) if given == "tensor" else edges
+    t = ops.build_edge_pool(arg, be=be, device="cpu" if given == "array"
+                            else None)
+    assert t.blocks.device.type == "cpu"
+    for f in ("blocks", "first", "count"):
+        want, got = np.asarray(getattr(j, f)), getattr(t, f).numpy()
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    assert (t.max_blocks, t.be) == (j.max_blocks, j.be)
+    assert t.live.dtype == torch.int32
+    np.testing.assert_array_equal(t.live.numpy(), _np_live(edges))
+    np.testing.assert_array_equal(
+        t.live.numpy(), gather_pip.live_from_blocks(
+            t.blocks.numpy(), t.first.numpy(), t.count.numpy()))
+    if table == "two_blocks":
+        np.testing.assert_array_equal(t.live.numpy(), [be + 1, 0, be])
+        np.testing.assert_array_equal(t.count.numpy(), [2, 0, 1])
 
 
 def test_live_from_blocks_edge_cases():
